@@ -1,0 +1,24 @@
+"""Public SSD entry points. A CUDA tensor always goes to the hand-written
+kernel (which launches or raises); a CPU tensor goes to the plain chunked
+version. There is no switch and no fallback between the two."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_decode_step_ref
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, D: torch.Tensor, *, chunk: int = 128
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """y (B,S,H,P) in x's dtype and the final state (B,H,P,N) fp32."""
+    if x.device.type == "cpu":
+        return ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk)
+    return ssd_scan(x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
+                    Bm.contiguous(), Cm.contiguous(), D.float().contiguous(), chunk=chunk)
+
+
+ssd_decode_step = ssd_decode_step_ref

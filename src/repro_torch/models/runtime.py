@@ -1,0 +1,32 @@
+"""Runtime options threaded through every model call.
+
+The JAX package's sharding and remat fields do nothing on one device and are
+left out. `device` defaults to "cuda": an entry point runs on the card unless
+the caller asks for the CPU, and raises if there is no card.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Runtime:
+    device: str = "cuda"
+    compute_dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    ssd_chunk: int = 128
+
+    def torch_device(self) -> torch.device:
+        """The device to run on; raises when it is a CUDA device and no card
+        is present (the port never falls back to the CPU by itself)."""
+        dev = torch.device(self.device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Runtime(device={self.device!r}) but torch finds no CUDA "
+                "device; pass device='cpu' to run on the CPU")
+        return dev
+
+
+CPU_TEST = Runtime(device="cpu", compute_dtype=torch.float32)

@@ -1,0 +1,92 @@
+"""The port stands alone: no module of `repro_torch` (nor chip_smoke.py)
+imports `jax` or the JAX package `repro`, checked by an AST scan and by
+importing every module in a fresh interpreter. Its entry points default to
+the card and raise where there is none."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.configs.base import NOT_PORTED, get_config  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models.runtime import CPU_TEST, Runtime  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_no_module_of_the_port_imports_jax_or_repro():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = [(f.relative_to(ROOT), m) for f in files for m in _imported(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_importing_the_whole_port_loads_neither_jax_nor_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad or len(mods) < 15 else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_runtime_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
+    assert Runtime().device == "cuda" and Runtime().compute_dtype == torch.bfloat16
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config("mamba2-370m")
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        Model(cfg, Runtime())
+    cpu_model = Model(cfg, CPU_TEST)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        ServeEngine(cfg, Runtime(), cpu_model)
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        serve.main(["--reduced"])
+    out = serve.main(["--reduced", "--device", "cpu", "--requests", "2", "--max-new", "3"])
+    assert sorted(out) == [0, 1] and all(len(v) == 3 for v in out.values())
+    assert all(0 <= t < cfg.vocab for v in out.values() for t in np.ravel(v))
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED[:3])
+def test_archs_not_ported_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config(arch)
+
+
+def test_kernel_build_finds_every_source_and_needs_nvcc(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+    assert [p.name for p in _build.sources()] == ["ssd_scan.cu"]
+    lib = _build._lib_path(_build.sources()[0])
+    assert lib.parent == PKG / "kernels" / "_build" and lib.suffix == ".so"
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
