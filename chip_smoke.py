@@ -16,7 +16,22 @@ Phases, each printed on its own lines; any failure exits non-zero:
  5b. where the time goes: host time of one prefill and of 8 decode steps,
      then the same work under torch.profiler for device time by kernel;
   6. card against CPU: the same weights (full width cut to 2 layers, fp32)
-     give the same greedy tokens and close logits on both devices.
+     give the same greedy tokens and close logits on both devices;
+  7. the flash-attention kernel against its plain PyTorch version on the
+     card, at the JAX kernel tests' shapes and at long shapes (the whisper
+     encoder's, its decoder's teacher-forced one, a GQA and an hd=256
+     windowed one), fp32 and bf16; window=1 gives finite rows;
+  8. the kernel's time at the whisper encoder's shape beside the plain
+     version's, PyTorch's scaled_dot_product_attention (the library
+     yardstick, timed here only) and its bound;
+  9. the second path: whisper-small at full width (12 + 12 layers, random
+     weights from a seed, bf16 compute) serving 4 requests of 1500 frames
+     through make_prefill_step and 32 greedy make_decode_step steps; the
+     kernel's launch count must be 12 per prefill; then where the time of
+     one prefill and of 8 decode steps goes;
+ 10. card against CPU: whisper cut to 2 + 2 layers, fp32, the same weights
+     give the same greedy tokens and close prefill, decode and teacher-forced
+     forward logits on both devices.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repo's
 sources beside it, the script fails before printing any result.
@@ -77,6 +92,30 @@ def ssd_work(case, dtype_name):
     return nbytes, flops
 
 
+def flash_inputs(torch, case, dtype, seed=SEED):
+    """q, k, v of the JAX flash tests' distribution (standard normal), drawn
+    on the card, and the aligned positions."""
+    B, S, Hq, Hkv, hd, _, _ = case
+    g = torch.Generator("cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, S, h, hd, generator=g, device="cuda").to(dtype)
+               for h in (Hq, Hkv, Hkv))
+    pos = torch.arange(S, device="cuda")[None].expand(B, S)
+    return q, k, v, pos
+
+
+def flash_work(case, dtype_name):
+    """Bytes (q, k, v read once, o written once) and FLOPs (QK^T and PV over
+    the (query, key) pairs the mask keeps) of one call, for the bound."""
+    B, S, Hq, Hkv, hd, causal, window = case
+    e = 2 if dtype_name == "bf16" else 4
+    nbytes = (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd) * e
+    pairs = 0
+    for i in range(S):
+        lo = 0 if window is None else max(0, i - window + 1)
+        pairs += (i + 1 if causal else S) - lo
+    return nbytes, 4 * B * Hq * pairs * hd
+
+
 def time_ms(torch, fn, iters, reps=7):
     """Median over `reps` of the mean time of `iters` back-to-back calls,
     by CUDA events, after a warm-up."""
@@ -126,11 +165,14 @@ def main() -> int:
         return 1
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
     from repro_torch.models.model import Model, init_cache
     from repro_torch.models.runtime import Runtime
     from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -244,12 +286,13 @@ def main() -> int:
             for i, n in enumerate(lens)]
     engine = ServeEngine(cfg, rt, model, slots=slots, max_len=1100)
     torch.cuda.reset_peak_memory_stats()
-    ssd_scan.launches = 0
+    ssd_scan.launches = flash_attention.launches = 0
     t0 = time.perf_counter()
     outs = engine.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ssd_scan.launches
+    check(flash_attention.launches == 0, "the mamba2 path runs no attention")
     n_tok = sum(len(v) for v in outs.values())
     print(f"  prompt lengths {lens.tolist()}")
     print(f"  {len(reqs)} requests, {slots} slots -> {n_tok} tokens in {wall:.3f} s "
@@ -323,6 +366,188 @@ def main() -> int:
     check(toks["cpu"] == toks["cuda"], "same greedy tokens on card and CPU")
     check(worst <= tol, "logits within tolerance")
 
+    phase("7. flash-attention kernel against its plain version")
+    flash_small = [(1, 64, 4, 4, 16, True, None), (2, 128, 4, 2, 32, True, None),
+                   (1, 96, 8, 1, 16, True, None), (2, 128, 4, 4, 64, True, 32),
+                   (1, 256, 2, 2, 16, False, None), (1, 80, 3, 1, 16, True, 24)]
+    encoder = (4, 1500, 12, 12, 64, False, None)     # whisper-small's encoder
+    flash_long = [encoder,
+                  (4, 448, 12, 12, 64, True, None),  # its decoder, teacher-forced
+                  (1, 2048, 14, 2, 64, True, None),  # qwen2-0.5b's heads (GQA 7)
+                  (1, 1024, 8, 4, 256, True, 512)]   # gemma3-4b's head dim, windowed
+    # small cases: the JAX flash tests' tolerances (abs and rel). Long shapes:
+    # both sides compute the same fp32 function in another order (hd terms
+    # per score, up to S terms per softmax sum), whose results differ by
+    # ~1e-6 of the output's scale here, so fp32 is held to 1e-4 * max|ref|.
+    # bf16 outputs are those fp32 values rounded to bf16, whose step is at
+    # most 2^-7 of the value, so they can land one step apart: each element
+    # is held to 1e-2 * |ref| + 1e-4 * max|ref|.
+    err_flash = None
+    for case in flash_small + flash_long:
+        for dname, dtype in dtypes.items():
+            q, k, v, pos = flash_inputs(torch, case, dtype)
+            out = flash_attention(q, k, v, causal=case[5], window=case[6])
+            torch.cuda.synchronize()
+            ref = attention_ref(q, k, v, pos, pos, causal=case[5], window=case[6]).float()
+            err = (out.float() - ref).abs()
+            mref = ref.abs().max().item()
+            if case in flash_small:
+                tol = 2e-5 if dname == "fp32" else 2e-2
+                ok = torch.allclose(out.float(), ref, rtol=tol, atol=tol)
+                rule = f"allclose {tol:g}"
+            elif dname == "fp32":
+                ok, rule = err.max().item() <= 1e-4 * mref, f"|d|<={1e-4 * mref:.3g}"
+            else:
+                ok = bool((err <= 1e-2 * ref.abs() + 1e-4 * mref).all())
+                rule = f"|d|<=1e-2|ref|+{1e-4 * mref:.3g}"
+            print(f"  {case} {dname}: max|d| {err.max().item():.3g} (max|ref| {mref:.3g}) "
+                  f"[{rule}] {'ok' if ok else 'FAIL'}")
+            check(ok, f"flash_attention {case} {dname}")
+            check(torch.isfinite(out).all().item(), f"flash_attention {case} {dname} finite")
+            if case == encoder and dname == "bf16":
+                err_flash = err.max().item()
+    for dname, dtype in dtypes.items():
+        q, k, v, _ = flash_inputs(torch, (1, 64, 2, 2, 16, True, 1), dtype)
+        out = flash_attention(q, k, v, causal=True, window=1)
+        check(torch.isfinite(out).all().item() and torch.equal(out, v),
+              f"window=1 ({dname}): each row is its own value, finite")
+    print("  window=1: finite, each row equals its own value (fp32, bf16)")
+
+    phase("8. flash-attention timing at the whisper encoder's shape (bf16)")
+    q, k, v, pos = flash_inputs(torch, encoder, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))   # BHSD, beforehand
+    fk_ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=False), iters=20)
+    fp_ms = time_ms(torch, lambda: attention_ref(q, k, v, pos, pos, causal=False),
+                    iters=5, reps=5)
+    fl_ms = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt), iters=20)
+    nbytes, flops = flash_work(encoder, "bf16")
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS["bf16"] * 1e3
+    fbound_ms = max(t_bytes, t_ops)
+    fbound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"  kernel {fk_ms:.4f} ms, plain {fp_ms:.4f} ms, "
+          f"scaled_dot_product_attention {fl_ms:.4f} ms, bound {fbound_ms:.5f} ms "
+          f"({fbound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; H100 SXM peaks), "
+          f"{fbound_ms / fk_ms:.1%} of the bound")
+    del q, k, v, qt, kt, vt
+
+    phase("9. serve whisper-small at full width (12 + 12 layers, bf16 compute)")
+    cfg_w = get_config("whisper-small")
+    t0 = time.perf_counter()
+    model_w = Model(cfg_w, rt, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model_w.parameters())
+    print(f"  {cfg_w.name}: {n_params:,} params, init {time.perf_counter() - t0:.2f} s")
+    check(n_params == cfg_w.param_count() == 238_143_744, "whisper-small parameter count")
+    n_req, n_prompt, n_steps, max_len = 4, 4, 32, 448
+    g = torch.Generator("cuda").manual_seed(SEED)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg_w.vocab, (n_req, n_prompt)),
+                                       device="cuda"),
+             "frames": torch.randn(n_req, cfg_w.encoder_len, cfg_w.d_model, generator=g,
+                                   device="cuda")}
+    prefill_step = make_prefill_step(cfg_w, rt, max_len)
+    decode_step = make_decode_step(cfg_w, rt)
+
+    def serve(n):
+        """One prefill of the batch, then n greedy decode steps; returns the
+        host seconds of each and the tokens (B, 1 + n) on the host."""
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(model_w, batch)
+        tok = logits.argmax(-1)[:, None]
+        toks, fin = [tok.cpu()], [torch.isfinite(logits).all()]
+        t_pre, t_dec = time.perf_counter() - t0, []
+        for step in range(n):
+            t0 = time.perf_counter()
+            logits, cache = decode_step(model_w, tok, n_prompt + step, cache)
+            tok = logits.argmax(-1)[:, None]
+            toks.append(tok.cpu())
+            t_dec.append(time.perf_counter() - t0)
+            fin.append(torch.isfinite(logits).all())
+        return t_pre, t_dec, torch.cat(toks, 1), all(bool(f) for f in fin)
+
+    serve(2)                        # warm-up (cuBLAS handles, allocator), not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan.launches = flash_attention.launches = 0
+    t_pre, t_dec, toks, finite_w = serve(n_steps)
+    torch.cuda.synchronize()
+    launches_w = flash_attention.launches
+    check(ssd_scan.launches == 0, "the whisper path runs no SSD scan")
+    wall = t_pre + sum(t_dec)
+    print(f"  {n_req} requests x {cfg_w.encoder_len} frames, prompt {n_prompt} tokens, "
+          f"max_len {max_len}: prefill {1e3 * t_pre:.2f} ms per batch, decode "
+          f"{1e3 * statistics.mean(t_dec):.2f} ms/step (mean of {n_steps}), "
+          f"{toks.numel()} tokens in {wall:.3f} s ({toks.numel() / wall:.1f} tok/s), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  flash_attention launches {launches_w} = {cfg_w.encoder_layers} x 1 prefill; "
+          f"request 0 tokens {toks[0, :12].tolist()}...")
+    check(toks.shape == (n_req, 1 + n_steps), f"{1 + n_steps} tokens per request")
+    check(bool(((toks >= 0) & (toks < cfg_w.vocab)).all()), "tokens within vocab")
+    check(finite_w, "every logit finite")
+    check(launches_w == cfg_w.encoder_layers > 0, "one kernel launch per encoder layer per prefill")
+
+    _, cache_w = prefill_step(model_w, batch)
+    last_w = toks[:, -1:].to("cuda")
+    windows_w = {
+        "prefill": lambda: prefill_step(model_w, batch),
+        "decode x8": lambda: [decode_step(model_w, last_w, n_prompt + i, cache_w)
+                              for i in range(8)],
+    }
+    for name, fn in windows_w.items():
+        wall_ms, by_name = device_breakdown(torch, fn)
+        dev_ms = sum(by_name.values())
+        if not by_name:
+            print(f"  {name}: host {wall_ms:.2f} ms; the profiler recorded no device time "
+                  "(device share not measured)")
+            continue
+        k1 = sum(ms for k, ms in by_name.items() if "flash_kernel<" in k)
+        print(f"  {name} (B={n_req}): host {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
+              f"({dev_ms / wall_ms:.1%}; idle {1 - dev_ms / wall_ms:.1%}), "
+              f"{len(by_name)} kernel names")
+        for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"    {ms:8.3f} ms  {k[:90]}")
+        print(f"    K1 flash_kernel {k1:.3f} ms, {k1 / dev_ms:.1%} of device time")
+    del model_w
+
+    phase("10. card against CPU on the same weights (whisper, 2 + 2 layers, fp32)")
+    cfg_w2 = dataclasses.replace(cfg_w, num_layers=2, encoder_layers=2)
+    w_cpu = Model(cfg_w2, rt_cpu, seed=SEED + 1)
+    w_gpu = Model(cfg_w2, rt_gpu, seed=None)
+    w_gpu.load_state_dict(w_cpu.state_dict())
+    frames = torch.from_numpy(
+        rng.standard_normal((1, cfg_w2.encoder_len, cfg_w2.d_model)).astype(np.float32))
+    prompt = torch.as_tensor(rng.integers(0, cfg_w2.vocab, (1, 4)))
+    teacher = torch.as_tensor(rng.integers(0, cfg_w2.vocab, (1, 16)))
+    res = {}
+    for name, m, rtx in (("cpu", w_cpu, rt_cpu), ("cuda", w_gpu, rt_gpu)):
+        dev = rtx.device
+        flash_attention.launches = 0
+        logits, cache = make_prefill_step(cfg_w2, rtx, 64)(
+            m, {"tokens": prompt.to(dev), "frames": frames.to(dev)})
+        seq, all_logits = [], [logits.cpu()]
+        for step in range(4):
+            seq.append(int(logits[0].argmax()))
+            logits, cache = make_decode_step(cfg_w2, rtx)(
+                m, torch.tensor([[seq[-1]]], device=dev), 4 + step, cache)
+            all_logits.append(logits.cpu())
+        seq.append(int(logits[0].argmax()))
+        fwd = m(teacher.to(dev), frames=frames.to(dev)).cpu()
+        res[name] = (seq, torch.stack(all_logits), fwd, flash_attention.launches)
+    worst = (res["cpu"][1] - res["cuda"][1]).abs().max().item()
+    scale = res["cpu"][1].abs().max().item()
+    worst_f = (res["cpu"][2] - res["cuda"][2]).abs().max().item()
+    scale_f = res["cpu"][2].abs().max().item()
+    # fp32 on both sides (no TF32): the sums differ only in order
+    tol, tol_f = 1e-4 * max(1.0, scale), 1e-4 * max(1.0, scale_f)
+    print(f"  greedy cpu {res['cpu'][0]} cuda {res['cuda'][0]}; prefill+decode "
+          f"max|dlogits| {worst:.3g} (max|logits| {scale:.3g}, tol {tol:.3g}); forward "
+          f"max|dlogits| {worst_f:.3g} (max|logits| {scale_f:.3g}, tol {tol_f:.3g}); "
+          f"kernel launches on the card {res['cuda'][3]} (2 encoder x 2 calls + 2 causal "
+          "decoder layers)")
+    check(res["cpu"][0] == res["cuda"][0], "same greedy tokens on card and CPU")
+    check(worst <= tol and worst_f <= tol_f, "logits within tolerance")
+    check(res["cpu"][3] == 0 and res["cuda"][3] == 2 * 2 + 2, "kernel launches on the card only")
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [{
         "name": "ssd_scan",
@@ -336,6 +561,18 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,     # no single PyTorch call computes the SSD scan
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+        "launches": launches_w,
+        "max_abs_err": err_flash,
+        "ms": fk_ms,
+        "plain_ms": fp_ms,
+        "bound_ms": fbound_ms,
+        "bound_by": fbound_by,
+        "library_ms": fl_ms,    # scaled_dot_product_attention, timed only
     }]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,9 @@
 the ported slice needs, copied from `repro.configs.base` so the port imports
 nothing of the JAX package.
 
-Only the SSM family (mamba2-370m) is ported so far; every other arch id
-raises `NotImplementedError` (see ROADMAP.md for the order of the slices).
+The SSM family (mamba2-370m) and the encoder-decoder family (whisper-small)
+are ported so far; every other arch id raises `NotImplementedError` (see
+ROADMAP.md for the order of the slices).
 """
 from __future__ import annotations
 
@@ -30,37 +31,66 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # only "ssm" is ported
+    family: str                   # "ssm" or "encdec" are ported
     num_layers: int
     d_model: int
     vocab: int
+    # --- attention (0 heads for attention-free) ---------------------------
+    n_heads: int = 0              # query heads
+    n_kv: int = 0                 # KV heads (GQA); == n_heads for MHA
+    d_ff: int = 0
+    head_dim: Optional[int] = None          # default d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
     ssm: Optional[SSMConfig] = None
+    # --- enc-dec ----------------------------------------------------------
+    encoder_layers: int = 0       # whisper
+    encoder_len: int = 0          # fixed frontend length (audio frames)
     norm_eps: float = 1e-6
+    act: str = "silu"             # silu | gelu (tanh form, as jax.nn.gelu)
+    glu: bool = True              # gated MLP
+
+    def hd(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
 
     def param_count(self) -> int:
-        """Exact parameter count of the ported SSM model."""
-        if self.family != "ssm":
-            raise NotImplementedError(self.family)
-        D, s = self.d_model, self.ssm
-        di, H, N = s.d_inner(D), s.n_heads(D), s.state_dim
-        conv_ch = di + 2 * N
-        per = (D                                   # ln
-               + D * (2 * di + 2 * N + H)          # in_proj (z, x, B, C, dt)
-               + s.conv_width * conv_ch + conv_ch  # conv_w, conv_b
-               + 3 * H                             # A_log, D, dt_bias
-               + di                                # norm
-               + di * D)                           # out_proj
-        return self.vocab * D + D + self.num_layers * per
+        """Exact parameter count of the ported model, norms included."""
+        D, V = self.d_model, self.vocab
+        if self.family == "ssm":
+            s = self.ssm
+            di, H, N = s.d_inner(D), s.n_heads(D), s.state_dim
+            conv_ch = di + 2 * N
+            per = (D                                   # ln
+                   + D * (2 * di + 2 * N + H)          # in_proj (z, x, B, C, dt)
+                   + s.conv_width * conv_ch + conv_ch  # conv_w, conv_b
+                   + 3 * H                             # A_log, D, dt_bias
+                   + di                                # norm
+                   + di * D)                           # out_proj
+            return V * D + D + self.num_layers * per
+        if self.family == "encdec":
+            hd, nq, nkv = self.hd(), self.n_heads, self.n_kv
+            attn = D * nq * hd + 2 * D * nkv * hd + nq * hd * D
+            if self.qkv_bias:
+                attn += (nq + 2 * nkv) * hd
+            mlp = (3 if self.glu else 2) * D * self.d_ff
+            enc = 2 * D + attn + mlp                   # ln1, attn, ln2, mlp
+            dec = 3 * D + 2 * attn + mlp               # + lnx, xattn
+            return (V * D + 2 * D                      # embed, final_ln, enc_ln
+                    + self.encoder_layers * enc + self.num_layers * dec)
+        raise NotImplementedError(self.family)
 
 
 # arch id -> module under repro_torch.configs; the port adds ids slice by slice
 _ARCH_MODULES = {
     "mamba2-370m": "mamba2_370m",
+    "whisper-small": "whisper_small",
 }
 
 #: arch ids of the JAX package that the port does not serve yet
 NOT_PORTED = (
-    "whisper-small", "qwen1.5-32b", "qwen2-0.5b", "smollm-135m", "gemma3-4b",
+    "qwen1.5-32b", "qwen2-0.5b", "smollm-135m", "gemma3-4b",
     "mixtral-8x7b", "grok-1-314b", "zamba2-1.2b", "paligemma-3b",
 )
 

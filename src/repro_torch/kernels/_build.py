@@ -22,8 +22,10 @@ from typing import Dict, List
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "_build"
+# --split-compile=0: compile one source's kernels on all the CPUs (the flash
+# attention source instantiates 32 kernels, one per head dim and dtype)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "--split-compile=0", "-shared", "-Xcompiler", "-fPIC")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -8,7 +8,9 @@ and reports throughput and latency.
         --reduced --device cpu                        # tiny, on the CPU
 
 On the card the runtime computes in bf16 with fp32 parameters; on the CPU in
-fp32. Checkpoint restore is not ported yet.
+fp32. Checkpoint restore is not ported yet. As in `repro`, the engine serves
+decoder-only families: for whisper (encdec) the launcher refuses, and
+`serve.serve_step.make_prefill_step` / `make_decode_step` serve it.
 """
 from __future__ import annotations
 
@@ -40,6 +42,10 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.family in ("encdec", "vlm"):
+        raise SystemExit("engine serves decoder-only families; use "
+                         "serve_step.make_prefill_step/make_decode_step "
+                         "directly for encdec/vlm")
     on_cpu = torch.device(args.device).type == "cpu"
     rt = Runtime(device=args.device,
                  compute_dtype=torch.float32 if on_cpu else torch.bfloat16)

@@ -1,0 +1,223 @@
+"""Attention glue: projections, RoPE, kernel dispatch and KV caches (port of
+`repro.models.attention`, single-device paths).
+
+Caches are position-explicit: every cache keeps a `kv_pos` int32 tensor
+beside k/v (-1 marks an empty slot), so all cached attention goes through one
+masked path (`kernels/flash_attention/ref.make_mask`). Full-sequence self
+attention goes through `fa_ops.mha`, i.e. the CUDA flash-attention kernel on
+the card.
+
+Unlike `repro`, whose arrays are immutable, the cache functions here write
+into the cache they are given and return it: the caller owns one cache per
+batch and nothing keeps the old contents.
+
+Not ported (ROADMAP.md): the mesh-only `_constrain_attn` and
+`_long_decode_attention`, the windowed decode against a long cache (it
+raises), the prefix-LM mask of the VLM family, bf16 score products
+(`_attention_bf16_scores`) and ring-buffer caches.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.layers import dense_init_, rope
+from repro_torch.models.runtime import Runtime
+
+Pos = Union[int, torch.Tensor]
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """Projection weights wq, wk, wv (D, H*hd), wo (Hq*hd, D), plus the
+    biases bq, bk, bv when `cfg.qkv_bias`. Also the cross-attention block."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        D, hd, nq, nkv = cfg.d_model, cfg.hd(), cfg.n_heads, cfg.n_kv
+        kw = {"device": device, "dtype": dtype}
+        self.wq = nn.Parameter(torch.empty(D, nq * hd, **kw))
+        self.wk = nn.Parameter(torch.empty(D, nkv * hd, **kw))
+        self.wv = nn.Parameter(torch.empty(D, nkv * hd, **kw))
+        self.wo = nn.Parameter(torch.empty(nq * hd, D, **kw))
+        biases = cfg.qkv_bias
+        self.bq = nn.Parameter(torch.zeros(nq * hd, **kw)) if biases else None
+        self.bk = nn.Parameter(torch.zeros(nkv * hd, **kw)) if biases else None
+        self.bv = nn.Parameter(torch.zeros(nkv * hd, **kw)) if biases else None
+
+    @torch.no_grad()
+    def reset_parameters(self, g: torch.Generator):
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            dense_init_(w, g)
+        for b in (self.bq, self.bk, self.bv):
+            if b is not None:
+                b.zero_()
+
+
+def _linear(h: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+            rt: Runtime) -> torch.Tensor:
+    # the bias is added in the compute dtype, after the product, as in repro
+    out = h @ w.to(rt.compute_dtype)
+    return out if b is None else out + b.to(rt.compute_dtype)
+
+
+def _proj_qkv(h: torch.Tensor, p: Attention, cfg: ModelConfig, rt: Runtime):
+    B, S, _ = h.shape
+    hd = cfg.hd()
+    q = _linear(h, p.wq, p.bq, rt).view(B, S, cfg.n_heads, hd)
+    k = _linear(h, p.wk, p.bk, rt).view(B, S, cfg.n_kv, hd)
+    v = _linear(h, p.wv, p.bv, rt).view(B, S, cfg.n_kv, hd)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# full-sequence self attention (forward / prefill)
+# ---------------------------------------------------------------------------
+
+
+def self_attention(h: torch.Tensor, p: Attention, cfg: ModelConfig, rt: Runtime,
+                   positions: torch.Tensor, *, causal: bool = True,
+                   window: Optional[int] = None) -> torch.Tensor:
+    """h (B, S, D), positions (B, S) -> (B, S, D). The attention itself is
+    `fa_ops.mha`: the flash-attention kernel on the card."""
+    q, k, v = _proj_qkv(h, p, cfg, rt)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    out = fa_ops.mha(q, k, v, positions, positions, causal=causal, window=window)
+    B, S = h.shape[:2]
+    return out.reshape(B, S, cfg.n_heads * cfg.hd()) @ p.wo.to(rt.compute_dtype)
+
+
+# q-chunking of long masked attention: bounds the (Sq, Skv) scores per chunk
+_CHUNK_Q = 512
+_CHUNK_THRESHOLD = 8192
+
+
+def _attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: Optional[int]):
+    """Masked attention (the plain version), chunked over q when long."""
+    Sq = q.shape[1]
+    if Sq < _CHUNK_THRESHOLD or Sq % _CHUNK_Q != 0:
+        return attention_ref(q, k, v, q_pos, kv_pos, causal=causal, window=window)
+    return torch.cat([attention_ref(q[:, i:i + _CHUNK_Q], k, v, q_pos[:, i:i + _CHUNK_Q],
+                                    kv_pos, causal=causal, window=window)
+                      for i in range(0, Sq, _CHUNK_Q)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+                  rt: Runtime) -> Dict[str, torch.Tensor]:
+    """Full-length cache for `n_layers` attention layers: k, v (L, B, W, Hkv,
+    hd) in the compute dtype and kv_pos (L, B, W) int32, all slots -1."""
+    dev = rt.torch_device()
+    shape = (n_layers, batch, max_len, cfg.n_kv, cfg.hd())
+    return {
+        "k": torch.zeros(shape, dtype=rt.compute_dtype, device=dev),
+        "v": torch.zeros(shape, dtype=rt.compute_dtype, device=dev),
+        "kv_pos": torch.full((n_layers, batch, max_len), -1, dtype=torch.int32, device=dev),
+    }
+
+
+def _is_scalar(pos: Pos) -> bool:
+    return not isinstance(pos, torch.Tensor) or pos.dim() == 0
+
+
+def _pos_vector(pos: Pos, B: int, device) -> torch.Tensor:
+    """Scalar-or-(B,) position -> (B,) int32 (per-slot positions)."""
+    p = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    return p.expand(B) if p.dim() == 0 else p
+
+
+def update_cache_layer(cache_l: Dict[str, torch.Tensor], k_new: torch.Tensor,
+                       v_new: torch.Tensor, pos: Pos, use_dus: bool = True
+                       ) -> Dict[str, torch.Tensor]:
+    """Write S_new tokens starting at absolute position `pos` (scalar or
+    per-batch (B,)) into a layer cache (B, W, Hkv, hd), in place; slot =
+    position % W. A scalar `pos` whose span does not wrap takes repro's
+    dynamic-update-slice branch (a slice assignment whose start is clamped to
+    W - S_new, as XLA clamps it); otherwise, or with use_dus=False, its
+    scatter branch."""
+    B, W = cache_l["k"].shape[:2]
+    S_new = k_new.shape[1]
+    dev = k_new.device
+    if use_dus and _is_scalar(pos) and (S_new == 1 or W % S_new == 0):
+        p = int(pos)
+        start = min(p % W, W - S_new)
+        cache_l["k"][:, start:start + S_new] = k_new
+        cache_l["v"][:, start:start + S_new] = v_new
+        cache_l["kv_pos"][:, start:start + S_new] = (
+            p + torch.arange(S_new, dtype=torch.int32, device=dev))
+        return cache_l
+    positions = (_pos_vector(pos, B, dev)[:, None]
+                 + torch.arange(S_new, dtype=torch.int32, device=dev)[None, :])
+    slots = (positions % W).long()
+    bidx = torch.arange(B, device=dev)[:, None]
+    cache_l["k"][bidx, slots] = k_new
+    cache_l["v"][bidx, slots] = v_new
+    cache_l["kv_pos"][bidx, slots] = positions
+    return cache_l
+
+
+def cached_attention(x: torch.Tensor, p: Attention, cfg: ModelConfig, rt: Runtime,
+                     cache_l: Dict[str, torch.Tensor], pos: Pos, *,
+                     window: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode / chunked-prefill attention against a layer cache (written in
+    place). x (B, S_new, D); `pos` is the absolute position of x[:, 0], a
+    scalar or a per-slot (B,) vector."""
+    B, S_new, _ = x.shape
+    q, k, v = _proj_qkv(x, p, cfg, rt)
+    positions = (_pos_vector(pos, B, x.device)[:, None]
+                 + torch.arange(S_new, dtype=torch.int32, device=x.device)[None, :])
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    cache_l = update_cache_layer(cache_l, k, v, pos)
+    W = cache_l["k"].shape[1]
+    if _is_scalar(pos) and S_new == 1 and window is not None and W >= 4 * window:
+        raise NotImplementedError(
+            "windowed decode against a long cache (repro's slice of the last "
+            "`window` slots) is not ported yet; ROADMAP.md lists it")
+    out = _attend(q, cache_l["k"], cache_l["v"], positions, cache_l["kv_pos"],
+                  causal=True, window=window)
+    out = out.reshape(B, S_new, cfg.n_heads * cfg.hd())
+    return out @ p.wo.to(rt.compute_dtype), cache_l
+
+
+# ---------------------------------------------------------------------------
+# cross attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention(x: torch.Tensor, p: Attention, cfg: ModelConfig, rt: Runtime,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """x (B, Sq, D) decoder hidden against precomputed encoder K/V (B, Senc,
+    Hkv, hd): non-causal, no RoPE, through the masked plain version."""
+    B, Sq, _ = x.shape
+    hd = cfg.hd()
+    q = _linear(x, p.wq, p.bq, rt).view(B, Sq, cfg.n_heads, hd)
+    Senc = enc_k.shape[1]
+    qpos = torch.zeros((B, Sq), dtype=torch.int32, device=x.device)
+    kvpos = torch.arange(Senc, dtype=torch.int32, device=x.device)[None].expand(B, Senc)
+    out = _attend(q, enc_k, enc_v, qpos, kvpos, causal=False, window=None)
+    return out.reshape(B, Sq, cfg.n_heads * hd) @ p.wo.to(rt.compute_dtype)
+
+
+def encode_cross_kv(enc_out: torch.Tensor, p: Attention, cfg: ModelConfig,
+                    rt: Runtime) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project the encoder output once into cross-attention K/V."""
+    B, Senc, _ = enc_out.shape
+    hd = cfg.hd()
+    k = _linear(enc_out, p.wk, p.bk, rt).view(B, Senc, cfg.n_kv, hd)
+    v = _linear(enc_out, p.wv, p.bv, rt).view(B, Senc, cfg.n_kv, hd)
+    return k, v

@@ -1,7 +1,8 @@
-"""Shared primitives of the SSM slice: norms, the causal depthwise conv and
-init helpers. Plain tensor functions; numerics follow `repro.models.layers`
-(norms scale by (1 + g) in fp32; the conv works in fp32 and applies SiLU
-before the cast back).
+"""Shared primitives: norms, RoPE, the MLP, the causal depthwise conv and
+init helpers. Plain tensor functions (and the MLP's parameter module);
+numerics follow `repro.models.layers` (norms scale by (1 + g) in fp32; RoPE
+rotates in fp32; the conv works in fp32 and applies SiLU before the cast
+back; GELU is the tanh form, which is `jax.nn.gelu`'s default).
 """
 from __future__ import annotations
 
@@ -10,6 +11,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -56,6 +60,60 @@ def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, g: torch.Tensor,
     var = (xf * xf).mean(-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + g.float())
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding on split halves. x (B, S, H, hd), positions (B, S)."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions.float()[:, :, None] * freqs[None, None, :]
+    cos = torch.cos(ang)[:, :, None, :]           # (B, S, 1, half)
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def act_fn(name: str):
+    # jax.nn.gelu defaults to the tanh approximation; torch's default is erf
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+class MLP(nn.Module):
+    """Plain (wi, wo) or gated (wi, wg, wo) 2-layer MLP parameters."""
+
+    def __init__(self, cfg: ModelConfig, d_ff: int, device=None, dtype=torch.float32):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.wi = nn.Parameter(torch.empty(cfg.d_model, d_ff, **kw))
+        self.wo = nn.Parameter(torch.empty(d_ff, cfg.d_model, **kw))
+        self.wg = nn.Parameter(torch.empty(cfg.d_model, d_ff, **kw)) if cfg.glu else None
+
+    @torch.no_grad()
+    def reset_parameters(self, g: torch.Generator):
+        for w in (self.wi, self.wo, self.wg):
+            if w is not None:
+                dense_init_(w, g)
+
+
+def mlp(h: torch.Tensor, p: MLP, cfg: ModelConfig, rt) -> torch.Tensor:
+    """Gated (SwiGLU/GeGLU) or plain MLP. h (B, S, D)."""
+    f = act_fn(cfg.act)
+    if cfg.glu:
+        u = f(h @ p.wg.to(rt.compute_dtype)) * (h @ p.wi.to(rt.compute_dtype))
+    else:
+        u = f(h @ p.wi.to(rt.compute_dtype))
+    return u @ p.wo.to(rt.compute_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,22 @@
-"""Model facade of the port. Only the SSM family (mamba2) is ported; the
-other families raise `NotImplementedError` (ROADMAP.md lists them).
+"""Model facade of the port. The SSM family (mamba2) and the encoder-decoder
+family (whisper) are ported; the other families raise `NotImplementedError`
+(ROADMAP.md lists them).
 
     model = Model(cfg, rt)                      # random init from a seed
     cache = init_cache(cfg, rt, batch, max_len)
     logits, cache = model.prefill(tokens, cache)       # last-token logits
     logits, cache = model.decode_step(tokens, cache)   # tokens (B, 1)
     logits = model(tokens)                      # full-sequence scoring
+    # encdec: frames (B, encoder_len, D) are the precomputed audio frames,
+    # pos the absolute position of the decoded token (a scalar, or (B,))
+    logits, cache = model.prefill(tokens, cache, frames=frames)
+    logits, cache = model.decode_step(tokens, cache, pos=pos)
+    logits = model(tokens, frames=frames)
 
 Parameters live on `rt.device` in `rt.param_dtype` and are cast to
 `rt.compute_dtype` where they are used, as in `repro`. The logits are fp32
 against the tied embedding. prefill and decode_step update `cache` in place
-(the engine owns one batched cache) and return it.
+and return it.
 
 The model leaves the process-wide TF32 switches alone. The entry points
 (`launch/serve.py`, `chip_smoke.py`) set `torch.backends.cuda.matmul.allow_tf32`
@@ -25,13 +31,16 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec
 from repro_torch.models.layers import embed_init_, rmsnorm
 from repro_torch.models.mamba2 import SSMBlock, init_ssm_cache
 from repro_torch.models.runtime import Runtime
 
+PORTED_FAMILIES = ("ssm", "encdec")
 
-def _require_ssm(cfg: ModelConfig):
-    if cfg.family != "ssm":
+
+def _require_ported(cfg: ModelConfig):
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet; "
             "ROADMAP.md lists the slices still to port")
@@ -42,14 +51,21 @@ class Model(nn.Module):
         """Random init from `seed` (a torch.Generator on the device), unless
         `rt.device` is "meta" or `seed` is None (weights loaded later)."""
         super().__init__()
-        _require_ssm(cfg)
+        _require_ported(cfg)
         dev = rt.torch_device()
         self.cfg, self.rt = cfg, rt
         kw = {"device": dev, "dtype": rt.param_dtype}
         self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model, **kw))
         self.final_ln = nn.Parameter(torch.zeros(cfg.d_model, **kw))
-        self.layers = nn.ModuleList(
-            SSMBlock(cfg, **kw) for _ in range(cfg.num_layers))
+        if cfg.family == "ssm":
+            self.layers = nn.ModuleList(
+                SSMBlock(cfg, **kw) for _ in range(cfg.num_layers))
+        else:
+            self.enc_layers = nn.ModuleList(
+                encdec.EncoderLayer(cfg, **kw) for _ in range(cfg.encoder_layers))
+            self.enc_ln = nn.Parameter(torch.zeros(cfg.d_model, **kw))
+            self.dec_layers = nn.ModuleList(
+                encdec.DecoderLayer(cfg, **kw) for _ in range(cfg.num_layers))
         self.requires_grad_(False)
         if dev.type != "meta" and seed is not None:
             self.reset_parameters(torch.Generator(dev).manual_seed(seed))
@@ -58,7 +74,11 @@ class Model(nn.Module):
     def reset_parameters(self, g: torch.Generator):
         embed_init_(self.embed, g)
         self.final_ln.zero_()
-        for layer in self.layers:
+        if self.cfg.family == "encdec":
+            self.enc_ln.zero_()
+        layers = (self.layers if self.cfg.family == "ssm"
+                  else [*self.enc_layers, *self.dec_layers])
+        for layer in layers:
             layer.reset_parameters(g)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -69,39 +89,69 @@ class Model(nn.Module):
         x = rmsnorm(x, self.final_ln, self.cfg.norm_eps)
         return x.float() @ self.embed.float().T
 
+    def _encode(self, frames: Optional[torch.Tensor]) -> torch.Tensor:
+        if frames is None:
+            raise ValueError("the encdec family needs frames (B, encoder_len, d_model)")
+        enc_out = encdec.encode(frames, self.enc_layers, self.cfg, self.rt)
+        return rmsnorm(enc_out, self.enc_ln, self.cfg.norm_eps)
+
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, frames: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         """Full-sequence logits (B, S, V), fp32. No loss."""
         x = self._embed(tokens)
-        for layer in self.layers:
-            x = layer(x, self.rt)
+        if self.cfg.family == "ssm":
+            for layer in self.layers:
+                x = layer(x, self.rt)
+        else:
+            B, S = tokens.shape
+            positions = encdec.iota_positions(B, S, tokens.device)
+            x = encdec.decode_stack(x, self.dec_layers, self.cfg, self.rt, positions,
+                                    self._encode(frames))
         return self._logits(x)
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache: Dict[str, torch.Tensor]
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Fill `cache` from position 0; returns (last-token logits (B, V), cache)."""
+    def prefill(self, tokens: torch.Tensor, cache: Dict,
+                frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+        """Fill `cache` from position 0; returns (last-token logits (B, V), cache).
+        The encdec family runs the encoder over `frames`, fills the cross
+        K/V and prefills the decoder's self cache with `tokens`."""
         x = self._embed(tokens)
-        for i, layer in enumerate(self.layers):
-            x, cache["conv"][i], cache["ssd"][i] = layer.prefill(
-                x, self.rt, cache["conv"][i])
+        if self.cfg.family == "ssm":
+            for i, layer in enumerate(self.layers):
+                x, cache["conv"][i], cache["ssd"][i] = layer.prefill(
+                    x, self.rt, cache["conv"][i])
+        else:
+            encdec.fill_cross_cache(self._encode(frames), self.dec_layers, self.cfg,
+                                    self.rt, cache)
+            x, cache = encdec.decode_stack_cached(x, self.dec_layers, self.cfg, self.rt,
+                                                  cache, 0)
         return self._logits(x[:, -1:])[:, 0], cache
 
     @torch.no_grad()
-    def decode_step(self, tokens: torch.Tensor, cache: Dict[str, torch.Tensor]
-                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """One autoregressive step. tokens (B, 1) -> logits (B, V)."""
+    def decode_step(self, tokens: torch.Tensor, cache: Dict, pos=None
+                    ) -> Tuple[torch.Tensor, Dict]:
+        """One autoregressive step. tokens (B, 1) -> logits (B, V). The
+        encdec family needs `pos`, the absolute position of `tokens` (an
+        SSM cache carries its own state)."""
         x = self._embed(tokens)
-        for i, layer in enumerate(self.layers):
-            x, cache["conv"][i], cache["ssd"][i] = layer.decode(
-                x, self.rt, cache["conv"][i], cache["ssd"][i])
+        if self.cfg.family == "ssm":
+            for i, layer in enumerate(self.layers):
+                x, cache["conv"][i], cache["ssd"][i] = layer.decode(
+                    x, self.rt, cache["conv"][i], cache["ssd"][i])
+        else:
+            if pos is None:
+                raise ValueError("the encdec family's decode_step needs pos")
+            x, cache = encdec.decode_stack_cached(x, self.dec_layers, self.cfg, self.rt,
+                                                  cache, pos)
         return self._logits(x)[:, 0], cache
 
 
-def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, max_len: int
-               ) -> Dict[str, torch.Tensor]:
-    """Decode cache {"conv": (L, B, K-1, C), "ssd": (L, B, H, P, N) fp32}.
-    An SSM cache does not grow with `max_len`; the argument keeps repro's
-    signature for the families still to port."""
-    _require_ssm(cfg)
-    return init_ssm_cache(cfg, batch, cfg.num_layers, rt)
+def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, max_len: int) -> Dict:
+    """SSM: {"conv": (L, B, K-1, C), "ssd": (L, B, H, P, N) fp32}; an SSM
+    cache does not grow with `max_len`. encdec: the decoder's self cache of
+    `max_len` slots and the cross K/V (`encdec.init_encdec_cache`)."""
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return init_ssm_cache(cfg, batch, cfg.num_layers, rt)
+    return encdec.init_encdec_cache(cfg, batch, max_len, rt)

@@ -58,6 +58,10 @@ class ServeEngine:
                  slots: int = 4, max_len: int = 512,
                  eos_token: Optional[int] = None, policy: str = "fifo"):
         if cfg.family != "ssm":
+            if cfg.family == "encdec":
+                raise NotImplementedError(
+                    "engine supports decoder-only families; encdec/vlm use the "
+                    "prefill/decode steps directly")
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported to repro_torch yet; "
                 "ROADMAP.md lists the slices still to port")

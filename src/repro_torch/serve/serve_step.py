@@ -1,9 +1,37 @@
-"""Token sampling for the serving engine."""
+"""Serve-step factories (prefill_step builds its own cache, decode_step)
+and token sampling. The steps take the model where `repro`'s take the
+params; they are how the encdec family is served (the engine serves
+decoder-only families)."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.models.runtime import Runtime
+
+
+def make_prefill_step(cfg: ModelConfig, rt: Runtime, max_len: int) -> Callable:
+    """(model, batch) -> (last_logits, cache). The cache (`max_len` decoder
+    slots) is made inside the step; batch holds "tokens" (B, S) and, for
+    encdec, "frames" (B, encoder_len, d_model)."""
+
+    def prefill_step(model: M.Model, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+        cache = M.init_cache(cfg, rt, batch["tokens"].shape[0], max_len)
+        return model.prefill(batch["tokens"], cache, frames=batch.get("frames"))
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, rt: Runtime) -> Callable:
+    """(model, tokens (B, 1), pos scalar|(B,), cache) -> (logits, cache)."""
+
+    def decode_step(model: M.Model, tokens: torch.Tensor, pos, cache: Dict):
+        return model.decode_step(tokens, cache, pos=pos)
+
+    return decode_step
 
 
 def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator] = None,

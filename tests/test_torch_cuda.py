@@ -7,6 +7,12 @@ on a machine that has only PyTorch:
 The CUDA SSD-scan kernel is held against its plain version on the card at
 the JAX kernel tests' cases plus a short (Q = S < 128) and a ragged serving
 shape, with those tests' tolerances (fp32 3e-4, bf16 4e-2, abs and rel).
+The CUDA flash-attention kernel is held against its plain version at the
+JAX flash tests' 6 cases (fp32 2e-5, bf16 2e-2, abs and rel) and at the
+whisper encoder's serving shape (B=4, S=1500, 12 heads of 64), where fp32
+is held to 1e-4 * max|ref| and bf16 element by element to
+1e-2 * |ref| + 1e-4 * max|ref| (both sides round fp32 sums that differ in
+order to bf16, which can land one bf16 step apart).
 """
 import numpy as np
 import pytest
@@ -14,12 +20,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.runtime import CPU_TEST, Runtime  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.serve.serve_step import make_decode_step, make_prefill_step  # noqa: E402
 
 CASES = [
     # (B, S, H, P, N, chunk)
@@ -94,3 +104,77 @@ def test_engine_on_the_card_matches_cpu(cuda):
     eng, got = run(gpu_model, rt)
     assert got == want
     assert ssd_scan.launches - before == cfg.num_layers * eng.n_admits
+
+
+FLASH_CASES = [
+    # (B, S, Hq, Hkv, hd, causal, window): tests/test_kernels_flash.py's
+    (1, 64, 4, 4, 16, True, None),
+    (2, 128, 4, 2, 32, True, None),
+    (1, 96, 8, 1, 16, True, None),
+    (2, 128, 4, 4, 64, True, 32),
+    (1, 256, 2, 2, 16, False, None),
+    (1, 80, 3, 1, 16, True, 24),
+]
+FLASH_SERVING = (4, 1500, 12, 12, 64, False, None)     # the whisper encoder
+FLASH_DTYPES = {"fp32": (torch.float32, 2e-5), "bf16": (torch.bfloat16, 2e-2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname", list(FLASH_DTYPES))
+@pytest.mark.parametrize("case", FLASH_CASES + [FLASH_SERVING])
+def test_flash_kernel_matches_plain_version(cuda, case, dname):
+    B, S, Hq, Hkv, hd, causal, window = case
+    dtype, tol = FLASH_DTYPES[dname]
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, hd), dtype=np.float32))
+               .to(dtype).to(cuda) for h in (Hq, Hkv, Hkv))
+    pos = torch.arange(S, device=cuda)[None].expand(B, S)
+    before = flash_attention.launches
+    out = fa_ops.mha(q, k, v, pos, pos, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = attention_ref(q, k, v, pos, pos, causal=causal, window=window).float()
+    if case != FLASH_SERVING:
+        torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+        return
+    a = 1e-4 * ref.abs().max().item()
+    err = (out.float() - ref).abs()
+    assert bool((err <= (a if dname == "fp32" else 1e-2 * ref.abs() + a)).all())
+
+
+@pytest.mark.gpu
+def test_whisper_on_the_card_matches_cpu(cuda):
+    """The same weights (reduced whisper, fp32) on the card and the CPU give
+    the same greedy tokens through the serve steps, logits within 1e-4, and
+    the encoder launches the kernel once per layer per prefill; the
+    teacher-forced forward launches it once per encoder and decoder layer."""
+    cfg = reduced_config("whisper-small")
+    rt = Runtime(device="cuda", compute_dtype=torch.float32)
+    cpu_model = Model(cfg, CPU_TEST, seed=3)
+    gpu_model = Model(cfg, rt, seed=None)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(7)
+    frames = torch.from_numpy(rng.standard_normal((2, cfg.encoder_len, cfg.d_model),
+                                                  dtype=np.float32))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 5)))
+
+    def run(model, rtx):
+        dev = rtx.torch_device()
+        prefill, decode = make_prefill_step(cfg, rtx, 32), make_decode_step(cfg, rtx)
+        logits, cache = prefill(model, {"tokens": tokens.to(dev), "frames": frames.to(dev)})
+        toks, all_logits = [], [logits.cpu()]
+        for step in range(6):
+            toks.append(logits.argmax(-1).tolist())
+            logits, cache = decode(model, logits.argmax(-1)[:, None], 5 + step, cache)
+            all_logits.append(logits.cpu())
+        fwd = model(tokens.to(dev), frames=frames.to(dev)).cpu()
+        return toks, torch.stack(all_logits), fwd
+
+    want = run(cpu_model, CPU_TEST)
+    before = flash_attention.launches
+    got = run(gpu_model, rt)
+    assert got[0] == want[0]
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
+    assert flash_attention.launches - before == 2 * cfg.encoder_layers + cfg.num_layers

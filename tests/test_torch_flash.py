@@ -1,0 +1,116 @@
+"""The port's flash attention against the JAX package's: the plain PyTorch
+version (`attention_ref`, which is what `ops.mha` runs on a CPU tensor)
+against `repro`'s Pallas kernel in interpret mode (32 x 32 blocks, as its
+own tests run it) and its jnp oracle, on the cases of
+tests/test_kernels_flash.py in fp32 and bf16. Inputs are made with numpy
+from a seed, rounded to the dtype, and handed to both frameworks.
+
+Tolerances: fp32 2e-5 and bf16 2e-2 (abs and rel), the JAX kernel tests'
+own. The masks are compared exactly.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jnp = pytest.importorskip("jax.numpy")
+
+from repro.kernels.flash_attention.kernel import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref  # noqa: E402
+from repro.kernels.flash_attention.ref import make_mask as jax_make_mask  # noqa: E402
+from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref, make_mask  # noqa: E402
+
+CASES = [
+    # (B, S, Hq, Hkv, hd, causal, window)
+    (1, 64, 4, 4, 16, True, None),
+    (2, 128, 4, 2, 32, True, None),          # GQA 2x
+    (1, 96, 8, 1, 16, True, None),           # MQA, ragged seq vs blocks
+    (2, 128, 4, 4, 64, True, 32),            # sliding window
+    (1, 256, 2, 2, 16, False, None),         # bidirectional
+    (1, 80, 3, 1, 16, True, 24),             # non-pow2 heads + window
+]
+DTYPES = {"fp32": (torch.float32, jnp.float32, 2e-5),
+          "bf16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
+
+
+def _both(case, dname, seed=0):
+    """(torch q, k, v, positions), (jax q, k, v, positions): equal values,
+    rounded to the dtype on both sides."""
+    B, S, Hq, Hkv, hd, _, _ = case
+    tdt, jdt, _ = DTYPES[dname]
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, S, h, hd), dtype=np.float32) for h in (Hq, Hkv, Hkv)]
+    t = [torch.from_numpy(a).to(tdt) for a in arrs]
+    j = [jnp.asarray(x.float().numpy()).astype(jdt) for x in t]
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    return (*t, torch.from_numpy(pos.copy())), (*j, jnp.asarray(pos))
+
+
+def _close(a, b, tol):
+    np.testing.assert_allclose(np.asarray(a, np.float32), np.asarray(b, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dname", list(DTYPES))
+@pytest.mark.parametrize("case", CASES)
+def test_plain_version_matches_jax_kernel_and_oracle(case, dname):
+    causal, window = case[5], case[6]
+    tol = DTYPES[dname][2]
+    (q, k, v, pos), (qj, kj, vj, posj) = _both(case, dname)
+    out = ops.mha(q, k, v, pos, pos, causal=causal, window=window)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    kern = jax_flash(qj, kj, vj, causal=causal, window=window, block_q=32, block_k=32,
+                     interpret=True)
+    oracle = jax_attention_ref(qj, kj, vj, posj, posj, causal=causal, window=window)
+    _close(out.float(), kern.astype(jnp.float32), tol)
+    _close(out.float(), oracle.astype(jnp.float32), tol)
+
+
+def test_window_one_rows_are_finite():
+    """Window smaller than a block: each token attends only to itself."""
+    (q, k, v, pos), (qj, kj, vj, _) = _both((1, 64, 2, 2, 16, True, 1), "fp32", seed=1)
+    out = ops.mha(q, k, v, pos, pos, causal=True, window=1)
+    assert torch.isfinite(out).all()
+    _close(out, v, 2e-5)                     # softmax over one key returns its value
+    _close(out, jax_flash(qj, kj, vj, causal=True, window=1, block_q=32, block_k=32,
+                          interpret=True), 2e-5)
+
+
+@pytest.mark.parametrize("causal,window,prefix_len",
+                         [(True, None, 0), (False, None, 0), (True, 5, 0),
+                          (True, None, 4), (True, 3, 4), (False, 6, 2)])
+def test_make_mask_matches_jax(causal, window, prefix_len):
+    """Cache-style positions: empty slots (-1) and out-of-order ring slots."""
+    rng = np.random.default_rng(2)
+    q_pos = rng.integers(0, 20, (2, 7)).astype(np.int32)
+    kv_pos = rng.integers(-1, 20, (2, 11)).astype(np.int32)
+    kv_pos[:, :2] = -1
+    want = jax_make_mask(jnp.asarray(q_pos), jnp.asarray(kv_pos), causal=causal,
+                         window=window, prefix_len=prefix_len)
+    got = make_mask(torch.from_numpy(q_pos), torch.from_numpy(kv_pos), causal=causal,
+                    window=window, prefix_len=prefix_len)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    rng_v = np.random.default_rng(3)
+    q, k, v = (rng_v.standard_normal((2, n, 2, 16), dtype=np.float32) for n in (7, 11, 11))
+    _close(attention_ref(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                         torch.from_numpy(q_pos), torch.from_numpy(kv_pos), causal=causal,
+                         window=window, prefix_len=prefix_len),
+           jax_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             jnp.asarray(q_pos), jnp.asarray(kv_pos), causal=causal,
+                             window=window, prefix_len=prefix_len), 2e-5)
+
+
+def test_mha_on_cpu_never_launches_the_kernel():
+    (q, k, v, pos), _ = _both(CASES[1], "fp32")
+    before = flash_attention.launches
+    ops.mha(q, k, v, pos, pos, causal=True)
+    assert flash_attention.launches == before
+
+
+def test_the_wrapper_refuses_cpu_tensors():
+    (q, k, v, _), _ = _both(CASES[0], "fp32")
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before

@@ -18,6 +18,7 @@ from repro_torch.configs.base import NOT_PORTED, get_config  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.runtime import CPU_TEST, Runtime  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.serve.serve_step import make_prefill_step  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -81,9 +82,27 @@ def test_archs_not_ported_raise(arch):
         get_config(arch)
 
 
+def test_whisper_is_ported_and_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    assert "whisper-small" not in NOT_PORTED
+    assert get_config("whisper-small").family == "encdec"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config("whisper-small")
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        Model(cfg, Runtime())
+    model = Model(cfg, CPU_TEST)
+    batch = {"tokens": torch.zeros((1, 3), dtype=torch.long),
+             "frames": torch.zeros((1, cfg.encoder_len, cfg.d_model))}
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        make_prefill_step(cfg, Runtime(), 16)(model, batch)
+    logits, _ = make_prefill_step(cfg, CPU_TEST, 16)(model, batch)
+    assert logits.shape == (1, cfg.vocab)
+    with pytest.raises(NotImplementedError, match="decoder-only"):
+        ServeEngine(cfg, CPU_TEST, model)
+
+
 def test_kernel_build_finds_every_source_and_needs_nvcc(monkeypatch, tmp_path):
     from repro_torch.kernels import _build
-    assert [p.name for p in _build.sources()] == ["ssd_scan.cu"]
+    assert [p.name for p in _build.sources()] == ["flash_attention.cu", "ssd_scan.cu"]
     lib = _build._lib_path(_build.sources()[0])
     assert lib.parent == PKG / "kernels" / "_build" and lib.suffix == ".so"
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

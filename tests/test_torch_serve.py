@@ -116,7 +116,7 @@ def test_engine_greedy_tokens_match_jax(pair, policy):
     assert record == [(r.admit_step, r.finish_step, r.n_preemptions) for r in reqs_j]
     assert sum(r.n_preemptions for r in reqs) == (2 if policy == "preempt" else 0)
     assert eng.n_admits == len(prompts) + sum(r.n_preemptions for r in reqs)
-    assert ssd_scan.launches == before == 0          # CPU tensors never launch
+    assert ssd_scan.launches == before               # CPU tensors never launch
 
 
 def test_submit_errors_match_jax(pair):

@@ -116,14 +116,15 @@ def test_ops_on_cpu_uses_plain_version_without_launching():
     before = ssd_scan.launches
     y, h = ops.ssd(*t, chunk=case[-1])
     y0, h0 = ssd_chunked_ref(*t, chunk=case[-1])
-    assert ssd_scan.launches == before == 0
+    assert ssd_scan.launches == before
     assert torch.equal(y, y0) and torch.equal(h, h0)
     assert ops.ssd_decode_step is ssd_decode_step_ref
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     t, _ = _both(CASES[0], "fp32")
+    before = ssd_scan.launches
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan(*t, chunk=8)
-    assert ssd_scan.launches == 0
+    assert ssd_scan.launches == before
 
