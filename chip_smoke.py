@@ -5,14 +5,22 @@
 
 Phases, each printed on its own lines; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), compute capability 9.0;
-  2. build: every CUDA source of the port, compiled with nvcc, timed;
+  2. build: every CUDA source of the port, compiled with nvcc, timed, with
+     the registers and spills of every tensor-core kernel (none may spill
+     at the serving shapes' instantiations: K1 at hd=64, the K2 kernels);
   3. the SSD-scan kernel against its plain PyTorch version on the card, at
-     the JAX kernel tests' shapes and the serving shapes, fp32 and bf16;
-  4. the kernel's time beside the plain version's and its bound;
+     the JAX kernel tests' shapes and the serving shapes, fp32 and bf16
+     (bf16 reaches the tensor-core kernels, fp32 the CUDA-core ones), and
+     bf16 again through strided views cut from one (B, S, H*P + 2N) tensor,
+     as the model passes them, equal bit for bit to the contiguous call;
+  4. the kernel's time beside the plain version's and its bound (device
+     time: calls captured in a CUDA graph and replayed between CUDA
+     events; the eager back-to-back time, which the wrapper's Python can
+     pace, printed beside);
   5. the main path: mamba2-370m at full width (48 layers, random weights
      from a seed, bf16 compute) serving 8 requests x 32 greedy tokens on 4
-     slots through ServeEngine; the kernel's launch count must be 48 per
-     prefill;
+     slots through ServeEngine; the kernel's launch count (wrapper calls,
+     three CUDA launches each in bf16) must be 48 per prefill;
  5b. where the time goes: host time of one prefill and of 8 decode steps,
      then the same work under torch.profiler for device time by kernel;
   6. card against CPU: the same weights (full width cut to 2 layers, fp32)
@@ -20,10 +28,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
   7. the flash-attention kernel against its plain PyTorch version on the
      card, at the JAX kernel tests' shapes and at long shapes (the whisper
      encoder's, its decoder's teacher-forced one, a GQA and an hd=256
-     windowed one), fp32 and bf16; window=1 gives finite rows;
-  8. the kernel's time at the whisper encoder's shape beside the plain
-     version's, PyTorch's scaled_dot_product_attention (the library
-     yardstick, timed here only) and its bound;
+     windowed one), fp32 and bf16, and the bf16 tensor-core kernel at
+     every head-dim class (16, 48, 80, 128, 144, 256) with ragged S, GQA 7,
+     causal plus window; window=1 gives each row its own value;
+  8. the kernel's time (bf16, measured as in 4) at the whisper encoder's
+     shape and the three other long shapes, each beside its bound; at the
+     encoder's shape and the causal 448 one also beside PyTorch's
+     scaled_dot_product_attention (the library yardstick, timed here
+     only), at the encoder's beside the plain version;
   9. the second path: whisper-small at full width (12 + 12 layers, random
      weights from a seed, bf16 compute) serving 4 requests of 1500 frames
      through make_prefill_step and 32 greedy make_decode_step steps; the
@@ -40,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -53,6 +66,30 @@ SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory and bf16/fp32 rates
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+
+
+MMA_KERNELS = ("flash_mma_kernel", "chunk_state_kernel", "state_pass_kernel",
+               "chunk_scan_kernel")
+
+
+def ptxas_report(log):
+    """{tensor-core kernel name (with its head dim): [registers, spill store
+    bytes, spill load bytes]} from nvcc's -Xptxas -v output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            # mangled: <length><name>, then I Li<hd> E for a head-dim template
+            k = re.search(r"\d(" + "|".join(MMA_KERNELS) + r")(ILi(\d+)E)?", m.group(1))
+            name = k and k.group(1) + (f"<{k.group(3)}>" if k.group(3) else "")
+            if name:
+                out[name] = [0, 0, 0]
+        elif name and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            out[name][1:] = [int(st), int(ld)]
+        elif name and "registers" in line:
+            out[name][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
 
 
 def check(cond, msg):
@@ -75,6 +112,16 @@ def ssd_inputs(torch, case, dtype, seed=SEED):
     Cm = torch.randn(B, S, N, generator=g, device="cuda").to(dtype)
     D = torch.linspace(0.2, 1.0, H, device="cuda")
     return x, dt.to(dtype).float(), A, Bm, Cm, D
+
+
+def strided_views(torch, case, args):
+    """x, Bm, Cm of `args` copied into one packed (B, S, H*P + 2N) tensor and
+    cut from it as views, as models/mamba2.py passes the conv output."""
+    B, S, H, P, N, _ = case
+    x, dt, A, Bm, Cm, D = args
+    packed = torch.cat([x.flatten(-2), Bm, Cm], -1)
+    xs, Bs, Cs = packed.split([H * P, N, N], -1)
+    return xs.unflatten(-1, (H, P)), dt, A, Bs, Cs, D
 
 
 def ssd_work(case, dtype_name):
@@ -134,9 +181,30 @@ def time_ms(torch, fn, iters, reps=7):
     return statistics.median(out)
 
 
+def graph_ms(torch, fn, calls=20, reps=7):
+    """Device time of one call of `fn`: `calls` calls captured in one CUDA
+    graph, replayed between CUDA events (median of `reps`), so no host
+    dispatch sits in the timed region. A wrapper whose Python takes longer
+    than its kernels would make time_ms measure the host instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(torch, graph.replay, iters=1, reps=reps) / calls
+    del graph
+    return ms
+
+
 def device_breakdown(torch, fn, reps=3):
     """Host ms of `fn` (median of `reps`, no profiler), then one run under
-    torch.profiler: device ms by kernel name. Returns (wall_ms, {name: ms})."""
+    torch.profiler: device ms and launches by kernel name. Returns
+    (wall_ms, {name: ms}, {name: launches})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     walls = []
@@ -149,11 +217,18 @@ def device_breakdown(torch, fn, reps=3):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, counts = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return statistics.median(walls), by_name
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return statistics.median(walls), by_name, counts
+
+
+def kernel_share(by_name, counts, parts):
+    """{part: (ms, launches)} summed over every kernel name containing part."""
+    return {part: (sum(ms for k, ms in by_name.items() if part in k),
+                   sum(n for k, n in counts.items() if part in k)) for part in parts}
 
 
 def main() -> int:
@@ -167,6 +242,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
     from repro_torch.models.model import Model, init_cache
@@ -192,10 +268,12 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"  {name}: {line.strip()}")
+    report = {k: v for log in logs.values() for k, v in ptxas_report(log).items()}
+    for k, (regs, st, ld) in sorted(report.items()):
+        print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+    if report:                      # nvcc ran (no library was built before)
+        for k in ("flash_mma_kernel<64>",) + MMA_KERNELS[1:]:
+            check(k in report and report[k][1:] == [0, 0], f"{k} has no spills")
 
     phase("3. SSD-scan kernel against its plain version")
     small = [(1, 32, 2, 8, 8, 8), (2, 64, 4, 16, 16, 16),
@@ -211,14 +289,21 @@ def main() -> int:
     # is at most 2^-7 of the value, so they can land one step apart.
     err_full = None
     for case in small + serving:
-        for dname, dtype in dtypes.items():
+        for dname in list(dtypes) + ["bf16 strided"]:
+            dtype = dtypes[dname.split()[0]]
             args = ssd_inputs(torch, case, dtype)
+            if dname == "bf16 strided":
+                y_c, h_c = ssd_scan(*args, chunk=case[-1])
+                args = strided_views(torch, case, args)
             y, h = ssd_scan(*args, chunk=case[-1])
             torch.cuda.synchronize()
             y0, h0 = ssd_chunked_ref(*args, chunk=case[-1])
             ey = (y.float() - y0.float()).abs().max().item()
             eh = (h - h0).abs().max().item()
             my, mh = y0.float().abs().max().item(), h0.abs().max().item()
+            if dname == "bf16 strided":
+                check(torch.equal(y, y_c) and torch.equal(h, h_c),
+                      f"ssd_scan {case}: strided views give the contiguous call's y and state")
             if case in small:
                 tol = 3e-4 if dname == "fp32" else 4e-2
                 ok = (torch.allclose(y.float(), y0.float(), rtol=tol, atol=tol)
@@ -239,20 +324,32 @@ def main() -> int:
             check(ok, f"ssd_scan {case} {dname}")
             check(torch.isfinite(y).all().item() and torch.isfinite(h).all().item(),
                   f"ssd_scan {case} {dname} finite")
-            if case == full and dname == "bf16":
+            if case == full and dname == "bf16 strided":
                 err_full = ey
 
     phase("4. SSD-scan timing at the full-width prefill shape (bf16)")
     args = ssd_inputs(torch, full, torch.bfloat16)
-    k_ms = time_ms(torch, lambda: ssd_scan(*args, chunk=128), iters=20)
-    p_ms = time_ms(torch, lambda: ssd_chunked_ref(*args, chunk=128), iters=5, reps=5)
+    kc_ms = graph_ms(torch, lambda: ssd_scan(*args, chunk=128))
+    args = strided_views(torch, full, args)          # as the model passes them
+    k_ms = graph_ms(torch, lambda: ssd_scan(*args, chunk=128))
+    ke_ms = time_ms(torch, lambda: ssd_scan(*args, chunk=128), iters=20)
+    p_ms = graph_ms(torch, lambda: ssd_chunked_ref(*args, chunk=128), calls=5, reps=5)
     nbytes, flops = ssd_work(full, "bf16")
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS["bf16"] * 1e3
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"  kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms "
+    print(f"  kernel {k_ms:.4f} ms on strided views ({kc_ms:.4f} ms on contiguous "
+          f"tensors; eager back-to-back {ke_ms:.4f} ms), plain {p_ms:.4f} ms, "
+          f"bound {bound_ms:.5f} ms "
           f"({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; "
           f"H100 SXM peaks), {bound_ms / k_ms:.1%} of the bound")
+    # the model's entry point on the strided views: the three kernels and no copy
+    _, _, counts = device_breakdown(torch, lambda: ssd_ops.ssd(*args, chunk=128), reps=1)
+    others = [k for k in counts if not any(m in k for m in MMA_KERNELS[1:])]
+    print(f"  ops.ssd on the strided views: {sum(counts.values())} device kernels, "
+          f"{len(others)} besides the three K2 kernels")
+    check(not others and sorted(counts.values()) == [1, 1, 1],
+          "ops.ssd launches the three K2 kernels once each and copies nothing")
 
     phase("5. serve mamba2-370m at full width (48 layers, bf16 compute)")
     cfg = get_config("mamba2-370m")
@@ -303,7 +400,8 @@ def main() -> int:
           f"(mean over {len(engine.decode_s)} steps of {slots} slots), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"  ssd_scan launches {launches} = {cfg.num_layers} x {engine.n_admits} prefills "
-          "(wrapper calls; each makes two CUDA launches, cb_kernel then scan_kernel)")
+          "(wrapper calls; in bf16 each makes three CUDA launches, chunk_state_kernel, "
+          "state_pass_kernel and chunk_scan_kernel)")
     check(sorted(outs) == list(range(len(reqs))), "every request returns")
     check(all(len(v) == n_new for v in outs.values()), f"{n_new} tokens per request")
     check(all(0 <= t < cfg.vocab for v in outs.values() for t in v), "tokens within vocab")
@@ -320,7 +418,7 @@ def main() -> int:
         "decode x8": lambda: [model.decode_step(last4, cache4) for _ in range(8)],
     }
     for name, fn in windows.items():
-        wall_ms, by_name = device_breakdown(torch, fn)
+        wall_ms, by_name, counts = device_breakdown(torch, fn)
         dev_ms = sum(by_name.values())
         if not by_name:
             print(f"  {name}: host {wall_ms:.2f} ms; the profiler recorded no device "
@@ -331,11 +429,11 @@ def main() -> int:
               f"{len(by_name)} kernel names")
         for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
             print(f"    {ms:8.3f} ms  {k[:90]}")
-        k2 = {part: sum(ms for k, ms in by_name.items() if f"{part}<" in k)
-              for part in ("cb_kernel", "scan_kernel")}
-        print(f"    K2 (cb_kernel {k2['cb_kernel']:.3f} ms + scan_kernel "
-              f"{k2['scan_kernel']:.3f} ms) = {sum(k2.values()):.3f} ms, "
-              f"{sum(k2.values()) / dev_ms:.1%} of device time")
+        k2 = kernel_share(by_name, counts, MMA_KERNELS[1:])
+        k2_ms = sum(ms for ms, _ in k2.values())
+        print("    K2 (" + " + ".join(f"{k} {ms:.3f} ms x{n}" for k, (ms, n) in k2.items())
+              + f") = {k2_ms:.3f} ms, {k2_ms / dev_ms:.1%} of device time; "
+              f"{sum(n for k, n in counts.items() if 'copy' in k)} launches of copy kernels")
 
     phase("6. card against CPU on the same weights (2 layers, fp32)")
     cfg2 = dataclasses.replace(cfg, num_layers=2)
@@ -406,6 +504,22 @@ def main() -> int:
             check(torch.isfinite(out).all().item(), f"flash_attention {case} {dname} finite")
             if case == encoder and dname == "bf16":
                 err_flash = err.max().item()
+    # the bf16 tensor-core kernel at every head-dim class (BK = 64 keys up to
+    # hd = 128, 32 above; q in registers up to 128), S = 200 ragged against
+    # the 64-row tiles, under the long shapes' bf16 rule
+    mma_hds = (16, 48, 80, 128, 144, 256)
+    for case in ([(2, 200, 7, 1, hd, True, 50) for hd in mma_hds]
+                 + [(1, 200, 2, 2, hd, False, None) for hd in mma_hds]):
+        q, k, v, pos = flash_inputs(torch, case, torch.bfloat16)
+        out = flash_attention(q, k, v, causal=case[5], window=case[6])
+        torch.cuda.synchronize()
+        ref = attention_ref(q, k, v, pos, pos, causal=case[5], window=case[6]).float()
+        err = (out.float() - ref).abs()
+        mref = ref.abs().max().item()
+        ok = bool((err <= 1e-2 * ref.abs() + 1e-4 * mref).all())
+        print(f"  {case} bf16: max|d| {err.max().item():.3g} (max|ref| {mref:.3g}) "
+              f"[|d|<=1e-2|ref|+{1e-4 * mref:.3g}] {'ok' if ok else 'FAIL'}")
+        check(ok and torch.isfinite(out).all().item(), f"flash_attention {case} bf16")
     for dname, dtype in dtypes.items():
         q, k, v, _ = flash_inputs(torch, (1, 64, 2, 2, 16, True, 1), dtype)
         out = flash_attention(q, k, v, causal=True, window=1)
@@ -413,23 +527,34 @@ def main() -> int:
               f"window=1 ({dname}): each row is its own value, finite")
     print("  window=1: finite, each row equals its own value (fp32, bf16)")
 
-    phase("8. flash-attention timing at the whisper encoder's shape (bf16)")
-    q, k, v, pos = flash_inputs(torch, encoder, torch.bfloat16)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))   # BHSD, beforehand
-    fk_ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=False), iters=20)
-    fp_ms = time_ms(torch, lambda: attention_ref(q, k, v, pos, pos, causal=False),
-                    iters=5, reps=5)
-    fl_ms = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt), iters=20)
-    nbytes, flops = flash_work(encoder, "bf16")
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS["bf16"] * 1e3
-    fbound_ms = max(t_bytes, t_ops)
-    fbound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"  kernel {fk_ms:.4f} ms, plain {fp_ms:.4f} ms, "
-          f"scaled_dot_product_attention {fl_ms:.4f} ms, bound {fbound_ms:.5f} ms "
-          f"({fbound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; H100 SXM peaks), "
-          f"{fbound_ms / fk_ms:.1%} of the bound")
-    del q, k, v, qt, kt, vt
+    phase("8. flash-attention timing at the long shapes (bf16)")
+    for case in flash_long:
+        causal, window = case[5], case[6]
+        q, k, v, pos = flash_inputs(torch, case, torch.bfloat16)
+        t_ms = graph_ms(torch, lambda: flash_attention(q, k, v, causal=causal, window=window))
+        te_ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=causal, window=window),
+                        iters=20)
+        nbytes, flops = flash_work(case, "bf16")
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS["bf16"] * 1e3
+        b_ms = max(t_bytes, t_ops)
+        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        line = (f"  {case}: kernel {t_ms:.4f} ms (eager back-to-back {te_ms:.4f} ms), "
+                f"bound {b_ms:.5f} ms ({b_by}: "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; H100 SXM peaks), "
+                f"{b_ms / t_ms:.1%} of the bound")
+        if case[2] == case[3] and window is None:    # one plain SDPA call computes it
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # BHSD, beforehand
+            l_ms = graph_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))
+            line += f"; scaled_dot_product_attention {l_ms:.4f} ms"
+            del qt, kt, vt
+        if case == encoder:
+            fp_ms = graph_ms(torch, lambda: attention_ref(q, k, v, pos, pos, causal=False),
+                             calls=3, reps=5)
+            line += f"; plain {fp_ms:.4f} ms"
+            fk_ms, fl_ms, fbound_ms, fbound_by = t_ms, l_ms, b_ms, b_by
+        print(line)
+        del q, k, v
 
     phase("9. serve whisper-small at full width (12 + 12 layers, bf16 compute)")
     cfg_w = get_config("whisper-small")
@@ -494,19 +619,19 @@ def main() -> int:
                               for i in range(8)],
     }
     for name, fn in windows_w.items():
-        wall_ms, by_name = device_breakdown(torch, fn)
+        wall_ms, by_name, counts = device_breakdown(torch, fn)
         dev_ms = sum(by_name.values())
         if not by_name:
             print(f"  {name}: host {wall_ms:.2f} ms; the profiler recorded no device time "
                   "(device share not measured)")
             continue
-        k1 = sum(ms for k, ms in by_name.items() if "flash_kernel<" in k)
+        k1, k1_n = kernel_share(by_name, counts, ("flash_mma_kernel",))["flash_mma_kernel"]
         print(f"  {name} (B={n_req}): host {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
               f"({dev_ms / wall_ms:.1%}; idle {1 - dev_ms / wall_ms:.1%}), "
               f"{len(by_name)} kernel names")
         for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             print(f"    {ms:8.3f} ms  {k[:90]}")
-        print(f"    K1 flash_kernel {k1:.3f} ms, {k1 / dev_ms:.1%} of device time")
+        print(f"    K1 flash_mma_kernel {k1:.3f} ms x{k1_n}, {k1 / dev_ms:.1%} of device time")
     del model_w
 
     phase("10. card against CPU on the same weights (whisper, 2 + 2 layers, fp32)")

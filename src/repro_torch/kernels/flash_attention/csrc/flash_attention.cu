@@ -6,37 +6,60 @@
 //   o[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, h / rep]) v[b, j, h / rep]
 // over the keys j that the mask keeps: j < Skv, j <= i when causal, and
 // j > i - window when a window is given. GQA maps query head h to KV head
-// h / rep (rep = Hq / Hkv) without repeating K or V. As on the TPU: q is
-// scaled in fp32, scores and the softmax state (m, l, acc) are fp32, masked
-// scores are -1e30 and their p is 0, l is clamped at 1e-30 (an empty row
-// gives 0, not NaN), and the output is cast to q's dtype.
+// h / rep (rep = Hq / Hkv) without repeating K or V. As on the TPU: scores
+// and the softmax state (m, l, acc) are fp32, masked scores are -1e30 and
+// their p is 0, l is clamped at 1e-30 (an empty row gives 0, not NaN), and
+// the output is cast to q's dtype.
+//
+// Two kernels, chosen by a fixed rule on the dtype (not a fallback: each
+// dtype reaches exactly one kernel, and a failed launch is returned):
+//   * bfloat16 -> flash_mma_kernel, products on the tensor cores;
+//   * float32  -> flash_kernel, products as fp32 FMAs on the CUDA cores, so
+//     fp32 inputs stay IEEE fp32 (TF32 would miss the JAX tests' 2e-5).
 //
 // What bounds it on this card: at the whisper encoder's shape (B=4, S=1500,
 // 12 heads of 64, bf16) the function does 2.8e10 FLOP on 37 MB, so its least
 // time is set by operations (0.028 ms at the tensor cores' 989 TFLOP/s).
-// This first version computes in fp32 on the CUDA cores (no wgmma, no TMA),
-// whose rate is 67 TFLOP/s, so it runs well above that bound; PERF.md keeps
-// its time.
 //
-// Design (the TPU grid (B, Hq, nQ, nK) carries m, l, acc in VMEM across the
-// sequential nK axis; here the K loop runs inside one block instead):
-//   * one block per (64-row q tile, b * Hq + h); tiles with the most causal
-//     work are scheduled first. 256 threads as 16 x 16: thread (ty, tx) owns
-//     rows 4*ty .. 4*ty+3, score columns tx + 16*j of each 64-key tile and
-//     HD/16 output columns, so m, l and acc live in registers for the whole
-//     K loop (HD is a template argument: 16 .. 256 in steps of 16).
-//   * the q tile (scaled fp32), one K tile, one V tile (fp32) and the P tile
-//     sit in dynamic shared memory: 69 KB at HD=64, 217 KB at HD=256, above
-//     the 48 KB default, so the launcher raises the limit once per device.
-//     Row pitches of HD+4 floats let the float4 reads of 16 different rows
-//     fall on distinct banks.
-//   * q, k, v, o are read and written in place in BSHD through their batch
-//     and row strides (the head stride is HD, the element stride 1); nothing
-//     is transposed or copied.
-//   * the live key range of a tile comes from causal, window and Skv; tiles
-//     outside it are skipped, and the in-tile mask handles the rest. Rows of
-//     a ragged q tail are zero in shared memory and never written; keys past
-//     Skv are zero in shared memory and masked.
+// flash_mma_kernel (bf16). Grid (ceil(Sq/64), B*Hq), tiles with the most
+// causal work first; 4 warps, each owning 16 of the block's 64 query rows.
+//   * Q is staged once by cp.async; for hd <= 128 it goes to registers as
+//     A fragments (ldmatrix.x4) for the whole K loop, above that it is
+//     re-read from shared memory per K tile so the fp32 O accumulator
+//     (16 x hd per warp) fits in registers.
+//   * K and V tiles (64 keys for hd <= 128, 32 above) are double-buffered
+//     by cp.async.cg 16-byte copies: tile j+1 is in flight while tile j is
+//     computed. Rows are padded by 16 bytes, so the 8 row addresses of an
+//     ldmatrix fall on distinct banks. Keys at or past Skv and q rows at or
+//     past Sq are zero-filled (src-size 0), so no stale value meets p = 0.
+//   * S = Q K^T by mma.sync m16n8k16 (bf16 in, fp32 accumulate); K is read
+//     with ldmatrix, since it is [key][d] already. The scale (times log2 e)
+//     is applied to the fp32 scores, not folded into bf16 q, which would
+//     round q unless the scale were a power of two.
+//   * Online softmax in registers: a row lives in a quad of 4 lanes of the
+//     accumulator layout, so its max and sum reduce with __shfl_xor over 1
+//     and 2. The exponential is ex2.approx.ftz.f32 (relative error ~2^-22,
+//     the hardware unit exp2f also uses, without exp2f's handling of
+//     subnormal results: those flush to 0, where p would be below 1e-38
+//     anyway) on the scores pre-scaled by log2 e.
+//   * O += P V with P split into two bf16 terms, p_hi = bf16(p) and
+//     p_lo = bf16(p - p_hi): one bf16 P would round p to 8 bits and miss
+//     the bf16 rule at long rows (PERF.md); the two products into the same
+//     fp32 accumulator keep ~16 bits, for 1.5x the tensor-core work. The S
+//     accumulator registers become the A fragments (the FlashAttention-2
+//     register layout); V is read with ldmatrix.trans.
+//   * Epilogue: l reduced over the quad and clamped at 1e-30, O cast to
+//     bf16 once; rows of a ragged q tail are never written.
+//
+// flash_kernel (fp32), the first version: 256 threads as 16 x 16, thread
+// (ty, tx) owns rows 4*ty .. 4*ty+3, score columns tx + 16*j of each 64-key
+// tile and HD/16 output columns; q (scaled), K, V and P tiles in fp32
+// shared memory with pitches of HD+4 floats.
+//
+// Both: HD is a template argument (16 .. 256 in steps of 16); q, k, v, o
+// are read and written in place in BSHD through their batch and row strides
+// (head stride HD, element stride 1); the live key range of a tile comes
+// from causal, window and Skv, and tiles outside it are skipped.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -45,19 +68,15 @@
 namespace {
 
 constexpr int kBQ = 64;         // query rows per block
+constexpr float kNegInf = -1e30f;
+
+// ---------------------------------------------------------------------------
+// fp32: flash_kernel on the CUDA cores
+// ---------------------------------------------------------------------------
+
 constexpr int kBK = 64;         // keys per tile
 constexpr int kThreads = 256;   // 16 row groups x 16 column groups
 constexpr int kPP = kBK + 4;    // row pitch of the P tile
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 constexpr size_t smem_bytes(int hd) {
   return sizeof(float) * ((size_t)(kBQ + 2 * kBK) * (hd + 4) + (size_t)kBQ * kPP);
@@ -78,22 +97,22 @@ __device__ __forceinline__ void load_vec(const float* p, float* out) {
 
 // Copy rows [r0, r0 + rows) of one head of a BSHD tensor into a (rows, HD)
 // fp32 tile of pitch HD+4, times `mul`; rows at or past `n` are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int64_t rs,
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int64_t rs,
                                           int r0, int rows, int n, float mul) {
   for (int idx = threadIdx.x; idx < rows * HD; idx += kThreads) {
     const int r = idx / HD, d = idx % HD;
     const int s = r0 + r;
-    dst[r * (HD + 4) + d] = s < n ? to_f(src[(int64_t)s * rs + d]) * mul : 0.f;
+    dst[r * (HD + 4) + d] = s < n ? src[(int64_t)s * rs + d] * mul : 0.f;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int Sq, int Skv, int Hq, int rep, int64_t qsb, int64_t qss,
-             int64_t ksb, int64_t kss, int64_t vsb, int64_t vss, int64_t osb, int64_t oss,
-             float scale, int causal, int window) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv, int Hq,
+             int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss, int64_t vsb,
+             int64_t vss, int64_t osb, int64_t oss, float scale, int causal, int window) {
   constexpr int P = HD + 4;
   constexpr int NC = HD / 16;                        // output columns per thread
   constexpr int VEC = NC % 4 == 0 ? 4 : (NC % 2 == 0 ? 2 : 1);
@@ -107,9 +126,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int b = blockIdx.y / Hq, h = blockIdx.y % Hq;
-  const T* kb = k + b * ksb + (int64_t)(h / rep) * HD;
-  const T* vb = v + b * vsb + (int64_t)(h / rep) * HD;
-  load_tile<T, HD>(qs, q + b * qsb + (int64_t)h * HD, qss, q0, kBQ, Sq, scale);
+  const float* kb = k + b * ksb + (int64_t)(h / rep) * HD;
+  const float* vb = v + b * vsb + (int64_t)(h / rep) * HD;
+  load_tile<HD>(qs, q + b * qsb + (int64_t)h * HD, qss, q0, kBQ, Sq, scale);
 
   // keys that some row of this tile may attend to: [k_begin, k_end)
   int k_end = Skv;
@@ -127,8 +146,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   for (int k0 = k_begin / kBK * kBK; k0 < k_end; k0 += kBK) {
     __syncthreads();                // the previous tile's reads are done
-    load_tile<T, HD>(ks, kb, kss, k0, kBK, Skv, 1.f);
-    load_tile<T, HD>(vs, vb, vss, k0, kBK, Skv, 1.f);
+    load_tile<HD>(ks, kb, kss, k0, kBK, Skv, 1.f);
+    load_tile<HD>(vs, vb, vss, k0, kBK, Skv, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -217,13 +236,277 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int s = q0 + 4 * ty + i;
     if (s >= Sq) continue;          // ragged q tail: not written
     const float den = fmaxf(li, 1e-30f);
-    T* orow = o + b * osb + (int64_t)s * oss + (int64_t)h * HD + VEC * tx;
+    float* orow = o + b * osb + (int64_t)s * oss + (int64_t)h * HD + VEC * tx;
 #pragma unroll
     for (int n = 0; n < NV; ++n)
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) orow[16 * VEC * n + e] = from_f<T>(acc[i][n * VEC + e] / den);
+      for (int e = 0; e < VEC; ++e) orow[16 * VEC * n + e] = acc[i][n * VEC + e] / den;
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16: flash_mma_kernel on the tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kMmaThreads = 128;   // 4 warps x 16 query rows
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; src_bytes = 0 writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values as one bf16x2 register (x in the low half) and the
+// rounding residues: hi + lo carries ~16 bits of each value
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const __nv_bfloat162 r =
+      __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// 2^x, relative error ~2^-22; a result below 2^-126 is 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int HD>
+struct MmaCfg {
+  static constexpr int BK = HD <= 128 ? 64 : 32;     // keys per tile
+  static constexpr int PITCH = HD + 8;               // bf16 per shared row (+16 bytes)
+  static constexpr bool Q_IN_REGS = HD <= 128;
+  static constexpr int KD = HD / 16;                 // k-steps over d
+  static constexpr int NS = BK / 8;                  // score n-tiles per warp
+  static constexpr int NO = HD / 8;                  // output n-tiles per warp
+  static constexpr size_t SMEM = sizeof(bf16) * (size_t)(kBQ + 4 * BK) * PITCH;
+};
+
+// rows [r0, r0 + ROWS) of one head (HD contiguous bf16 per row) into a
+// shared tile of pitch PITCH; rows at or past n are zero-filled
+template <int HD, int ROWS>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int64_t rs,
+                                           int r0, int n) {
+  constexpr int CH = HD / 8;                          // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += kMmaThreads) {
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = r0 + r < n;
+    const bf16* s = ok ? src + (int64_t)(r0 + r) * rs + 8 * c : src;
+    cp_async16(dst + r * MmaCfg<HD>::PITCH + 8 * c, s, ok ? 16 : 0);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv, int Hq,
+                 int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss, int64_t vsb,
+                 int64_t vss, int64_t osb, int64_t oss, float scale_log2, int causal,
+                 int window) {
+  using C = MmaCfg<HD>;
+  constexpr int BK = C::BK, PITCH = C::PITCH;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kBQ][PITCH]
+  bf16* ks = qs + kBQ * PITCH;                    // [2][BK][PITCH]
+  bf16* vs = ks + 2 * BK * PITCH;                 // [2][BK][PITCH]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq;
+  const bf16* kb = k + b * ksb + (int64_t)(h / rep) * HD;
+  const bf16* vb = v + b * vsb + (int64_t)(h / rep) * HD;
+
+  // keys that some row of this tile may attend to: [k_begin, k_end)
+  int k_end = Skv;
+  if (causal) k_end = min(k_end, min(q0 + kBQ, Sq));
+  const int k_begin = window >= 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
+
+  stage_rows<HD, kBQ>(qs, q + b * qsb + (int64_t)h * HD, qss, q0, Sq);
+  if (t_begin < t_end) {
+    stage_rows<HD, BK>(ks, kb, kss, t_begin * BK, Skv);
+    stage_rows<HD, BK>(vs, vb, vss, t_begin * BK, Skv);
+  }
+  cp_async_commit();
+
+  // the warp's rows, and per-lane offsets of the ldmatrix addresses
+  const int wr0 = q0 + 16 * warp;                 // first row of the warp
+  const int row_lo = wr0 + lane / 4, row_hi = row_lo + 8;
+  const int a_row = lane % 16, a_col = (lane / 16) * 8;                    // A, plain
+  const int b_row = (lane % 8) + (lane / 16) * 8, b_col = ((lane / 8) % 2) * 8;   // B, plain
+  const int t_row = (lane % 8) + ((lane / 8) % 2) * 8, t_col = (lane / 16) * 8;  // B, trans
+
+  float acc[C::NO][4];
+#pragma unroll
+  for (int j = 0; j < C::NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  uint32_t qf[C::Q_IN_REGS ? C::KD : 1][4];
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    if (t + 1 < t_end) {
+      stage_rows<HD, BK>(ks + (buf ^ 1) * BK * PITCH, kb, kss, (t + 1) * BK, Skv);
+      stage_rows<HD, BK>(vs + (buf ^ 1) * BK * PITCH, vb, vss, (t + 1) * BK, Skv);
+    }
+    cp_async_commit();              // possibly empty: keeps the group count uniform
+    cp_async_wait<1>();             // Q and tile t have landed
+    __syncthreads();
+    const bf16* kt = ks + buf * BK * PITCH;
+    const bf16* vt = vs + buf * BK * PITCH;
+    if constexpr (C::Q_IN_REGS) {
+      if (t == t_begin) {
+#pragma unroll
+        for (int kd = 0; kd < C::KD; ++kd)
+          ldmatrix_x4(qf[kd], qs + (16 * warp + a_row) * PITCH + 16 * kd + a_col);
+      }
+    }
+
+    // S = Q K^T (fp32)
+    float s[C::NS][4];
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < C::KD; ++kd) {
+      uint32_t a[4];
+      if constexpr (C::Q_IN_REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qf[kd][i];
+      } else {
+        ldmatrix_x4(a, qs + (16 * warp + a_row) * PITCH + 16 * kd + a_col);
+      }
+#pragma unroll
+      for (int jj = 0; jj < C::NS / 2; ++jj) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, kt + (16 * jj + b_row) * PITCH + 16 * kd + b_col);
+        mma_bf16(s[2 * jj], a, bk[0], bk[1]);
+        mma_bf16(s[2 * jj + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // scale, mask, online softmax; element e of n-tile j sits at row
+    // (e < 2 ? row_lo : row_hi), key k0 + 8 j + 2 (lane % 4) + (e & 1)
+    const int k0 = t * BK;
+    const bool need_mask = k0 + BK > Skv || (causal && k0 + BK - 1 > wr0) ||
+                           (window >= 0 && k0 <= wr0 + 15 - window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (need_mask) {
+          const int kp = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+          const int qp = e < 2 ? row_lo : row_hi;
+          const bool keep =
+              kp < Skv && (!causal || kp <= qp) && (window < 0 || kp > qp - window);
+          x = keep ? x : kNegInf;
+        }
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2_ftz(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // a masked score is exactly kNegInf; its p is 0 even in a row whose
+        // every score so far is masked (m = kNegInf)
+        const float p = s[j][e] == kNegInf ? 0.f : exp2_ftz(s[j][e] - m[e / 2]);
+        s[j][e] = p;
+        rs[e / 2] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];   // this lane's part
+#pragma unroll
+    for (int j = 0; j < C::NO; ++j) {
+      acc[j][0] *= alpha[0]; acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1]; acc[j][3] *= alpha[1];
+    }
+
+    // O += (P_hi + P_lo) V: score n-tiles 2 kk and 2 kk + 1 are the A
+    // fragment of keys 16 kk .. 16 kk + 15
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split2(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split2(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dd = 0; dd < HD / 16; ++dd) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, vt + (16 * kk + t_row) * PITCH + 16 * dd + t_col);
+        mma_bf16(acc[2 * dd], ph, bv[0], bv[1]);
+        mma_bf16(acc[2 * dd], pl, bv[0], bv[1]);
+        mma_bf16(acc[2 * dd + 1], ph, bv[2], bv[3]);
+        mma_bf16(acc[2 * dd + 1], pl, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();                // tile t's buffer may be refilled next
+  }
+  cp_async_wait<0>();
+
+  // epilogue: the quad's row sums, one cast, ragged rows unwritten
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int row = i == 0 ? row_lo : row_hi;
+    if (row >= Sq) continue;
+    const float inv = 1.f / fmaxf(li, 1e-30f);
+    bf16* orow = o + b * osb + (int64_t)row * oss + (int64_t)h * HD + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < C::NO; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v;
@@ -235,57 +518,83 @@ struct Args {
   cudaStream_t st;
 };
 
-template <typename T, int HD>
-int launch(const Args& a) {
-  // the attribute belongs to the device: raise it once per device
-  static int attr_dev = -1;
+// the attribute belongs to the device: raise it once per device and kernel
+template <typename K>
+cudaError_t raise_smem_limit(K kernel, size_t bytes, int& attr_dev) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || dev == attr_dev) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) attr_dev = dev;
+  return e;
+}
+
+template <int HD>
+int launch_fp32(const Args& a) {
+  static int attr_dev = -1;
+  cudaError_t e = raise_smem_limit(flash_kernel<HD>, smem_bytes(HD), attr_dev);
   if (e != cudaSuccess) return (int)e;
-  if (dev != attr_dev) {
-    e = cudaFuncSetAttribute(flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes(HD));
-    if (e != cudaSuccess) return (int)e;
-    attr_dev = dev;
-  }
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.Hq);
-  flash_kernel<T, HD><<<grid, kThreads, smem_bytes(HD), a.st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.o), a.Sq, a.Skv, a.Hq, a.rep, a.qsb, a.qss, a.ksb, a.kss, a.vsb,
-      a.vss, a.osb, a.oss, a.scale, a.causal, a.window);
+  flash_kernel<HD><<<grid, kThreads, smem_bytes(HD), a.st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.Sq, a.Skv, a.Hq, a.rep,
+      a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.osb, a.oss, a.scale, a.causal, a.window);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int hd, const Args& a) {
+template <int HD>
+int launch_bf16(const Args& a) {
+  static int attr_dev = -1;
+  cudaError_t e = raise_smem_limit(flash_mma_kernel<HD>, MmaCfg<HD>::SMEM, attr_dev);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.Hq);
+  const float scale_log2 = (float)((double)a.scale * 1.4426950408889634);
+  flash_mma_kernel<HD><<<grid, kMmaThreads, MmaCfg<HD>::SMEM, a.st>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.Sq, a.Skv, a.Hq, a.rep,
+      a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.osb, a.oss, scale_log2, a.causal,
+      a.window);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch(int dtype, const Args& a) {
+  if (dtype == 0) return launch_fp32<HD>(a);
+  if (dtype == 1) return launch_bf16<HD>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch(int hd, int dtype, const Args& a) {
   switch (hd) {
-    case 16: return launch<T, 16>(a);
-    case 32: return launch<T, 32>(a);
-    case 48: return launch<T, 48>(a);
-    case 64: return launch<T, 64>(a);
-    case 80: return launch<T, 80>(a);
-    case 96: return launch<T, 96>(a);
-    case 112: return launch<T, 112>(a);
-    case 128: return launch<T, 128>(a);
-    case 144: return launch<T, 144>(a);
-    case 160: return launch<T, 160>(a);
-    case 176: return launch<T, 176>(a);
-    case 192: return launch<T, 192>(a);
-    case 208: return launch<T, 208>(a);
-    case 224: return launch<T, 224>(a);
-    case 240: return launch<T, 240>(a);
-    case 256: return launch<T, 256>(a);
+    case 16: return launch<16>(dtype, a);
+    case 32: return launch<32>(dtype, a);
+    case 48: return launch<48>(dtype, a);
+    case 64: return launch<64>(dtype, a);
+    case 80: return launch<80>(dtype, a);
+    case 96: return launch<96>(dtype, a);
+    case 112: return launch<112>(dtype, a);
+    case 128: return launch<128>(dtype, a);
+    case 144: return launch<144>(dtype, a);
+    case 160: return launch<160>(dtype, a);
+    case 176: return launch<176>(dtype, a);
+    case 192: return launch<192>(dtype, a);
+    case 208: return launch<208>(dtype, a);
+    case 224: return launch<224>(dtype, a);
+    case 240: return launch<240>(dtype, a);
+    case 256: return launch<256>(dtype, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, o (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd); dtype 0 = float32, 1 = bfloat16
-// for all four. Strides in elements: *sb between batches, *ss between rows;
-// the head stride must be hd and the element stride 1. window < 0 = none.
-// Requires hd in 16..256 a multiple of 16, Hq % Hkv == 0, Sq >= 1,
-// B * Hq <= 65535. Returns cudaGetLastError().
+// q, o (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd); dtype 0 = float32 (flash_kernel),
+// 1 = bfloat16 (flash_mma_kernel) for all four. Strides in elements: *sb
+// between batches, *ss between rows; the head stride must be hd and the
+// element stride 1; for bfloat16 the pointers and the batch and row strides
+// must be 16-byte aligned. window < 0 = none. Requires hd in 16..256 a
+// multiple of 16, Hq % Hkv == 0, Sq >= 1, B * Hq <= 65535.
+// Returns cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int Sq, int Skv, int Hq, int Hkv, int hd,
                                       long long qsb, long long qss, long long ksb,
@@ -296,7 +605,5 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, B, Sq, Skv, Hq, Hq / Hkv, qsb, qss, ksb, kss, vsb, vss, osb, oss,
                scale, causal, window, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch<float>(hd, a);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(hd, a);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(hd, dtype, a);
 }

@@ -7,6 +7,12 @@ sends CPU tensors to the plain version instead. q, k, v are read in place
 through their batch and row strides (each head's hd values must be
 contiguous, as they are after a reshape of a projection).
 `flash_attention.launches` counts the launches.
+
+The dtype picks the kernel, by a fixed rule and not as a fallback:
+bfloat16 goes to `flash_mma_kernel` (tensor cores, cp.async staging, so its
+pointers and batch and row strides must be 16-byte aligned, or the wrapper
+raises), float32 to `flash_kernel` (fp32 FMAs on the CUDA cores, so fp32
+stays IEEE fp32).
 """
 from __future__ import annotations
 
@@ -64,6 +70,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.stride(3) != 1 or t.stride(2) != hd:
             raise ValueError(f"flash_attention: {name} needs head stride hd and element "
                              f"stride 1, got strides {t.stride()}")
+        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(
+                t.shape[d] > 1 and t.stride(d) % 8 for d in (0, 1))):
+            raise ValueError(f"flash_attention: bf16 {name} needs a 16-byte aligned pointer "
+                             f"and batch and row strides, got pointer {t.data_ptr():#x} "
+                             f"and strides {t.stride()}")
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     if Sq == 0:
         return out

@@ -1,4 +1,4 @@
-// Mamba-2 chunked SSD scan for Hopper (sm_90a), CUDA C++ with a plain C entry point.
+// Mamba-2 chunked SSD scan for Hopper (sm_90a), CUDA C++ with plain C entry points.
 //
 // Replaces the Pallas TPU kernel `ssd_scan` / `_ssd_kernel` of
 // src/repro/kernels/ssd_scan/kernel.py. Same function: per (batch b, head h),
@@ -9,29 +9,52 @@
 // plus the D skip, added in fp32 before the single cast of y to x's dtype
 // (the TPU wrapper casts first and adds D after; see ref.py).
 //
+// The dtype picks the kernels, by a fixed rule and not as a fallback:
+//   * bfloat16 (ssd_scan_bf16_launch): chunk_state_kernel, state_pass_kernel,
+//     chunk_scan_kernel, with the products on the tensor cores;
+//   * float32 (ssd_scan_fp32_launch): cb_kernel then scan_kernel, fp32 FMAs
+//     on the CUDA cores, so fp32 stays IEEE fp32.
+//
 // What bounds it on this card: at the serving shapes (B=1, S<=1024, H=32,
 // P=64, N=128, Q=128) the function moves ~10 MB and does ~1.6 GFLOP, so its
 // least time is set by device-memory bytes (~3 us at 3.35 TB/s), not by the
-// tensor cores. This first version computes in fp32 on the CUDA cores (no
-// wgmma, no TMA), which puts it far above that bound; PERF.md keeps its time.
+// tensor cores.
 //
-// Design (the TPU kernel's sequential chunk grid axis becomes a loop inside
-// one block; nothing is carried between blocks):
-//   * cb_kernel: C.B^T is shared by all heads, so it is computed once per
-//     (b, chunk, 32x32 tile of the lower triangle) into an fp32 scratch
-//     (B, nc, Q, Q) that stays in L2, instead of once per head.
-//   * scan_kernel: one block per (b, h, slice of 16 head channels), so B=1
-//     still gives 4*H = 128 blocks for the 132 SMs. The block walks the
-//     chunks in order. Its (16, N) slice of the state lives in registers
-//     across the loop (8 values a thread) and is mirrored to shared memory
-//     for the inter-chunk product; the (Q, Q) decay tile, the chunk's B, C
-//     and x live only in shared memory (~216 KB at Q=N=128, dynamic, after
-//     cudaFuncSetAttribute). Row strides are padded so that the float4 reads
-//     of the inner products hit distinct banks.
-//   * Any Q <= 128 and any S: the ragged tail of the last chunk is masked as
-//     if padded with dt = 0 (zero x, B, C), which is the same function, and
-//     its rows of y are not written. Loops run to Q rounded up to 4, over
-//     zeroed entries.
+// bf16 design: the TPU kernel's sequential chunk axis is split chunk-parallel
+// (three launches, all scratch fp32 and allocated by the wrapper):
+//   1. chunk_state_kernel, grid (nc, H, B x 64-channel slices): the chunk's
+//      cumsum L (warp scan), x'_s = exp(L_Q - L_s) dt_s x_s in fp32 split
+//      into hi + lo bf16, and S_c = x'^T B by mma.sync m16n8k16 (bf16 in,
+//      fp32 accumulate), written to states (B, nc, H, P, N); L_Q to lq.
+//   2. state_pass_kernel, grid over (P N / 1024, H, B): walks the chunks in
+//      order, h <- exp(L_Q,c) h + S_c, writing h_prev over S_c in place and
+//      the final state. Elementwise and bound by bytes (L2 at these sizes).
+//   3. chunk_scan_kernel, grid (nc, H, B x 64- or 32-channel slices; 32 when
+//      64 would leave SMs idle): warp w owns rows [16 w, 16 w + 16). One pass
+//      over n gives C B^T on s <= t (exact: bf16 products, fp32 sums) and
+//      C h_prev^T with h_prev split hi + lo; then M = (C B^T) o
+//      exp(L_t - L_s) o dt_s is formed in fp32 from the accumulator
+//      registers, split hi + lo, and used as the A fragments of M x (the
+//      FlashAttention-2 register layout); + D x in fp32, one cast, each y
+//      written once.
+// x, B and C are bf16 already and a product of two bf16 is exact in fp32, so
+// only the fp32 factor of each product (x', M, h_prev) is split: one bf16
+// would round it to 8 bits and miss the bf16 rule at the serving shape
+// (PERF.md); hi + lo keeps ~16 bits for twice the tensor-core work.
+// Tiles are staged by cp.async (16-, 8- or 4-byte copies, the widest the
+// pointers and strides allow, zero-filled past the chunk's rows) into rows
+// padded by 16 bytes, so ldmatrix is free of bank conflicts. x, B and C are
+// read through their batch and row strides: the split views of the conv
+// output need no copy. Any Q <= 128, any S (ragged rows act as padding with
+// dt = 0: zero x, B, C, excluded from M, never written), any P (64-channel
+// slices, padded to 16), N <= 128 with N % 4 == 0 (padded to 32).
+//
+// fp32 design, the first version: cb_kernel computes C.B^T once per
+// (b, chunk, 32x32 tile of the lower triangle) into an fp32 scratch shared
+// by all heads; scan_kernel runs one block per (b, h, 16 head channels),
+// walks the chunks in order with its (16, N) state slice in registers and
+// the decay tile, B, C and x in ~216 KB of dynamic shared memory. Inputs
+// contiguous.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -46,13 +69,9 @@ constexpr int kThreads = 256;
 constexpr int kTile = 32;     // cb_kernel output tile
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // cb[b, c, t, s] = C_t . B_s for one 32x32 tile of chunk c (tiles above the
 // diagonal are skipped: scan_kernel reads only s <= t).
@@ -285,21 +304,469 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: chunk_state_kernel -> state_pass_kernel -> chunk_scan_kernel, with
+// the products on the tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kPB = 64;           // head channels per block (chunk_scan may take 32)
+constexpr int kXP = kPB + 8;      // bf16 pitch of an x tile (+16 bytes: no bank conflicts)
+constexpr int kMmaThreads = 256;  // 8 warps
+
+__host__ __device__ constexpr int round_up(int a, int m) { return (a + m - 1) / m * m; }
+// padded sizes: Q and P to the mma's 16, N to 32 (chunk_state's strips);
+// shared rows of N values get 8 bf16 of padding, as x tiles do
+__host__ __device__ constexpr int pad_n(int N) { return round_up(N, 32) + 8; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values as one bf16x2 register (x in the low half) and the
+// rounding residues: hi + lo carries ~16 bits of each value
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Stage a (rows, wpad) bf16 tile of pitch `pitch`: element (r, c) is
+// src[r * rs + c] for r < nvalid and c < width, else 0. `vec` bf16 go per
+// copy (8, 4 or 2 by cp.async with zero-fill for the rest; 1 by plain
+// loads); the launcher picks the widest that the pointer, the strides and
+// width allow. wpad is a multiple of 16.
+__device__ __forceinline__ void stage(bf16* dst, int pitch, const bf16* __restrict__ src,
+                                      int64_t rs, int rows, int nvalid, int width, int wpad,
+                                      int vec) {
+  const int per_row = wpad / vec;
+  for (int idx = threadIdx.x; idx < rows * per_row; idx += kMmaThreads) {
+    const int r = idx / per_row, c = (idx % per_row) * vec;
+    const bool ok = r < nvalid && c < width;
+    const bf16* s = ok ? src + (int64_t)r * rs + c : src;
+    bf16* d = dst + r * pitch + c;
+    const int bytes = ok ? 2 * vec : 0;
+    if (vec == 8) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   :: "r"(smem_addr(d)), "l"(s), "r"(bytes));
+    } else if (vec == 4) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                   :: "r"(smem_addr(d)), "l"(s), "r"(bytes));
+    } else if (vec == 2) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                   :: "r"(smem_addr(d)), "l"(s), "r"(bytes));
+    } else {
+      *d = ok ? *s : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// dt of the chunk's rows (0 past its nv valid rows) and the inclusive
+// cumsum L of dt*A, by the first 4 warps; the caller syncs after
+__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ dt, int64_t row0, int H,
+                                             int h, float a, int nv, float* dts, float* cum,
+                                             float* wtot) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float v = 0.f;
+  if (tid < kQMax) {
+    const float d = tid < nv ? dt[(row0 + tid) * H + h] : 0.f;
+    dts[tid] = d;
+    v = d * a;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += u;
+    }
+    if (lane == 31) wtot[warp] = v;
+  }
+  __syncthreads();
+  if (tid < kQMax) {
+    for (int w = 0; w < warp; ++w) v += wtot[w];
+    cum[tid] = v;
+  }
+}
+
+struct Bf16Args {
+  const bf16 *x, *Bm, *Cm;
+  const float *dt, *A, *D;
+  bf16* y;
+  float *state, *states, *lq;
+  int Bsz, S, H, P, N, Q, nc;
+  int64_t xsb, xss, bsb, bss, csb, css;
+  int vx, vb, vc;                // copy widths (bf16 per copy)
+};
+
+constexpr size_t chunk_state_smem(int Qp, int N) {
+  return 2 * sizeof(bf16) * (size_t)Qp * kXP + sizeof(bf16) * (size_t)Qp * pad_n(N) +
+         sizeof(float) * (3 * kQMax + 4);
+}
+
+// S_c = x'^T B over the chunk, x'_s = exp(L_Q - L_s) dt_s x_s (fp32, split
+// into hi + lo bf16), for one (chunk, head, batch, slice of kPB channels).
+// Grid (nc, H, Bsz * ceil(P / kPB)). Writes S_c to states (Bsz, nc, H, P, N)
+// and L_Q to lq (Bsz, nc, H).
+__global__ void __launch_bounds__(kMmaThreads)
+chunk_state_kernel(Bf16Args a) {
+  const int c = blockIdx.x, h = blockIdx.y;
+  const int npb = (a.P + kPB - 1) / kPB;
+  const int b = blockIdx.z / npb, p0 = (blockIdx.z % npb) * kPB;
+  const int pw = min(kPB, a.P - p0), Pp = round_up(pw, 16);
+  const int Qp = round_up(a.Q, 16), Np = round_up(a.N, 32), NP = pad_n(a.N);
+  const int nv = min(a.Q, a.S - c * a.Q);
+  const int64_t row0 = (int64_t)b * a.S + (int64_t)c * a.Q;   // first token of the chunk
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xh = reinterpret_cast<bf16*>(smem_raw);     // [Qp][kXP]  x, then x'_hi
+  bf16* xl = xh + Qp * kXP;                          // [Qp][kXP]  x'_lo
+  bf16* bs = xl + Qp * kXP;                          // [Qp][NP]   B
+  float* dts = reinterpret_cast<float*>(bs + Qp * NP);
+  float* cum = dts + kQMax;
+  float* ws = cum + kQMax;
+  float* wtot = ws + kQMax;
+
+  const int64_t tok = (int64_t)c * a.Q;
+  stage(xh, kXP, a.x + b * a.xsb + tok * a.xss + (int64_t)h * a.P + p0, a.xss, Qp, nv, pw, Pp,
+        a.vx);
+  stage(bs, NP, a.Bm + b * a.bsb + tok * a.bss, a.bss, Qp, nv, a.N, Np, a.vb);
+  cp_async_commit();
+  chunk_cumsum(a.dt, row0, a.H, h, a.A[h], nv, dts, cum, wtot);
+  __syncthreads();
+  const float lq = cum[a.Q - 1];
+  if (threadIdx.x < kQMax) ws[threadIdx.x] = expf(lq - cum[threadIdx.x]) * dts[threadIdx.x];
+  if (threadIdx.x == 0 && p0 == 0) a.lq[((int64_t)b * a.nc + c) * a.H + h] = lq;
+  cp_async_wait_all();
+  __syncthreads();
+
+  // x' = w_s x_s in fp32, split into hi (in place of x) and lo, two at a time
+  for (int idx = threadIdx.x; idx < Qp * Pp / 2; idx += kMmaThreads) {
+    const int s = idx / (Pp / 2), p = 2 * (idx % (Pp / 2));
+    __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(xh + s * kXP + p);
+    const float2 xv = __bfloat1622float2(*hp);
+    uint32_t hi, lo;
+    split2(ws[s] * xv.x, ws[s] * xv.y, hi, lo);
+    *reinterpret_cast<uint32_t*>(hp) = hi;
+    *reinterpret_cast<uint32_t*>(xl + s * kXP + p) = lo;
+  }
+  __syncthreads();
+
+  // (Pp x Np) in strips of 16 channels x 32 states, spread over the warps.
+  // A = x'^T (p, s) and B (s, n) are both stored s-major: ldmatrix.trans.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int a_s = (lane % 8) + (lane / 16) * 8, a_p = ((lane / 8) % 2) * 8;
+  const int t_s = (lane % 8) + ((lane / 8) % 2) * 8, t_n = (lane / 16) * 8;
+  const int n_strips = Np / 32;
+  float* out = a.states + (((int64_t)b * a.nc + c) * a.H + h) * a.P * a.N;
+  for (int strip = warp; strip < (Pp / 16) * n_strips; strip += kMmaThreads / 32) {
+    const int pt = 16 * (strip / n_strips), nt = 32 * (strip % n_strips);
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int s0 = 0; s0 < Qp; s0 += 16) {
+      uint32_t ah[4], al[4], b0[4], b1[4];
+      ldmatrix_x4_trans(ah, xh + (s0 + a_s) * kXP + pt + a_p);
+      ldmatrix_x4_trans(al, xl + (s0 + a_s) * kXP + pt + a_p);
+      ldmatrix_x4_trans(b0, bs + (s0 + t_s) * NP + nt + t_n);
+      ldmatrix_x4_trans(b1, bs + (s0 + t_s) * NP + nt + 16 + t_n);
+      mma_bf16(acc[0], ah, b0[0], b0[1]);
+      mma_bf16(acc[0], al, b0[0], b0[1]);
+      mma_bf16(acc[1], ah, b0[2], b0[3]);
+      mma_bf16(acc[1], al, b0[2], b0[3]);
+      mma_bf16(acc[2], ah, b1[0], b1[1]);
+      mma_bf16(acc[2], al, b1[0], b1[1]);
+      mma_bf16(acc[3], ah, b1[2], b1[3]);
+      mma_bf16(acc[3], al, b1[2], b1[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = nt + 8 * j + 2 * (lane % 4);      // N % 4 == 0: n and n + 1 both in
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int p = pt + lane / 4 + 8 * i;
+        if (p < pw && n < a.N)
+          *reinterpret_cast<float2*>(out + (int64_t)(p0 + p) * a.N + n) =
+              make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// In place over states: for each chunk in order, S_c is replaced by the
+// state before the chunk, h_prev, and h <- exp(L_Q,c) h + S_c; the last h
+// is the final state. Grid (ceil(P N / 4 / 256), H, Bsz), 4 values a thread.
+__global__ void __launch_bounds__(256)
+state_pass_kernel(Bf16Args a) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int64_t PN = (int64_t)a.P * a.N;
+  const int64_t e = 4 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+  if (e >= PN) return;
+  float4 hv = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4* cur = reinterpret_cast<float4*>(a.states + ((int64_t)b * a.nc * a.H + h) * PN + e);
+  const int64_t step = a.H * PN / 4;                 // float4s from chunk c to c + 1
+  const float* lq = a.lq + (int64_t)b * a.nc * a.H + h;
+  float4 sv = *cur;
+  for (int c = 0; c < a.nc; ++c) {
+    const float4 next = c + 1 < a.nc ? cur[step] : sv;   // prefetch the next chunk's S
+    const float d = expf(lq[(int64_t)c * a.H]);
+    *cur = hv;
+    hv = make_float4(d * hv.x + sv.x, d * hv.y + sv.y, d * hv.z + sv.z, d * hv.w + sv.w);
+    sv = next;
+    cur += step;
+  }
+  *reinterpret_cast<float4*>(a.state + ((int64_t)b * a.H + h) * PN + e) = hv;
+}
+
+constexpr size_t chunk_scan_smem(int Qp, int N, int pb) {
+  return 2 * sizeof(bf16) * (size_t)Qp * pad_n(N) + sizeof(bf16) * (size_t)Qp * kXP +
+         2 * sizeof(bf16) * (size_t)pb * pad_n(N) + sizeof(float) * (2 * kQMax + 4);
+}
+
+// y for one (chunk, head, batch, slice of pb channels): warp w owns rows
+// t in [16 w, 16 w + 16) and computes
+//   y = M x + exp(L_t) C h_prev^T + D x,  M = (C B^T) o exp(L_t - L_s) o dt_s on s <= t
+// with C B^T exact (bf16 in, fp32 out), M and h_prev split into hi + lo
+// bf16. Grid (nc, H, Bsz * ceil(P / pb)).
+__global__ void __launch_bounds__(kMmaThreads)
+chunk_scan_kernel(Bf16Args a, int pb) {
+  const int c = blockIdx.x, h = blockIdx.y;
+  const int npb = (a.P + pb - 1) / pb;
+  const int b = blockIdx.z / npb, p0 = (blockIdx.z % npb) * pb;
+  const int pw = min(pb, a.P - p0), Pp = round_up(pw, 16);
+  const int Qp = round_up(a.Q, 16), Np = round_up(a.N, 32), NP = pad_n(a.N);
+  const int nv = min(a.Q, a.S - c * a.Q);
+  const int64_t row0 = (int64_t)b * a.S + (int64_t)c * a.Q;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* cs = reinterpret_cast<bf16*>(smem_raw);     // [Qp][NP]  C
+  bf16* bs = cs + Qp * NP;                           // [Qp][NP]  B
+  bf16* xs = bs + Qp * NP;                           // [Qp][kXP] x slice
+  bf16* hh = xs + Qp * kXP;                          // [pb][NP]  h_prev hi
+  bf16* hl = hh + pb * NP;                           // [pb][NP]  h_prev lo
+  float* dts = reinterpret_cast<float*>(hl + pb * NP);
+  float* cum = dts + kQMax;
+  float* wtot = cum + kQMax;
+
+  const int64_t tok = (int64_t)c * a.Q;
+  stage(cs, NP, a.Cm + b * a.csb + tok * a.css, a.css, Qp, nv, a.N, Np, a.vc);
+  stage(bs, NP, a.Bm + b * a.bsb + tok * a.bss, a.bss, Qp, nv, a.N, Np, a.vb);
+  stage(xs, kXP, a.x + b * a.xsb + tok * a.xss + (int64_t)h * a.P + p0, a.xss, Qp, nv, pw, Pp,
+        a.vx);
+  cp_async_commit();
+  if (c > 0) {   // h_prev (written by state_pass) split into hi + lo, 4 values at a time
+    const float* hp = a.states + (((int64_t)b * a.nc + c) * a.H + h) * a.P * a.N;
+    const int n4 = Np / 4;
+    for (int idx = threadIdx.x; idx < Pp * n4; idx += kMmaThreads) {
+      const int p = idx / n4, n = 4 * (idx % n4);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (p < pw && n < a.N) v = *reinterpret_cast<const float4*>(hp + (int64_t)(p0 + p) * a.N + n);
+      uint2 hi, lo;
+      split2(v.x, v.y, hi.x, lo.x);
+      split2(v.z, v.w, hi.y, lo.y);
+      *reinterpret_cast<uint2*>(hh + p * NP + n) = hi;
+      *reinterpret_cast<uint2*>(hl + p * NP + n) = lo;
+    }
+  }
+  chunk_cumsum(a.dt, row0, a.H, h, a.A[h], nv, dts, cum, wtot);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (16 * warp >= nv) return;                     // no valid row here; no sync follows
+  const int a_row = lane % 16, a_col = (lane / 16) * 8;                         // A, plain
+  const int b_row = (lane % 8) + (lane / 16) * 8, b_col = ((lane / 8) % 2) * 8;  // B, plain
+  const int t_row = (lane % 8) + ((lane / 8) % 2) * 8, t_col = (lane / 16) * 8;  // B, trans
+  const int t_lo = 16 * warp + lane / 4, t_hi = t_lo + 8;
+
+  float cb[kQMax / 8][4];      // C B^T, rows t_lo / t_hi, 8 keys s per n-tile
+  float y[kPB / 8][4];         // y, 8 channels per n-tile
+#pragma unroll
+  for (int j = 0; j < kQMax / 8; ++j) cb[j][0] = cb[j][1] = cb[j][2] = cb[j][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPB / 8; ++j) y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
+
+  // one pass over the states n: C B^T on s <= t, and C h_prev^T
+  for (int n0 = 0; n0 < Np; n0 += 16) {
+    uint32_t af[4];
+    ldmatrix_x4(af, cs + (16 * warp + a_row) * NP + n0 + a_col);
+#pragma unroll
+    for (int jj = 0; jj < kQMax / 16; ++jj) {
+      if (jj <= warp) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, bs + (16 * jj + b_row) * NP + n0 + b_col);
+        mma_bf16(cb[2 * jj], af, bf[0], bf[1]);
+        mma_bf16(cb[2 * jj + 1], af, bf[2], bf[3]);
+      }
+    }
+    if (c > 0) {
+#pragma unroll
+      for (int pp = 0; pp < kPB / 16; ++pp) {
+        if (16 * pp < Pp) {
+          uint32_t bh[4], bl[4];
+          ldmatrix_x4(bh, hh + (16 * pp + b_row) * NP + n0 + b_col);
+          ldmatrix_x4(bl, hl + (16 * pp + b_row) * NP + n0 + b_col);
+          mma_bf16(y[2 * pp], af, bh[0], bh[1]);
+          mma_bf16(y[2 * pp], af, bl[0], bl[1]);
+          mma_bf16(y[2 * pp + 1], af, bh[2], bh[3]);
+          mma_bf16(y[2 * pp + 1], af, bl[2], bl[3]);
+        }
+      }
+    }
+  }
+  const float L_lo = cum[t_lo], L_hi = cum[t_hi];
+  if (c > 0) {
+    const float e_lo = expf(L_lo), e_hi = expf(L_hi);
+#pragma unroll
+    for (int j = 0; j < kPB / 8; ++j) {
+      y[j][0] *= e_lo; y[j][1] *= e_lo;
+      y[j][2] *= e_hi; y[j][3] *= e_hi;
+    }
+  }
+
+  // y += M x over the key blocks s0 = 16 kk <= the warp's rows; the decay
+  // exp(L_t - L_s) is formed only where s <= t and s is a valid row
+#pragma unroll
+  for (int kk = 0; kk < kQMax / 16; ++kk) {
+    if (kk <= warp) {
+      float mv[2][4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int s = 16 * kk + 8 * half + 2 * (lane % 4) + (e & 1);
+          const int t = e < 2 ? t_lo : t_hi;
+          const float Lt = e < 2 ? L_lo : L_hi;
+          mv[half][e] = (s <= t && s < nv) ? cb[2 * kk + half][e] * expf(Lt - cum[s]) * dts[s]
+                                           : 0.f;
+        }
+      uint32_t mh[4], ml[4];
+      split2(mv[0][0], mv[0][1], mh[0], ml[0]);
+      split2(mv[0][2], mv[0][3], mh[1], ml[1]);
+      split2(mv[1][0], mv[1][1], mh[2], ml[2]);
+      split2(mv[1][2], mv[1][3], mh[3], ml[3]);
+#pragma unroll
+      for (int pp = 0; pp < kPB / 16; ++pp) {
+        if (16 * pp < Pp) {
+          uint32_t bx[4];
+          ldmatrix_x4_trans(bx, xs + (16 * kk + t_row) * kXP + 16 * pp + t_col);
+          mma_bf16(y[2 * pp], mh, bx[0], bx[1]);
+          mma_bf16(y[2 * pp], ml, bx[0], bx[1]);
+          mma_bf16(y[2 * pp + 1], mh, bx[2], bx[3]);
+          mma_bf16(y[2 * pp + 1], ml, bx[2], bx[3]);
+        }
+      }
+    }
+  }
+
+  // + D x in fp32, one cast; rows past the chunk's valid ones are not written
+  const float dsk = a.D[h];
+#pragma unroll
+  for (int j = 0; j < kPB / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = e < 2 ? t_lo : t_hi, p = 8 * j + 2 * (lane % 4) + (e & 1);
+      if (t < nv && p < pw) {
+        const float out = y[j][e] + dsk * __bfloat162float(xs[t * kXP + p]);
+        a.y[(row0 + t) * a.H * a.P + (int64_t)h * a.P + p0 + p] = __float2bfloat16(out);
+      }
+    }
+}
+
+// the attribute belongs to the device: raise it once per device and kernel
+template <typename K>
+cudaError_t raise_smem_limit(K kernel, size_t bytes, int& attr_dev) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || dev == attr_dev) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) attr_dev = dev;
+  return e;
+}
+
+int launch_bf16(const Bf16Args& a, cudaStream_t st) {
+  static int dev_state = -1, dev_scan = -1;
+  cudaError_t e = raise_smem_limit(chunk_state_kernel, chunk_state_smem(kQMax, kNMax), dev_state);
+  if (e != cudaSuccess) return (int)e;
+  e = raise_smem_limit(chunk_scan_kernel, chunk_scan_smem(kQMax, kNMax, kPB), dev_scan);
+  if (e != cudaSuccess) return (int)e;
+  const int Qp = round_up(a.Q, 16);
+  chunk_state_kernel<<<dim3(a.nc, a.H, a.Bsz * ((a.P + kPB - 1) / kPB)), kMmaThreads,
+                       chunk_state_smem(Qp, a.N), st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int n4 = a.P * a.N / 4;
+  state_pass_kernel<<<dim3((n4 + 255) / 256, a.H, a.Bsz), 256, 0, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  // half-width channel slices when full ones would leave SMs idle (132 on an H100)
+  const int pb = (long long)a.nc * a.H * a.Bsz * ((a.P + kPB - 1) / kPB) < 132 ? kPB / 2 : kPB;
+  chunk_scan_kernel<<<dim3(a.nc, a.H, a.Bsz * ((a.P + pb - 1) / pb)), kMmaThreads,
+                      chunk_scan_smem(Qp, a.N, pb), st>>>(a, pb);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// x, Bm, Cm, y: dtype 0 = float32, 1 = bfloat16; dt, A, D, state, cb: float32.
-// All contiguous: x, y (B,S,H,P); dt (B,S,H); Bm, Cm (B,S,N); A, D (H,);
-// state (B,H,P,N); cb scratch (B, ceil(S/Q), Q, Q).
+// float32: x, Bm, Cm, y, dt, A, D, state, cb all float32 and contiguous:
+// x, y (B,S,H,P); dt (B,S,H); Bm, Cm (B,S,N); A, D (H,); state (B,H,P,N);
+// cb scratch (B, ceil(S/Q), Q, Q).
 // Requires 1 <= Q <= 128, N <= 128, N % 4 == 0. Returns cudaGetLastError().
-extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A, const void* Bm,
-                               const void* Cm, const void* D, void* cb, void* y, void* state,
-                               int Bsz, int S, int H, int P, int N, int Q, int dtype,
-                               void* stream) {
+extern "C" int ssd_scan_fp32_launch(const void* x, const void* dt, const void* A,
+                                    const void* Bm, const void* Cm, const void* D, void* cb,
+                                    void* y, void* state, int Bsz, int S, int H, int P, int N,
+                                    int Q, void* stream) {
   if (!D || Q < 1 || Q > kQMax || N > kNMax || N % 4 != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, dt, A, Bm, Cm, D, cb, y, state, Bsz, S, H, P, N, Q, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, D, cb, y, state, Bsz, S, H, P, N, Q, st);
-  return (int)cudaErrorInvalidValue;
+  return launch<float>(x, dt, A, Bm, Cm, D, cb, y, state, Bsz, S, H, P, N, Q,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// bfloat16: x (B,S,H,P) with head stride P and element stride 1, Bm, Cm
+// (B,S,N) with element stride 1, each with its batch (*sb) and row (*ss)
+// strides in elements; vx, vb, vc bf16 per copy (8, 4, 2 or 1) dividing each
+// tensor's pointer alignment, strides and row width. dt (B,S,H), A, D (H,)
+// float32 contiguous. Out: y (B,S,H,P) bf16 contiguous, state (B,H,P,N)
+// float32; scratch: states (B, ceil(S/Q), H, P, N) and lq (B, ceil(S/Q), H)
+// float32. Requires 1 <= Q <= 128, N <= 128, N % 4 == 0.
+// Returns cudaGetLastError().
+extern "C" int ssd_scan_bf16_launch(const void* x, const void* dt, const void* A,
+                                    const void* Bm, const void* Cm, const void* D, void* y,
+                                    void* state, void* states, void* lq, int Bsz, int S, int H,
+                                    int P, int N, int Q, long long xsb, long long xss,
+                                    long long bsb, long long bss, long long csb,
+                                    long long css, int vx, int vb, int vc, void* stream) {
+  auto vec_ok = [](int v) { return v == 1 || v == 2 || v == 4 || v == 8; };
+  if (!D || Q < 1 || Q > kQMax || N > kNMax || N % 4 != 0 || !vec_ok(vx) || !vec_ok(vb) ||
+      !vec_ok(vc))
+    return (int)cudaErrorInvalidValue;
+  const Bf16Args a{static_cast<const bf16*>(x), static_cast<const bf16*>(Bm),
+                   static_cast<const bf16*>(Cm), static_cast<const float*>(dt),
+                   static_cast<const float*>(A), static_cast<const float*>(D),
+                   static_cast<bf16*>(y), static_cast<float*>(state),
+                   static_cast<float*>(states), static_cast<float*>(lq),
+                   Bsz, S, H, P, N, Q, (S + Q - 1) / Q, xsb, xss, bsb, bss, csb, css,
+                   vx, vb, vc};
+  return launch_bf16(a, static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,16 @@
 """Wrapper of the hand-written CUDA SSD scan (csrc/ssd_scan.cu).
 
-`ssd_scan` checks its inputs, allocates the outputs and the C.B^T scratch,
-and launches the kernel on PyTorch's current stream. It takes CUDA tensors
-only; `ops.ssd` sends CPU tensors to the plain version instead.
-`ssd_scan.launches` counts the launches.
+`ssd_scan` checks its inputs, allocates the outputs and the scratch, and
+launches on PyTorch's current stream. It takes CUDA tensors only; `ops.ssd`
+sends CPU tensors to the plain version instead. `ssd_scan.launches` counts
+the wrapper's calls that launched.
+
+The dtype picks the kernels, by a fixed rule and not as a fallback:
+bfloat16 goes to the tensor-core kernels (chunk_state, state_pass,
+chunk_scan: three CUDA launches per call), which read x, B and C in place
+through their batch and row strides; float32 goes to the CUDA-core kernels
+(cb_kernel, scan_kernel: two launches), which take contiguous inputs, so
+the wrapper copies strided fp32 views first.
 """
 from __future__ import annotations
 
@@ -15,33 +22,48 @@ import torch
 
 from repro_torch.kernels import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 Q_MAX = 128
 N_MAX = 128
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The C entry point with its signature, resolved once per process."""
-    fn = _build.load("ssd_scan").ssd_scan_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    return fn
+    """The C entry points with their signatures, resolved once per process."""
+    lib = _build.load("ssd_scan")
+    fp32, bf16 = lib.ssd_scan_fp32_launch, lib.ssd_scan_bf16_launch
+    fp32.restype = bf16.restype = ctypes.c_int
+    fp32.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    bf16.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    return fp32, bf16
+
+
+def _copy_width(t: torch.Tensor, width: int) -> int:
+    """bf16 values per copy (8, 4, 2 or 1): the widest that divides the
+    pointer's alignment, the batch and row strides and the row width."""
+    for v in (8, 4, 2):
+        if (t.data_ptr() % (2 * v) == 0 and width % v == 0
+                and all(t.shape[d] <= 1 or t.stride(d) % v == 0 for d in (0, 1))):
+            return v
+    return 1
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, D: torch.Tensor, *, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan on the card. x (B,S,H,P) fp32 or bf16; dt (B,S,H)
-    fp32; A (H,) fp32; Bm, Cm (B,S,N) in x's dtype; D (H,) fp32.
-    All contiguous. Returns y (B,S,H,P) in x's dtype and the final state
-    (B,H,P,N) fp32. Chunks are Q = min(chunk, S) tokens."""
+    fp32; A (H,) fp32; Bm, Cm (B,S,N) in x's dtype; D (H,) fp32. x, Bm and
+    Cm need a contiguous last dimension (x also its head dimension), so the
+    split views of a packed projection qualify; dt, A and D contiguous.
+    Returns y (B,S,H,P) in x's dtype and the final state (B,H,P,N) fp32.
+    Chunks are Q = min(chunk, S) tokens."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan takes CUDA tensors, got {x.device}")
-    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+    if x.dtype not in (torch.float32, torch.bfloat16) or Bm.dtype != x.dtype \
+            or Cm.dtype != x.dtype:
         raise TypeError(f"x, Bm, Cm must share fp32 or bf16, got {x.dtype}, "
                         f"{Bm.dtype}, {Cm.dtype}")
     if any(t.dtype != torch.float32 for t in (dt, A, D)):
@@ -53,17 +75,36 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
         raise ValueError(f"ssd_scan takes chunk <= {Q_MAX} and N <= {N_MAX}, "
                          f"N % 4 == 0; got Q={Q}, N={N}")
     ins = (x, dt, A, Bm, Cm, D)
-    if any(t.device != x.device for t in ins) or not all(t.is_contiguous() for t in ins):
-        raise ValueError("ssd_scan: inputs must be contiguous and on one device")
+    if any(t.device != x.device for t in ins):
+        raise ValueError("ssd_scan: inputs must be on one device")
+    if not all(t.is_contiguous() for t in (dt, A, D)):
+        raise ValueError("ssd_scan: dt, A and D must be contiguous")
+    if x.stride(3) != 1 or (H > 1 and x.stride(2) != P) or Bm.stride(2) != 1 \
+            or Cm.stride(2) != 1:
+        raise ValueError(f"ssd_scan: x needs head stride P and element stride 1, Bm and Cm "
+                         f"element stride 1; got strides {x.stride()}, {Bm.stride()}, "
+                         f"{Cm.stride()}")
 
     nc = -(-S // Q)
-    y = torch.empty_like(x)
+    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    cb = torch.empty((Bsz, nc, Q, Q), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                 D.data_ptr(), cb.data_ptr(), y.data_ptr(),
-                 state.data_ptr(), Bsz, S, H, P, N, Q, _DTYPES[x.dtype], stream)
+    fp32, bf16 = _lib()
+    if x.dtype == torch.bfloat16:
+        states = torch.empty((Bsz, nc, H, P, N), dtype=torch.float32, device=x.device)
+        lq = torch.empty((Bsz, nc, H), dtype=torch.float32, device=x.device)
+        err = bf16(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                   D.data_ptr(), y.data_ptr(), state.data_ptr(), states.data_ptr(),
+                   lq.data_ptr(), Bsz, S, H, P, N, Q,
+                   x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
+                   Cm.stride(0), Cm.stride(1),
+                   _copy_width(x, P), _copy_width(Bm, N), _copy_width(Cm, N), stream)
+    else:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+        cb = torch.empty((Bsz, nc, Q, Q), dtype=torch.float32, device=x.device)
+        err = fp32(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                   D.data_ptr(), cb.data_ptr(), y.data_ptr(), state.data_ptr(),
+                   Bsz, S, H, P, N, Q, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     ssd_scan.launches += 1

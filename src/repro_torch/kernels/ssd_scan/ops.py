@@ -17,8 +17,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     """y (B,S,H,P) in x's dtype and the final state (B,H,P,N) fp32."""
     if x.device.type == "cpu":
         return ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk)
-    return ssd_scan(x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
-                    Bm.contiguous(), Cm.contiguous(), D.float().contiguous(), chunk=chunk)
+    # x, Bm, Cm go in as they are (the bf16 kernels read strided views)
+    return ssd_scan(x, dt.float().contiguous(), A.float().contiguous(),
+                    Bm, Cm, D.float().contiguous(), chunk=chunk)
 
 
 ssd_decode_step = ssd_decode_step_ref

@@ -13,6 +13,13 @@ whisper encoder's serving shape (B=4, S=1500, 12 heads of 64), where fp32
 is held to 1e-4 * max|ref| and bf16 element by element to
 1e-2 * |ref| + 1e-4 * max|ref| (both sides round fp32 sums that differ in
 order to bf16, which can land one bf16 step apart).
+
+The bf16 tensor-core kernels get their own cases: K1 at every head dim
+class (16 .. 256) with ragged Sq and Skv, GQA 7, causal plus window and
+window=1, under the same per-element bf16 rule; K2 through strided views of
+one packed (B, S, H*P + 2N) tensor at four alignments, equal bit for bit to
+the contiguous call and within the JAX tests' tolerance of the plain
+version; a misaligned bf16 K1 input raises before any launch.
 """
 import numpy as np
 import pytest
@@ -81,6 +88,34 @@ def test_kernel_matches_plain_version(cuda, case, dname):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 2, 4])
+@pytest.mark.parametrize("case", CASES)
+def test_bf16_kernel_reads_strided_views(cuda, case, offset):
+    """x, B and C cut from one packed (B, S, H*P + 2N) bf16 tensor, starting
+    `offset` elements into its storage (copies of 16, 8, 4 or 2 bytes):
+    y and the state equal those of contiguous copies exactly, and the plain
+    version's within the bf16 tolerance."""
+    B, S, H, P, N, chunk = case
+    x, dt, A, Bm, Cm, D = [a.to(cuda) for a in _inputs(case, torch.bfloat16)]
+    width = H * P + 2 * N
+    store = torch.zeros(B * S * width + offset, dtype=torch.bfloat16, device=cuda)
+    packed = store[offset:].view(B, S, width)
+    packed.copy_(torch.cat([x.flatten(-2), Bm, Cm], -1))
+    xs, Bs, Cs = packed.split([H * P, N, N], -1)
+    xs = xs.unflatten(-1, (H, P))
+    before = ssd_scan.launches
+    y, h = ops.ssd(xs, dt, A, Bs, Cs, D, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    yc, hc = ops.ssd(x, dt, A, Bm, Cm, D, chunk=chunk)
+    assert torch.equal(y, yc) and torch.equal(h, hc)
+    y0, h0 = ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk)
+    tol = DTYPES["bf16"][1]
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h0, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
 def test_engine_on_the_card_matches_cpu(cuda):
     """The same weights served on the card (fp32, the CUDA kernel) give the
     CPU's greedy tokens, with one kernel launch per layer per prefill."""
@@ -141,6 +176,68 @@ def test_flash_kernel_matches_plain_version(cuda, case, dname):
     a = 1e-4 * ref.abs().max().item()
     err = (out.float() - ref).abs()
     assert bool((err <= (a if dname == "fp32" else 1e-2 * ref.abs() + a)).all())
+
+
+# bf16 tensor-core kernel: every head-dim class, ragged Sq (200) and Skv
+# (200, or 137 without a causal mask), GQA 7 with causal plus window
+MMA_HDS = [16, 48, 80, 128, 144, 256]
+MMA_CASES = [
+    # (B, Sq, Skv, Hq, Hkv, causal, window)
+    (2, 200, 200, 7, 1, True, 50),
+    (1, 200, 137, 2, 2, False, None),
+    (1, 200, 200, 4, 2, True, None),
+]
+
+
+def _qkv(B, Sq, Skv, Hq, Hkv, hd, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((B, s, h, hd), dtype=np.float32))
+            .to(dtype).to(device) for s, h in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MMA_CASES)
+@pytest.mark.parametrize("hd", MMA_HDS)
+def test_bf16_kernel_at_every_head_dim(cuda, hd, case):
+    B, Sq, Skv, Hq, Hkv, causal, window = case
+    q, k, v = _qkv(B, Sq, Skv, Hq, Hkv, hd, torch.bfloat16, cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    qp = torch.arange(Sq, device=cuda)[None].expand(B, Sq)
+    kp = torch.arange(Skv, device=cuda)[None].expand(B, Skv)
+    ref = attention_ref(q, k, v, qp, kp, causal=causal, window=window).float()
+    err = (out.float() - ref).abs()
+    assert torch.isfinite(out).all()
+    assert bool((err <= 1e-2 * ref.abs() + 1e-4 * ref.abs().max()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", MMA_HDS)
+def test_bf16_kernel_window_one_returns_each_rows_value(cuda, hd):
+    q, k, v = _qkv(2, 200, 200, 7, 1, hd, torch.bfloat16, cuda, seed=1)
+    out = flash_attention(q, k, v, causal=True, window=1)
+    assert torch.equal(out, v.repeat_interleave(7, dim=2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["pointer", "row stride"])
+def test_bf16_kernel_raises_on_misaligned_input(cuda, where):
+    """cp.async moves 16 bytes: a bf16 q whose pointer or row stride is not
+    16-byte aligned is refused before anything launches."""
+    B, S, H, hd = 1, 64, 2, 16
+    if where == "pointer":
+        store = torch.randn(B * S * H * hd + 1, device=cuda).to(torch.bfloat16)
+        q = store[1:].view(B, S, H, hd)
+    else:
+        q = torch.randn(B, S, H * hd + 4, device=cuda).to(torch.bfloat16)[..., :H * hd]
+        q = q.unflatten(-1, (H, hd))
+    k, v = (torch.randn(B, S, H, hd, device=cuda).to(torch.bfloat16) for _ in range(2))
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before
 
 
 @pytest.mark.gpu

@@ -114,3 +114,45 @@ def test_the_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention(q, k, v)
     assert flash_attention.launches == before
+
+
+def _emulate_mma_kernel(q, k, v, *, split: bool, block_k: int = 64):
+    """The rounding points of the bf16 tensor-core kernel, in plain PyTorch
+    on the CPU (non-causal, aligned): bf16 q, k, v; fp32 scores and softmax
+    state, online over tiles of `block_k` keys; P cast to bf16 before P V,
+    as p_hi + p_lo (`split`) or as one bf16 value; fp32 sums; one cast."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))   # (B, H, S, hd)
+    m = torch.full(qf.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, kf.shape[2], block_k):
+        s = qf @ kf[:, :, k0:k0 + block_k].transpose(-1, -2) * scale
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        p_hi = p.bfloat16().float()
+        p_lo = (p - p_hi).bfloat16().float() if split else torch.zeros_like(p)
+        vt = vf[:, :, k0:k0 + block_k]
+        acc = acc * alpha + p_hi @ vt + p_lo @ vt
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["p_hi+p_lo", "one_bf16_p"])
+def test_kernel_rounding_design_meets_the_bf16_rule(split):
+    """At a whisper-encoder-like shape (1, 1500, 4 heads of 64, non-causal)
+    the bf16 kernel's rounding, emulated, meets the rule chip_smoke.py holds
+    the kernel to against `attention_ref` (each element within
+    1e-2 * |ref| + 1e-4 * max|ref|) with P split into two bf16 terms, and
+    misses it with P rounded to one bf16 value: the split is needed."""
+    B, S, H, hd = 1, 1500, 4, 64
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, hd), dtype=np.float32))
+               .bfloat16() for _ in range(3))
+    pos = torch.arange(S)[None]
+    ref = attention_ref(q, k, v, pos, pos, causal=False).float()
+    out = _emulate_mma_kernel(q, k, v, split=split).float()
+    bad = int(((out - ref).abs() > 1e-2 * ref.abs() + 1e-4 * ref.abs().max()).sum())
+    assert (bad == 0) == split, f"{bad} of {ref.numel()} elements outside the rule"

@@ -128,3 +128,83 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         ssd_scan(*t, chunk=8)
     assert ssd_scan.launches == before
 
+
+
+def _split(t, split):
+    """fp32 t as bf16 hi + lo (`split`) or as one bf16 value (lo = 0)."""
+    hi = t.bfloat16().float()
+    return hi, ((t - hi).bfloat16().float() if split else torch.zeros_like(t))
+
+
+def _emulate_mma_kernels(x, dt, A, Bm, Cm, D, chunk, *, split: bool):
+    """The rounding points of the bf16 tensor-core kernels (chunk_state,
+    state_pass, chunk_scan), in plain PyTorch on the CPU, for S a multiple
+    of the chunk: bf16 x, B, C; fp32 cumsum, decays and sums; the fp32
+    factor of each product (x', M, h_prev) cast to bf16 as hi + lo
+    (`split`) or as one value; C B^T exact; D x in fp32; one cast of y."""
+    Bsz, S, H, P = x.shape
+    N, Q = Bm.shape[-1], chunk
+    nc = S // Q
+    xf = x.float().reshape(Bsz, nc, Q, H, P)
+    Bf = Bm.float().reshape(Bsz, nc, Q, N)
+    Cf = Cm.float().reshape(Bsz, nc, Q, N)
+    dtf = dt.float().reshape(Bsz, nc, Q, H)
+    cum = torch.cumsum(dtf * A, dim=2)                                  # (B,nc,Q,H)
+    # chunk_state: S_c = x'^T B, x' = exp(L_Q - L_s) dt_s x_s
+    xw = (torch.exp(cum[:, :, -1:] - cum) * dtf)[..., None] * xf
+    states = sum(torch.einsum("bcqhp,bcqn->bchpn", t, Bf) for t in _split(xw, split))
+    # state_pass
+    h = torch.zeros(Bsz, H, P, N)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = torch.exp(cum[:, c, -1])[..., None, None] * h + states[:, c]
+    h_prev = torch.stack(h_prev, 1)                                     # (B,nc,H,P,N)
+    # chunk_scan: y = M x + exp(L_t) C h_prev^T + D x
+    cb = torch.einsum("bctn,bcsn->bcts", Cf, Bf)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]                 # (B,nc,t,s,H)
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool))[None, None, :, :, None]
+    m = torch.where(tri, cb[..., None] * torch.exp(seg) * dtf[:, :, None], torch.zeros(()))
+    y = sum(torch.einsum("bctsh,bcshp->bcthp", t, xf) for t in _split(m, split))
+    inter = sum(torch.einsum("bctn,bchpn->bcthp", Cf, t) for t in _split(h_prev, split))
+    y = y + torch.exp(cum)[..., None] * inter
+    y = y.reshape(Bsz, S, H, P) + D[None, None, :, None] * x.float()
+    return y.to(x.dtype), h
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["hi+lo", "one_bf16"])
+def test_kernel_rounding_design_meets_the_bf16_rule(split):
+    """At (1, 1024, 4, 64, 128, Q=128) the bf16 kernels' rounding, emulated,
+    meets the rule chip_smoke.py holds the kernel to against
+    `ssd_chunked_ref` (y within 1e-2 * |ref| + 3e-4 * max|y| per element,
+    the state within 3e-4 * max|h|) with x', M and h_prev split into two
+    bf16 terms, and misses it with each rounded to one bf16 value."""
+    case = (1, 1024, 4, 64, 128, 128)
+    t, _ = _both(case, "bf16")
+    y0, h0 = ssd_chunked_ref(*t, chunk=case[-1])
+    y, h = _emulate_mma_kernels(*t, case[-1], split=split)
+    y0f = y0.float()
+    ay = 3e-4 * max(1.0, y0f.abs().max().item())
+    bad_y = int(((y.float() - y0f).abs() > 1e-2 * y0f.abs() + ay).sum())
+    dh, th = (h - h0).abs().max().item(), 3e-4 * max(1.0, h0.abs().max().item())
+    assert (bad_y == 0 and dh <= th) == split, f"{bad_y} elements of y outside the rule, " \
+                                               f"max|dh| {dh:.3g} against {th:.3g}"
+
+
+def test_ops_passes_strided_views_to_the_kernel_uncopied(monkeypatch):
+    """ops.ssd hands x, B and C to the kernel wrapper as they come (the
+    split views of the conv output, as models/mamba2.py passes them): no
+    per-layer copy. Meta tensors stand in for CUDA ones (neither lies on
+    the CPU), and a recorder stands in for the wrapper."""
+    B, S, H, P, N = 1, 16, 2, 8, 8
+    packed = torch.empty(B, S, H * P + 2 * N, dtype=torch.bfloat16, device="meta")
+    xs, Bm, Cm = packed.split([H * P, N, N], -1)
+    x = xs.unflatten(-1, (H, P))
+    dt = torch.empty(B, S, H, device="meta")
+    A, D = torch.empty(H, device="meta"), torch.empty(H, device="meta")
+    seen = []
+    monkeypatch.setattr(ops, "ssd_scan", lambda *a, **kw: seen.append(a) or (None, None))
+    ops.ssd(x, dt, A, Bm, Cm, D, chunk=8)
+    (args,) = seen
+    assert args[0] is x and args[3] is Bm and args[4] is Cm
+    assert not x.is_contiguous() and not Bm.is_contiguous()
