@@ -7,7 +7,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), compute capability 9.0;
   2. build: every CUDA source of the port, compiled with nvcc, timed, with
      the registers and spills of every tensor-core kernel (none may spill
-     at the serving shapes' instantiations: K1 at hd=64, the K2 kernels);
+     at the serving shapes' instantiations: K1 at hd=64, 128 and 256, the K2
+     kernels);
   3. the SSD-scan kernel against its plain PyTorch version on the card, at
      the JAX kernel tests' shapes and the serving shapes, fp32 and bf16
      (bf16 reaches the tensor-core kernels, fp32 the CUDA-core ones), and
@@ -30,12 +31,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
      encoder's, its decoder's teacher-forced one, a GQA and an hd=256
      windowed one), fp32 and bf16, and the bf16 tensor-core kernel at
      every head-dim class (16, 48, 80, 128, 144, 256) with ragged S, GQA 7,
-     causal plus window; window=1 gives each row its own value;
+     causal plus window; window=1 gives each row its own value; bf16 at the
+     three full-sequence forward shapes of the decoder paths (gemma3-4b's
+     local and global layers, mixtral-8x7b's);
   8. the kernel's time (bf16, measured as in 4) at the whisper encoder's
-     shape and the three other long shapes, each beside its bound; at the
-     encoder's shape and the causal 448 one also beside PyTorch's
-     scaled_dot_product_attention (the library yardstick, timed here
-     only), at the encoder's beside the plain version;
+     shape, the three other long shapes and the three decoder forward
+     shapes, each beside its bound; at the encoder's shape, the causal 448
+     one and the decoder shapes also beside PyTorch's
+     scaled_dot_product_attention (the library yardstick, timed here only;
+     the windowed shape gets a boolean mask, and is also timed causal
+     without its window; the backend SDPA picks is printed), at the
+     encoder's and the decoder shapes beside the plain version;
   9. the second path: whisper-small at full width (12 + 12 layers, random
      weights from a seed, bf16 compute) serving 4 requests of 1500 frames
      through make_prefill_step and 32 greedy make_decode_step steps; the
@@ -43,8 +49,29 @@ Phases, each printed on its own lines; any failure exits non-zero:
      one prefill and of 8 decode steps goes;
  10. card against CPU: whisper cut to 2 + 2 layers, fp32, the same weights
      give the same greedy tokens and close prefill, decode and teacher-forced
-     forward logits on both devices.
-The line before the last is the kernels' JSON record; the last line is
+     forward logits on both devices;
+ 11. the third path: gemma3-4b at full width (34 layers, 8/4 heads of 256,
+     window 1024 on 29 local layers; random weights from a seed, bf16
+     compute): (a) Model.forward and loss_fn over one 4096-token sequence,
+     34 kernel launches per forward; (b) ServeEngine serving 8 requests
+     (prompts of 64-2048 tokens, 32 greedy tokens each) on 4 slots with
+     max_len 4096, no kernel launch; (c) make_prefill_step/make_decode_step,
+     4 prompts of 512, max_len 8192, 8 decode steps at a scalar position,
+     which take the windowed decode branch on every local layer; then where
+     the time of a 2048-token prefill, 8 engine decode steps and the forward
+     goes;
+ 12. the fourth path: mixtral-8x7b at full width cut to 4 of its 32 layers
+     (46.7 B parameters do not fit one card): (a) and (b) as in 11, 4
+     kernel launches per forward, the (token, choice) pairs the capacity
+     dropped counted; then where the time goes;
+ 13. card against CPU, fp32, the same weights: gemma3 cut to 6 layers (one
+     local:global period) and mixtral cut to 1; the same greedy tokens,
+     prefill, decode and forward logits within 1e-4 * max(1, max|logits|),
+     the kernel launched on the card only.
+The line before the last is the kernels' JSON record: the SSD scan, and the
+flash-attention kernel once per path and shape (the whisper encoder,
+gemma3-4b's local and global layers, mixtral-8x7b), each with the launches
+of its path's run and the error and times at its shape; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repo's
 sources beside it, the script fails before printing any result.
 """
@@ -231,9 +258,162 @@ def kernel_share(by_name, counts, parts):
                    sum(n for k, n in counts.items() if part in k)) for part in parts}
 
 
+def print_breakdown(torch, name, fn, k1_name="flash_mma_kernel"):
+    """Host ms of `fn`, its device time by kernel and its idle share (as in
+    phase 5b), with K1's share. Returns (host ms, device ms)."""
+    wall_ms, by_name, counts = device_breakdown(torch, fn)
+    dev_ms = sum(by_name.values())
+    if not by_name:
+        print(f"  {name}: host {wall_ms:.2f} ms; the profiler recorded no device time "
+              "(device share not measured)")
+        return wall_ms, None
+    k1, k1_n = kernel_share(by_name, counts, (k1_name,))[k1_name]
+    print(f"  {name}: host {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
+          f"({dev_ms / wall_ms:.1%}; idle {1 - dev_ms / wall_ms:.1%}), "
+          f"{len(by_name)} kernel names, {sum(counts.values())} launches")
+    for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {ms:8.3f} ms x{counts[k]:<5d} {k[:90]}")
+    print(f"    K1 {k1_name} {k1:.3f} ms x{k1_n}, {k1 / dev_ms:.1%} of device time")
+    return wall_ms, dev_ms
+
+
+def router_probs(model, tokens):
+    """Layer 0's router probabilities (T, E) over the forward of `tokens`,
+    recomputed through the port's own functions: phase 13 reports from them
+    the MoE choices that differ between the devices."""
+    from repro_torch.models import encdec, moe
+    from repro_torch.models.attention import self_attention
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.transformer import layer_windows
+    cfg, rt, p_l = model.cfg, model.rt, model.layers[0]
+    x = model._embed(tokens)
+    positions = encdec.iota_positions(*tokens.shape, tokens.device)
+    h = rmsnorm(x, p_l.ln1, cfg.norm_eps)
+    x = x + self_attention(h, p_l.attn, cfg, rt, positions,
+                           window=layer_windows(cfg, 1)[0])
+    h = rmsnorm(x, p_l.ln2, cfg.norm_eps)
+    return moe.route(h.reshape(-1, cfg.d_model), p_l.moe, cfg, rt).probs
+
+
+def decoder_path(cfg, rt, count_drops=False):
+    """(a) Model.forward and loss_fn over one (1, 4096) sequence, K1 once per
+    layer per forward; (b) ServeEngine: 8 requests with prompt lengths from
+    seed 0 in 64-2048, 32 greedy tokens each, 4 slots, max_len 4096, no K1.
+    The launch counts are set to 0 before (a) and read after (b). With
+    `count_drops`, the (token, choice) pairs that the forward's MoE capacity
+    dropped are counted (`moe_mlp.dropped`). Returns (model, K1 launches,
+    K1 launches by case)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, loss_fn
+    from repro_torch.serve.engine import Request, ServeEngine
+    t0 = time.perf_counter()
+    model = Model(cfg, rt, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {cfg.name}: {n_params:,} params ({n_params * 4 / 1e9:.1f} GB fp32), "
+          f"init {time.perf_counter() - t0:.2f} s")
+    check(n_params == cfg.param_count(), "parameter count")
+    rng = np.random.default_rng(SEED)
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 4097)), device="cuda")
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    model(batch["tokens"][:, :256])              # warm-up (cuBLAS, allocator), not counted
+    torch.cuda.synchronize()
+    flash_attention.launches, flash_attention.launches_by_case = 0, {}
+    moe.moe_mlp.dropped = 0
+    t0 = time.perf_counter()
+    logits = model(batch["tokens"])
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    drops = int(moe.moe_mlp.dropped)
+    per_fwd = flash_attention.launches
+    fin = torch.isfinite(logits).all().item()
+    del logits
+    t0 = time.perf_counter()
+    loss, met = loss_fn(model, batch)
+    torch.cuda.synchronize()
+    loss_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  (a) forward over (1, 4096): {fwd_ms:.1f} ms host, K1 launches {per_fwd} "
+          f"(= {cfg.num_layers} layers); loss_fn {loss_ms:.1f} ms: loss {loss.item():.4f}, "
+          f"ce {met['ce'].item():.4f} (ln V = {np.log(cfg.vocab):.4f}), aux {met['aux'].item():.4f}")
+    if count_drops:
+        E, K = cfg.moe.num_experts, cfg.moe.top_k
+        cap = min(max(1, int(cfg.moe.capacity_factor * K * 4096 / E)), 4096)
+        print(f"    capacity {cap} slots per expert per layer (T = 4096 > 256): {drops} of "
+              f"{K * 4096 * cfg.num_layers} (token, choice) pairs dropped over "
+              f"{cfg.num_layers} layers")
+    check(per_fwd == cfg.num_layers, "K1 once per layer per forward")
+    check(flash_attention.launches == 2 * cfg.num_layers, "K1 once per layer in loss_fn's forward")
+    check(fin and bool(torch.isfinite(loss)), "finite logits and loss")
+
+    finite = []
+
+    def watch(fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            finite.append(torch.isfinite(out[0]).all())
+            return out
+        return wrapped
+
+    model.prefill, model.decode_step = watch(model.prefill), watch(model.decode_step)
+    lens = np.random.default_rng(SEED).integers(64, 2049, size=8)
+    slots, n_new, max_len = 4, 32, 4096
+    ServeEngine(cfg, rt, model, slots=slots, max_len=max_len).run(    # warm-up, not counted
+        [Request(rid=0, prompt=rng.integers(0, cfg.vocab, 64), max_new_tokens=2)])
+    torch.cuda.synchronize()
+    finite.clear()
+    before = flash_attention.launches
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(n)), max_new_tokens=n_new)
+            for i, n in enumerate(lens)]
+    engine = ServeEngine(cfg, rt, model, slots=slots, max_len=max_len)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(v) for v in outs.values())
+    print(f"  (b) prompt lengths {lens.tolist()}; {len(reqs)} requests, {slots} slots, max_len "
+          f"{max_len} -> {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s); prefill "
+          f"{1e3 * statistics.mean(engine.prefill_s):.2f} ms/request (mean of "
+          f"{len(engine.prefill_s)}), decode {1e3 * statistics.mean(engine.decode_s):.2f} ms/step "
+          f"(mean of {len(engine.decode_s)}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1 launches "
+          f"{flash_attention.launches - before}")
+    del model.prefill, model.decode_step                 # back to the methods
+    check(sorted(outs) == list(range(len(reqs))), "every request returns")
+    check(all(len(v) == n_new for v in outs.values()), f"{n_new} tokens per request")
+    check(all(0 <= t < cfg.vocab for v in outs.values() for t in v), "tokens within vocab")
+    check(len(finite) > 0 and all(bool(f) for f in finite), "every logit finite")
+    check(flash_attention.launches == before, "serving (prefill, decode) launches no K1")
+    return model, flash_attention.launches, dict(flash_attention.launches_by_case)
+
+
+def decoder_breakdown(model, cfg, rt):
+    """Where the time goes: one 2048-token prefill (B=1, max_len 4096), 8
+    engine-style decode steps (4 slots, per-slot positions), the forward
+    over (1, 4096)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import init_cache
+    rng = np.random.default_rng(SEED + 2)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 2048)), device="cuda")
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 4096)), device="cuda")
+    cache4 = init_cache(cfg, rt, 4, 4096)
+    last4 = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 1)), device="cuda")
+    pos4 = torch.tensor([700, 1500, 2300, 3100], dtype=torch.int32, device="cuda")
+    print_breakdown(torch, "prefill, 2048 tokens", lambda: model.prefill(
+        prompt, init_cache(cfg, rt, 1, 4096)))
+    print_breakdown(torch, "8 decode steps, 4 slots", lambda: [
+        model.decode_step(last4, cache4, pos=pos4 + i) for i in range(8)])
+    print_breakdown(torch, "forward, (1, 4096)", lambda: model(seq))
+
+
 def main() -> int:
     import numpy as np
     import torch
+    from torch.nn.attention import SDPBackend
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -245,8 +425,10 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
+    from repro_torch.models import attention
     from repro_torch.models.model import Model, init_cache
     from repro_torch.models.runtime import Runtime
+    from repro_torch.models.transformer import layer_windows
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 
@@ -272,7 +454,8 @@ def main() -> int:
     for k, (regs, st, ld) in sorted(report.items()):
         print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
     if report:                      # nvcc ran (no library was built before)
-        for k in ("flash_mma_kernel<64>",) + MMA_KERNELS[1:]:
+        for k in ("flash_mma_kernel<64>", "flash_mma_kernel<128>",
+                  "flash_mma_kernel<256>") + MMA_KERNELS[1:]:
             check(k in report and report[k][1:] == [0, 0], f"{k} has no spills")
 
     phase("3. SSD-scan kernel against its plain version")
@@ -362,8 +545,8 @@ def main() -> int:
     finite = []
 
     def watch(fn):
-        def wrapped(*a):
-            logits, cache = fn(*a)
+        def wrapped(*a, **kw):
+            logits, cache = fn(*a, **kw)
             finite.append(torch.isfinite(logits).all())
             return logits, cache
         return wrapped
@@ -473,6 +656,12 @@ def main() -> int:
                   (4, 448, 12, 12, 64, True, None),  # its decoder, teacher-forced
                   (1, 2048, 14, 2, 64, True, None),  # qwen2-0.5b's heads (GQA 7)
                   (1, 1024, 8, 4, 256, True, 512)]   # gemma3-4b's head dim, windowed
+    # the full-sequence forwards' shapes, bf16 only (their paths compute in
+    # bf16): gemma3-4b's local layers and its global ones, mixtral-8x7b's
+    gemma3_local, gemma3_global = (1, 4096, 8, 4, 256, True, 1024), (1, 4096, 8, 4, 256, True, None)
+    mixtral = (1, 4096, 32, 8, 128, True, 4096)
+    flash_decoder = [gemma3_local, gemma3_global, mixtral]
+    err_by_case = {}
     # small cases: the JAX flash tests' tolerances (abs and rel). Long shapes:
     # both sides compute the same fp32 function in another order (hd terms
     # per score, up to S terms per softmax sum), whose results differ by
@@ -480,7 +669,6 @@ def main() -> int:
     # bf16 outputs are those fp32 values rounded to bf16, whose step is at
     # most 2^-7 of the value, so they can land one step apart: each element
     # is held to 1e-2 * |ref| + 1e-4 * max|ref|.
-    err_flash = None
     for case in flash_small + flash_long:
         for dname, dtype in dtypes.items():
             q, k, v, pos = flash_inputs(torch, case, dtype)
@@ -503,7 +691,7 @@ def main() -> int:
             check(ok, f"flash_attention {case} {dname}")
             check(torch.isfinite(out).all().item(), f"flash_attention {case} {dname} finite")
             if case == encoder and dname == "bf16":
-                err_flash = err.max().item()
+                err_by_case[case] = err.max().item()
     # the bf16 tensor-core kernel at every head-dim class (BK = 64 keys up to
     # hd = 128, 32 above; q in registers up to 128), S = 200 ragged against
     # the 64-row tiles, under the long shapes' bf16 rule
@@ -520,6 +708,19 @@ def main() -> int:
         print(f"  {case} bf16: max|d| {err.max().item():.3g} (max|ref| {mref:.3g}) "
               f"[|d|<=1e-2|ref|+{1e-4 * mref:.3g}] {'ok' if ok else 'FAIL'}")
         check(ok and torch.isfinite(out).all().item(), f"flash_attention {case} bf16")
+    for case in flash_decoder:
+        q, k, v, pos = flash_inputs(torch, case, torch.bfloat16)
+        out = flash_attention(q, k, v, causal=case[5], window=case[6])
+        torch.cuda.synchronize()
+        ref = attention_ref(q, k, v, pos, pos, causal=case[5], window=case[6]).float()
+        err = (out.float() - ref).abs()
+        mref = ref.abs().max().item()
+        ok = bool((err <= 1e-2 * ref.abs() + 1e-4 * mref).all())
+        print(f"  {case} bf16: max|d| {err.max().item():.3g} (max|ref| {mref:.3g}) "
+              f"[|d|<=1e-2|ref|+{1e-4 * mref:.3g}] {'ok' if ok else 'FAIL'}")
+        check(ok and torch.isfinite(out).all().item(), f"flash_attention {case} bf16")
+        err_by_case[case] = err.max().item()
+        del q, k, v, out, ref, err
     for dname, dtype in dtypes.items():
         q, k, v, _ = flash_inputs(torch, (1, 64, 2, 2, 16, True, 1), dtype)
         out = flash_attention(q, k, v, causal=True, window=1)
@@ -528,7 +729,8 @@ def main() -> int:
     print("  window=1: finite, each row equals its own value (fp32, bf16)")
 
     phase("8. flash-attention timing at the long shapes (bf16)")
-    for case in flash_long:
+    timed = {}       # case -> the kernels record's numbers at that shape
+    for case in flash_long + flash_decoder:
         causal, window = case[5], case[6]
         q, k, v, pos = flash_inputs(torch, case, torch.bfloat16)
         t_ms = graph_ms(torch, lambda: flash_attention(q, k, v, causal=causal, window=window))
@@ -542,17 +744,49 @@ def main() -> int:
                 f"bound {b_ms:.5f} ms ({b_by}: "
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; H100 SXM peaks), "
                 f"{b_ms / t_ms:.1%} of the bound")
-        if case[2] == case[3] and window is None:    # one plain SDPA call computes it
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # BHSD, beforehand
-            l_ms = graph_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal))
-            line += f"; scaled_dot_product_attention {l_ms:.4f} ms"
-            del qt, kt, vt
-        if case == encoder:
-            fp_ms = graph_ms(torch, lambda: attention_ref(q, k, v, pos, pos, causal=False),
-                             calls=3, reps=5)
-            line += f"; plain {fp_ms:.4f} ms"
-            fk_ms, fl_ms, fbound_ms, fbound_by = t_ms, l_ms, b_ms, b_by
+        if (case[2] == case[3] and window is None) or case in flash_decoder:
+            # one SDPA call computes it: BHSD copies (KV heads repeated for
+            # GQA) made beforehand; a window that cuts keys off becomes a
+            # boolean mask, one that does not (mixtral: 4096 >= S) is causal
+            rep = case[2] // case[3]
+            qt, kt, vt = (t.repeat_interleave(r, 2).transpose(1, 2).contiguous()
+                          for t, r in ((q, 1), (k, rep), (v, rep)))
+            mask = None
+            if window is not None and window < case[1]:
+                i = torch.arange(case[1], device="cuda")
+                mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None)
+            line += "; scaled_dot_product_attention "
+            if case in flash_decoder:
+                # eager: at these shapes a call takes far longer than its dispatch
+                l_ms = time_ms(torch, sdpa, iters=10)
+                backend = SDPBackend(torch._fused_sdp_choice(
+                    qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None)).name
+                _, by_name, _ = device_breakdown(torch, sdpa, reps=1)
+                top = max(by_name, key=by_name.get)[:60] if by_name else "not recorded"
+                line += (f"{l_ms:.4f} ms ({'boolean mask' if mask is not None else 'is_causal'}; "
+                         f"backend {backend}, its largest kernel: {top})")
+                if mask is not None:
+                    # the mask keeps SDPA off its flash kernels and skips no
+                    # tile; causal without the window does more work than
+                    # asked (every key up to the query) on a flash kernel
+                    c_ms = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True), iters=10)
+                    line += f"; SDPA is_causal without the window {c_ms:.4f} ms"
+            else:
+                l_ms = graph_ms(torch, sdpa)
+                line += f"{l_ms:.4f} ms"
+            del qt, kt, vt, mask
+        if case == encoder or case in flash_decoder:
+            pl_ms = graph_ms(torch, lambda: attention_ref(q, k, v, pos, pos, causal=causal,
+                                                          window=window), calls=3, reps=5)
+            line += f"; plain {pl_ms:.4f} ms"
+        if case == encoder or case in flash_decoder:
+            timed[case] = {"ms": t_ms, "plain_ms": pl_ms, "bound_ms": b_ms, "bound_by": b_by,
+                           "library_ms": l_ms}      # scaled_dot_product_attention, timed only
         print(line)
         del q, k, v
 
@@ -594,9 +828,12 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ssd_scan.launches = flash_attention.launches = 0
+    flash_attention.launches_by_case = {}
     t_pre, t_dec, toks, finite_w = serve(n_steps)
     torch.cuda.synchronize()
     launches_w = flash_attention.launches
+    check(flash_attention.launches_by_case == {encoder: launches_w},
+          "every launch of the whisper path at the encoder's shape (timed in phase 8)")
     check(ssd_scan.launches == 0, "the whisper path runs no SSD scan")
     wall = t_pre + sum(t_dec)
     print(f"  {n_req} requests x {cfg_w.encoder_len} frames, prompt {n_prompt} tokens, "
@@ -673,6 +910,110 @@ def main() -> int:
     check(worst <= tol and worst_f <= tol_f, "logits within tolerance")
     check(res["cpu"][3] == 0 and res["cuda"][3] == 2 * 2 + 2, "kernel launches on the card only")
 
+    phase("11. gemma3-4b at full width (34 layers, bf16 compute)")
+    del model, m_cpu, m_gpu, cache4, cache_w, w_cpu, w_gpu   # the earlier paths' weights
+    torch.cuda.empty_cache()
+    cfg_g = get_config("gemma3-4b")
+    check(cfg_g.param_count() == 3_879_907_840, "gemma3-4b parameter count")
+    model_g, _, by_case_g = decoder_path(cfg_g, rt)
+    check(by_case_g == {gemma3_local: 2 * 29, gemma3_global: 2 * 5},
+          "forward and loss_fn launch K1 at the two shapes timed in phase 8: 29 local "
+          "and 5 global layers each")
+    # (c) the serve steps at a scalar position: the windowed decode branch
+    n_local = sum(w is not None for w in layer_windows(cfg_g, cfg_g.num_layers))
+    tokens_c = torch.as_tensor(rng.integers(0, cfg_g.vocab, (4, 512)), device="cuda")
+    prefill_c, decode_c = make_prefill_step(cfg_g, rt, 8192), make_decode_step(cfg_g, rt)
+    before, slices = flash_attention.launches, attention.cached_attention.window_slices
+    t0 = time.perf_counter()
+    logits, cache_c = prefill_c(model_g, {"tokens": tokens_c})
+    tok = logits.argmax(-1)[:, None]
+    toks, fin, t_pre, t_dec = [tok.cpu()], [torch.isfinite(logits).all()], None, []
+    t_pre = time.perf_counter() - t0
+    for step in range(8):
+        t0 = time.perf_counter()
+        logits, cache_c = decode_c(model_g, tok, 512 + step, cache_c)
+        tok = logits.argmax(-1)[:, None]
+        toks.append(tok.cpu())
+        t_dec.append(time.perf_counter() - t0)
+        fin.append(torch.isfinite(logits).all())
+    slices = attention.cached_attention.window_slices - slices
+    print(f"  (c) make_prefill_step, 4 x 512 tokens, max_len 8192: {1e3 * t_pre:.2f} ms; 8 "
+          f"make_decode_step steps at scalar positions 512..519: "
+          f"{1e3 * statistics.mean(t_dec):.2f} ms/step; windowed decode branch taken "
+          f"{slices} times (= {n_local} local layers x 8 steps); K1 launches "
+          f"{flash_attention.launches - before}; request 0 tokens "
+          f"{torch.cat(toks, 1)[0].tolist()}")
+    check(slices == n_local * 8 and n_local == 29, "the windowed branch on every local layer")
+    check(flash_attention.launches == before, "the serve steps launch no K1")
+    check(all(bool(f) for f in fin), "every logit finite")
+    del cache_c
+    decoder_breakdown(model_g, cfg_g, rt)
+    del model_g
+    torch.cuda.empty_cache()
+
+    phase("12. mixtral-8x7b at full width, 4 of its 32 layers (bf16 compute)")
+    cfg_full = get_config("mixtral-8x7b")
+    cfg_m = dataclasses.replace(cfg_full, num_layers=4)
+    print(f"  depth cut: {cfg_full.param_count():,} parameters at 32 layers "
+          f"({cfg_full.param_count() * 4 / 1e9:.0f} GB fp32, "
+          f"{cfg_full.param_count() * 2 / 1e9:.0f} GB bf16) do not fit one card's 80 GB; "
+          "4 layers keep every width")
+    model_m, _, by_case_m = decoder_path(cfg_m, rt, count_drops=True)
+    check(by_case_m == {mixtral: 2 * 4}, "forward and loss_fn launch K1 at the shape timed "
+          "in phase 8, once per layer each")
+    decoder_breakdown(model_m, cfg_m, rt)
+    del model_m
+    torch.cuda.empty_cache()
+
+    phase("13. card against CPU on the same weights (gemma3 6 layers, mixtral 1 layer, fp32)")
+    for cfg_c, n_prompt in ((dataclasses.replace(cfg_g, num_layers=6), 1100),
+                            (dataclasses.replace(cfg_full, num_layers=1), 300)):
+        t0 = time.perf_counter()
+        m_gpu = Model(cfg_c, rt_gpu, seed=SEED + 3)
+        m_cpu = Model(cfg_c, rt_cpu, seed=None)
+        m_cpu.load_state_dict(m_gpu.state_dict())
+        prompt = torch.as_tensor(rng.integers(0, cfg_c.vocab, (1, n_prompt)))
+        res = {}
+        for name, m, rtx in (("cpu", m_cpu, rt_cpu), ("cuda", m_gpu, rt_gpu)):
+            dev = rtx.device
+            flash_attention.launches = 0
+            logits, cache = m.prefill(prompt.to(dev), init_cache(cfg_c, rtx, 1, 4096))
+            seq, all_logits = [], [logits.cpu()]
+            for step in range(4):
+                seq.append(int(logits[0].argmax()))
+                logits, cache = m.decode_step(torch.tensor([[seq[-1]]], device=dev), cache,
+                                              pos=n_prompt + step)
+                all_logits.append(logits.cpu())
+            seq.append(int(logits[0].argmax()))
+            fwd = m(prompt.to(dev)).cpu()
+            res[name] = (seq, torch.cat(all_logits), fwd, flash_attention.launches,
+                         router_probs(m, prompt.to(dev)).cpu() if cfg_c.moe else None)
+        worst = (res["cpu"][1] - res["cuda"][1]).abs().max().item()
+        scale = res["cpu"][1].abs().max().item()
+        worst_f = (res["cpu"][2] - res["cuda"][2]).abs().max().item()
+        scale_f = res["cpu"][2].abs().max().item()
+        tol, tol_f = 1e-4 * max(1.0, scale), 1e-4 * max(1.0, scale_f)
+        line = (f"  {cfg_c.name}, {cfg_c.num_layers} layers, prompt {n_prompt}: greedy cpu "
+                f"{res['cpu'][0]} cuda {res['cuda'][0]}; prefill+decode max|dlogits| {worst:.3g} "
+                f"(max|logits| {scale:.3g}, tol {tol:.3g}); forward max|dlogits| {worst_f:.3g} "
+                f"(max|logits| {scale_f:.3g}, tol {tol_f:.3g}); K1 launches cpu "
+                f"{res['cpu'][3]} cuda {res['cuda'][3]}")
+        if cfg_c.moe:
+            k = cfg_c.moe.top_k
+            flips = int((res["cpu"][4].topk(k).indices != res["cuda"][4].topk(k).indices).sum())
+            top = res["cpu"][4].topk(k + 1).values
+            gap = (top[:, k - 1] - top[:, k]).min().item()
+            line += (f"; MoE top-{k} choices of the forward that differ between the devices: "
+                     f"{flips} (smallest gap between router probabilities {k} and {k + 1} "
+                     f"in order: {gap:.3g})")
+        print(line + f"; {time.perf_counter() - t0:.1f} s")
+        check(res["cpu"][0] == res["cuda"][0], "same greedy tokens on card and CPU")
+        check(worst <= tol and worst_f <= tol_f, "logits within tolerance")
+        check(res["cpu"][3] == 0 and res["cuda"][3] == cfg_c.num_layers,
+              "K1 launched on the card only, once per layer of the forward")
+        del m_gpu, m_cpu, res
+        torch.cuda.empty_cache()
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [{
         "name": "ssd_scan",
@@ -686,19 +1027,28 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,     # no single PyTorch call computes the SSD scan
-    }, {
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
-        "launches": launches_w,
-        "max_abs_err": err_flash,
-        "ms": fk_ms,
-        "plain_ms": fp_ms,
-        "bound_ms": fbound_ms,
-        "bound_by": fbound_by,
-        "library_ms": fl_ms,    # scaled_dot_product_attention, timed only
     }]}
+    # K1 once per path and shape: launches from that path's run, the other
+    # numbers at that shape (phases 7 and 8)
+    for name, path, case, n in (
+            ("flash_attention", "whisper-small encoder (phase 9)", encoder, launches_w),
+            ("flash_attention/gemma3-4b local", "gemma3-4b forward and loss_fn (phase 11)",
+             gemma3_local, by_case_g[gemma3_local]),
+            ("flash_attention/gemma3-4b global", "gemma3-4b forward and loss_fn (phase 11)",
+             gemma3_global, by_case_g[gemma3_global]),
+            ("flash_attention/mixtral-8x7b", "mixtral-8x7b, 4 of 32 layers, forward and "
+             "loss_fn (phase 12)", mixtral, by_case_m[mixtral])):
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+            "path": path,
+            "shape": "(B, S, Hq, Hkv, hd, causal, window) = " + str(case),
+            "launches": n,
+            "max_abs_err": err_by_case[case],
+            **timed[case],
+        })
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

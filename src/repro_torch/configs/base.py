@@ -2,15 +2,24 @@
 the ported slice needs, copied from `repro.configs.base` so the port imports
 nothing of the JAX package.
 
-The SSM family (mamba2-370m) and the encoder-decoder family (whisper-small)
-are ported so far; every other arch id raises `NotImplementedError` (see
-ROADMAP.md for the order of the slices).
+The dense (smollm, qwen, gemma3), MoE (mixtral, grok), SSM (mamba2) and
+encoder-decoder (whisper) families are ported; the hybrid (zamba2) and VLM
+(paligemma) arch ids raise `NotImplementedError` (see ROADMAP.md for the
+order of the slices).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    # capacity factor of the dispatch buffer (models/moe.py)
+    capacity_factor: float = 1.25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +40,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # "ssm" or "encdec" are ported
+    family: str                   # dense | moe | ssm | encdec are ported
     num_layers: int
     d_model: int
     vocab: int
@@ -42,10 +51,15 @@ class ModelConfig:
     head_dim: Optional[int] = None          # default d_model // n_heads
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    sliding_window: Optional[int] = None    # None = full attention
+    # pattern of local:global layers, e.g. gemma3 (5, 1): 5 local then 1 global
+    local_global_pattern: Optional[Tuple[int, int]] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # --- enc-dec ----------------------------------------------------------
     encoder_layers: int = 0       # whisper
     encoder_len: int = 0          # fixed frontend length (audio frames)
+    tied_embeddings: bool = True  # False: a separate unembed (D, V)
     norm_eps: float = 1e-6
     act: str = "silu"             # silu | gelu (tanh form, as jax.nn.gelu)
     glu: bool = True              # gated MLP
@@ -55,9 +69,24 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
 
+    def _attn_params(self) -> int:
+        hd, nq, nkv, D = self.hd(), self.n_heads, self.n_kv, self.d_model
+        p = D * nq * hd + 2 * D * nkv * hd + nq * hd * D
+        if self.qkv_bias:
+            p += (nq + 2 * nkv) * hd
+        return p
+
     def param_count(self) -> int:
         """Exact parameter count of the ported model, norms included."""
         D, V = self.d_model, self.vocab
+        mlp = (3 if self.glu else 2) * D * self.d_ff
+        if self.family in ("dense", "moe"):
+            ffn = mlp
+            if self.family == "moe":                   # experts + router
+                ffn = self.moe.num_experts * (mlp + D)
+            per = 2 * D + self._attn_params() + ffn    # ln1, attn, ln2, ffn
+            embeds = V * D * (1 if self.tied_embeddings else 2)
+            return embeds + D + self.num_layers * per
         if self.family == "ssm":
             s = self.ssm
             di, H, N = s.d_inner(D), s.n_heads(D), s.state_dim
@@ -70,11 +99,7 @@ class ModelConfig:
                    + di * D)                           # out_proj
             return V * D + D + self.num_layers * per
         if self.family == "encdec":
-            hd, nq, nkv = self.hd(), self.n_heads, self.n_kv
-            attn = D * nq * hd + 2 * D * nkv * hd + nq * hd * D
-            if self.qkv_bias:
-                attn += (nq + 2 * nkv) * hd
-            mlp = (3 if self.glu else 2) * D * self.d_ff
+            attn = self._attn_params()
             enc = 2 * D + attn + mlp                   # ln1, attn, ln2, mlp
             dec = 3 * D + 2 * attn + mlp               # + lnx, xattn
             return (V * D + 2 * D                      # embed, final_ln, enc_ln
@@ -84,15 +109,18 @@ class ModelConfig:
 
 # arch id -> module under repro_torch.configs; the port adds ids slice by slice
 _ARCH_MODULES = {
-    "mamba2-370m": "mamba2_370m",
     "whisper-small": "whisper_small",
+    "qwen1.5-32b": "qwen15_32b",
+    "qwen2-0.5b": "qwen2_05b",
+    "smollm-135m": "smollm_135m",
+    "gemma3-4b": "gemma3_4b",
+    "mamba2-370m": "mamba2_370m",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "grok-1-314b": "grok1_314b",
 }
 
-#: arch ids of the JAX package that the port does not serve yet
-NOT_PORTED = (
-    "qwen1.5-32b", "qwen2-0.5b", "smollm-135m", "gemma3-4b",
-    "mixtral-8x7b", "grok-1-314b", "zamba2-1.2b", "paligemma-3b",
-)
+#: arch ids of the JAX package that the port does not serve yet -> family
+NOT_PORTED = {"zamba2-1.2b": "hybrid", "paligemma-3b": "vlm"}
 
 
 def _module(arch_id: str):
@@ -103,6 +131,11 @@ def _module(arch_id: str):
     if arch_id not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; ported: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
+
+
+def family_of(arch_id: str) -> str:
+    """The family of any arch id of the JAX package, ported or not."""
+    return NOT_PORTED.get(arch_id) or get_config(arch_id).family
 
 
 def get_config(arch_id: str) -> ModelConfig:

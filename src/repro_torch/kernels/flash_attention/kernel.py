@@ -6,7 +6,9 @@ kernel on PyTorch's current stream. It takes CUDA tensors only; `ops.mha`
 sends CPU tensors to the plain version instead. q, k, v are read in place
 through their batch and row strides (each head's hd values must be
 contiguous, as they are after a reshape of a projection).
-`flash_attention.launches` counts the launches.
+`flash_attention.launches` counts the launches, and
+`flash_attention.launches_by_case` counts them by call, keyed
+(B, Sq, Hq, Hkv, hd, causal, window).
 
 The dtype picks the kernel, by a fixed rule and not as a fallback:
 bfloat16 goes to `flash_mma_kernel` (tensor cores, cp.async staging, so its
@@ -89,7 +91,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    case = (B, Sq, Hq, Hkv, hd, bool(causal), window)
+    flash_attention.launches_by_case[case] = flash_attention.launches_by_case.get(case, 0) + 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_case = {}

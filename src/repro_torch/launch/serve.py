@@ -4,13 +4,22 @@ and reports throughput and latency.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --requests 8 --slots 4 --max-new 32           # on the card
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
         --reduced --device cpu                        # tiny, on the CPU
 
-On the card the runtime computes in bf16 with fp32 parameters; on the CPU in
-fp32. Checkpoint restore is not ported yet. As in `repro`, the engine serves
-decoder-only families: for whisper (encdec) the launcher refuses, and
-`serve.serve_step.make_prefill_step` / `make_decode_step` serve it.
+It serves the decoder-only archs: mamba2-370m, smollm-135m, qwen2-0.5b,
+qwen1.5-32b, gemma3-4b, mixtral-8x7b, grok-1-314b (at full width the last
+three need more than one card's memory in fp32: see PERF.md for cut
+depths). On the card the runtime computes in bf16 with fp32 parameters; on
+the CPU in fp32. Checkpoint restore is not ported yet. As in `repro`, the
+launcher refuses encdec and vlm (whisper-small, paligemma-3b):
+`serve.serve_step.make_prefill_step` / `make_decode_step` serve whisper.
+
+`--max-len` is the KV cache's slots per sequence. The engine decodes with
+per-slot positions, which never take the windowed decode branch; a decode
+step with a scalar position does (`make_decode_step`), when the cache holds
+at least 4x the window: gemma3-4b (window 1024) needs `--max-len` >= 4096
+for that.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs.base import family_of
 from repro_torch.models.model import Model
 from repro_torch.models.runtime import Runtime
 from repro_torch.serve.engine import Request, ServeEngine
@@ -33,7 +43,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
-    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--max-len", type=int, default=128,
+                    help="KV cache slots per sequence (gemma3-4b's windowed "
+                         "decode branch needs >= 4096)")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     args = ap.parse_args(argv)
@@ -41,11 +53,11 @@ def main(argv=None):
     # float32 products in full fp32 on the card, as in repro (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    if cfg.family in ("encdec", "vlm"):
+    if family_of(args.arch) in ("encdec", "vlm"):
         raise SystemExit("engine serves decoder-only families; use "
                          "serve_step.make_prefill_step/make_decode_step "
                          "directly for encdec/vlm")
+    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     on_cpu = torch.device(args.device).type == "cpu"
     rt = Runtime(device=args.device,
                  compute_dtype=torch.float32 if on_cpu else torch.bfloat16)

@@ -11,10 +11,16 @@ Unlike `repro`, whose arrays are immutable, the cache functions here write
 into the cache they are given and return it: the caller owns one cache per
 batch and nothing keeps the old contents.
 
+A windowed decode step against a long cache (scalar position, `W >= 4 *
+window`) attends over the `window` slots that can hold the last `window`
+positions instead of the whole cache; `cached_attention.window_slices`
+counts those steps (one per layer and step).
+
 Not ported (ROADMAP.md): the mesh-only `_constrain_attn` and
-`_long_decode_attention`, the windowed decode against a long cache (it
-raises), the prefix-LM mask of the VLM family, bf16 score products
-(`_attention_bf16_scores`) and ring-buffer caches.
+`_long_decode_attention`, the prefix-LM mask of the VLM family, and the
+runtime options that pick another cache layout or score arithmetic (ring
+caches, `_attention_bf16_scores`, `opt_cache_dus=False`): the port runs
+`repro`'s defaults, and nothing in it asks for the others.
 """
 from __future__ import annotations
 
@@ -118,8 +124,8 @@ def _attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: Optional[int]):
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
                   rt: Runtime) -> Dict[str, torch.Tensor]:
-    """Full-length cache for `n_layers` attention layers: k, v (L, B, W, Hkv,
-    hd) in the compute dtype and kv_pos (L, B, W) int32, all slots -1."""
+    """Cache for `n_layers` attention layers: k, v (L, B, max_len, Hkv, hd)
+    in the compute dtype and kv_pos (L, B, max_len) int32, all slots -1."""
     dev = rt.torch_device()
     shape = (n_layers, batch, max_len, cfg.n_kv, cfg.hd())
     return {
@@ -183,15 +189,20 @@ def cached_attention(x: torch.Tensor, p: Attention, cfg: ModelConfig, rt: Runtim
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     cache_l = update_cache_layer(cache_l, k, v, pos)
-    W = cache_l["k"].shape[1]
+    k_c, v_c, pos_c = cache_l["k"], cache_l["v"], cache_l["kv_pos"]
+    W = k_c.shape[1]
     if _is_scalar(pos) and S_new == 1 and window is not None and W >= 4 * window:
-        raise NotImplementedError(
-            "windowed decode against a long cache (repro's slice of the last "
-            "`window` slots) is not ported yet; ROADMAP.md lists it")
-    out = _attend(q, cache_l["k"], cache_l["v"], positions, cache_l["kv_pos"],
-                  causal=True, window=window)
+        # windowed decode against a long cache: read the `window` slots from
+        # `start` instead of masking the whole cache (repro attention.py:303)
+        start = min(max(int(pos) - window + 1, 0), W - window)
+        k_c, v_c, pos_c = (t[:, start:start + window] for t in (k_c, v_c, pos_c))
+        cached_attention.window_slices += 1
+    out = _attend(q, k_c, v_c, positions, pos_c, causal=True, window=window)
     out = out.reshape(B, S_new, cfg.n_heads * cfg.hd())
     return out @ p.wo.to(rt.compute_dtype), cache_l
+
+
+cached_attention.window_slices = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,14 @@
 """Carry weights from the JAX package into the port.
 
-`repro`'s params are a nested dict. The layer groups (`layers` for SSM,
-`enc_layers` and `dec_layers` for encdec) hold their leaves stacked on axis
-0, one entry per layer, possibly under sub-dicts (`enc_layers.attn.wq`).
+`repro`'s params are a nested dict. The layer groups (`layers` for the
+dense, MoE and SSM families, `enc_layers` and `dec_layers` for encdec) hold
+their leaves stacked on axis 0, one entry per layer, possibly under
+sub-dicts (`layers.attn.wq`, `layers.moe.wi`, `enc_layers.attn.wq`).
 The port keeps one module per layer with the same per-layer layout, so layer
 i's tensor is the stacked leaf's slice [i] (`enc_layers.{i}.attn.wq`);
 nothing is transposed or re-split (mamba2's in_proj stays (D, 2*di + 2*N + H)
 in the packed column order [z | x | B | C | dt]). Other top-level leaves
-(`embed`, `final_ln`, `enc_ln`) are taken as they are.
+(`embed`, `unembed`, `final_ln`, `enc_ln`) are taken as they are.
 """
 from __future__ import annotations
 

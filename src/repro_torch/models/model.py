@@ -1,22 +1,24 @@
-"""Model facade of the port. The SSM family (mamba2) and the encoder-decoder
-family (whisper) are ported; the other families raise `NotImplementedError`
-(ROADMAP.md lists them).
+"""Model facade of the port. The dense and MoE decoder families (smollm,
+qwen, gemma3, mixtral, grok), the SSM family (mamba2) and the
+encoder-decoder family (whisper) are ported; the hybrid and VLM families
+raise `NotImplementedError` (ROADMAP.md lists them).
 
     model = Model(cfg, rt)                      # random init from a seed
     cache = init_cache(cfg, rt, batch, max_len)
     logits, cache = model.prefill(tokens, cache)       # last-token logits
-    logits, cache = model.decode_step(tokens, cache)   # tokens (B, 1)
+    # pos: the absolute position of `tokens`, a scalar or per slot (B,);
+    # the attention families need it, an SSM cache carries its own state
+    logits, cache = model.decode_step(tokens, cache, pos=pos)   # tokens (B, 1)
     logits = model(tokens)                      # full-sequence scoring
-    # encdec: frames (B, encoder_len, D) are the precomputed audio frames,
-    # pos the absolute position of the decoded token (a scalar, or (B,))
+    loss, metrics = loss_fn(model, {"tokens": ..., "labels": ...})
+    # encdec: frames (B, encoder_len, D) are the precomputed audio frames
     logits, cache = model.prefill(tokens, cache, frames=frames)
-    logits, cache = model.decode_step(tokens, cache, pos=pos)
     logits = model(tokens, frames=frames)
 
 Parameters live on `rt.device` in `rt.param_dtype` and are cast to
-`rt.compute_dtype` where they are used, as in `repro`. The logits are fp32
-against the tied embedding. prefill and decode_step update `cache` in place
-and return it.
+`rt.compute_dtype` where they are used, as in `repro`. The logits are fp32,
+against the tied embedding or the separate `unembed`. prefill and
+decode_step update `cache` in place and return it.
 
 The model leaves the process-wide TF32 switches alone. The entry points
 (`launch/serve.py`, `chip_smoke.py`) set `torch.backends.cuda.matmul.allow_tf32`
@@ -31,12 +33,13 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import encdec
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import embed_init_, rmsnorm
 from repro_torch.models.mamba2 import SSMBlock, init_ssm_cache
 from repro_torch.models.runtime import Runtime
 
-PORTED_FAMILIES = ("ssm", "encdec")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "encdec")
+DECODER_FAMILIES = ("dense", "moe")
 
 
 def _require_ported(cfg: ModelConfig):
@@ -57,7 +60,12 @@ class Model(nn.Module):
         kw = {"device": dev, "dtype": rt.param_dtype}
         self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model, **kw))
         self.final_ln = nn.Parameter(torch.zeros(cfg.d_model, **kw))
-        if cfg.family == "ssm":
+        if not cfg.tied_embeddings:
+            self.unembed = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab, **kw))
+        if cfg.family in DECODER_FAMILIES:
+            self.layers = nn.ModuleList(
+                transformer.DecoderLayer(cfg, **kw) for _ in range(cfg.num_layers))
+        elif cfg.family == "ssm":
             self.layers = nn.ModuleList(
                 SSMBlock(cfg, **kw) for _ in range(cfg.num_layers))
         else:
@@ -73,10 +81,12 @@ class Model(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, g: torch.Generator):
         embed_init_(self.embed, g)
+        if not self.cfg.tied_embeddings:
+            embed_init_(self.unembed, g)
         self.final_ln.zero_()
         if self.cfg.family == "encdec":
             self.enc_ln.zero_()
-        layers = (self.layers if self.cfg.family == "ssm"
+        layers = (self.layers if self.cfg.family != "encdec"
                   else [*self.enc_layers, *self.dec_layers])
         for layer in layers:
             layer.reset_parameters(g)
@@ -87,7 +97,9 @@ class Model(nn.Module):
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(x, self.final_ln, self.cfg.norm_eps)
-        return x.float() @ self.embed.float().T
+        if self.cfg.tied_embeddings:
+            return x.float() @ self.embed.float().T
+        return x.float() @ self.unembed.float()
 
     def _encode(self, frames: Optional[torch.Tensor]) -> torch.Tensor:
         if frames is None:
@@ -98,17 +110,28 @@ class Model(nn.Module):
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, frames: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        """Full-sequence logits (B, S, V), fp32. No loss."""
+        """Full-sequence logits (B, S, V), fp32 (`loss_fn` scores them)."""
+        return self.forward_with_aux(tokens, frames)[0]
+
+    @torch.no_grad()
+    def forward_with_aux(self, tokens: torch.Tensor, frames: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(full-sequence logits, aux loss): the MoE layers' summed
+        load-balancing loss, a () fp32 tensor, 0 for the other families."""
         x = self._embed(tokens)
-        if self.cfg.family == "ssm":
+        B, S = tokens.shape
+        aux = torch.zeros((), device=tokens.device)
+        if self.cfg.family in DECODER_FAMILIES:
+            positions = encdec.iota_positions(B, S, tokens.device)
+            x, aux = transformer.decoder_stack(x, self.layers, self.cfg, self.rt, positions)
+        elif self.cfg.family == "ssm":
             for layer in self.layers:
                 x = layer(x, self.rt)
         else:
-            B, S = tokens.shape
             positions = encdec.iota_positions(B, S, tokens.device)
             x = encdec.decode_stack(x, self.dec_layers, self.cfg, self.rt, positions,
                                     self._encode(frames))
-        return self._logits(x)
+        return self._logits(x), aux
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: Dict,
@@ -117,7 +140,10 @@ class Model(nn.Module):
         The encdec family runs the encoder over `frames`, fills the cross
         K/V and prefills the decoder's self cache with `tokens`."""
         x = self._embed(tokens)
-        if self.cfg.family == "ssm":
+        if self.cfg.family in DECODER_FAMILIES:
+            x, cache["attn"] = transformer.decoder_stack_decode(
+                x, self.layers, self.cfg, self.rt, cache["attn"], 0)
+        elif self.cfg.family == "ssm":
             for i, layer in enumerate(self.layers):
                 x, cache["conv"][i], cache["ssd"][i] = layer.prefill(
                     x, self.rt, cache["conv"][i])
@@ -132,26 +158,49 @@ class Model(nn.Module):
     def decode_step(self, tokens: torch.Tensor, cache: Dict, pos=None
                     ) -> Tuple[torch.Tensor, Dict]:
         """One autoregressive step. tokens (B, 1) -> logits (B, V). The
-        encdec family needs `pos`, the absolute position of `tokens` (an
-        SSM cache carries its own state)."""
+        attention families need `pos`, the absolute position of `tokens`: a
+        scalar, or (B,) per slot (an SSM cache carries its own state)."""
+        if pos is None and self.cfg.family != "ssm":
+            raise ValueError(f"the {self.cfg.family} family's decode_step needs pos")
         x = self._embed(tokens)
-        if self.cfg.family == "ssm":
+        if self.cfg.family in DECODER_FAMILIES:
+            x, cache["attn"] = transformer.decoder_stack_decode(
+                x, self.layers, self.cfg, self.rt, cache["attn"], pos)
+        elif self.cfg.family == "ssm":
             for i, layer in enumerate(self.layers):
                 x, cache["conv"][i], cache["ssd"][i] = layer.decode(
                     x, self.rt, cache["conv"][i], cache["ssd"][i])
         else:
-            if pos is None:
-                raise ValueError("the encdec family's decode_step needs pos")
             x, cache = encdec.decode_stack_cached(x, self.dec_layers, self.cfg, self.rt,
                                                   cache, pos)
         return self._logits(x)[:, 0], cache
 
 
+@torch.no_grad()
+def loss_fn(model: Model, batch: Dict, aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross entropy over the labels >= 0 (fp32 log-softmax)
+    plus `aux_weight` times the MoE aux loss. batch: "tokens", "labels"
+    (B, S) and, for encdec, "frames". Returns (loss, {"ce", "aux", "tokens"})."""
+    logits, aux = model.forward_with_aux(batch["tokens"], batch.get("frames"))
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
+    denom = mask.sum().clamp_min(1.0)
+    ce = (nll * mask).sum() / denom
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux, "tokens": denom}
+
+
 def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, max_len: int) -> Dict:
-    """SSM: {"conv": (L, B, K-1, C), "ssd": (L, B, H, P, N) fp32}; an SSM
+    """dense/moe: {"attn": the stack's KV cache (`transformer.init_decoder_cache`)}.
+    SSM: {"conv": (L, B, K-1, C), "ssd": (L, B, H, P, N) fp32}; an SSM
     cache does not grow with `max_len`. encdec: the decoder's self cache of
     `max_len` slots and the cross K/V (`encdec.init_encdec_cache`)."""
     _require_ported(cfg)
+    if cfg.family in DECODER_FAMILIES:
+        return {"attn": transformer.init_decoder_cache(cfg, batch, max_len,
+                                                       cfg.num_layers, rt)}
     if cfg.family == "ssm":
         return init_ssm_cache(cfg, batch, cfg.num_layers, rt)
     return encdec.init_encdec_cache(cfg, batch, max_len, rt)

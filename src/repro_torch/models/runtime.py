@@ -1,7 +1,10 @@
 """Runtime options threaded through every model call.
 
-The JAX package's sharding and remat fields do nothing on one device and are
-left out. `device` defaults to "cuda": an entry point runs on the card unless
+The JAX package's sharding, remat and MoE-buffer fields do nothing on one
+device and are left out, and so are its cache and score options
+(`ring_cache`, `opt_cache_dus`, `opt_bf16_scores`): the port behaves as
+`repro` does at their defaults, and none of its entry points sets another
+value. `device` defaults to "cuda": an entry point runs on the card unless
 the caller asks for the CPU, and raises if there is no card.
 """
 from __future__ import annotations

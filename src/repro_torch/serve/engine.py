@@ -4,6 +4,10 @@
 Fixed decode batch of `slots`; finished slots are immediately refilled from
 the request queue (single-request prefill into a fresh B=1 cache, then the
 state tensors are written into the batched cache at that slot, in place).
+Per-slot position vectors keep sequences independent: a decode step passes
+every slot's position as a (B,) tensor, empty slots included (their output
+is discarded), so attention writes the cache through its scatter branch.
+It serves the decoder-only families: dense, MoE and SSM.
 
 Timed, multi-tenant serving: every `step()` ticks a discrete clock `t` (even
 when no slot is live), and a request becomes eligible once `t >= submit_at`.
@@ -53,12 +57,22 @@ class Request:
     seq: int = -1                   # submission order, set by submit()
 
 
+def _splice(cache: Dict, cache1: Dict, slot: int):
+    """Write a B=1 cache into batch slot `slot` of `cache`, leaf by leaf
+    (leaves are (L, B, ...), possibly under sub-dicts: {"attn": {k, v, kv_pos}})."""
+    for k, small in cache1.items():
+        if isinstance(small, dict):
+            _splice(cache[k], small, slot)
+        else:
+            cache[k][:, slot:slot + 1] = small
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, rt: Runtime, model: M.Model,
                  slots: int = 4, max_len: int = 512,
                  eos_token: Optional[int] = None, policy: str = "fifo"):
-        if cfg.family != "ssm":
-            if cfg.family == "encdec":
+        if cfg.family not in ("dense", "moe", "ssm"):
+            if cfg.family in ("encdec", "vlm"):
                 raise NotImplementedError(
                     "engine supports decoder-only families; encdec/vlm use the "
                     "prefill/decode steps directly")
@@ -74,6 +88,7 @@ class ServeEngine:
         self.policy = policy
         self.queue: List[Request] = []
         self.active: List[Optional[Request]] = [None] * slots
+        self.pos = np.zeros(slots, np.int64)
         self.last_tok = np.zeros(slots, np.int64)
         self.cache = M.init_cache(cfg, rt, slots, max_len)
         self.gen = torch.Generator(self.device).manual_seed(0)
@@ -89,11 +104,6 @@ class ServeEngine:
     def _prefill_one(self, tokens: torch.Tensor):
         cache = M.init_cache(self.cfg, self.rt, 1, self.max_len)
         return self.model.prefill(tokens, cache)
-
-    def _splice_cache(self, slot: int, cache1: Dict[str, torch.Tensor]):
-        """Write a B=1 cache into batch slot `slot` (caches are (L, B, ...))."""
-        for k, small in cache1.items():
-            self.cache[k][:, slot:slot + 1] = small
 
     def _key(self, req: Request):
         if self.policy == "fifo":
@@ -116,12 +126,13 @@ class ServeEngine:
                                    np.asarray(req.output[:-1], np.int64)])
         logits, cache1 = self._prefill_one(
             torch.as_tensor(toks, device=self.device)[None, :])
-        self._splice_cache(slot, cache1)
+        _splice(self.cache, cache1, slot)
         if not resumed:
             first = int(sample_logits(logits, self.gen, req.temperature)[0])
             req.output.append(first)
             req.admit_step = self.t
         self.active[slot] = req
+        self.pos[slot] = len(toks)
         self.last_tok[slot] = req.output[-1]
         self._slot_admit[slot] = self.n_admits
         self.n_admits += 1
@@ -183,7 +194,8 @@ class ServeEngine:
             return 0
         t0 = time.perf_counter()
         tokens = torch.as_tensor(self.last_tok, device=self.device)[:, None]
-        logits, self.cache = self.model.decode_step(tokens, self.cache)
+        pos = torch.as_tensor(self.pos, dtype=torch.int32, device=self.device)
+        logits, self.cache = self.model.decode_step(tokens, self.cache, pos=pos)
         # per-slot temperatures: empty slots decode greedily (discarded),
         # live slots honor their request's setting on every decode step
         temps = np.zeros(self.slots, np.float32)
@@ -195,6 +207,7 @@ class ServeEngine:
             req = self.active[s]
             tok = int(nxt[s])
             req.output.append(tok)
+            self.pos[s] += 1
             self.last_tok[s] = tok
             done = (len(req.output) >= req.max_new_tokens
                     or (self.eos is not None and tok == self.eos))

@@ -20,6 +20,12 @@ window=1, under the same per-element bf16 rule; K2 through strided views of
 one packed (B, S, H*P + 2N) tensor at four alignments, equal bit for bit to
 the contiguous call and within the JAX tests' tolerance of the plain
 version; a misaligned bf16 K1 input raises before any launch.
+
+The decoder slice: K1 in bf16 at the full-sequence forward shapes of
+gemma3-4b (S=4096, 8/4 heads of 256, window 1024) and mixtral-8x7b (S=4096,
+32/8 heads of 128, window 4096) under the same per-element rule; reduced
+gemma3 and mixtral served on the card and the CPU from the same weights
+give the same greedy tokens, and the forward's logits agree within 1e-4.
 """
 import numpy as np
 import pytest
@@ -151,6 +157,11 @@ FLASH_CASES = [
     (1, 80, 3, 1, 16, True, 24),
 ]
 FLASH_SERVING = (4, 1500, 12, 12, 64, False, None)     # the whisper encoder
+# the full-sequence forward of gemma3-4b (a local layer: window 1024; a global
+# one: causal only; hd 256, GQA 8/4) and of mixtral-8x7b (hd 128, GQA 32/8,
+# window 4096), bf16 only
+FLASH_DECODER = [(1, 4096, 8, 4, 256, True, 1024), (1, 4096, 8, 4, 256, True, None),
+                 (1, 4096, 32, 8, 128, True, 4096)]
 FLASH_DTYPES = {"fp32": (torch.float32, 2e-5), "bf16": (torch.bfloat16, 2e-2)}
 
 
@@ -176,6 +187,23 @@ def test_flash_kernel_matches_plain_version(cuda, case, dname):
     a = 1e-4 * ref.abs().max().item()
     err = (out.float() - ref).abs()
     assert bool((err <= (a if dname == "fp32" else 1e-2 * ref.abs() + a)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_DECODER, ids=["gemma3", "gemma3_global", "mixtral"])
+def test_flash_kernel_at_the_decoder_forward_shapes(cuda, case):
+    """bf16, under the long shapes' rule: |d| <= 1e-2 |ref| + 1e-4 max|ref|."""
+    B, S, Hq, Hkv, hd, causal, window = case
+    q, k, v = _qkv(B, S, S, Hq, Hkv, hd, torch.bfloat16, cuda)
+    pos = torch.arange(S, device=cuda)[None].expand(B, S)
+    before = flash_attention.launches
+    out = fa_ops.mha(q, k, v, pos, pos, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = attention_ref(q, k, v, pos, pos, causal=causal, window=window).float()
+    err = (out.float() - ref).abs()
+    assert torch.isfinite(out).all()
+    assert bool((err <= 1e-2 * ref.abs() + 1e-4 * ref.abs().max()).all())
 
 
 # bf16 tensor-core kernel: every head-dim class, ragged Sq (200) and Skv
@@ -275,3 +303,33 @@ def test_whisper_on_the_card_matches_cpu(cuda):
     torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
     assert flash_attention.launches - before == 2 * cfg.encoder_layers + cfg.num_layers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma3-4b", "mixtral-8x7b"])
+def test_decoder_archs_on_the_card_match_cpu(cuda, arch):
+    """The same weights (reduced, fp32) served on the card and the CPU give
+    the same greedy tokens through the engine; the forward's logits agree
+    within 1e-4 and launch the kernel once per layer, the engine never."""
+    cfg = reduced_config(arch)
+    rt = Runtime(device="cuda", compute_dtype=torch.float32)
+    cpu_model = Model(cfg, CPU_TEST, seed=3)
+    gpu_model = Model(cfg, rt, seed=None)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 26, 11, 17)]
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)))
+
+    def run(model, rtx):
+        eng = ServeEngine(cfg, rtx, model, slots=2, max_len=64)
+        out = eng.run([Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)])
+        served = flash_attention.launches
+        return out, model(tokens.to(rtx.torch_device())).cpu(), served
+
+    want = run(cpu_model, CPU_TEST)
+    before = flash_attention.launches
+    out, fwd, served = run(gpu_model, rt)
+    assert out == want[0]
+    assert served == before
+    torch.testing.assert_close(fwd, want[1], rtol=1e-4, atol=1e-4)
+    assert flash_attention.launches - served == cfg.num_layers

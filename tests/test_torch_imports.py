@@ -14,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import reduced_config  # noqa: E402
-from repro_torch.configs.base import NOT_PORTED, get_config  # noqa: E402
+from repro_torch.configs.base import NOT_PORTED, family_of, get_config  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.runtime import CPU_TEST, Runtime  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -36,9 +36,19 @@ def _imported(path: Path):
             yield node.args[0].value
 
 
+# modules each slice added; the scans below must reach every one of them
+SLICE_MODULES = (
+    "models/transformer.py", "models/moe.py", "configs/smollm_135m.py",
+    "configs/qwen2_05b.py", "configs/qwen15_32b.py", "configs/gemma3_4b.py",
+    "configs/mixtral_8x7b.py", "configs/grok1_314b.py", "models/encdec.py",
+    "models/mamba2.py", "kernels/flash_attention/kernel.py", "kernels/ssd_scan/kernel.py",
+)
+
+
 def test_no_module_of_the_port_imports_jax_or_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) > 25
+    assert {PKG / m for m in SLICE_MODULES} <= set(files)
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imported(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -51,8 +61,9 @@ def test_importing_the_whole_port_loads_neither_jax_nor_repro():
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 15 else 0)\n")
+        "want = {'repro_torch.' + m[:-3].replace('/', '.') for m in %r}\n"
+        "print(len(mods), bad, sorted(want - set(mods)))\n"
+        "sys.exit(1 if bad or want - set(mods) else 0)\n" % (SLICE_MODULES,))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                        text=True, timeout=120)
@@ -76,10 +87,26 @@ def test_runtime_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     assert all(0 <= t < cfg.vocab for v in out.values() for t in np.ravel(v))
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED[:3])
+@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
 def test_archs_not_ported_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
+    assert family_of(arch) == NOT_PORTED[arch]
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "mixtral-8x7b"])
+def test_decoder_archs_need_a_card_unless_asked_for_the_cpu(monkeypatch, arch):
+    assert arch not in NOT_PORTED and family_of(arch) in ("dense", "moe")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config(arch)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        Model(cfg, Runtime())
+    model = Model(cfg, CPU_TEST)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        ServeEngine(cfg, Runtime(), model)
+    logits, _ = make_prefill_step(cfg, CPU_TEST, 16)(model, {"tokens": torch.zeros((1, 3),
+                                                                                 dtype=torch.long)})
+    assert logits.shape == (1, cfg.vocab)
 
 
 def test_whisper_is_ported_and_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
