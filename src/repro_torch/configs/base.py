@@ -1,11 +1,10 @@
 """Model configuration for the PyTorch port: the fields and the registry that
-the ported slice needs, copied from `repro.configs.base` so the port imports
-nothing of the JAX package.
+the port needs, copied from `repro.configs.base` so the port imports nothing
+of the JAX package.
 
-The dense (smollm, qwen, gemma3), MoE (mixtral, grok), SSM (mamba2) and
-encoder-decoder (whisper) families are ported; the hybrid (zamba2) and VLM
-(paligemma) arch ids raise `NotImplementedError` (see ROADMAP.md for the
-order of the slices).
+Every family of the JAX package is ported: dense (smollm, qwen, gemma3), MoE
+(mixtral, grok), SSM (mamba2), hybrid (zamba2), encoder-decoder (whisper)
+and VLM (paligemma).
 """
 from __future__ import annotations
 
@@ -40,7 +39,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | ssm | encdec are ported
+    family: str                   # dense | moe | ssm | hybrid | encdec | vlm
     num_layers: int
     d_model: int
     vocab: int
@@ -56,9 +55,12 @@ class ModelConfig:
     local_global_pattern: Optional[Tuple[int, int]] = None
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    # --- enc-dec ----------------------------------------------------------
+    # hybrid (zamba2): one shared attention block applied every k SSM layers
+    shared_attn_every: Optional[int] = None
+    # --- enc-dec / multimodal ---------------------------------------------
     encoder_layers: int = 0       # whisper
     encoder_len: int = 0          # fixed frontend length (audio frames)
+    prefix_len: int = 0           # vlm: image patch embeddings prepended
     tied_embeddings: bool = True  # False: a separate unembed (D, V)
     norm_eps: float = 1e-6
     act: str = "silu"             # silu | gelu (tanh form, as jax.nn.gelu)
@@ -80,14 +82,14 @@ class ModelConfig:
         """Exact parameter count of the ported model, norms included."""
         D, V = self.d_model, self.vocab
         mlp = (3 if self.glu else 2) * D * self.d_ff
-        if self.family in ("dense", "moe"):
+        if self.family in ("dense", "moe", "vlm"):
             ffn = mlp
             if self.family == "moe":                   # experts + router
                 ffn = self.moe.num_experts * (mlp + D)
             per = 2 * D + self._attn_params() + ffn    # ln1, attn, ln2, ffn
             embeds = V * D * (1 if self.tied_embeddings else 2)
             return embeds + D + self.num_layers * per
-        if self.family == "ssm":
+        if self.family in ("ssm", "hybrid"):
             s = self.ssm
             di, H, N = s.d_inner(D), s.n_heads(D), s.state_dim
             conv_ch = di + 2 * N
@@ -97,17 +99,19 @@ class ModelConfig:
                    + 3 * H                             # A_log, D, dt_bias
                    + di                                # norm
                    + di * D)                           # out_proj
-            return V * D + D + self.num_layers * per
+            # hybrid: one shared block (ln1, attn, ln2, mlp), reused
+            shared = (2 * D + self._attn_params() + mlp) if self.family == "hybrid" else 0
+            return V * D + D + self.num_layers * per + shared
         if self.family == "encdec":
             attn = self._attn_params()
             enc = 2 * D + attn + mlp                   # ln1, attn, ln2, mlp
             dec = 3 * D + 2 * attn + mlp               # + lnx, xattn
             return (V * D + 2 * D                      # embed, final_ln, enc_ln
                     + self.encoder_layers * enc + self.num_layers * dec)
-        raise NotImplementedError(self.family)
+        raise ValueError(f"unknown family {self.family!r}")
 
 
-# arch id -> module under repro_torch.configs; the port adds ids slice by slice
+# arch id -> module under repro_torch.configs
 _ARCH_MODULES = {
     "whisper-small": "whisper_small",
     "qwen1.5-32b": "qwen15_32b",
@@ -117,25 +121,15 @@ _ARCH_MODULES = {
     "mamba2-370m": "mamba2_370m",
     "mixtral-8x7b": "mixtral_8x7b",
     "grok-1-314b": "grok1_314b",
+    "zamba2-1.2b": "zamba2_12b",
+    "paligemma-3b": "paligemma_3b",
 }
-
-#: arch ids of the JAX package that the port does not serve yet -> family
-NOT_PORTED = {"zamba2-1.2b": "hybrid", "paligemma-3b": "vlm"}
 
 
 def _module(arch_id: str):
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch yet; "
-            "ROADMAP.md lists the slices still to port")
     if arch_id not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; ported: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
-
-
-def family_of(arch_id: str) -> str:
-    """The family of any arch id of the JAX package, ported or not."""
-    return NOT_PORTED.get(arch_id) or get_config(arch_id).family
 
 
 def get_config(arch_id: str) -> ModelConfig:

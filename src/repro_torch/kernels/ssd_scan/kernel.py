@@ -3,7 +3,8 @@
 `ssd_scan` checks its inputs, allocates the outputs and the scratch, and
 launches on PyTorch's current stream. It takes CUDA tensors only; `ops.ssd`
 sends CPU tensors to the plain version instead. `ssd_scan.launches` counts
-the wrapper's calls that launched.
+the wrapper's calls that launched, and `ssd_scan.launches_by_case` counts
+them by call, keyed (B, S, H, P, N, chunk).
 
 The dtype picks the kernels, by a fixed rule and not as a fallback:
 bfloat16 goes to the tensor-core kernels (chunk_state, state_pass,
@@ -108,7 +109,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     ssd_scan.launches += 1
+    case = (Bsz, S, H, P, N, chunk)
+    ssd_scan.launches_by_case[case] = ssd_scan.launches_by_case.get(case, 0) + 1
     return y, state
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_case = {}

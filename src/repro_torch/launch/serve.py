@@ -4,16 +4,16 @@ and reports throughput and latency.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --requests 8 --slots 4 --max-new 32           # on the card
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
         --reduced --device cpu                        # tiny, on the CPU
 
-It serves the decoder-only archs: mamba2-370m, smollm-135m, qwen2-0.5b,
-qwen1.5-32b, gemma3-4b, mixtral-8x7b, grok-1-314b (at full width the last
-three need more than one card's memory in fp32: see PERF.md for cut
-depths). On the card the runtime computes in bf16 with fp32 parameters; on
-the CPU in fp32. Checkpoint restore is not ported yet. As in `repro`, the
-launcher refuses encdec and vlm (whisper-small, paligemma-3b):
-`serve.serve_step.make_prefill_step` / `make_decode_step` serve whisper.
+It serves the decoder-only archs: mamba2-370m, zamba2-1.2b, smollm-135m,
+qwen2-0.5b, qwen1.5-32b, gemma3-4b, mixtral-8x7b, grok-1-314b (at full
+width the last three need more than one card's memory in fp32: see PERF.md
+for cut depths). On the card the runtime computes in bf16 with fp32
+parameters; on the CPU in fp32. Checkpoint restore is not ported yet. As in
+`repro`, the launcher refuses encdec and vlm (whisper-small, paligemma-3b):
+`serve.serve_step.make_prefill_step` / `make_decode_step` serve them.
 
 `--max-len` is the KV cache's slots per sequence. The engine decodes with
 per-slot positions, which never take the windowed decode branch; a decode
@@ -30,7 +30,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.configs.base import family_of
 from repro_torch.models.model import Model
 from repro_torch.models.runtime import Runtime
 from repro_torch.serve.engine import Request, ServeEngine
@@ -53,7 +52,7 @@ def main(argv=None):
     # float32 products in full fp32 on the card, as in repro (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if family_of(args.arch) in ("encdec", "vlm"):
+    if get_config(args.arch).family in ("encdec", "vlm"):
         raise SystemExit("engine serves decoder-only families; use "
                          "serve_step.make_prefill_step/make_decode_step "
                          "directly for encdec/vlm")

@@ -16,10 +16,13 @@ window`) attends over the `window` slots that can hold the last `window`
 positions instead of the whole cache; `cached_attention.window_slices`
 counts those steps (one per layer and step).
 
+The VLM family's prefix-LM mask (bidirectional among the first
+`prefix_len` positions, causal after them) has no kernel, in `repro` as here:
+full-sequence attention with `prefix_len > 0` takes the masked plain path.
+
 Not ported (ROADMAP.md): the mesh-only `_constrain_attn` and
-`_long_decode_attention`, the prefix-LM mask of the VLM family, and the
-runtime options that pick another cache layout or score arithmetic (ring
-caches, `_attention_bf16_scores`, `opt_cache_dus=False`): the port runs
+`_long_decode_attention`, and the runtime options that pick another cache
+layout or score arithmetic (ring caches, `_attention_bf16_scores`, `opt_cache_dus=False`): the port runs
 `repro`'s defaults, and nothing in it asks for the others.
 """
 from __future__ import annotations
@@ -91,13 +94,17 @@ def _proj_qkv(h: torch.Tensor, p: Attention, cfg: ModelConfig, rt: Runtime):
 
 def self_attention(h: torch.Tensor, p: Attention, cfg: ModelConfig, rt: Runtime,
                    positions: torch.Tensor, *, causal: bool = True,
-                   window: Optional[int] = None) -> torch.Tensor:
+                   window: Optional[int] = None, prefix_len: int = 0) -> torch.Tensor:
     """h (B, S, D), positions (B, S) -> (B, S, D). The attention itself is
-    `fa_ops.mha`: the flash-attention kernel on the card."""
+    `fa_ops.mha`, the flash-attention kernel on the card, unless a prefix-LM
+    mask (`prefix_len > 0`) sends it to the masked plain path."""
     q, k, v = _proj_qkv(h, p, cfg, rt)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = fa_ops.mha(q, k, v, positions, positions, causal=causal, window=window)
+    if prefix_len > 0:      # repro's _prefix_lm_attention: causal, no window
+        out = attention_ref(q, k, v, positions, positions, prefix_len=prefix_len)
+    else:
+        out = fa_ops.mha(q, k, v, positions, positions, causal=causal, window=window)
     B, S = h.shape[:2]
     return out.reshape(B, S, cfg.n_heads * cfg.hd()) @ p.wo.to(rt.compute_dtype)
 
@@ -107,13 +114,15 @@ _CHUNK_Q = 512
 _CHUNK_THRESHOLD = 8192
 
 
-def _attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: Optional[int]):
+def _attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: Optional[int],
+            prefix_len: int = 0):
     """Masked attention (the plain version), chunked over q when long."""
+    kw = {"causal": causal, "window": window, "prefix_len": prefix_len}
     Sq = q.shape[1]
     if Sq < _CHUNK_THRESHOLD or Sq % _CHUNK_Q != 0:
-        return attention_ref(q, k, v, q_pos, kv_pos, causal=causal, window=window)
+        return attention_ref(q, k, v, q_pos, kv_pos, **kw)
     return torch.cat([attention_ref(q[:, i:i + _CHUNK_Q], k, v, q_pos[:, i:i + _CHUNK_Q],
-                                    kv_pos, causal=causal, window=window)
+                                    kv_pos, **kw)
                       for i in range(0, Sq, _CHUNK_Q)], dim=1)
 
 
@@ -177,7 +186,7 @@ def update_cache_layer(cache_l: Dict[str, torch.Tensor], k_new: torch.Tensor,
 
 def cached_attention(x: torch.Tensor, p: Attention, cfg: ModelConfig, rt: Runtime,
                      cache_l: Dict[str, torch.Tensor], pos: Pos, *,
-                     window: Optional[int] = None
+                     window: Optional[int] = None, prefix_len: int = 0
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Decode / chunked-prefill attention against a layer cache (written in
     place). x (B, S_new, D); `pos` is the absolute position of x[:, 0], a
@@ -197,7 +206,8 @@ def cached_attention(x: torch.Tensor, p: Attention, cfg: ModelConfig, rt: Runtim
         start = min(max(int(pos) - window + 1, 0), W - window)
         k_c, v_c, pos_c = (t[:, start:start + window] for t in (k_c, v_c, pos_c))
         cached_attention.window_slices += 1
-    out = _attend(q, k_c, v_c, positions, pos_c, causal=True, window=window)
+    out = _attend(q, k_c, v_c, positions, pos_c, causal=True, window=window,
+                  prefix_len=prefix_len)
     out = out.reshape(B, S_new, cfg.n_heads * cfg.hd())
     return out @ p.wo.to(rt.compute_dtype), cache_l
 

@@ -1,14 +1,16 @@
 """Carry weights from the JAX package into the port.
 
 `repro`'s params are a nested dict. The layer groups (`layers` for the
-dense, MoE and SSM families, `enc_layers` and `dec_layers` for encdec) hold
-their leaves stacked on axis 0, one entry per layer, possibly under
-sub-dicts (`layers.attn.wq`, `layers.moe.wi`, `enc_layers.attn.wq`).
-The port keeps one module per layer with the same per-layer layout, so layer
-i's tensor is the stacked leaf's slice [i] (`enc_layers.{i}.attn.wq`);
+dense, MoE, SSM and VLM families, `enc_layers` and `dec_layers` for encdec,
+`layers.ssm_layers` for the hybrid) hold their leaves stacked on axis 0, one
+entry per layer, possibly under sub-dicts (`layers.attn.wq`,
+`layers.moe.wi`, `enc_layers.attn.wq`). The port keeps one module per layer
+with the same per-layer layout, so layer i's tensor is the stacked leaf's
+slice [i] (`enc_layers.{i}.attn.wq`, `layers.ssm_layers.{i}.in_proj`);
 nothing is transposed or re-split (mamba2's in_proj stays (D, 2*di + 2*N + H)
-in the packed column order [z | x | B | C | dt]). Other top-level leaves
-(`embed`, `unembed`, `final_ln`, `enc_ln`) are taken as they are.
+in the packed column order [z | x | B | C | dt]). Every other leaf
+(`embed`, `unembed`, `final_ln`, `enc_ln`, the hybrid's shared block
+`layers.shared.*`) is taken as it is.
 """
 from __future__ import annotations
 
@@ -18,11 +20,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import PORTED_FAMILIES
 
-# stacked layer group -> the config field that counts its layers
-_STACKED = {"layers": "num_layers", "enc_layers": "encoder_layers",
-            "dec_layers": "num_layers"}
+
+def _stacked_groups(cfg: ModelConfig) -> Dict[str, int]:
+    """Stacked layer group (dotted path) -> its number of layers."""
+    if cfg.family == "hybrid":
+        return {"layers.ssm_layers": cfg.num_layers}
+    if cfg.family == "encdec":
+        return {"enc_layers": cfg.encoder_layers, "dec_layers": cfg.num_layers}
+    return {"layers": cfg.num_layers}
 
 
 def _leaves(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, object]]:
@@ -36,19 +42,18 @@ def _leaves(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, object]]:
 def params_from_jax(params_np: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """numpy leaves of a JAX param pytree -> the port's state_dict. The
     tensors share memory with the arrays; `load_state_dict` copies them."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    groups = _stacked_groups(cfg)
     sd = {}
-    for top, sub in params_np.items():
-        if top not in _STACKED:
-            sd[top] = torch.as_tensor(np.asarray(sub))
+    for path, leaf in _leaves(params_np):
+        arr = torch.as_tensor(np.asarray(leaf))
+        group = next((g for g in groups if path.startswith(g + ".")), None)
+        if group is None:
+            sd[path] = arr
             continue
-        n_layers = getattr(cfg, _STACKED[top])
-        for name, leaf in _leaves(sub):
-            arr = torch.as_tensor(np.asarray(leaf))
-            if arr.shape[0] != n_layers:
-                raise ValueError(f"{top}/{name}: {arr.shape[0]} stacked layers, "
-                                 f"config has {n_layers}")
-            for i in range(n_layers):
-                sd[f"{top}.{i}.{name}"] = arr[i]
+        n_layers, name = groups[group], path[len(group) + 1:]
+        if arr.shape[0] != n_layers:
+            raise ValueError(f"{group}/{name}: {arr.shape[0]} stacked layers, "
+                             f"config has {n_layers}")
+        for i in range(n_layers):
+            sd[f"{group}.{i}.{name}"] = arr[i]
     return sd

@@ -1,7 +1,6 @@
-"""Model facade of the port. The dense and MoE decoder families (smollm,
-qwen, gemma3, mixtral, grok), the SSM family (mamba2) and the
-encoder-decoder family (whisper) are ported; the hybrid and VLM families
-raise `NotImplementedError` (ROADMAP.md lists them).
+"""Model facade of the port, for every family of the JAX package: dense and
+MoE decoders (smollm, qwen, gemma3, mixtral, grok), SSM (mamba2), hybrid
+(zamba2), encoder-decoder (whisper) and VLM (paligemma).
 
     model = Model(cfg, rt)                      # random init from a seed
     cache = init_cache(cfg, rt, batch, max_len)
@@ -14,6 +13,10 @@ raise `NotImplementedError` (ROADMAP.md lists them).
     # encdec: frames (B, encoder_len, D) are the precomputed audio frames
     logits, cache = model.prefill(tokens, cache, frames=frames)
     logits = model(tokens, frames=frames)
+    # vlm: patches (B, prefix_len, D) are the precomputed image patch
+    # embeddings, prepended to the text; the logits cover both
+    logits, cache = model.prefill(tokens, cache, patches=patches)
+    logits = model(tokens, patches=patches)
 
 Parameters live on `rt.device` in `rt.param_dtype` and are cast to
 `rt.compute_dtype` where they are used, as in `repro`. The logits are fp32,
@@ -33,20 +36,13 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import encdec, transformer
+from repro_torch.models import encdec, hybrid, transformer
 from repro_torch.models.layers import embed_init_, rmsnorm
 from repro_torch.models.mamba2 import SSMBlock, init_ssm_cache
 from repro_torch.models.runtime import Runtime
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "encdec")
-DECODER_FAMILIES = ("dense", "moe")
-
-
-def _require_ported(cfg: ModelConfig):
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet; "
-            "ROADMAP.md lists the slices still to port")
+# the families whose layers are the decoder stack of `models.transformer`
+DECODER_FAMILIES = ("dense", "moe", "vlm")
 
 
 class Model(nn.Module):
@@ -54,7 +50,6 @@ class Model(nn.Module):
         """Random init from `seed` (a torch.Generator on the device), unless
         `rt.device` is "meta" or `seed` is None (weights loaded later)."""
         super().__init__()
-        _require_ported(cfg)
         dev = rt.torch_device()
         self.cfg, self.rt = cfg, rt
         kw = {"device": dev, "dtype": rt.param_dtype}
@@ -68,6 +63,8 @@ class Model(nn.Module):
         elif cfg.family == "ssm":
             self.layers = nn.ModuleList(
                 SSMBlock(cfg, **kw) for _ in range(cfg.num_layers))
+        elif cfg.family == "hybrid":
+            self.layers = hybrid.HybridLayers(cfg, **kw)
         else:
             self.enc_layers = nn.ModuleList(
                 encdec.EncoderLayer(cfg, **kw) for _ in range(cfg.encoder_layers))
@@ -86,14 +83,26 @@ class Model(nn.Module):
         self.final_ln.zero_()
         if self.cfg.family == "encdec":
             self.enc_ln.zero_()
-        layers = (self.layers if self.cfg.family != "encdec"
-                  else [*self.enc_layers, *self.dec_layers])
+        if self.cfg.family == "hybrid":
+            layers = [self.layers]
+        elif self.cfg.family == "encdec":
+            layers = [*self.enc_layers, *self.dec_layers]
+        else:
+            layers = self.layers
         for layer in layers:
             layer.reset_parameters(g)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         # gather then cast: the same values as repro's cast-then-gather
         return self.embed[tokens].to(self.rt.compute_dtype)
+
+    def _embed_vlm(self, tokens: torch.Tensor, patches: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+        """[patches | text embeddings] (B, prefix_len + S, D)."""
+        if patches is None or patches.shape[1] != self.cfg.prefix_len:
+            raise ValueError(f"the vlm family needs patches (B, {self.cfg.prefix_len}, "
+                             "d_model)")
+        return torch.cat([patches.to(self.rt.compute_dtype), self._embed(tokens)], dim=1)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(x, self.final_ln, self.cfg.norm_eps)
@@ -108,25 +117,32 @@ class Model(nn.Module):
         return rmsnorm(enc_out, self.enc_ln, self.cfg.norm_eps)
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor, frames: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        """Full-sequence logits (B, S, V), fp32 (`loss_fn` scores them)."""
-        return self.forward_with_aux(tokens, frames)[0]
+    def forward(self, tokens: torch.Tensor, frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence logits (B, S, V), fp32 (`loss_fn` scores them); for
+        the vlm (B, prefix_len + S, V)."""
+        return self.forward_with_aux(tokens, frames, patches)[0]
 
     @torch.no_grad()
-    def forward_with_aux(self, tokens: torch.Tensor, frames: Optional[torch.Tensor] = None
+    def forward_with_aux(self, tokens: torch.Tensor, frames: Optional[torch.Tensor] = None,
+                         patches: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(full-sequence logits, aux loss): the MoE layers' summed
         load-balancing loss, a () fp32 tensor, 0 for the other families."""
-        x = self._embed(tokens)
-        B, S = tokens.shape
+        fam = self.cfg.family
+        x = self._embed_vlm(tokens, patches) if fam == "vlm" else self._embed(tokens)
+        B, S = x.shape[:2]
         aux = torch.zeros((), device=tokens.device)
-        if self.cfg.family in DECODER_FAMILIES:
+        if fam in DECODER_FAMILIES:
             positions = encdec.iota_positions(B, S, tokens.device)
-            x, aux = transformer.decoder_stack(x, self.layers, self.cfg, self.rt, positions)
-        elif self.cfg.family == "ssm":
+            x, aux = transformer.decoder_stack(x, self.layers, self.cfg, self.rt, positions,
+                                               prefix_len=self.cfg.prefix_len)
+        elif fam == "ssm":
             for layer in self.layers:
                 x = layer(x, self.rt)
+        elif fam == "hybrid":
+            positions = encdec.iota_positions(B, S, tokens.device)
+            x = hybrid.hybrid_forward(x, self.layers, self.cfg, self.rt, positions)
         else:
             positions = encdec.iota_positions(B, S, tokens.device)
             x = encdec.decode_stack(x, self.dec_layers, self.cfg, self.rt, positions,
@@ -135,18 +151,24 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: Dict,
-                frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+                frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
         """Fill `cache` from position 0; returns (last-token logits (B, V), cache).
         The encdec family runs the encoder over `frames`, fills the cross
-        K/V and prefills the decoder's self cache with `tokens`."""
-        x = self._embed(tokens)
-        if self.cfg.family in DECODER_FAMILIES:
+        K/V and prefills the decoder's self cache with `tokens`; the vlm
+        prefills [patches | tokens], so its next position is prefix_len + S."""
+        fam = self.cfg.family
+        x = self._embed_vlm(tokens, patches) if fam == "vlm" else self._embed(tokens)
+        if fam in DECODER_FAMILIES:
             x, cache["attn"] = transformer.decoder_stack_decode(
-                x, self.layers, self.cfg, self.rt, cache["attn"], 0)
-        elif self.cfg.family == "ssm":
+                x, self.layers, self.cfg, self.rt, cache["attn"], 0,
+                prefix_len=self.cfg.prefix_len)
+        elif fam == "ssm":
             for i, layer in enumerate(self.layers):
                 x, cache["conv"][i], cache["ssd"][i] = layer.prefill(
                     x, self.rt, cache["conv"][i])
+        elif fam == "hybrid":
+            x, cache = hybrid.hybrid_prefill(x, self.layers, self.cfg, self.rt, cache)
         else:
             encdec.fill_cross_cache(self._encode(frames), self.dec_layers, self.cfg,
                                     self.rt, cache)
@@ -165,11 +187,14 @@ class Model(nn.Module):
         x = self._embed(tokens)
         if self.cfg.family in DECODER_FAMILIES:
             x, cache["attn"] = transformer.decoder_stack_decode(
-                x, self.layers, self.cfg, self.rt, cache["attn"], pos)
+                x, self.layers, self.cfg, self.rt, cache["attn"], pos,
+                prefix_len=self.cfg.prefix_len)
         elif self.cfg.family == "ssm":
             for i, layer in enumerate(self.layers):
                 x, cache["conv"][i], cache["ssd"][i] = layer.decode(
                     x, self.rt, cache["conv"][i], cache["ssd"][i])
+        elif self.cfg.family == "hybrid":
+            x, cache = hybrid.hybrid_decode(x, self.layers, self.cfg, self.rt, cache, pos)
         else:
             x, cache = encdec.decode_stack_cached(x, self.dec_layers, self.cfg, self.rt,
                                                   cache, pos)
@@ -181,8 +206,12 @@ def loss_fn(model: Model, batch: Dict, aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross entropy over the labels >= 0 (fp32 log-softmax)
     plus `aux_weight` times the MoE aux loss. batch: "tokens", "labels"
-    (B, S) and, for encdec, "frames". Returns (loss, {"ce", "aux", "tokens"})."""
-    logits, aux = model.forward_with_aux(batch["tokens"], batch.get("frames"))
+    (B, S) and, for encdec, "frames", for the vlm "patches" (the labels
+    cover the text only). Returns (loss, {"ce", "aux", "tokens"})."""
+    logits, aux = model.forward_with_aux(batch["tokens"], batch.get("frames"),
+                                         batch.get("patches"))
+    if model.cfg.family == "vlm":
+        logits = logits[:, model.cfg.prefix_len:]
     labels = batch["labels"]
     mask = (labels >= 0).float()
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -193,14 +222,18 @@ def loss_fn(model: Model, batch: Dict, aux_weight: float = 0.01
 
 
 def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, max_len: int) -> Dict:
-    """dense/moe: {"attn": the stack's KV cache (`transformer.init_decoder_cache`)}.
-    SSM: {"conv": (L, B, K-1, C), "ssd": (L, B, H, P, N) fp32}; an SSM
-    cache does not grow with `max_len`. encdec: the decoder's self cache of
+    """dense/moe/vlm: {"attn": the stack's KV cache
+    (`transformer.init_decoder_cache`)}; the vlm's `max_len` counts the
+    prefix too. SSM: {"conv": (L, B, K-1, C), "ssd": (L, B, H, P, N) fp32};
+    an SSM cache does not grow with `max_len`. hybrid: {"ssm": the SSM
+    layers' cache, "attn": one KV layer per application of the shared block}
+    (`hybrid.init_hybrid_cache`). encdec: the decoder's self cache of
     `max_len` slots and the cross K/V (`encdec.init_encdec_cache`)."""
-    _require_ported(cfg)
     if cfg.family in DECODER_FAMILIES:
         return {"attn": transformer.init_decoder_cache(cfg, batch, max_len,
                                                        cfg.num_layers, rt)}
     if cfg.family == "ssm":
         return init_ssm_cache(cfg, batch, cfg.num_layers, rt)
+    if cfg.family == "hybrid":
+        return hybrid.init_hybrid_cache(cfg, batch, max_len, rt)
     return encdec.init_encdec_cache(cfg, batch, max_len, rt)

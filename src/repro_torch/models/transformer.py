@@ -1,14 +1,14 @@
-"""Decoder stacks of the dense and MoE families (port of
+"""Decoder stacks of the dense, MoE and VLM families (port of
 `repro.models.transformer`).
 
 One pre-norm block serves dense (llama/qwen/smollm), local:global patterned
-(gemma3) and MoE (mixtral/grok) archs. `repro` scans a stack of stacked
+(gemma3), MoE (mixtral/grok) and VLM (paligemma: a prefix-LM mask) archs. `repro` scans a stack of stacked
 parameters and picks each layer's attention with `lax.cond` on a traced
 flag; here the stack is a Python loop over `DecoderLayer` modules and the
 flag is a Python bool per layer (`global_flags`), so each layer calls the
 attention it needs. Full-sequence attention goes through the
 flash-attention kernel on the card (`attention.self_attention`); the cached
-stack (prefill, decode) through `attention.cached_attention`'s masked plain
+stack (prefill, decode) and the prefix-LM mask through the masked plain
 version, as in `repro`.
 """
 from __future__ import annotations
@@ -80,13 +80,15 @@ def _ffn(x: torch.Tensor, p_l: DecoderLayer, cfg: ModelConfig, rt: Runtime
 
 
 def decoder_stack(x: torch.Tensor, layers: nn.ModuleList, cfg: ModelConfig,
-                  rt: Runtime, positions: torch.Tensor
+                  rt: Runtime, positions: torch.Tensor, prefix_len: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence stack. x (B, S, D) -> (x, the layers' summed aux loss)."""
+    """Full-sequence stack. x (B, S, D) -> (x, the layers' summed aux loss).
+    `prefix_len > 0` (the VLM) puts a prefix-LM mask on every layer."""
     aux = torch.zeros((), device=x.device)
     for p_l, window in zip(layers, layer_windows(cfg, len(layers))):
         h = rmsnorm(x, p_l.ln1, cfg.norm_eps)
-        x = x + self_attention(h, p_l.attn, cfg, rt, positions, window=window)
+        x = x + self_attention(h, p_l.attn, cfg, rt, positions, window=window,
+                               prefix_len=prefix_len)
         x, a = _ffn(x, p_l, cfg, rt)
         aux = aux + a
     return x, aux
@@ -105,13 +107,15 @@ def init_decoder_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int
 
 
 def decoder_stack_decode(x: torch.Tensor, layers: nn.ModuleList, cfg: ModelConfig,
-                         rt: Runtime, cache: Dict[str, torch.Tensor], pos
+                         rt: Runtime, cache: Dict[str, torch.Tensor], pos,
+                         prefix_len: int = 0
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The stack against `cache` (written in place) from absolute position
     `pos` (scalar or (B,)). The MoE aux loss is dropped, as in `repro`."""
     for i, (p_l, window) in enumerate(zip(layers, layer_windows(cfg, len(layers)))):
         layer_c = {name: t[i] for name, t in cache.items()}     # views
         h = rmsnorm(x, p_l.ln1, cfg.norm_eps)
-        a, _ = cached_attention(h, p_l.attn, cfg, rt, layer_c, pos, window=window)
+        a, _ = cached_attention(h, p_l.attn, cfg, rt, layer_c, pos, window=window,
+                                prefix_len=prefix_len)
         x, _ = _ffn(x + a, p_l, cfg, rt)
     return x, cache

@@ -7,7 +7,7 @@ state tensors are written into the batched cache at that slot, in place).
 Per-slot position vectors keep sequences independent: a decode step passes
 every slot's position as a (B,) tensor, empty slots included (their output
 is discarded), so attention writes the cache through its scatter branch.
-It serves the decoder-only families: dense, MoE and SSM.
+It serves the decoder-only families: dense, MoE, SSM and hybrid.
 
 Timed, multi-tenant serving: every `step()` ticks a discrete clock `t` (even
 when no slot is live), and a request becomes eligible once `t >= submit_at`.
@@ -15,8 +15,8 @@ The admission `policy` is "fifo" (submit_at, submission order), "priority"
 (tenant priority first) or "preempt" (a waiting request may evict the
 most-recently-admitted active preemptible (interactive=False) request of
 strictly lower priority; the victim keeps its tokens and re-prefills
-prompt + generated on re-admission). Trace replay (`replay_trace`) is not
-ported yet.
+prompt + generated on re-admission). `replay_trace` replays a
+`core.traces.RequestTrace` on an engine.
 
 The engine records the host time of each prefill and each decode step in
 `prefill_s` / `decode_s`; both already end in a device-to-host copy of the
@@ -59,7 +59,8 @@ class Request:
 
 def _splice(cache: Dict, cache1: Dict, slot: int):
     """Write a B=1 cache into batch slot `slot` of `cache`, leaf by leaf
-    (leaves are (L, B, ...), possibly under sub-dicts: {"attn": {k, v, kv_pos}})."""
+    (leaves are (L, B, ...), possibly under sub-dicts: {"attn": {k, v, kv_pos}};
+    the hybrid's {"ssm": {conv, ssd}, "attn": {k, v, kv_pos}})."""
     for k, small in cache1.items():
         if isinstance(small, dict):
             _splice(cache[k], small, slot)
@@ -71,14 +72,10 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, rt: Runtime, model: M.Model,
                  slots: int = 4, max_len: int = 512,
                  eos_token: Optional[int] = None, policy: str = "fifo"):
-        if cfg.family not in ("dense", "moe", "ssm"):
-            if cfg.family in ("encdec", "vlm"):
-                raise NotImplementedError(
-                    "engine supports decoder-only families; encdec/vlm use the "
-                    "prefill/decode steps directly")
+        if cfg.family in ("encdec", "vlm"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported to repro_torch yet; "
-                "ROADMAP.md lists the slices still to port")
+                "engine supports decoder-only families; encdec/vlm use the "
+                "prefill/decode steps directly")
         if policy not in ENGINE_POLICIES:
             raise ValueError(f"policy {policy!r} not in {ENGINE_POLICIES}")
         self.device = rt.torch_device()
@@ -234,3 +231,24 @@ class ServeEngine:
                         out[rid] = r.output
                         del pending[rid]
         return out
+
+
+def replay_trace(engine: ServeEngine, trace, *, rng=None) -> List[Request]:
+    """Replay a `core.traces.RequestTrace` on a real engine: one `Request`
+    per trace entry (synthetic prompts; arrival step -> `submit_at`, tenant
+    -> priority/interactive, out length -> `max_new_tokens`), submitted in
+    trace order and run to completion. Returns the requests with their
+    engine-recorded `admit_step`/`finish_step`, which equal
+    `trace_schedule(trace, engine.slots, engine.policy)`'s bit for bit.
+    Requests decode greedily."""
+    rng = np.random.default_rng(0) if rng is None else rng
+    reqs = []
+    for r in range(trace.n_requests):
+        tc = trace.tenant_of(r)
+        prompt = rng.integers(0, engine.cfg.vocab, trace.prompt_lens[r], dtype=np.int32)
+        reqs.append(Request(
+            rid=r, prompt=prompt, max_new_tokens=int(trace.out_lens[r]),
+            submit_at=int(trace.arrival_steps[r]),
+            priority=tc.priority, interactive=tc.interactive))
+    engine.run(reqs)
+    return reqs

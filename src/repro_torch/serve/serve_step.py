@@ -1,7 +1,7 @@
 """Serve-step factories (prefill_step builds its own cache, decode_step)
 and token sampling. The steps take the model where `repro`'s take the
-params; they are how the encdec family is served (the engine serves
-decoder-only families)."""
+params; they are how the encdec and vlm families are served (the engine
+serves the decoder-only families)."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple, Union
@@ -16,11 +16,13 @@ from repro_torch.models.runtime import Runtime
 def make_prefill_step(cfg: ModelConfig, rt: Runtime, max_len: int) -> Callable:
     """(model, batch) -> (last_logits, cache). The cache (`max_len` decoder
     slots) is made inside the step; batch holds "tokens" (B, S) and, for
-    encdec, "frames" (B, encoder_len, d_model)."""
+    encdec, "frames" (B, encoder_len, d_model), for the vlm "patches"
+    (B, prefix_len, d_model), whose positions come before the tokens'."""
 
     def prefill_step(model: M.Model, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         cache = M.init_cache(cfg, rt, batch["tokens"].shape[0], max_len)
-        return model.prefill(batch["tokens"], cache, frames=batch.get("frames"))
+        return model.prefill(batch["tokens"], cache, frames=batch.get("frames"),
+                             patches=batch.get("patches"))
 
     return prefill_step
 

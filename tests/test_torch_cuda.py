@@ -26,6 +26,15 @@ gemma3-4b (S=4096, 8/4 heads of 256, window 1024) and mixtral-8x7b (S=4096,
 32/8 heads of 128, window 4096) under the same per-element rule; reduced
 gemma3 and mixtral served on the card and the CPU from the same weights
 give the same greedy tokens, and the forward's logits agree within 1e-4.
+
+The hybrid and VLM slice: K1 in bf16 at zamba2-1.2b's forward shape (S=4096,
+32/32 heads of 64, causal) under the same rule; K2 at its prefill and
+forward shapes (S=1024, 2048 and 4096; H=64, P=64, N=64), fp32 held to
+3e-4 * max|ref| on y and the state, bf16 y element by element to
+1e-2 * |ref| + 3e-4 * max|ref| (the serving shapes' rule of chip_smoke.py);
+reduced zamba2 (engine) and paligemma (serve
+steps, patches) on the card and the CPU give the same greedy tokens, and
+the forward's logits agree within 1e-4.
 """
 import numpy as np
 import pytest
@@ -122,6 +131,29 @@ def test_bf16_kernel_reads_strided_views(cuda, case, offset):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dname", list(DTYPES))
+@pytest.mark.parametrize("S", [1024, 2048, 4096])
+def test_kernel_at_the_zamba2_prefill_shape(cuda, S, dname):
+    """(B, S, H, P, N) = (1, S, 64, 64, 64): N = 64 pads to two 32-column
+    tiles, the grid has 64 heads; S = 2048 is the longest prefill of the
+    serving run, 4096 the forward's (32 chunks through state_pass)."""
+    case = (1, S, 64, 64, 64, 128)
+    args = [a.to(cuda) for a in _inputs(case, DTYPES[dname][0])]
+    before = ssd_scan.launches
+    y, h = ops.ssd(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    y0, h0 = ssd_chunked_ref(*args, chunk=128)
+    y, y0 = y.float(), y0.float()
+    ay = 3e-4 * max(1.0, y0.abs().max().item())
+    assert (h - h0).abs().max().item() <= 3e-4 * max(1.0, h0.abs().max().item())
+    if dname == "fp32":
+        assert (y - y0).abs().max().item() <= ay
+    else:
+        assert bool(((y - y0).abs() <= 1e-2 * y0.abs() + ay).all())
+
+
+@pytest.mark.gpu
 def test_engine_on_the_card_matches_cpu(cuda):
     """The same weights served on the card (fp32, the CUDA kernel) give the
     CPU's greedy tokens, with one kernel launch per layer per prefill."""
@@ -161,7 +193,7 @@ FLASH_SERVING = (4, 1500, 12, 12, 64, False, None)     # the whisper encoder
 # one: causal only; hd 256, GQA 8/4) and of mixtral-8x7b (hd 128, GQA 32/8,
 # window 4096), bf16 only
 FLASH_DECODER = [(1, 4096, 8, 4, 256, True, 1024), (1, 4096, 8, 4, 256, True, None),
-                 (1, 4096, 32, 8, 128, True, 4096)]
+                 (1, 4096, 32, 8, 128, True, 4096), (1, 4096, 32, 32, 64, True, None)]
 FLASH_DTYPES = {"fp32": (torch.float32, 2e-5), "bf16": (torch.bfloat16, 2e-2)}
 
 
@@ -190,7 +222,8 @@ def test_flash_kernel_matches_plain_version(cuda, case, dname):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", FLASH_DECODER, ids=["gemma3", "gemma3_global", "mixtral"])
+@pytest.mark.parametrize("case", FLASH_DECODER,
+                         ids=["gemma3", "gemma3_global", "mixtral", "zamba2"])
 def test_flash_kernel_at_the_decoder_forward_shapes(cuda, case):
     """bf16, under the long shapes' rule: |d| <= 1e-2 |ref| + 1e-4 max|ref|."""
     B, S, Hq, Hkv, hd, causal, window = case
@@ -333,3 +366,55 @@ def test_decoder_archs_on_the_card_match_cpu(cuda, arch):
     assert served == before
     torch.testing.assert_close(fwd, want[1], rtol=1e-4, atol=1e-4)
     assert flash_attention.launches - served == cfg.num_layers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "paligemma-3b"])
+def test_hybrid_and_vlm_on_the_card_match_cpu(cuda, arch):
+    """The same weights (reduced, fp32) on the card and the CPU: zamba2
+    through the engine (K2 once per SSM layer per admission, no K1), and
+    paligemma through the serve steps with patches (no kernel: its
+    prefix-LM mask stays on the plain path) give the same greedy tokens;
+    the forward's logits agree within 1e-4."""
+    cfg = reduced_config(arch)
+    rt = Runtime(device="cuda", compute_dtype=torch.float32, ssd_chunk=8)
+    rt_cpu = Runtime(device="cpu", compute_dtype=torch.float32, ssd_chunk=8)
+    cpu_model = Model(cfg, rt_cpu, seed=3)
+    gpu_model = Model(cfg, rt, seed=None)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 26, 11, 17)]
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)))
+    patches = torch.from_numpy(rng.standard_normal((2, cfg.prefix_len, cfg.d_model),
+                                                   dtype=np.float32))
+    extra = {"patches": patches} if cfg.prefix_len else {}
+
+    def run(model, rtx):
+        dev = rtx.torch_device()
+        inputs = {k: v.to(dev) for k, v in extra.items()}
+        if cfg.family == "vlm":
+            prefill, decode = make_prefill_step(cfg, rtx, 64), make_decode_step(cfg, rtx)
+            logits, cache = prefill(model, {"tokens": tokens.to(dev), **inputs})
+            out = []
+            for step in range(6):
+                out.append(logits.argmax(-1).tolist())
+                logits, cache = decode(model, logits.argmax(-1)[:, None],
+                                       cfg.prefix_len + 24 + step, cache)
+        else:
+            eng = ServeEngine(cfg, rtx, model, slots=2, max_len=64)
+            out = eng.run([Request(rid=i, prompt=p, max_new_tokens=6)
+                           for i, p in enumerate(prompts)])
+            out = (out, eng.n_admits)
+        served = (flash_attention.launches, ssd_scan.launches)
+        return out, model(tokens.to(dev), **inputs).cpu(), served
+
+    want = run(cpu_model, rt_cpu)
+    before = (flash_attention.launches, ssd_scan.launches)
+    out, fwd, served = run(gpu_model, rt)
+    assert out == want[0]
+    torch.testing.assert_close(fwd, want[1], rtol=1e-4, atol=1e-4)
+    n_admits = out[1] if cfg.family == "hybrid" else 0
+    assert served == (before[0], before[1] + cfg.num_layers * n_admits)
+    n_app = cfg.num_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    assert (flash_attention.launches, ssd_scan.launches) == (
+        served[0] + n_app, served[1] + (cfg.num_layers if cfg.family == "hybrid" else 0))

@@ -14,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import reduced_config  # noqa: E402
-from repro_torch.configs.base import NOT_PORTED, family_of, get_config  # noqa: E402
+from repro_torch.configs.base import _ARCH_MODULES, get_config  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.runtime import CPU_TEST, Runtime  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -42,6 +42,7 @@ SLICE_MODULES = (
     "configs/qwen2_05b.py", "configs/qwen15_32b.py", "configs/gemma3_4b.py",
     "configs/mixtral_8x7b.py", "configs/grok1_314b.py", "models/encdec.py",
     "models/mamba2.py", "kernels/flash_attention/kernel.py", "kernels/ssd_scan/kernel.py",
+    "models/hybrid.py", "core/traces.py", "configs/zamba2_12b.py", "configs/paligemma_3b.py",
 )
 
 
@@ -87,16 +88,22 @@ def test_runtime_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     assert all(0 <= t < cfg.vocab for v in out.values() for t in np.ravel(v))
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_archs_not_ported_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
-    assert family_of(arch) == NOT_PORTED[arch]
+@pytest.mark.parametrize("arch", sorted(_ARCH_MODULES))
+def test_every_jax_arch_has_a_config(arch):
+    """Every arch id of the JAX package has a config in the port, of the same
+    family and widths; an unknown id raises."""
+    from repro.configs import base as jax_base
+    assert sorted(_ARCH_MODULES) == sorted(jax_base.ARCH_IDS)
+    ours, theirs = get_config(arch), jax_base.get_config(arch)
+    for field in ("family", "num_layers", "d_model", "vocab"):
+        assert getattr(ours, field) == getattr(theirs, field), field
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config(arch + "-x")
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "mixtral-8x7b", "zamba2-1.2b"])
 def test_decoder_archs_need_a_card_unless_asked_for_the_cpu(monkeypatch, arch):
-    assert arch not in NOT_PORTED and family_of(arch) in ("dense", "moe")
+    assert get_config(arch).family in ("dense", "moe", "hybrid")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced_config(arch)
     with pytest.raises(RuntimeError, match="no CUDA"):
@@ -110,7 +117,6 @@ def test_decoder_archs_need_a_card_unless_asked_for_the_cpu(monkeypatch, arch):
 
 
 def test_whisper_is_ported_and_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
-    assert "whisper-small" not in NOT_PORTED
     assert get_config("whisper-small").family == "encdec"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced_config("whisper-small")
