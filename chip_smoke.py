@@ -92,7 +92,27 @@ Phases, each printed on its own lines; any failure exits non-zero:
  16. card against CPU, fp32, the same weights: zamba2 cut to 7 layers (one
      application and one layer left over) and paligemma cut to 2; the same
      greedy tokens, prefill, decode and forward logits within
-     1e-4 * max(1, max|logits|), the kernels launched on the card only.
+     1e-4 * max(1, max|logits|), the kernels launched on the card only;
+ 17. the DSE main path (no hand-written kernel runs on it): (a) the GP pair
+     fit, 3 condition_on and the greedy q-EHVI acquire (q = 1, 2, 4) at the
+     quick campaign's sizes (n = 8, 11, 14, d = 13, 32 candidates) on the
+     card under torch.cuda.set_sync_debug_mode("error"), picking the same
+     candidates as on the CPU, predictions within 2e-3 and 5e-3; (b) the
+     float64 analytical evaluator on 512 sampled designs for the three
+     campaigns' workloads (GPT-1.7B and GPT-175B training, smollm-135m
+     decode) at caps 8 and 24 against the NumPy pipeline: the same
+     feasibility and strategy rows, every float within 1e-12 relative, the
+     count of fields not hex-equal printed; the fused dispatch on device
+     indices equals the batch path; (c) quick_train_mfmobo,
+     gpt175b_train_dse and smollm_inference_decode through
+     `python -m repro_torch.explore` on the card and on the CPU: exactly
+     14, 28 and 8 evaluations, hypervolume beside ROADMAP's baseline, wall
+     time, candidates/s, the evaluated designs against the CPU run's; the
+     quick campaign resumed from its step-4 checkpoint on the card equals
+     the uninterrupted run bit for bit; (d) host and device time, launches
+     and idle share of one pair fit, one acquire at q = 2 and 4, one fused
+     and one 512-design evaluation, and the fit and acquire on the CPU.
+     Its figures are printed as one JSON line ({"dse": ...}).
 The line before the last is the kernels' JSON record: the SSD scan once per
 path and shape it ran (mamba2-370m's prefills; zamba2-1.2b's forward,
 prefills and replay) and the flash-attention kernel
@@ -559,6 +579,243 @@ def decoder_breakdown(model, cfg, rt):
     print_breakdown(torch, "8 decode steps, 4 slots", lambda: [
         model.decode_step(last4, cache4, pos=pos4 + i) for i in range(8)])
     print_breakdown(torch, "forward, (1, 4096)", lambda: model(seq))
+
+
+def dse_breakdown(torch, name, fn):
+    """Host ms of `fn`, its device time, launches and idle share (the
+    profiler run of phase 5b), with its busiest kernels. Returns a dict."""
+    wall_ms, by_name, counts = device_breakdown(torch, fn)
+    dev_ms = sum(by_name.values())
+    n = sum(counts.values())
+    if not by_name:
+        print(f"  {name}: host {wall_ms:.2f} ms; the profiler recorded no device time "
+              "(device share not measured)")
+        return {"host_ms": wall_ms, "device_ms": None, "launches": None}
+    print(f"  {name}: host {wall_ms:.2f} ms, device busy {dev_ms:.3f} ms "
+          f"(idle {1 - dev_ms / wall_ms:.1%}), {n} launches "
+          f"({1e3 * wall_ms / n:.1f} us of host time each), {len(by_name)} kernel names")
+    for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:4]:
+        print(f"    {ms:8.3f} ms x{counts[k]:<5d} {k[:90]}")
+    return {"host_ms": wall_ms, "device_ms": dev_ms, "launches": n,
+            "idle": 1 - dev_ms / wall_ms}
+
+
+def dse_path(torch, np):
+    """Phase 17: the DSE main path of the port on the card (see the module
+    docstring). Returns the figures it prints, as a dict."""
+    import tempfile
+
+    import repro_torch.core.mfmobo as M
+    from repro_torch.core import eval_compiled
+    from repro_torch.core.design_space import DIMS, DesignBatch, decode_batch
+    from repro_torch.core.evaluator import _wafers_for_budget_batch, clear_eval_cache
+    from repro_torch.core.fidelity import AnalyticalBackend
+    from repro_torch.explore import CampaignSpec, ExplorationLoop, resolve_workload
+    from repro_torch.explore.__main__ import main as explore_main
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+
+    t_phase = time.perf_counter()
+    out = {}
+    specs = {n: ROOT / "examples" / "campaigns" / f"{n}.json" for n in (
+        "quick_train_mfmobo", "gpt175b_train_dse", "smollm_inference_decode")}
+    baseline = {"quick_train_mfmobo": (14, 64.819), "gpt175b_train_dse": (28, 86.410),
+                "smollm_inference_decode": (8, 85.796)}
+    rng = np.random.default_rng(SEED + 17)
+    d = len(DIMS)
+    ref = M.hv_ref(15000.0)
+    M.warm_optimizer_kernels(n_candidates=32, q=4, device="cuda")
+
+    # (a) GP pair fit, predict, condition_on and acquire: card against CPU
+    n_cases = []
+    for n in (8, 11, 14):
+        X = rng.random((n, d))
+        Y = np.stack([1e4 * (1 + rng.random(n)), 1e3 * (2 + rng.random(n))], 1)
+        ev = M.obj_space([tuple(y) for y in Y])
+        cand = rng.random((32, d))
+        xs_new = rng.random((3, d))
+        picks = {}
+        for dev in ("cpu", "cuda"):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                models = M._fit_models(X, Y, device=dev)
+                js = {q: M._acquire_batch_device(models, cand, ev, ref, q=q)
+                      for q in (1, 2, 4)}
+                g = models[0]
+                for x in xs_new:
+                    g = g.condition_on(x, 0.5)
+            finally:
+                if dev == "cuda":
+                    torch.cuda.set_sync_debug_mode(0)
+            picks[dev] = ({q: j.tolist() for q, j in js.items()},
+                          [m.predict(cand) for m in models], g.predict(cand))
+        err = max(float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+                  for ga, gb in zip(picks["cuda"][1], picks["cpu"][1])
+                  for a, b in zip(ga, gb))
+        err_c = max(float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+                    for a, b in zip(picks["cuda"][2], picks["cpu"][2]))
+        print(f"  (a) n={n}, d={d}, 32 candidates: picks cuda {picks['cuda'][0]} cpu "
+              f"{picks['cpu'][0]}; predict max rel diff {err:.3g} (tol 2e-3), after 3 "
+              f"condition_on {err_c:.3g} (tol 5e-3); no host sync in fit, acquire or "
+              "condition_on (sync debug mode 'error')")
+        check(picks["cuda"][0] == picks["cpu"][0], "same acquired indices on card and CPU")
+        check(err <= 2e-3 and err_c <= 5e-3, "GP predictions within tolerance")
+        n_cases.append(n)
+
+    # (b) the analytical evaluator against the NumPy pipeline, 512 designs
+    be_ref = AnalyticalBackend(device="cpu")
+    n_designs = 512
+    U = rng.random((n_designs, 13))
+    designs = decode_batch(U)
+    geom = DesignBatch.from_designs(designs)
+    eval_ms = {}
+    for name, path in specs.items():
+        wl = resolve_workload(CampaignSpec.from_json(str(path)))
+        nw = _wafers_for_budget_batch(geom, wl)
+        for cap in (8, 24):
+            eval_compiled.warm_evaluator_kernels(wl, cap, device="cuda")
+            t0 = time.perf_counter()
+            got = eval_compiled.evaluate_batch_compiled(geom, wl, nw, cap, device="cuda")
+            t_cuda = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = be_ref.evaluate_batch_ref(geom, wl, nw, cap)
+            t_ref = time.perf_counter() - t0
+            n_fields = n_hex = 0
+            rel = 0.0
+            for g, w in zip(got, want):
+                check(g.feasible == w.feasible and g.strategy == w.strategy
+                      and g.reason == w.reason, "same feasibility and strategy rows")
+                if not w.feasible:
+                    continue
+                a = [g.throughput, g.power_w, g.step.step_time_s, g.step.pipeline_eff,
+                     g.step.energy_j, *g.step.breakdown.values()]
+                b = [w.throughput, w.power_w, w.step.step_time_s, w.step.pipeline_eff,
+                     w.step.energy_j, *w.step.breakdown.values()]
+                for x, y in zip(a, b):
+                    n_fields += 1
+                    n_hex += float(x).hex() != float(y).hex()
+                    rel = max(rel, abs(x - y) / max(abs(y), 1e-300))
+            n_feas = sum(w.feasible for w in want)
+            print(f"  (b) {wl.name} {wl.phase}, cap {cap}: {n_designs} designs "
+                  f"({n_feas} feasible), masks and strategy rows equal; {n_hex} of "
+                  f"{n_fields} float64 fields not hex-equal, max rel diff {rel:.3g} "
+                  f"(tol 1e-12); cuda {1e3 * t_cuda:.1f} ms host, NumPy {1e3 * t_ref:.1f} ms")
+            check(rel <= 1e-12, "float64 fields within 1e-12 relative")
+            eval_ms[f"{name}/{cap}"] = (1e3 * t_cuda, 1e3 * t_ref, n_hex, n_fields, rel)
+        # the fused dispatch on device indices equals the batch path
+        js = torch.tensor([5, 300, 17, 5], device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pend = eval_compiled.dispatch_fused_eval(geom, wl, nw, js, 24)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        fused = pend.finish(nw[[5, 300, 17, 5]], 4)
+        direct = eval_compiled.evaluate_batch_compiled(
+            DesignBatch.from_designs([designs[j] for j in (5, 300, 17, 5)]), wl,
+            nw[[5, 300, 17, 5]], 24, device="cuda")
+        check([dataclasses.astuple(f.step) if f.step else None for f in fused]
+              == [dataclasses.astuple(f.step) if f.step else None for f in direct]
+              and [f.strategy for f in fused] == [f.strategy for f in direct],
+              "fused dispatch equals the batch path")
+        print(f"  (b) {wl.name}: fused dispatch on device indices [5, 300, 17, 5] "
+              "equals the batch path, no host sync before finish")
+    out["eval_ms"] = eval_ms
+
+    # (c) the three campaigns through the CLI on the card, beside the CPU run
+    flash_attention.launches = ssd_scan.launches = 0
+    campaigns = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, path in specs.items():
+            res = {}
+            for dev in ("cuda", "cpu"):
+                clear_eval_cache()
+                ck, js_out = f"{tmp}/{name}.{dev}.ckpt", f"{tmp}/{name}.{dev}.json"
+                code = explore_main([str(path), "--device", dev, "--checkpoint", ck,
+                                     "--out", js_out])
+                check(code == 0, f"{name} on {dev} exits 0")
+                with open(js_out) as f:
+                    r = json.load(f)
+                st = ExplorationLoop.load_state(ck)[1]
+                res[dev] = (r, [x.tobytes() for x in st.X1 + st.X0])
+            r, xs = res["cuda"]
+            same = [a == b for a, b in zip(xs, res["cpu"][1])]
+            first_diff = same.index(False) if not all(same) else None
+            n_ev, hv_base = baseline[name]
+            print(f"  (c) {name}: {r['n_evals']} evaluations (want {n_ev}), hypervolume "
+                  f"{r['hv_final']:.3f} (ROADMAP baseline {hv_base:.3f}; CPU run "
+                  f"{res['cpu'][0]['hv_final']:.3f}), wall {r['wall_s']:.2f} s, "
+                  f"{r['candidates_per_sec']:.2f} candidates/s (CPU run "
+                  f"{res['cpu'][0]['wall_s']:.2f} s, "
+                  f"{res['cpu'][0]['candidates_per_sec']:.2f}/s); evaluated designs (f1 "
+                  f"then f0) equal to the CPU run's: {sum(same)}/{len(same)}"
+                  + ("" if first_diff is None else f" (first differs at {first_diff})"))
+            check(r["finished"] and r["n_evals"] == n_ev, f"{name}: exact budget")
+            campaigns[name] = {"n_evals": r["n_evals"], "hv": r["hv_final"],
+                               "wall_s": r["wall_s"], "cand_per_s": r["candidates_per_sec"],
+                               "cpu_wall_s": res["cpu"][0]["wall_s"],
+                               "designs_equal_cpu": sum(same)}
+        # resume quick_train_mfmobo from its step-4 checkpoint on the card
+        quick = specs["quick_train_mfmobo"]
+        ck = f"{tmp}/resume.ckpt"
+        clear_eval_cache()
+        check(explore_main([str(quick), "--device", "cuda", "--max-steps", "4",
+                            "--checkpoint", ck, "--out", f"{tmp}/r.json"]) == 0, "step 4")
+        check(ExplorationLoop.load_state(ck)[1].steps == 4, "checkpoint at step 4")
+        clear_eval_cache()
+        check(explore_main(["--resume", ck, "--device", "cuda", "--out", f"{tmp}/r.json"])
+              == 0, "resume")
+        tr_r = ExplorationLoop.load_state(ck)[1].trace
+        tr_full = ExplorationLoop.load_state(f"{tmp}/quick_train_mfmobo.cuda.ckpt")[1].trace
+
+        def hexed(t):
+            return ([[float(v).hex() for v in x] for x in t.xs],
+                    [[float(a).hex(), float(b).hex()] for a, b in t.ys],
+                    [float(h).hex() for h in t.hv])
+        print(f"  (c) quick_train_mfmobo resumed on the card from its step-4 checkpoint: "
+              f"{tr_r.n_evals} evaluations, trace bit-identical to the uninterrupted run: "
+              f"{hexed(tr_r) == hexed(tr_full)}")
+        check(hexed(tr_r) == hexed(tr_full), "resume is bit-identical on the card")
+    print(f"  kernel launches during the campaigns: K1 {flash_attention.launches}, K2 "
+          f"{ssd_scan.launches} (the DSE path runs no hand-written kernel)")
+    out["campaigns"] = campaigns
+
+    # (d) where the time goes
+    X = rng.random((14, d))
+    Y = np.stack([1e4 * (1 + rng.random(14)), 1e3 * (2 + rng.random(14))], 1)
+    ev = M.obj_space([tuple(y) for y in Y])
+    cand = rng.random((32, d))
+    models = M._fit_models(X, Y, device="cuda")
+    wl = resolve_workload(CampaignSpec.from_json(str(specs["quick_train_mfmobo"])))
+    nw = _wafers_for_budget_batch(geom, wl)
+    js = M._acquire_batch_device(models, cand, ev, ref, q=2)
+    out["fit"] = dse_breakdown(torch, "pair fit (n=14, 80 Adam steps)",
+                               lambda: M._fit_models(X, Y, device="cuda"))
+    cpu_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        models_c = M._fit_models(X, Y, device="cpu")
+        t1 = time.perf_counter()
+        M._acquire_batch(models_c, cand, ev, ref, q=4)
+        cpu_ms.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+    out["cpu_fit_ms"], out["cpu_acquire_q4_ms"] = (statistics.median(c) for c in zip(*cpu_ms))
+    print(f"  the same pair fit on this machine's CPU: {out['cpu_fit_ms']:.2f} ms; acquire "
+          f"q=4 there: {out['cpu_acquire_q4_ms']:.2f} ms (host clock, median of 3)")
+    for q in (2, 4):
+        out[f"acquire_q{q}"] = dse_breakdown(
+            torch, f"acquire q={q} (32 candidates)",
+            lambda: M._acquire_batch_device(models, cand, ev, ref, q=q))
+    out["fused_eval"] = dse_breakdown(
+        torch, "fused evaluation, 2 picks of a 32-design pool, cap 8",
+        lambda: eval_compiled.dispatch_fused_eval(
+            DesignBatch.from_designs(designs[:32]), wl, nw[:32], js, 8).finish(nw, 2))
+    out["batch_eval_512"] = dse_breakdown(
+        torch, "batch evaluation, 512 designs, cap 24",
+        lambda: eval_compiled.evaluate_batch_compiled(geom, wl, nw, 24, device="cuda"))
+    print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1304,6 +1561,11 @@ def main() -> int:
             "K2 once per SSM layer in the prefill and in the forward")
         del m_gpu, m_cpu, res
         torch.cuda.empty_cache()
+
+    phase("17. the DSE main path on the card: GP, q-EHVI acquire, the float64 analytical "
+          "evaluator, three campaigns through python -m repro_torch.explore")
+    dse = dse_path(torch, np)
+    print(json.dumps({"dse": dse}, default=float))
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # K2 once per path and shape (phases 5 and 14): launches from that

@@ -111,6 +111,16 @@ class ModelConfig:
         raise ValueError(f"unknown family {self.family!r}")
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape (`configs/shapes.py`); the DSE workloads
+    `arch@shape` are built from a ModelConfig and one of these."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
 # arch id -> module under repro_torch.configs
 _ARCH_MODULES = {
     "whisper-small": "whisper_small",

@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
@@ -24,12 +26,7 @@ class Runtime:
     def torch_device(self) -> torch.device:
         """The device to run on; raises when it is a CUDA device and no card
         is present (the port never falls back to the CPU by itself)."""
-        dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"Runtime(device={self.device!r}) but torch finds no CUDA "
-                "device; pass device='cpu' to run on the CPU")
-        return dev
+        return resolve_device(self.device)
 
 
 CPU_TEST = Runtime(device="cpu", compute_dtype=torch.float32)

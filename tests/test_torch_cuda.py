@@ -35,6 +35,15 @@ forward shapes (S=1024, 2048 and 4096; H=64, P=64, N=64), fp32 held to
 reduced zamba2 (engine) and paligemma (serve
 steps, patches) on the card and the CPU give the same greedy tokens, and
 the forward's logits agree within 1e-4.
+
+The DSE slice: the GP pair fit, `condition_on` and the greedy q-EHVI
+acquire run on the card with no host sync (`set_sync_debug_mode("error")`)
+and pick the same candidates as on the CPU (predictions within
+tests/test_compiled_optimizer.py's 2e-3 and 5e-3); the float64 analytical
+evaluator on the card gives the NumPy pipeline's feasibility and strategy
+rows, every float within 1e-12 relative, and the fused dispatch equals the
+batch path; `quick_train_mfmobo` runs through the CLI on the card to its 14
+evaluations over the CPU run's designs.
 """
 import numpy as np
 import pytest
@@ -418,3 +427,104 @@ def test_hybrid_and_vlm_on_the_card_match_cpu(cuda, arch):
     n_app = cfg.num_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
     assert (flash_attention.launches, ssd_scan.launches) == (
         served[0] + n_app, served[1] + (cfg.num_layers if cfg.family == "hybrid" else 0))
+
+
+def _dse_problem(n, seed=17):
+    from repro_torch.core import mfmobo as M
+    from repro_torch.core.design_space import DIMS
+    rng = np.random.default_rng(seed + n)
+    d = len(DIMS)
+    X = rng.random((n, d))
+    Y = np.stack([1e4 * (1 + rng.random(n)), 1e3 * (2 + rng.random(n))], 1)
+    return X, Y, M.obj_space([tuple(y) for y in Y]), rng.random((32, d)), rng.random((3, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8, 11, 14])
+def test_dse_gp_and_acquire_on_the_card_match_cpu(cuda, n):
+    from repro_torch.core import mfmobo as M
+    X, Y, ev, cand, xs_new = _dse_problem(n)
+    ref = M.hv_ref(15000.0)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        if dev == "cuda":
+            M.warm_optimizer_kernels(n_candidates=32, q=4, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            models = M._fit_models(X, Y, device=dev)
+            js = [M._acquire_batch_device(models, cand, ev, ref, q=q) for q in (1, 2, 4)]
+            g = models[0]
+            for x in xs_new:
+                g = g.condition_on(x, 0.5)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got[dev] = ([j.tolist() for j in js], [m.predict(cand) for m in models],
+                    g.predict(cand))
+    assert got["cuda"][0] == got["cpu"][0]
+    for a, b in zip(got["cuda"][1], got["cpu"][1]):
+        np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got["cuda"][2], got["cpu"][2], rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [8, 24])
+@pytest.mark.parametrize("spec", ["quick_train_mfmobo", "gpt175b_train_dse",
+                                  "smollm_inference_decode"])
+def test_dse_evaluator_on_the_card(cuda, spec, cap):
+    from pathlib import Path
+
+    from repro_torch.core import eval_compiled
+    from repro_torch.core.design_space import DesignBatch, decode_batch
+    from repro_torch.core.evaluator import _wafers_for_budget_batch
+    from repro_torch.core.fidelity import AnalyticalBackend
+    from repro_torch.explore import CampaignSpec, resolve_workload
+    root = Path(__file__).resolve().parents[1]
+    wl = resolve_workload(CampaignSpec.from_json(
+        str(root / "examples" / "campaigns" / f"{spec}.json")))
+    designs = decode_batch(np.random.default_rng(23).random((256, 13)))
+    geom = DesignBatch.from_designs(designs)
+    nw = _wafers_for_budget_batch(geom, wl)
+    nw[::3] = 1                        # small systems: infeasible designs too
+    got = eval_compiled.evaluate_batch_compiled(geom, wl, nw, cap, device="cuda")
+    want = AnalyticalBackend(device="cpu").evaluate_batch_ref(geom, wl, nw, cap)
+    for g, w in zip(got, want):
+        assert (g.feasible, g.reason, g.strategy) == (w.feasible, w.reason, w.strategy)
+        if w.feasible:
+            a = [g.throughput, g.power_w, g.step.step_time_s, g.step.energy_j,
+                 *g.step.breakdown.values()]
+            b = [w.throughput, w.power_w, w.step.step_time_s, w.step.energy_j,
+                 *w.step.breakdown.values()]
+            np.testing.assert_allclose(a, b, rtol=1e-12, atol=0)
+    js = torch.tensor([5, 200, 17, 5], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pend = eval_compiled.dispatch_fused_eval(geom, wl, nw, js, cap)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    picks = [5, 200, 17, 5]
+    fused = pend.finish(nw[picks], 4)
+    direct = eval_compiled.evaluate_batch_compiled(
+        DesignBatch.from_designs([designs[j] for j in picks]), wl, nw[picks], cap,
+        device="cuda")
+    assert [(f.feasible, f.strategy, f.throughput, f.power_w) for f in fused] == \
+        [(f.feasible, f.strategy, f.throughput, f.power_w) for f in direct]
+
+
+@pytest.mark.gpu
+def test_dse_campaign_on_the_card(cuda):
+    from pathlib import Path
+
+    from repro_torch.core.evaluator import clear_eval_cache
+    from repro_torch.explore import Campaign, CampaignSpec
+    spec = CampaignSpec.from_json(str(Path(__file__).resolve().parents[1] / "examples"
+                                      / "campaigns" / "quick_train_mfmobo.json"))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        clear_eval_cache()
+        runs[dev] = Campaign(spec, device=dev).run()
+    assert runs["cuda"].n_evals == 14 and runs["cuda"].finished
+    assert [str(d) for d in runs["cuda"].trace.designs] == \
+        [str(d) for d in runs["cpu"].trace.designs]
+    assert abs(runs["cuda"].hv_final - runs["cpu"].hv_final) <= 1e-9 * runs["cpu"].hv_final

@@ -43,6 +43,12 @@ SLICE_MODULES = (
     "configs/mixtral_8x7b.py", "configs/grok1_314b.py", "models/encdec.py",
     "models/mamba2.py", "kernels/flash_attention/kernel.py", "kernels/ssd_scan/kernel.py",
     "models/hybrid.py", "core/traces.py", "configs/zamba2_12b.py", "configs/paligemma_3b.py",
+    "device.py", "configs/shapes.py", "core/gp.py", "core/ehvi.py", "core/mfmobo.py",
+    "core/eval_compiled.py", "core/evaluator.py", "core/fidelity.py", "core/components.py",
+    "core/design_space.py", "core/workload.py", "core/yield_model.py", "core/pareto.py",
+    "core/validator.py", "core/compiler.py", "core/tile_eval.py", "core/chunk_eval.py",
+    "core/noc_analytical.py", "core/noc_sim.py", "core/evalcache.py",
+    "explore/__main__.py", "explore/campaign.py", "explore/objectives.py", "explore/runner.py",
 )
 
 
