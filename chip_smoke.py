@@ -113,6 +113,29 @@ Phases, each printed on its own lines; any failure exits non-zero:
      and idle share of one pair fit, one acquire at q = 2 and 4, one fused
      and one 512-design evaluation, and the fit and acquire on the CPU.
      Its figures are printed as one JSON line ({"dse": ...}).
+ 18. the serving campaigns and the GNN f0 fidelity (no hand-written kernel
+     runs on them): (a) the GNN forward over 20 simulator-labeled transfer
+     graphs of 2 designs x GPT-1.7B (core.calibration.build_calibration_set)
+     from init_gnn(0) on the card against the same params on the CPU,
+     |d log1p(wait)| within 1e-5 of max(1, |log1p(wait)|), and twice on the
+     card bitwise equal (the aggregation is a fixed-order one-hot product);
+     (b) train_gnn on that dataset (4 epochs, val_frac 0.25) on the card and
+     the CPU: the loss per epoch side by side (within 1e-3 relative, and
+     decreasing), the held-out Kendall tau, ms per step, a second card run
+     equal bit for bit; (c) gpt175b_serving_slo, gpt175b_hetero_serving and
+     gpt175b_trace_serving through `python -m repro_torch.explore` on the
+     card and the CPU: exactly 10, 6 and 8 evaluations, ROADMAP's
+     hypervolumes 34.370, 19.458 and 19.204, the CPU run's designs; the
+     float64 evaluator on 512 sampled designs at the six serving workloads
+     against the NumPy pipeline, fields not hex-equal counted; (d)
+     quick_train_mfmobo with f0 = "gnn", calibrate_on_handover and (b)'s
+     params through the CLI on the card: 14 evaluations, one calibration
+     record, resumed from its step-3 checkpoint bit for bit; (e) host and
+     device time, launches and idle share of the GNN lanes of one grid
+     bucket, one train step, the scalar chunk_latency (one forward and one
+     device-to-host copy per transfer) and one evaluate_serving_batch of 32
+     designs; K1 and K2 launches over the phase (0). One JSON line
+     ({"gnn_serving": ...}).
 The line before the last is the kernels' JSON record: the SSD scan once per
 path and shape it ran (mamba2-370m's prefills; zamba2-1.2b's forward,
 prefills and replay) and the flash-attention kernel
@@ -815,6 +838,269 @@ def dse_path(torch, np):
         torch, "batch evaluation, 512 designs, cap 24",
         lambda: eval_compiled.evaluate_batch_compiled(geom, wl, nw, 24, device="cuda"))
     print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def gnn_serving_path(torch, np):
+    """Phase 18: the serving campaigns and the GNN f0 fidelity with online
+    calibration on the card (see the module docstring). Returns the figures
+    it prints, as a dict."""
+    import pickle
+    import tempfile
+
+    from repro_torch.core import noc_gnn as G
+    from repro_torch.core import eval_compiled, fidelity
+    from repro_torch.core.calibration import build_calibration_set
+    from repro_torch.core.compiler import compile_chunk
+    from repro_torch.core.design_space import DesignBatch, WSCDesign, decode_batch
+    from repro_torch.core.evaluator import _wafers_for_budget_batch, clear_eval_cache
+    from repro_torch.core.serving import evaluate_serving_batch, serving_workloads
+    from repro_torch.core.traces import trace_serving_workloads
+    from repro_torch.core.validator import validate, validate_batch
+    from repro_torch.core.workload import GPT_BENCHMARKS
+    from repro_torch.explore import CampaignSpec, ExplorationLoop, resolve_workload
+    from repro_torch.explore.__main__ import main as explore_main
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+
+    t_phase = time.perf_counter()
+    flash_attention.launches = ssd_scan.launches = 0
+    out = {}
+    camp = ROOT / "examples" / "campaigns"
+
+    # (a) the GNN forward: card against CPU on the same params, and twice on
+    # the card (the aggregation order is fixed, so the waits are bitwise equal)
+    wl = GPT_BENCHMARKS[0]                       # GPT-1.7B
+    designs = [validate(WSCDesign()).design, validate(WSCDesign(mac_num=256)).design]
+    t0 = time.perf_counter()
+    ds = build_calibration_set(designs, wl)
+    t_label = time.perf_counter() - t0
+    batch = G.pad_link_graphs(ds, with_target=True)
+    p_cpu = G.init_gnn(SEED, device="cpu")
+    p_gpu = G.gnn_params_on(p_cpu, "cuda")
+    w_cpu = G.gnn_forward_batch(p_cpu, batch)
+    w1, w2 = G.gnn_forward_batch(p_gpu, batch), G.gnn_forward_batch(p_gpu, batch)
+    real = batch.edge_mask > 0
+    a = np.log1p(w1[real].astype(np.float64))
+    b = np.log1p(w_cpu[real].astype(np.float64))
+    err = float(np.abs(a - b).max())
+    rel = float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max())
+    same = w1.tobytes() == w2.tobytes()
+    print(f"  (a) {len(ds)} simulator-labeled transfer graphs of 2 designs x {wl.name} "
+          f"({t_label:.2f} s on the host), padded to (G, nodes, edges) = {w1.shape[0]}, "
+          f"{batch.n_nodes}, {w1.shape[1]}: max |d log1p(wait)| card vs CPU {err:.3g} "
+          f"({rel:.3g} of max(1, |log1p(wait)|), tol 1e-5); two card runs bitwise equal: "
+          f"{same}")
+    check(rel <= 1e-5, "GNN forward on the card within 1e-5 of the CPU's")
+    check(same, "GNN waits bitwise equal across two card runs")
+    out["forward"] = {"graphs": len(ds), "max_abs_dlog1p": err, "max_rel": rel,
+                      "bitwise_repeat": same}
+
+    # (b) train_gnn on the card beside the CPU, and again on the card
+    kw = dict(epochs=4, lr=3e-3, seed=SEED, val_frac=0.25)
+    runs = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu), ("cuda again", p_gpu)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[dev] = G.train_gnn(p, ds, **kw)
+        torch.cuda.synchronize()
+        runs[dev] += (time.perf_counter() - t0,)
+    (p_tr, h, t_tr), (_, hc, t_trc) = runs["cuda"], runs["cpu"]
+    n_val = min(max(1, round(kw["val_frac"] * len(ds))), len(ds) - 1)   # train_gnn's split
+    n_steps = kw["epochs"] * (len(ds) - n_val)
+    drift = max(abs(x - y) / abs(y) for x, y in zip(h.train_loss, hc.train_loss))
+    repeat = (runs["cuda again"][1].train_loss == h.train_loss and all(
+        torch.equal(x, y) for x, y in zip(G._flatten(runs["cuda again"][0]), G._flatten(p_tr))))
+    print(f"  (b) train_gnn, {kw['epochs']} epochs, val_frac 0.25 ({n_steps} Adam steps): "
+          "loss per epoch card / CPU " + ", ".join(
+              f"{x:.6g} / {y:.6g}" for x, y in zip(h.train_loss, hc.train_loss))
+          + f" (max rel diff {drift:.3g}, tol 1e-3); held-out Kendall tau (best epoch "
+          f"{h.best_epoch}) {h.best_val_kendall_tau:.4f} (CPU {hc.best_val_kendall_tau:.4f}); "
+          f"wall {t_tr:.3f} s card, {t_trc:.3f} s CPU ({1e3 * t_tr / n_steps:.2f} / "
+          f"{1e3 * t_trc / n_steps:.2f} ms per step with setup and validation); a second card "
+          f"run bitwise equal: {repeat}")
+    check(h.train_loss[-1] < h.train_loss[0], "train_gnn loss decreases on the card")
+    check(drift <= 1e-3, "card training losses within 1e-3 of the CPU's")
+    check(repeat, "train_gnn repeats bit for bit on the card")
+    out["train"] = {"loss": h.train_loss, "cpu_loss": hc.train_loss, "max_rel": drift,
+                    "kendall_tau": h.best_val_kendall_tau, "steps": n_steps,
+                    "wall_s": t_tr, "cpu_wall_s": t_trc, "bitwise_repeat": repeat}
+
+    # (c) the serving specs through the CLI on the card, beside the CPU run,
+    # and the float64 evaluator at their serving workloads against NumPy
+    baseline = {"gpt175b_serving_slo": (10, 34.370), "gpt175b_hetero_serving": (6, 19.458),
+                "gpt175b_trace_serving": (8, 19.204)}
+    campaigns = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (n_ev, hv_base) in baseline.items():
+            res = {}
+            for dev in ("cuda", "cpu"):
+                clear_eval_cache()
+                ck, js_out = f"{tmp}/{name}.{dev}.ckpt", f"{tmp}/{name}.{dev}.json"
+                code = explore_main([str(camp / f"{name}.json"), "--device", dev,
+                                     "--checkpoint", ck, "--out", js_out])
+                check(code == 0, f"{name} on {dev} exits 0")
+                with open(js_out) as f:
+                    r = json.load(f)
+                tr = ExplorationLoop.load_state(ck)[1].trace
+                res[dev] = (r, [(np.asarray(x).tobytes(), str(d))
+                                for x, d in zip(tr.xs, tr.designs)])
+            r, xs = res["cuda"]
+            same = sum(x == y for x, y in zip(xs, res["cpu"][1]))
+            print(f"  (c) {name}: {r['n_evals']} evaluations (want {n_ev}), hypervolume "
+                  f"{r['hv_final']:.3f} (ROADMAP baseline {hv_base:.3f}), wall "
+                  f"{r['wall_s']:.2f} s, {r['candidates_per_sec']:.2f} candidates/s (CPU run "
+                  f"{res['cpu'][0]['wall_s']:.2f} s); evaluated designs equal to the CPU "
+                  f"run's: {same}/{len(xs)}")
+            check(r["finished"] and r["n_evals"] == n_ev, f"{name}: exact budget")
+            check(round(r["hv_final"], 3) == hv_base, f"{name}: ROADMAP's hypervolume")
+            check(same == len(xs) == len(res["cpu"][1]), f"{name}: the CPU run's designs")
+            campaigns[name] = {"n_evals": r["n_evals"], "hv": r["hv_final"],
+                               "wall_s": r["wall_s"], "cpu_wall_s": res["cpu"][0]["wall_s"],
+                               "designs_equal_cpu": same}
+    out["campaigns"] = campaigns
+    n_designs = 512
+    geom = DesignBatch.from_designs(decode_batch(
+        np.random.default_rng(SEED + 18).random((n_designs, 13))))
+    hexes = {}
+    for name in baseline:
+        spec = CampaignSpec.from_json(str(camp / f"{name}.json"))
+        base = resolve_workload(spec)
+        if spec.trace is not None:
+            wls = trace_serving_workloads(base, spec.trace.trace(), spec.trace.slots)[:2]
+        else:
+            wls = serving_workloads(base, spec.serving.mix(), spec.serving.slots)[:2]
+        for w in wls:
+            nw = _wafers_for_budget_batch(geom, w)
+            got = eval_compiled.evaluate_batch_compiled(geom, w, nw, spec.max_strategies,
+                                                        device="cuda")
+            want = fidelity.AnalyticalBackend(device="cpu").evaluate_batch_ref(
+                geom, w, nw, spec.max_strategies)
+            n_fields = n_hex = 0
+            worst = 0.0
+            for g, e in zip(got, want):
+                check(g.feasible == e.feasible and g.strategy == e.strategy,
+                      "same feasibility and strategy rows")
+                if not e.feasible:
+                    continue
+                for x, y in zip(
+                        [g.throughput, g.power_w, g.step.step_time_s, g.step.pipeline_eff,
+                         g.step.energy_j, *g.step.breakdown.values()],
+                        [e.throughput, e.power_w, e.step.step_time_s, e.step.pipeline_eff,
+                         e.step.energy_j, *e.step.breakdown.values()]):
+                    n_fields += 1
+                    n_hex += float(x).hex() != float(y).hex()
+                    worst = max(worst, abs(x - y) / max(abs(y), 1e-300))
+            key = f"{name}/{w.phase} batch {w.batch} seq {w.seq}"
+            hexes[key] = (n_hex, n_fields)
+            print(f"  (c) {key}, cap {spec.max_strategies}: {n_designs} designs "
+                  f"({sum(e.feasible for e in want)} feasible), {n_hex} of {n_fields} "
+                  f"float64 fields not hex-equal, max rel diff {worst:.3g} (tol 1e-12)")
+            check(worst <= 1e-12, "float64 fields within 1e-12 relative")
+    out["hex_mismatches"] = hexes
+
+    # (d) quick_train_mfmobo with f0 = gnn and calibration at the handover,
+    # from (b)'s params, through the CLI on the card; resumed from step 3
+    with open(camp / "quick_train_mfmobo.json") as f:
+        raw = json.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(f"{tmp}/params.pkl", "wb") as f:
+            pickle.dump(G.gnn_params_to_jax(p_tr), f)
+        raw["name"] = "quick-train-gnn-calibrated"
+        raw["fidelity"].update({"f0": "gnn", "calibrate_on_handover": True,
+                                "params_path": f"{tmp}/params.pkl",
+                                "calibration": {"n_designs": 1, "epochs": 2}})
+        with open(f"{tmp}/spec.json", "w") as f:
+            json.dump(raw, f)
+        clear_eval_cache()
+        check(explore_main([f"{tmp}/spec.json", "--device", "cuda", "--checkpoint",
+                            f"{tmp}/full.ckpt", "--out", f"{tmp}/full.json"]) == 0, "gnn run")
+        with open(f"{tmp}/full.json") as f:
+            r = json.load(f)
+        clear_eval_cache()
+        check(explore_main([f"{tmp}/spec.json", "--device", "cuda", "--max-steps", "3",
+                            "--checkpoint", f"{tmp}/part.ckpt", "--out", f"{tmp}/p.json"])
+              == 0, "gnn run to step 3")
+        clear_eval_cache()
+        check(explore_main(["--resume", f"{tmp}/part.ckpt", "--device", "cuda", "--out",
+                            f"{tmp}/p.json"]) == 0, "gnn resume")
+
+        def hexed(t):
+            return ([[float(v).hex() for v in x] for x in t.xs],
+                    [[float(a).hex(), float(b).hex()] for a, b in t.ys],
+                    [float(h).hex() for h in t.hv])
+        tr_full = ExplorationLoop.load_state(f"{tmp}/full.ckpt")[1].trace
+        tr_res = ExplorationLoop.load_state(f"{tmp}/part.ckpt")[1].trace
+        bitwise = hexed(tr_full) == hexed(tr_res)
+    print(f"  (d) quick_train_mfmobo with f0 = gnn and calibrate_on_handover (n_designs 1, "
+          f"2 epochs): {r['n_evals']} evaluations (want 14), hypervolume {r['hv_final']:.3f}, "
+          f"{len(r['calibration'])} calibration record ({r['calibration'][0]['n_graphs']} "
+          f"graphs, {r['calibration'][0]['train_s']:.3f} s, held-out Kendall tau "
+          f"{r['calibration'][0]['val_kendall_tau']}), wall {r['wall_s']:.2f} s; resumed "
+          f"from its step-3 checkpoint: trace bit-identical {bitwise}")
+    check(r["finished"] and r["n_evals"] == 14, "gnn campaign: exact budget")
+    check(len(r["calibration"]) == 1, "gnn campaign: one calibration record")
+    check(bitwise, "gnn campaign resume is bit-identical on the card")
+    out["gnn_campaign"] = {"n_evals": r["n_evals"], "hv": r["hv_final"],
+                           "wall_s": r["wall_s"], "calibration": r["calibration"],
+                           "resume_bitwise": bitwise}
+
+    # (e) where the time goes
+    pool = [v.design for v in validate_batch(decode_batch(
+        np.random.default_rng(SEED + 180).random((256, 13)))) if v.ok][:32]
+    ax = fidelity.build_candidate_axis(DesignBatch.from_designs(pool), wl,
+                                       _wafers_for_budget_batch(
+                                           DesignBatch.from_designs(pool), wl), 8)
+    bucket = max(fidelity._transfer_lanes(ax).buckets, key=lambda b: len(b.flits))
+    n_uniq = len(np.unique(np.stack([bucket.flits, bucket.dur, bucket.noc_bw], 1), axis=0))
+    out["forward_bucket"] = dse_breakdown(
+        torch, f"GNN lanes of one grid bucket (32 designs x {wl.name}, cap 8: "
+        f"{len(bucket.flits)} lanes, {n_uniq} unique -> {G.next_pow2(n_uniq)} padded graphs "
+        f"of {bucket.pattern.n_cores} nodes, {len(bucket.pattern.links)} edges)",
+        lambda: fidelity._gnn_lane_makespans(p_gpu, bucket))
+    g0 = ds[0]
+    b0 = G._upload(G.pad_link_graphs([g0], n_nodes=G.next_pow2(g0.n_nodes),
+                                     n_edges=G.next_pow2(len(g0.links)), with_target=True),
+                   G.params_device(p_gpu), 0)
+    leaves = [t.detach().clone().requires_grad_(True) for t in G._flatten(p_gpu)]
+    mom = [torch.zeros_like(t) for t in leaves]
+    var = [torch.zeros_like(t) for t in leaves]
+    steps = [0]
+
+    def one_step():
+        steps[0] += 1
+        with G._ieee_fp32():
+            G._train_step(leaves, mom, var, steps[0], 3e-3, b0)
+    out["train_step"] = dse_breakdown(
+        torch, f"one train step ({G.next_pow2(g0.n_nodes)} nodes, "
+        f"{G.next_pow2(len(g0.links))} edges)", one_step)
+    chunk = compile_chunk(designs[0], wl, tp=16, mb_tokens=4096, cores_per_chunk=64)
+    n_fwd = sum(1 for i, t in enumerate(chunk.transfers)
+                if t.pairs and i < len(chunk.ops)
+                and G.featurize_transfer(chunk, designs[0], i).links)
+    gnn = fidelity.GNNBackend(device="cuda")
+    out["scalar_chunk"] = dse_breakdown(
+        torch, f"scalar chunk_latency of one compiled chunk ({n_fwd} transfers: {n_fwd} "
+        "forwards, each ending in a device-to-host copy)",
+        lambda: gnn.chunk_latency(chunk, designs[0], p_gpu))
+    out["scalar_chunk"]["syncs"] = n_fwd
+    spec = CampaignSpec.from_json(str(camp / "gpt175b_serving_slo.json"))
+    be = fidelity.AnalyticalBackend(device="cuda")
+
+    def serve32():
+        clear_eval_cache()
+        evaluate_serving_batch(pool, resolve_workload(spec), spec.serving.mix(),
+                               spec.serving.slo(), slots=spec.serving.slots, fidelity=be,
+                               max_strategies=spec.max_strategies)
+    out["serving_eval_32"] = dse_breakdown(
+        torch, "evaluate_serving_batch, 32 designs, GPT-175B (two workloads), cap 8", serve32)
+    print(f"  kernel launches during phase 18: K1 {flash_attention.launches}, K2 "
+          f"{ssd_scan.launches} (no hand-written kernel is on this path)")
+    check(flash_attention.launches == 0 and ssd_scan.launches == 0,
+          "phase 18 launches neither K1 nor K2")
+    out["k1_k2_launches"] = [flash_attention.launches, ssd_scan.launches]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 18: {out['phase_s']:.1f} s")
     return out
 
 
@@ -1566,6 +1852,10 @@ def main() -> int:
           "evaluator, three campaigns through python -m repro_torch.explore")
     dse = dse_path(torch, np)
     print(json.dumps({"dse": dse}, default=float))
+
+    phase("18. the serving campaigns and the GNN f0 fidelity with online calibration on the "
+          "card")
+    print(json.dumps({"gnn_serving": gnn_serving_path(torch, np)}, default=float))
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # K2 once per path and shape (phases 5 and 14): launches from that

@@ -31,9 +31,8 @@ The port's copy of `repro.core.evaluator`. What differs:
   * `evaluate_pool_fused` hands the acquire's device index tensor straight
     to `eval_compiled.dispatch_fused_eval`, with no host sync between
     proposal and evaluation; reading the indices back comes after.
-  * Entry points of slices not ported yet raise: the joint (pinned
-    strategy) ones wait for ROADMAP item 13, the serving and trace ones for
-    ROADMAP item 6 (the serving, hetero and trace specs).
+  * The joint (pinned strategy) entry points raise: they wait for ROADMAP
+    item 13.
 """
 from __future__ import annotations
 
@@ -59,7 +58,6 @@ from repro_torch.core.compiler import (
 )
 from repro_torch.core.design_space import DesignBatch, WSCDesign
 from repro_torch.core.fidelity import (
-    SERVING_UNPORTED,
     EvalResult,
     FidelityBackend,
     get_backend,
@@ -439,19 +437,32 @@ def evaluate_objectives_batch(designs: Sequence[WSCDesign], wl: LLMWorkload,
 
 def evaluate_serving_batch(designs: Sequence[WSCDesign],
                            wl_base: LLMWorkload, mix, slo, **kw):
-    """Request-level serving metrics; waits for ROADMAP item 6."""
-    raise NotImplementedError(SERVING_UNPORTED)
+    """Request-level serving metrics (TTFT / TPOT / SLO goodput) for N
+    designs through the fidelity registry — the serving counterpart of
+    `evaluate_design_batch`. Thin forwarder to `repro_torch.core.serving`
+    (imported lazily: serving composes this module's batched per-step
+    evaluations, so a top-level import would be circular)."""
+    from repro_torch.core import serving
+    return serving.evaluate_serving_batch(designs, wl_base, mix, slo, **kw)
 
 
 def evaluate_trace_serving_batch(designs, wl_base: LLMWorkload, trace,
                                  **kw):
-    """Trace-driven serving metrics; waits for ROADMAP item 6."""
-    raise NotImplementedError(SERVING_UNPORTED)
+    """Trace-driven multi-tenant serving metrics (per-tenant SLO goodput,
+    worst-window goodput, admission/routing policies) for N designs — the
+    timed-arrival counterpart of `evaluate_serving_batch`. Thin forwarder
+    to `repro_torch.core.traces` (lazy import, same layering as serving)."""
+    from repro_torch.core import traces
+    return traces.evaluate_trace_serving_batch(designs, wl_base, trace,
+                                               **kw)
 
 
 def serving_objectives(wl_base: LLMWorkload, mix, slo, **kw):
-    """(SLO goodput, power) objective; waits for ROADMAP item 6."""
-    raise NotImplementedError(SERVING_UNPORTED)
+    """Batch-aware (SLO goodput, power) explorer objective — forwarder to
+    `repro_torch.core.serving.serving_objectives` (lazy import, see
+    above)."""
+    from repro_torch.core import serving
+    return serving.serving_objectives(wl_base, mix, slo, **kw)
 
 
 def batched_objectives(wl: LLMWorkload, fidelity: Fidelity = "analytical",

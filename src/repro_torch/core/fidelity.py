@@ -15,8 +15,9 @@ only on the (gh, gw) NoC grid, so `compiler.row_allgather_pattern` tables
 (pairs, injection sequences, link sets, per-pair routes) plus per-candidate
 scalars (flit count, producer interval/duration, NoC bandwidth) reconstruct
 exactly the per-transfer link graphs / packet sets the scalar path builds —
-see `_transfer_lanes`. The sim backend runs every lane through one
-lockstep `simulate_batch` pass per bucket.
+see `_transfer_lanes`. The GNN backend then scores every lane in one padded
+`gnn_forward_batch` call per grid bucket; the sim backend runs every lane
+through one lockstep `simulate_batch` pass per bucket.
 
 The port's copy of `repro.core.fidelity`. What differs:
 
@@ -25,13 +26,10 @@ The port's copy of `repro.core.fidelity`. What differs:
     unless it is built with `device="cpu"`; `evaluate_batch_ref` is the
     NumPy reference, copied verbatim. Its pinned-strategy (joint) mode
     raises: it waits for ROADMAP item 13.
-  * The GNN fidelity needs `repro.core.noc_gnn`, which is JAX and not
-    ported: `GNNBackend` stays registered (so specs naming it parse) and
-    raises on use, naming ROADMAP item 7. Its lane scoring
-    (`_pattern_features`, `_gnn_lane_makespans`) comes back with it.
-  * The serving forwarders at the bottom raise: `core.serving` and the DSE
-    half of `core.traces` come with ROADMAP item 6 (the serving, hetero
-    and trace specs).
+  * `GNNBackend` runs the port's torch `noc_gnn` on the backend's device,
+    the card unless it is built with `device="cpu"`; params on another
+    device (or `repro`'s tree with numpy leaves) are carried there first.
+    Without params it gives the analytical result, as `repro`'s does.
 """
 from __future__ import annotations
 
@@ -59,6 +57,13 @@ from repro_torch.core.noc_analytical import (
     chunk_latency_cycles,
     chunk_latency_cycles_closed,
     row_allgather_byte_hops,
+)
+from repro_torch.core.noc_gnn import (
+    LinkGraphBatch,
+    chunk_latency_cycles_gnn,
+    gnn_forward_batch,
+    gnn_params_on,
+    next_pow2,
 )
 from repro_torch.core.noc_sim import chunk_latency_cycles_sim, simulate_batch
 from repro_torch.core.tile_eval import evaluate_tile_batch
@@ -350,6 +355,60 @@ def _transfer_lanes(ax: CandidateAxis) -> _TransferLanes:
                           buckets=buckets)
 
 
+def _pattern_features(b: _GridLanes) -> Tuple[np.ndarray, np.ndarray]:
+    """Node/edge feature tensors for every lane of one grid bucket —
+    bit-identical to `featurize_transfer` on the corresponding compiled
+    chunk (all packets of a row all-gather share one flit count, so
+    link_flits = flits * flows and inj = flits * (gw - 1))."""
+    pat = b.pattern
+    B = len(b.flits)
+    n, E = pat.n_cores, len(pat.links)
+    node_x = np.empty((B, n, 3), np.float64)
+    node_x[:, :, 0] = (b.flits * (pat.gw - 1) / b.dur)[:, None]
+    node_x[:, :, 1] = pat.out_deg[None, :] / 4.0
+    node_x[:, :, 2] = pat.in_deg[None, :] / 4.0
+    edge_x = np.empty((B, E, 3), np.float64)
+    edge_x[:, :, 0] = np.log1p(b.flits[:, None] * pat.flows[None, :])
+    edge_x[:, :, 1] = (b.noc_bw / 4096.0)[:, None]
+    edge_x[:, :, 2] = np.log1p(pat.flows)[None, :]
+    return node_x.astype(np.float32), edge_x.astype(np.float32)
+
+
+def _gnn_lane_makespans(params: Dict, b: _GridLanes) -> np.ndarray:
+    """Eq. 6 for every lane of one bucket: one padded vmapped forward pass
+    scores all lanes' link graphs, then the per-packet reconstruction
+    (inject + flits + hops + summed predicted waits, max over packets) runs
+    as array math against the pattern's route table. The forward only sees
+    (flits, dur, noc_bw) — lanes sharing that triple (common across designs
+    and strategies) are collapsed before the forward."""
+    pat = b.pattern
+    fkey = np.stack([b.flits, b.dur, b.noc_bw], axis=1)
+    uniq, uinv = np.unique(fkey, axis=0, return_inverse=True)
+    ub = _GridLanes(pattern=pat, u_lane=np.zeros(0), flits=uniq[:, 0],
+                    interval=np.zeros(len(uniq)), dur=uniq[:, 1],
+                    noc_bw=uniq[:, 2])
+    node_x, edge_x = _pattern_features(ub)
+    F, E = len(uniq), len(pat.links)
+    Fp = next_pow2(F)               # bounded set of shapes per pattern
+    if Fp > F:
+        node_x = np.concatenate(
+            [node_x, np.zeros((Fp - F,) + node_x.shape[1:], np.float32)])
+        edge_x = np.concatenate(
+            [edge_x, np.zeros((Fp - F,) + edge_x.shape[1:], np.float32)])
+    batch = LinkGraphBatch(
+        node_x=node_x, edge_x=edge_x,
+        senders=np.broadcast_to(pat.senders, (Fp, E)),
+        receivers=np.broadcast_to(pat.receivers, (Fp, E)),
+        edge_mask=np.ones((Fp, E), np.float32),
+        n_nodes=pat.n_cores, n_edges_real=np.full(Fp, E, np.int64))
+    wait = gnn_forward_batch(params, batch)[:F].astype(np.float64)
+    wait_pad = np.concatenate([wait, np.zeros((F, 1))], axis=1)
+    pkt_wait = wait_pad[:, pat.route_eids].sum(axis=2)          # (F, P)
+    t = uniq[:, 0][:, None] + pat.route_len[None, :] + pkt_wait
+    inject = pat.seq[None, :].astype(np.float64) * b.interval[:, None]
+    return np.max(inject + t[uinv], axis=1)
+
+
 def _sim_lane_makespans(b: _GridLanes) -> np.ndarray:
     """Lockstep simulation of every lane of one bucket: per-lane packets in
     the (inject, index) order `simulate`'s heap pops, per-lane link slots
@@ -435,26 +494,38 @@ class AnalyticalBackend:
         return _finish(ax, wl, lat)
 
 
-GNN_UNPORTED = ("the 'gnn' fidelity (repro's JAX noc_gnn) is not ported "
-                "yet: it waits for ROADMAP item 7 (f0 GNN + calibration)")
-
-
 class GNNBackend:
-    """f0: learned congestion model. Registered so that specs naming it
-    parse; every call raises until ROADMAP item 7 ports `noc_gnn`."""
+    """f0: learned congestion model, on `device` (the registered instance on
+    the card; build `GNNBackend(device="cpu")` to run on the CPU). Without
+    params it degrades to the analytical estimate, exactly like the scalar
+    path."""
 
     name = "gnn"
 
+    def __init__(self, device="cuda"):
+        self.device = device
+
     def chunk_latency(self, graph: ChunkGraph, design: WSCDesign,
                       gnn_params: Optional[Dict] = None) -> float:
-        raise NotImplementedError(GNN_UNPORTED)
+        if gnn_params is None:
+            return chunk_latency_cycles(graph, design)
+        return chunk_latency_cycles_gnn(
+            gnn_params_on(gnn_params, self.device), graph, design)
 
     def evaluate_batch(self, geom: DesignBatch, wl: LLMWorkload,
                        n_wafers: np.ndarray, max_strategies: int = 24,
                        gnn_params: Optional[Dict] = None,
                        strategies: Optional[List[Strategy]] = None
                        ) -> List[EvalResult]:
-        raise NotImplementedError(GNN_UNPORTED)
+        if gnn_params is None:
+            return AnalyticalBackend(device=self.device).evaluate_batch(
+                geom, wl, n_wafers, max_strategies, strategies=strategies)
+        params = gnn_params_on(gnn_params, self.device)
+        ax = build_candidate_axis(geom, wl, n_wafers, max_strategies,
+                                  strategies)
+        lat = _graph_latency(
+            ax, lambda b: _gnn_lane_makespans(params, b))
+        return _finish(ax, wl, lat)
 
 
 class SimBackend:
@@ -482,17 +553,21 @@ register_backend(GNNBackend())
 register_backend(SimBackend())
 
 
-SERVING_UNPORTED = ("serving DSE (core.serving, core.heterogeneity and the "
-                    "DSE half of core.traces) is not ported yet: it waits "
-                    "for ROADMAP item 6 (the serving, hetero and trace "
-                    "specs)")
-
-
 def evaluate_serving_batch(designs, wl, mix, slo, **kw):
-    """Request-level serving evaluation; waits for ROADMAP item 6."""
-    raise NotImplementedError(SERVING_UNPORTED)
+    """Request-level serving evaluation (TTFT / TPOT / SLO goodput) against
+    any registered backend — every fidelity that can score per-step
+    prefill/decode workloads can score a serving workload. Forwarder to
+    `repro_torch.core.serving` (lazy import: serving builds on this
+    registry)."""
+    from repro_torch.core.serving import evaluate_serving_batch as _impl
+    return _impl(designs, wl, mix, slo, **kw)
 
 
 def evaluate_trace_serving_batch(designs, wl, trace, **kw):
-    """Trace-driven serving evaluation; waits for ROADMAP item 6."""
-    raise NotImplementedError(SERVING_UNPORTED)
+    """Trace-driven, multi-tenant serving evaluation (timed arrivals,
+    per-tenant SLOs, admission/routing policies) against any registered
+    backend — the timed counterpart of `evaluate_serving_batch`. Forwarder
+    to `repro_torch.core.traces` (lazy import: traces builds on this
+    registry)."""
+    from repro_torch.core.traces import evaluate_trace_serving_batch as _impl
+    return _impl(designs, wl, trace, **kw)

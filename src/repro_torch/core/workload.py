@@ -204,12 +204,11 @@ class RequestMix:
         """Lift this one-batch mix into the timed-arrival frame: a
         `core.traces.RequestTrace` with every request at step 0 under a
         single tenant — the degenerate case `trace_schedule` reduces to
-        `continuous_batch_schedule` on. The port's `core.traces` has no
-        `RequestTrace.from_mix` yet: it comes with the DSE half of traces
-        (ROADMAP item 6, the serving/hetero/trace specs)."""
-        raise NotImplementedError(
-            "RequestMix.as_trace needs the DSE half of core.traces "
-            "(ROADMAP item 6: serving, hetero and trace specs)")
+        `continuous_batch_schedule` on. Lazy import: traces layers on top
+        of this module."""
+        from repro_torch.core.traces import DEFAULT_TENANT, RequestTrace
+        return RequestTrace.from_mix(
+            self, DEFAULT_TENANT if tenant is None else tenant)
 
 
 # ---------------------------------------------------------------------------

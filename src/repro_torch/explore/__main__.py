@@ -88,9 +88,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="stop after N loop steps (the checkpoint can be "
                          "resumed later)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device the GP, acquire and analytical "
-                         "evaluator run on (default: cuda; raises when "
-                         "there is no card)")
+                    help="torch device the GP, acquire, analytical "
+                         "evaluator and GNN fidelity (with its "
+                         "calibration) run on (default: cuda; raises "
+                         "when there is no card)")
     args = ap.parse_args(argv)
 
     if args.validate:

@@ -29,21 +29,27 @@ The CLI lives in `repro_torch.explore.__main__`:
     python -m repro_torch.explore examples/campaigns/<spec>.json [--resume CKPT]
 
 The port's copy of `repro.explore.campaign`. A campaign runs on a device
-(`Campaign(spec, device=...)`, the card unless the caller passes "cpu");
-the device is not a field of the spec. What the port cannot run yet fails
-at start, naming the ROADMAP item that brings it (`unported`): the GNN
-fidelity and calibration (item 7), the serving, hetero and trace_serving
-scenarios (item 6) and joint strategy mode (item 13).
+(`Campaign(spec, device=...)`, the card unless the caller passes "cpu"):
+the GP, the acquire, the analytical evaluator and the GNN fidelity with its
+calibration all run there; the device is not a field of the spec.
+`params_path` pickles hold `repro`'s params tree with numpy leaves
+(`noc_gnn.load_gnn_params`), and so do checkpoints. What the port cannot
+run yet fails at start, naming the ROADMAP item that brings it
+(`unported`): joint strategy mode (item 13).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-import pickle
 from typing import Dict, List, Mapping, Optional, Tuple
 
-from repro_torch.core.fidelity import AnalyticalBackend
+from repro_torch.core.fidelity import AnalyticalBackend, GNNBackend
 from repro_torch.core.mfmobo import Trace
+from repro_torch.core.noc_gnn import (
+    gnn_params_on,
+    gnn_params_to_jax,
+    load_gnn_params,
+)
 from repro_torch.core.pareto import pareto_mask, to_max_space
 from repro_torch.core.workload import GPT_BENCHMARKS, LLMWorkload, RequestMix
 from repro_torch.explore.objectives import (
@@ -515,13 +521,6 @@ def resolve_strategy_space(spec: CampaignSpec, wl: LLMWorkload):
 def unported(spec: CampaignSpec) -> Optional[str]:
     """Why the port cannot run `spec` yet, naming the ROADMAP item that
     brings it; None when it can."""
-    f = spec.fidelity
-    if f.needs_gnn_params() or f.calibrate_on_handover:
-        return ("the 'gnn' fidelity and online calibration are not ported "
-                "yet: ROADMAP item 7")
-    if spec.scenario in ("serving", "hetero", "trace_serving"):
-        return (f"the {spec.scenario!r} scenario is not ported yet: ROADMAP "
-                "item 6 (the serving, hetero and trace specs)")
     if spec.strategy_mode == "joint":
         return "joint strategy mode is not ported yet: ROADMAP item 13"
     return None
@@ -644,10 +643,9 @@ class Campaign:
     def _load_params(self, gnn_params):
         spec = self.spec
         if gnn_params is not None:
-            return gnn_params
+            return gnn_params_on(gnn_params, self.device)
         if spec.fidelity.params_path:
-            with open(spec.fidelity.params_path, "rb") as f:
-                return pickle.load(f)
+            return load_gnn_params(spec.fidelity.params_path, self.device)
         if spec.fidelity.needs_gnn_params():
             raise ValueError(
                 "the 'gnn' fidelity needs trained parameters: set "
@@ -673,6 +671,8 @@ class Campaign:
         params_fn = self._params_fn() if fidelity == "gnn" else None
         if fidelity == "analytical":
             fidelity = AnalyticalBackend(device=self.device)
+        elif fidelity == "gnn":
+            fidelity = GNNBackend(device=self.device)
         if spec.scenario in ("train", "inference"):
             return EvaluatorObjective(
                 self.wl, fidelity, params_fn=params_fn,
@@ -708,11 +708,13 @@ class Campaign:
                  "objective_stats": {"f0": self.f0.stats(),
                                      **({"f1": self.f1.stats()}
                                         if self.f1 is not None else {})}}
+        # params as repro's tree with numpy leaves: exact, and readable on
+        # any device
         if self.calibrator is not None:
-            extra["gnn_params"] = self.calibrator.params
+            extra["gnn_params"] = gnn_params_to_jax(self.calibrator.params)
             extra["calibration_records"] = list(self.calibrator.records)
         elif self.gnn_params is not None:
-            extra["gnn_params"] = self.gnn_params
+            extra["gnn_params"] = gnn_params_to_jax(self.gnn_params)
         self.loop.save_state(path, extra=extra,
                              keep=self.spec.checkpoint_keep)
 

@@ -25,8 +25,9 @@ recorded in the trace. Violation/infeasibility counts are tracked on the
 objective for campaign reporting.
 
 The port's copy of `repro.explore.objectives`. The serving, hetero and
-trace objectives are copied as they are; their evaluators wait for ROADMAP
-item 6, and `Campaign` refuses those scenarios at start.
+trace objectives score through the port's copies of `core.serving`,
+`core.heterogeneity` and `core.traces`, on the device of the fidelity
+backend they are given.
 """
 from __future__ import annotations
 

@@ -44,6 +44,15 @@ evaluator on the card gives the NumPy pipeline's feasibility and strategy
 rows, every float within 1e-12 relative, and the fused dispatch equals the
 batch path; `quick_train_mfmobo` runs through the CLI on the card to its 14
 evaluations over the CPU run's designs.
+
+The serving and GNN slice: the GNN forward on the card against the same
+params on the CPU (|Δ log1p(wait)| <= 1e-5 * max(1, log1p(wait))), twice
+on the card bitwise equal; `train_gnn` on the card with its losses within
+1e-4 relative of the CPU's and decreasing; the three serving specs on the
+card and the CPU to the same designs and their budgets, the serving
+workloads' float64 fields within 1e-12 relative of the NumPy pipeline; an
+f0 = "gnn" campaign with calibration on the card to its budget with one
+calibration record, resumed bit for bit.
 """
 import numpy as np
 import pytest
@@ -528,3 +537,111 @@ def test_dse_campaign_on_the_card(cuda):
     assert [str(d) for d in runs["cuda"].trace.designs] == \
         [str(d) for d in runs["cpu"].trace.designs]
     assert abs(runs["cuda"].hv_final - runs["cpu"].hv_final) <= 1e-9 * runs["cpu"].hv_final
+
+
+def _gnn_dataset():
+    from repro_torch.core.calibration import build_calibration_set
+    from repro_torch.core.design_space import WSCDesign
+    from repro_torch.core.validator import validate
+    from repro_torch.core.workload import GPT_BENCHMARKS
+    designs = [validate(WSCDesign()).design, validate(WSCDesign(mac_num=256)).design]
+    return build_calibration_set(designs, GPT_BENCHMARKS[0])
+
+
+@pytest.mark.gpu
+def test_gnn_forward_on_the_card_matches_cpu_and_repeats_bitwise(cuda):
+    from repro_torch.core import noc_gnn as P
+    batch = P.pad_link_graphs(_gnn_dataset())
+    cpu = P.init_gnn(0, device="cpu")
+    card = P.gnn_params_on(cpu, "cuda")
+    w_cpu, w1, w2 = (P.gnn_forward_batch(p, batch) for p in (cpu, card, card))
+    real = batch.edge_mask > 0
+    a, b = np.log1p(w1[real].astype(np.float64)), np.log1p(w_cpu[real].astype(np.float64))
+    assert np.all(np.abs(a - b) <= 1e-5 * np.maximum(1.0, np.abs(b)))
+    assert w1.tobytes() == w2.tobytes()
+
+
+@pytest.mark.gpu
+def test_gnn_training_on_the_card_matches_cpu(cuda):
+    from repro_torch.core import noc_gnn as P
+    ds = _gnn_dataset()
+    runs = {dev: P.train_gnn(P.init_gnn(0, device=dev), ds, epochs=3, val_frac=0.25)
+            for dev in ("cpu", "cuda")}
+    again = P.train_gnn(P.init_gnn(0, device="cuda"), ds, epochs=3, val_frac=0.25)
+    h, hc = runs["cuda"][1], runs["cpu"][1]
+    np.testing.assert_allclose(h.train_loss, hc.train_loss, rtol=1e-4, atol=0)
+    assert h.train_loss[-1] < h.train_loss[0]
+    assert again[1].train_loss == h.train_loss
+    assert all(torch.equal(a, b) for a, b in zip(P._flatten(again[0]), P._flatten(runs["cuda"][0])))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["gpt175b_serving_slo", "gpt175b_hetero_serving",
+                                  "gpt175b_trace_serving"])
+def test_serving_campaigns_on_the_card(cuda, spec):
+    from pathlib import Path
+
+    from repro_torch.core.evaluator import clear_eval_cache
+    from repro_torch.explore import Campaign, CampaignSpec
+    want = {"gpt175b_serving_slo": 10, "gpt175b_hetero_serving": 6, "gpt175b_trace_serving": 8}
+    s = CampaignSpec.from_json(str(Path(__file__).resolve().parents[1] / "examples"
+                                   / "campaigns" / f"{spec}.json"))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        clear_eval_cache()
+        runs[dev] = Campaign(s, device=dev).run()
+    assert runs["cuda"].finished and runs["cuda"].n_evals == want[spec]
+    assert [str(d) for d in runs["cuda"].trace.designs] == \
+        [str(d) for d in runs["cpu"].trace.designs]
+    assert runs["cuda"].hv_final == runs["cpu"].hv_final
+
+
+@pytest.mark.gpu
+def test_serving_workloads_on_the_card(cuda):
+    from repro_torch.core import eval_compiled
+    from repro_torch.core.design_space import DesignBatch, decode_batch
+    from repro_torch.core.evaluator import _wafers_for_budget_batch
+    from repro_torch.core.fidelity import AnalyticalBackend
+    from repro_torch.core.serving import serving_workloads
+    from repro_torch.core.workload import GPT_BENCHMARKS, RequestMix
+    geom = DesignBatch.from_designs(decode_batch(np.random.default_rng(29).random((256, 13))))
+    for wl in serving_workloads(GPT_BENCHMARKS[7], RequestMix.uniform(16, 2048, 64), 8)[:2]:
+        nw = _wafers_for_budget_batch(geom, wl)
+        got = eval_compiled.evaluate_batch_compiled(geom, wl, nw, 8, device="cuda")
+        want = AnalyticalBackend(device="cpu").evaluate_batch_ref(geom, wl, nw, 8)
+        for g, w in zip(got, want):
+            assert (g.feasible, g.strategy) == (w.feasible, w.strategy)
+            if w.feasible:
+                np.testing.assert_allclose([g.throughput, g.power_w, g.step.energy_j],
+                                           [w.throughput, w.power_w, w.step.energy_j],
+                                           rtol=1e-12, atol=0)
+
+
+@pytest.mark.gpu
+def test_calibrated_gnn_campaign_on_the_card(cuda, tmp_path):
+    import json
+    import pickle
+    from pathlib import Path
+
+    from repro_torch.core import noc_gnn as P
+    from repro_torch.core.evaluator import clear_eval_cache
+    from repro_torch.explore import Campaign, CampaignSpec
+    with open(Path(__file__).resolve().parents[1] / "examples" / "campaigns"
+              / "quick_train_mfmobo.json") as f:
+        raw = json.load(f)
+    path = str(tmp_path / "params.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(P.gnn_params_to_jax(P.init_gnn(0, device="cpu")), f)
+    raw["fidelity"].update({"f0": "gnn", "calibrate_on_handover": True, "params_path": path,
+                            "calibration": {"n_designs": 1, "epochs": 2}})
+    spec = CampaignSpec.from_dict(raw)
+    clear_eval_cache()
+    full = Campaign(spec, device="cuda").run()
+    assert full.finished and full.n_evals == 14 and len(full.calibration) == 1
+    ckpt = str(tmp_path / "run.ckpt")
+    clear_eval_cache()
+    Campaign(spec, device="cuda").run(checkpoint_path=ckpt, max_steps=3)
+    clear_eval_cache()
+    resumed = Campaign.resume(ckpt, device="cuda").run(checkpoint_path=ckpt)
+    assert [float(h).hex() for h in resumed.trace.hv] == [float(h).hex() for h in full.trace.hv]
+    assert [str(d) for d in resumed.trace.designs] == [str(d) for d in full.trace.designs]

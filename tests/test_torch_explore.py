@@ -6,8 +6,8 @@ budgets and evaluate the same designs in the same order with the same
 objective values and hypervolume curve as `repro`, bit for bit. (The GP is
 float32 in both frameworks; the specs' EHVI margins are wide enough that no
 pick flips.) A run resumed from a mid-run checkpoint equals the
-uninterrupted one bit for bit. Specs the port cannot run yet fail at start
-with the ROADMAP item that brings them."""
+uninterrupted one bit for bit. Specs the port cannot run yet (joint mode)
+fail at start with the ROADMAP item that brings them."""
 import json
 import os
 import pickle
@@ -21,7 +21,7 @@ from repro.core.evaluator import clear_eval_cache as j_clear  # noqa: E402
 from repro.explore import Campaign as JCampaign  # noqa: E402
 from repro.explore import CampaignSpec as JSpec  # noqa: E402
 from repro_torch.core.evaluator import clear_eval_cache  # noqa: E402
-from repro_torch.explore import Campaign, CampaignSpec, ExplorationLoop  # noqa: E402
+from repro_torch.explore import Campaign, CampaignSpec, ExplorationLoop, unported  # noqa: E402
 from repro_torch.explore.__main__ import main  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -116,8 +116,19 @@ def test_cli_and_campaign_default_to_the_card(monkeypatch, tmp_path):
     ("gpt175b_serving_slo", "item 6"), ("gpt175b_hetero_serving", "item 6"),
     ("gpt175b_trace_serving", "item 6"), ("gpt175b_joint_dse", "item 13")])
 def test_unported_shipped_specs_fail_at_start(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Campaign(CampaignSpec.from_json(_spec_path(name)), device="cpu")
+    """Only joint mode (ROADMAP item 13) still fails at start; the serving,
+    hetero and trace specs (item 6, now ported) start, with their budgets.
+    tests/test_torch_serving.py runs them against `repro`."""
+    spec = CampaignSpec.from_json(_spec_path(name))
+    if item == "item 13":
+        assert "item 13" in unported(spec)
+        with pytest.raises(NotImplementedError, match=item):
+            Campaign(spec, device="cpu")
+        return
+    assert unported(spec) is None
+    c = Campaign(spec, device="cpu")
+    assert c.loop.cfg.total_evals() == spec.loop_config().total_evals()
+    assert str(c.f0.backend.device) == "cpu" and c.f0.backend.name == "analytical"
 
 
 @pytest.mark.parametrize("fidelity", [
@@ -125,21 +136,53 @@ def test_unported_shipped_specs_fail_at_start(name, item):
     {"f1": "gnn", "params_path": "params.pkl"},
     {"f0": "gnn", "calibrate_on_handover": True,
      "params_path": "params.pkl"}])
-def test_gnn_specs_fail_at_start(fidelity):
+def test_gnn_specs_fail_at_start(fidelity, tmp_path, monkeypatch):
+    """GNN specs (ROADMAP item 7, now ported) start when `params_path`
+    holds `repro`'s params tree with numpy leaves, with the GNN on the
+    campaign's device; they fail at start on a missing or non-numpy
+    pickle. tests/test_torch_gnn.py runs one against `repro`."""
+    from repro_torch.core import noc_gnn
+    monkeypatch.chdir(tmp_path)
     with open(_spec_path("quick_train_mfmobo")) as f:
         raw = json.load(f)
     raw["fidelity"].update(fidelity)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        Campaign(CampaignSpec.from_dict(raw), device="cpu")
+    spec = CampaignSpec.from_dict(raw)
+    assert unported(spec) is None
+    with pytest.raises(FileNotFoundError):
+        Campaign(spec, device="cpu")
+    with open("params.pkl", "wb") as f:
+        pickle.dump(noc_gnn.gnn_params_to_jax(noc_gnn.init_gnn(0, device="cpu")), f)
+    c = Campaign(spec, device="cpu")
+    gnn = c.f0 if raw["fidelity"]["f0"] == "gnn" else c.f1
+    assert gnn.backend.name == "gnn" and str(gnn.backend.device) == "cpu"
+    assert noc_gnn.params_device(gnn.gnn_params()).type == "cpu"
+    assert (c.calibrator is not None) == bool(fidelity.get("calibrate_on_handover"))
+    with open("params.pkl", "wb") as f:
+        pickle.dump({"node_enc": []}, f)
+    with pytest.raises(ValueError, match="GNN params"):
+        Campaign(spec, device="cpu")
+    with open("params.pkl", "wb") as f:
+        pickle.dump({"node_enc": object()}, f)
+    with pytest.raises(TypeError, match="numpy leaves only"):
+        Campaign(spec, device="cpu")
 
 
 def test_gnn_backend_and_serving_entry_points_name_their_items():
+    """The GNN backend and the serving entry points run (ROADMAP items 7
+    and 6); the joint entry points still name item 13."""
     from repro_torch.core import evaluator, fidelity
-    from repro_torch.core.validator import validate_joint_batch
-    with pytest.raises(NotImplementedError, match="item 7"):
-        fidelity.get_backend("gnn").evaluate_batch(None, None, np.ones(1))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        evaluator.evaluate_serving_batch([], None, None, None)
+    from repro_torch.core.design_space import WSCDesign
+    from repro_torch.core.validator import validate, validate_joint_batch
+    from repro_torch.core.workload import GPT_BENCHMARKS
+    d = validate(WSCDesign()).design
+    clear_eval_cache()
+    g = fidelity.GNNBackend(device="cpu").evaluate_batch(
+        fidelity.DesignBatch.from_designs([d]), GPT_BENCHMARKS[0], np.ones(1, np.int64), 6)
+    a = fidelity.AnalyticalBackend(device="cpu").evaluate_batch(
+        fidelity.DesignBatch.from_designs([d]), GPT_BENCHMARKS[0], np.ones(1, np.int64), 6)
+    assert (g[0].feasible, g[0].throughput) == (a[0].feasible, a[0].throughput)
+    assert evaluator.evaluate_serving_batch([], None, None, None) == []
+    assert evaluator.evaluate_trace_serving_batch([], None, None) == []
     with pytest.raises(NotImplementedError, match="item 13"):
         evaluator.evaluate_joint_batch([], None)
     assert validate_joint_batch([], None) == []

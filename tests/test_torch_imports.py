@@ -49,6 +49,7 @@ SLICE_MODULES = (
     "core/validator.py", "core/compiler.py", "core/tile_eval.py", "core/chunk_eval.py",
     "core/noc_analytical.py", "core/noc_sim.py", "core/evalcache.py",
     "explore/__main__.py", "explore/campaign.py", "explore/objectives.py", "explore/runner.py",
+    "core/serving.py", "core/heterogeneity.py", "core/noc_gnn.py", "core/calibration.py",
 )
 
 
