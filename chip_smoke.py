@@ -8,7 +8,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
   2. build: every CUDA source of the port, compiled with nvcc, timed, with
      the registers and spills of every tensor-core kernel (none may spill
      at the serving shapes' instantiations: K1 at hd=64, 128 and 256, the K2
-     kernels);
+     kernels) and of K1's backward kernels at the training instantiation
+     (float, hd 64; none may spill);
   3. the SSD-scan kernel against its plain PyTorch version on the card, at
      the JAX kernel tests' shapes and the serving shapes (mamba2-370m's and
      zamba2-1.2b's: H=64, N=64, S=1024, a ragged 1000 and its forward's
@@ -136,12 +137,35 @@ Phases, each printed on its own lines; any failure exits non-zero:
      device-to-host copy per transfer) and one evaluate_serving_batch of 32
      designs; K1 and K2 launches over the phase (0). One JSON line
      ({"gnn_serving": ...}).
+ 19. training (K1 forward and backward on every layer): (a) K1's backward
+     (`flash_bwd_*_kernel`, fp32 and bf16) against its plain version
+     `attention_bwd_ref` on the kernel's own o and lse, at the JAX flash
+     tests' cases, ragged S = 200 with GQA 7, causal and window 50 at hd 64,
+     128 and 256, a non-causal hd 256 one and the training shape (8, 256,
+     9/3 heads of 64, causal), under phase 7's rules relative to the largest
+     reference gradient; two runs bit for bit; the forward's output with its
+     lse the same bits as without, the lse against the plain version's;
+     (b) K1 forward (with lse) and backward at the training shape, fp32,
+     device time beside the bound, the plain version and
+     scaled_dot_product_attention forward and forward + backward through
+     autograd (timed only), and K1's forward + backward through
+     `FlashAttentionFn` beside the latter; (c) `repro_torch.launch.train.main` for smollm-135m at full width
+     (random weights from seed 0, fp32, remat "block", batch 8 x 256): 40
+     steps, a checkpoint every 10, a failure injected before step 25: one
+     restart, a contiguous log, the final checkpoint at step 40, 60 K1
+     forward and 30 backward calls per step run, the loss curve, and an
+     uninterrupted run with every loss equal bit for bit; (d) the same
+     weights cut to 2 layers trained 3 steps on the card and the CPU: losses
+     within 1e-5, grad norms within 1e-4 relative; (e) host and device time
+     of one step, idle share, launches, the largest device items, K1's
+     forward and backward shares, tokens/s.
 The line before the last is the kernels' JSON record: the SSD scan once per
 path and shape it ran (mamba2-370m's prefills; zamba2-1.2b's forward,
 prefills and replay) and the flash-attention kernel
 once per path and shape (the whisper encoder, gemma3-4b's local and global
-layers, mixtral-8x7b, zamba2-1.2b), each with the launches of its path's run
-and the error and times at its shape; the last line is
+layers, mixtral-8x7b, zamba2-1.2b, and K1's forward and backward on the
+training path of phase 19), each with the launches of its path's run and
+the error and times at its shape; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repo's
 sources beside it, the script fails before printing any result.
 """
@@ -1104,6 +1128,275 @@ def gnn_serving_path(torch, np):
     return out
 
 
+BWD_KERNEL = re.compile(r"\d(flash_bwd_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+
+
+def bwd_ptxas_report(log):
+    """{"flash_bwd_*_kernel<dtype, hd>": [registers, spill store bytes, spill
+    load bytes]} of K1's backward kernels from nvcc's -Xptxas -v output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = BWD_KERNEL.search(m.group(1))
+            name = k and f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, {k.group(3)}>"
+            if name:
+                out[name] = [0, 0, 0]
+        elif name and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            out[name][1:] = [int(st), int(ld)]
+        elif name and "registers" in line:
+            out[name][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def flash_bwd_work(case, dtype_name):
+    """Bytes (q, k, v, o, dO and lse read once, dq, dk, dv written once) and
+    FLOPs (the five products QK^T, dO V^T, P^T dO, dS^T Q, dS K over the
+    (query, key) pairs the mask keeps) of one backward, for the bound."""
+    B, S, Hq, Hkv, hd, causal, window = case
+    e = 2 if dtype_name == "bf16" else 4
+    nbytes = (6 * B * S * Hq * hd + 4 * B * S * Hkv * hd) * e + B * Hq * S * 4
+    flops = flash_work(case, dtype_name)[1] // 4 * 10
+    return nbytes, flops
+
+
+def hold_flash_bwd(torch, case, dname, small):
+    """K1's backward at `case` in `dname` against its plain version on the
+    kernel's own o and lse; two runs bit for bit; the forward with its lse
+    the same bits as without, the lse against the plain version's. The rule
+    is phase 7's, relative to the largest reference gradient: small cases
+    |d| <= tol (|ref| + max|ref|) (tol 2e-5 fp32, 2e-2 bf16); others fp32
+    |d| <= 1e-4 max|ref|, bf16 |d| <= 1e-2 |ref| + 1e-4 max|ref| (the two
+    sides round fp32 sums taken in other orders to bf16). Returns the
+    largest |d| over dq, dk, dv."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+    dtype = torch.float32 if dname == "fp32" else torch.bfloat16
+    causal, window = case[5], case[6]
+    q, k, v, pos = flash_inputs(torch, case, dtype)
+    do = flash_inputs(torch, case, dtype, seed=SEED + 1)[0]
+    o0 = flash_attention(q, k, v, causal=causal, window=window)
+    o, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    _, lse_ref = attention_ref(q, k, v, pos, pos, causal=causal, window=window, return_lse=True)
+    refs = attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+    worst, line, ok = 0.0, [], True
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        r = r.float()
+        err = (g.float() - r).abs()
+        mref = r.abs().max().item()
+        if small:
+            tol = 2e-5 if dname == "fp32" else 2e-2
+            ok_g = bool((err <= tol * (r.abs() + mref)).all())
+        elif dname == "fp32":
+            ok_g = err.max().item() <= 1e-4 * mref
+        else:
+            ok_g = bool((err <= 1e-2 * r.abs() + 1e-4 * mref).all())
+        ok = ok and ok_g and bool(torch.isfinite(g).all())
+        worst = max(worst, err.max().item())
+        line.append(f"{name} {err.max().item():.3g}/{mref:.3g}")
+    dlse = (lse - lse_ref).abs().max().item()
+    bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+    print(f"  {case} {dname}: max|d|/max|ref| " + ", ".join(line)
+          + f"; |dlse| {dlse:.3g}; rerun bitwise {bits}; o with lse bitwise "
+          f"{torch.equal(o, o0)} [{'small' if small else 'long'} rule] "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"flash_attention_bwd {case} {dname}")
+    check(bits, f"flash_attention_bwd {case} {dname}: two runs bit for bit")
+    check(torch.equal(o, o0), f"flash_attention {case} {dname}: return_lse keeps o's bits")
+    check(dlse <= 1e-5 * max(1.0, lse_ref.abs().max().item()), f"lse {case} {dname}")
+    return worst
+
+
+def train_path(torch, np):
+    """Phase 19: K1's backward held and timed; the trainer at full width
+    through `repro_torch.launch.train.main` with an injected failure; card
+    against CPU; where one step's time goes. Returns the kernels record's
+    two K1 entries of the training path."""
+    import shutil
+    import tempfile
+
+    from torch.nn.attention import SDPBackend
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import Model
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import MarkovLMDataset
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config("smollm-135m")
+    B, S = 8, 256
+    train_case = (B, S, cfg.n_heads, cfg.n_kv, cfg.hd(), True, None)
+    print("  (a) K1 backward against its plain version")
+    small = [(1, 64, 4, 4, 16, True, None), (2, 128, 4, 2, 32, True, None),
+             (1, 96, 8, 1, 16, True, None), (2, 128, 4, 4, 64, True, 32),
+             (1, 256, 2, 2, 16, False, None), (1, 80, 3, 1, 16, True, 24)]
+    longer = ([(2, 200, 7, 1, hd, True, 50) for hd in (64, 128, 256)]
+              + [(1, 200, 2, 2, 256, False, None), train_case])
+    err_train = 0.0
+    for case in small + longer:
+        for dname in ("fp32", "bf16"):
+            e = hold_flash_bwd(torch, case, dname, small=case in small)
+            if case == train_case and dname == "fp32":
+                err_train = e
+
+    print("  (b) K1 at the training shape, fp32 (the trainer's dtype), device time")
+    q, k, v, pos = flash_inputs(torch, train_case, torch.float32)
+    do = flash_inputs(torch, train_case, torch.float32, seed=SEED + 1)[0]
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    ref = attention_ref(q, k, v, pos, pos)
+    err_fwd = (o - ref).abs().max().item()
+    check(err_fwd <= 1e-4 * ref.abs().max().item(), f"flash_attention {train_case} fp32")
+    f_ms = graph_ms(torch, lambda: flash_attention(q, k, v, return_lse=True))
+    b_ms = graph_ms(torch, lambda: flash_attention_bwd(q, k, v, o, lse, do))
+    pf_ms = graph_ms(torch, lambda: attention_ref(q, k, v, pos, pos, return_lse=True),
+                     calls=3, reps=5)
+    pb_ms = graph_ms(torch, lambda: attention_bwd_ref(q, k, v, o, lse, do), calls=3, reps=5)
+    rep = cfg.n_heads // cfg.n_kv
+    qt, kt, vt = (t.repeat_interleave(r, 2).transpose(1, 2).contiguous().requires_grad_()
+                  for t, r in ((q, 1), (k, rep), (v, rep)))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=True)).name
+    # forward + backward through autograd, captured in a CUDA graph like the
+    # kernels (eager, the host's autograd dispatch would set the pace)
+    lf_ms = graph_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
+    lfb_ms = graph_ms(torch, lambda: torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True),
+                                                         (qt, kt, vt), dot))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    kfb_ms = graph_ms(torch, lambda: torch.autograd.grad(
+        fa_ops.mha(qg, kg, vg, pos, pos), (qg, kg, vg), do))
+    out = {}
+    for name, ms, p_ms, l_ms, (nbytes, flops) in (
+            ("forward (with lse)", f_ms, pf_ms, lf_ms, flash_work(train_case, "fp32")),
+            ("backward", b_ms, pb_ms, lfb_ms, flash_bwd_work(train_case, "fp32"))):
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS["fp32"] * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"    {name}: kernel {ms:.4f} ms, bound {bound:.5f} ms ({by}: "
+              f"{flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.2f} MB; H100 SXM peaks), "
+              f"{bound / ms:.1%} of the bound; plain {p_ms:.4f} ms; "
+              f"scaled_dot_product_attention {'forward' if name[0] == 'f' else 'forward + backward'}"
+              f" {l_ms:.4f} ms (K/V repeated for GQA, BHSD; backend {backend})")
+        out[name] = {"ms": ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+                     "library_ms": l_ms}
+    print(f"    forward + backward through autograd: K1 (FlashAttentionFn) {kfb_ms:.4f} ms, "
+          f"SDPA {lfb_ms:.4f} ms")
+    del q, k, v, o, lse, do, qt, kt, vt, dot, ref, qg, kg, vg
+
+    print("  (c) python -m repro_torch.launch.train --arch smollm-135m at full width, "
+          "40 steps, a failure injected before step 25")
+    steps = 40
+    base = ["--arch", cfg.name, "--batch", str(B), "--seq", str(S), "--steps", str(steps),
+            "--log-every", "5"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        flash_attention.launches_by_case, flash_attention_bwd.launches_by_case = {}, {}
+        t0 = time.perf_counter()
+        res = launch_train.main(base + ["--ckpt-dir", f"{tmp}/a", "--ckpt-every", "10",
+                                        "--fail-at", "25"])
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        n_f, n_b = flash_attention.launches, flash_attention_bwd.launches
+        by_f = dict(flash_attention.launches_by_case)
+        log = [m["step"] for m in res["metrics"]]
+        ran = steps + (25 - 20)            # steps 20-24 run again after the rollback
+        print(f"    {wall_a:.1f} s; restarts {res['restarts']}; checkpoints "
+              f"{ckpt.list_checkpoints(f'{tmp}/a')}; K1 forward {n_f}, backward {n_b} "
+              f"calls over {ran} steps ({n_f / ran:g} and {n_b / ran:g} per step)")
+        check(res["restarts"] == 1, "one restart")
+        check(log == list(range(steps)), "a contiguous metric log")
+        check(ckpt.list_checkpoints(f"{tmp}/a")[-1] == steps, "a final checkpoint at the last step")
+        check(n_f == ran * 2 * cfg.num_layers and n_b == ran * cfg.num_layers
+              and by_f == {train_case: n_f},
+              "60 K1 forward (remat: twice per layer) and 30 backward calls per step")
+        losses = [m["loss"] for m in res["metrics"]]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0], "finite, falling losses")
+        print("    loss curve: " + " ".join(f"{x:.4f}" for x in losses[::5])
+              + f" ... {losses[-1]:.4f}")
+        t0 = time.perf_counter()
+        clean = launch_train.main(base + ["--ckpt-dir", f"{tmp}/b", "--ckpt-every", "1000"])
+        wall_b = time.perf_counter() - t0
+        same = [m["loss"] for m in clean["metrics"]] == losses
+        print(f"    uninterrupted run: {wall_b:.1f} s, final loss {clean['metrics'][-1]['loss']!r} "
+              f"against {losses[-1]!r}: every loss bitwise equal {same}")
+        check(clean["restarts"] == 0 and same, "the resumed run equals an uninterrupted one bit "
+              "for bit")
+        model, st = clean["params"], clean["opt_state"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    print("  (d) card against CPU: the same weights cut to 2 layers, fp32, 3 steps")
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    opt = AdamWConfig(peak_lr=3e-3, warmup_steps=5, total_steps=steps)
+    ds = MarkovLMDataset(vocab=cfg.vocab, seq_len=S, batch=B, seed=0)
+    src = Model(cfg2, Runtime(device="cuda", compute_dtype=torch.float32), seed=SEED)
+    curves = {}
+    for dev in ("cuda", "cpu"):
+        rt = Runtime(device=dev, compute_dtype=torch.float32, remat="block")
+        m2 = Model(cfg2, rt, seed=None)
+        m2.load_state_dict(src.state_dict())
+        st2 = init_opt_state(dict(m2.requires_grad_(True).named_parameters()))
+        step2 = make_train_step(cfg2, rt, opt)
+        t0 = time.perf_counter()
+        curve = []
+        for s in range(3):
+            batch = {kk: torch.as_tensor(vv).long().to(dev) for kk, vv in ds.batch_at(s).items()}
+            m2, st2, mm = step2(m2, st2, batch)
+            curve.append((mm["loss"].item(), mm["grad_norm"].item()))
+        curves[dev] = curve
+        print(f"    {dev}: " + ", ".join(f"loss {a:.6f} gnorm {g:.6f}" for a, g in curve)
+              + f" ({time.perf_counter() - t0:.1f} s)")
+        del m2, st2
+    dl = max(abs(a - c) / abs(c) for (a, _), (c, _) in zip(curves["cuda"], curves["cpu"]))
+    dg = max(abs(a - c) / abs(c) for (_, a), (_, c) in zip(curves["cuda"], curves["cpu"]))
+    print(f"    largest relative difference: loss {dl:.3g} (<= 1e-5), grad norm {dg:.3g} (<= 1e-4)")
+    check(dl <= 1e-5 and dg <= 1e-4, "card against CPU")
+    del src
+
+    print("  (e) where the time goes: one full-width training step (8 x 256 tokens)")
+    step = make_train_step(cfg, model.rt, opt)
+    batch = {kk: torch.as_tensor(vv).long().cuda() for kk, vv in ds.batch_at(steps).items()}
+
+    def one_step():
+        step(model, st, batch)
+    wall_ms, by_name, counts = device_breakdown(torch, one_step)
+    dev_ms = sum(by_name.values())
+    if not by_name:
+        print(f"    host {wall_ms:.2f} ms; the profiler recorded no device time")
+    else:
+        parts = kernel_share(by_name, counts, ("flash_kernel", "flash_bwd_"))
+        print(f"    host {wall_ms:.2f} ms ({B * S / wall_ms * 1e3:.0f} tokens/s), device busy "
+              f"{dev_ms:.2f} ms (idle {1 - dev_ms / wall_ms:.1%}), {len(by_name)} kernel names, "
+              f"{sum(counts.values())} launches")
+        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"      {ms:8.3f} ms x{counts[kname]:<5d} {kname[:90]}")
+        for part, label in (("flash_kernel", "K1 forward"), ("flash_bwd_", "K1 backward")):
+            ms, n = parts[part]
+            print(f"    {label} ({part}*) {ms:.3f} ms x{n}, {ms / dev_ms:.1%} of device time")
+    del model, st
+    torch.cuda.empty_cache()
+    entry = {"route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+             "path": "smollm-135m training, python -m repro_torch.launch.train (phase 19 (c))",
+             "shape": "(B, S, Hq, Hkv, hd, causal, window) = " + str(train_case) + ", fp32"}
+    return [{"name": "flash_attention/smollm-135m training", **entry, "launches": n_f,
+             "max_abs_err": err_fwd, **out["forward (with lse)"]},
+            {"name": "flash_attention_bwd/smollm-135m training", **entry, "launches": n_b,
+             "max_abs_err": err_train, **out["backward"]}]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1151,6 +1444,15 @@ def main() -> int:
         for k in ("flash_mma_kernel<64>", "flash_mma_kernel<128>",
                   "flash_mma_kernel<256>") + MMA_KERNELS[1:]:
             check(k in report and report[k][1:] == [0, 0], f"{k} has no spills")
+    bwd = {k: v for log in logs.values() for k, v in bwd_ptxas_report(log).items()}
+    if bwd:
+        print(f"  K1 backward: {len(bwd)} instantiations; at the training one (float, 64) and "
+              "wherever they spill:")
+        for k, (regs, st, ld) in sorted(bwd.items()):
+            if ", 64>" in k and "float" in k or st or ld:
+                print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+        for k in ("flash_bwd_dkdv_kernel<float, 64>", "flash_bwd_dq_kernel<float, 64>"):
+            check(k in bwd and bwd[k][1:] == [0, 0], f"{k} has no spills")
 
     phase("3. SSD-scan kernel against its plain version")
     small = [(1, 32, 2, 8, 8, 8), (2, 64, 4, 16, 16, 16),
@@ -1857,6 +2159,13 @@ def main() -> int:
           "card")
     print(json.dumps({"gnn_serving": gnn_serving_path(torch, np)}, default=float))
 
+    phase("19. training on the card: K1's backward against its plain version and timed; "
+          "smollm-135m at full width through python -m repro_torch.launch.train with an "
+          "injected failure; card against CPU; where one step's time goes")
+    t19 = time.perf_counter()
+    k1_train_record = train_path(torch, np)
+    print(f"  phase 19: {time.perf_counter() - t19:.1f} s")
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # K2 once per path and shape (phases 5 and 14): launches from that
     # path's run (wrapper calls, three CUDA launches each in bf16), the other
@@ -1885,6 +2194,8 @@ def main() -> int:
             "max_abs_err": err_by_case[case],
             **timed[case],
         })
+    # K1 forward and backward on the training path (phase 19)
+    record["kernels"] += k1_train_record
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

@@ -69,6 +69,7 @@ namespace {
 
 constexpr int kBQ = 64;         // query rows per block
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // fp32: flash_kernel on the CUDA cores
@@ -110,7 +111,8 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv, int Hq,
+             const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+             int Sq, int Skv, int Hq,
              int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss, int64_t vsb,
              int64_t vss, int64_t osb, int64_t oss, float scale, int causal, int window) {
   constexpr int P = HD + 4;
@@ -236,6 +238,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int s = q0 + 4 * ty + i;
     if (s >= Sq) continue;          // ragged q tail: not written
     const float den = fmaxf(li, 1e-30f);
+    // the scores are scaled already (q * scale), so m + log(l) is the row's
+    // log-sum-exp of scale * q . k
+    if (lse != nullptr && tx == 0) lse[((int64_t)b * Hq + h) * Sq + s] = m[i] + logf(den);
     float* orow = o + b * osb + (int64_t)s * oss + (int64_t)h * HD + VEC * tx;
 #pragma unroll
     for (int n = 0; n < NV; ++n)
@@ -332,7 +337,8 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ s
 template <int HD>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv, int Hq,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Skv, int Hq,
                  int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss, int64_t vsb,
                  int64_t vss, int64_t osb, int64_t oss, float scale_log2, int causal,
                  int window) {
@@ -496,11 +502,328 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = i == 0 ? row_lo : row_hi;
     if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(li, 1e-30f);
+    // m is in log2 units (scores pre-scaled by log2 e): back to natural log
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((int64_t)b * Hq + h) * Sq + row] = m[i] * kLn2 + logf(fmaxf(li, 1e-30f));
     bf16* orow = o + b * osb + (int64_t)row * oss + (int64_t)h * HD + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < C::NO; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: three kernels on the CUDA cores, fp32 arithmetic
+// ---------------------------------------------------------------------------
+//
+// With P = exp(scale * Q K^T - lse) (lse from the forward; masked entries 0),
+// dP = dO V^T, delta = rowsum(dO * O) and dS = P * (dP - delta):
+//   dV = P^T dO,  dK = scale * dS^T Q,  dQ = scale * dS K.
+// flash_bwd_preprocess_kernel computes delta (one warp per row);
+// flash_bwd_dkdv_kernel owns a tile of keys of one KV head and loops over
+// its rep query heads and their live query tiles, so GQA's sum over the
+// query heads of a KV head stays inside the block; flash_bwd_dq_kernel owns
+// a tile of query rows of one head and loops over its live key tiles. Each
+// gradient element is summed by one thread in a fixed order, with no
+// atomics: two runs give the same bits. Masks and dead tiles as in the
+// forward. T (float or bf16) is the type in memory: bf16 is widened on load
+// and dq, dk, dv are written in T.
+//
+// What bounds it: at the training shape (B=8, S=256, 9/3 heads of 64,
+// causal, fp32) the five products of the function (QK^T, dO V^T, dV, dK,
+// dQ) are 1.5 GFLOP on ~20 MB, so operations bound it (0.023 ms at the CUDA
+// cores' 67 TFLOP/s). The design is the simple one: both kernels recompute
+// S and dP (seven products, not five), tiles of 64 (32 above hd = 128) in
+// fp32 shared memory, 4 x 4 (2 x 2) register blocks per thread.
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+template <int HD>
+struct BwdCfg {
+  static constexpr int BT = HD <= 128 ? 64 : 32;   // query rows and keys per tile
+  static constexpr int R = BT / 16;                // rows (and columns) per thread
+  static constexpr int P = HD + 4;                 // pitch of an HD-wide tile
+  static constexpr int PT = BT + 4;                // pitch of a BT-wide tile
+  static constexpr int NC = HD / 16;               // output columns per thread
+  // K, V, Q, dO tiles; the P and dS tiles (dkdv) or the dS tile (dq); lse, delta
+  static constexpr size_t SMEM_KV =
+      sizeof(float) * ((size_t)4 * BT * P + (size_t)2 * BT * PT + 2 * BT);
+  static constexpr size_t SMEM_Q =
+      sizeof(float) * ((size_t)4 * BT * P + (size_t)BT * PT + 2 * BT);
+};
+
+// rows [r0, r0 + ROWS) of one head (HD contiguous values per row, rows rs
+// apart) into an fp32 tile of pitch HD + 4; rows at or past n are zero
+template <typename T, int HD, int ROWS>
+__device__ __forceinline__ void bwd_load(float* dst, const T* __restrict__ src, int64_t rs,
+                                         int r0, int n) {
+  for (int idx = threadIdx.x; idx < ROWS * HD; idx += kThreads) {
+    const int r = idx / HD, d = idx % HD;
+    dst[r * (HD + 4) + d] = r0 + r < n ? to_f(src[(int64_t)(r0 + r) * rs + d]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ bool live(int i, int j, int Sq, int Skv, int causal, int window) {
+  return i < Sq && j < Skv && (!causal || j <= i) && (window < 0 || j > i - window);
+}
+
+// s = Q K^T and dp = dO V^T over one (query tile, key tile) pair: this
+// thread's query rows R ty + a and keys tx + 16 c
+template <int HD>
+__device__ __forceinline__ void bwd_scores(const float* qs, const float* dos, const float* ks,
+                                           const float* vs,
+                                           float (&s)[BwdCfg<HD>::R][BwdCfg<HD>::R],
+                                           float (&dp)[BwdCfg<HD>::R][BwdCfg<HD>::R]) {
+  constexpr int R = BwdCfg<HD>::R, P = BwdCfg<HD>::P;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int a = 0; a < R; ++a)
+#pragma unroll
+    for (int c = 0; c < R; ++c) s[a][c] = dp[a][c] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < HD; d += 4) {
+    float4 qa[R], da[R], kb[R], vb[R];
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+      qa[a] = *reinterpret_cast<const float4*>(&qs[(R * ty + a) * P + d]);
+      da[a] = *reinterpret_cast<const float4*>(&dos[(R * ty + a) * P + d]);
+    }
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      kb[c] = *reinterpret_cast<const float4*>(&ks[(tx + 16 * c) * P + d]);
+      vb[c] = *reinterpret_cast<const float4*>(&vs[(tx + 16 * c) * P + d]);
+    }
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+#pragma unroll
+      for (int c = 0; c < R; ++c) {
+        s[a][c] = fmaf(qa[a].x, kb[c].x, s[a][c]);
+        s[a][c] = fmaf(qa[a].y, kb[c].y, s[a][c]);
+        s[a][c] = fmaf(qa[a].z, kb[c].z, s[a][c]);
+        s[a][c] = fmaf(qa[a].w, kb[c].w, s[a][c]);
+        dp[a][c] = fmaf(da[a].x, vb[c].x, dp[a][c]);
+        dp[a][c] = fmaf(da[a].y, vb[c].y, dp[a][c]);
+        dp[a][c] = fmaf(da[a].z, vb[c].z, dp[a][c]);
+        dp[a][c] = fmaf(da[a].w, vb[c].w, dp[a][c]);
+      }
+  }
+}
+
+// delta[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d]; o and dout contiguous
+// (B, Sq, Hq, HD) = rows x HD, one warp per row
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_preprocess_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                            float* __restrict__ delta, int64_t rows, int Sq, int Hq) {
+  const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;          // the whole warp
+  float acc = 0.f;
+  for (int d = lane; d < HD; d += 32)
+    acc = fmaf(to_f(o[row * HD + d]), to_f(dout[row * HD + d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int64_t h = row % Hq, bi = row / Hq;      // bi = b * Sq + i
+    delta[(bi / Sq * Hq + h) * Sq + bi % Sq] = acc;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const T* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                      int Sq, int Skv, int Hq, int rep, int64_t qsb, int64_t qss, int64_t ksb,
+                      int64_t kss, int64_t vsb, int64_t vss, float scale, int causal,
+                      int window) {
+  using C = BwdCfg<HD>;
+  constexpr int BT = C::BT, R = C::R, P = C::P, PT = C::PT, NC = C::NC;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                 // [BT][P]
+  float* vs = ks + BT * P;          // [BT][P]
+  float* qs = vs + BT * P;          // [BT][P]
+  float* dos = qs + BT * P;         // [BT][P]
+  float* ps = dos + BT * P;         // [BT][PT]  P[query][key]
+  float* dss = ps + BT * PT;        // [BT][PT]  dS[query][key]
+  float* lse_s = dss + BT * PT;     // [BT]
+  float* dl_s = lse_s + BT;         // [BT]
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int k0 = blockIdx.x * BT;
+  const int Hkv = Hq / rep;
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  bwd_load<T, HD, BT>(ks, k + b * ksb + (int64_t)hk * HD, kss, k0, Skv);
+  bwd_load<T, HD, BT>(vs, v + b * vsb + (int64_t)hk * HD, vss, k0, Skv);
+
+  // query rows that may attend to a key of this tile: [q_begin, q_end)
+  const int q_begin = causal ? k0 : 0;
+  long long q_end = Sq;
+  if (window >= 0) {
+    const long long last = (long long)(k0 + BT < Skv ? k0 + BT : Skv) - 1 + window;
+    q_end = last < q_end ? last : q_end;
+  }
+
+  float acc_k[R][NC], acc_v[R][NC];
+#pragma unroll
+  for (int a = 0; a < R; ++a)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) acc_k[a][n] = acc_v[a][n] = 0.f;
+
+  const int64_t osb = (int64_t)Sq * Hq * HD, oss = (int64_t)Hq * HD;   // dO is contiguous
+  for (int hh = 0; hh < rep; ++hh) {
+    const int h = hk * rep + hh;
+    const T* qh = q + b * qsb + (int64_t)h * HD;
+    const T* dh = dout + b * osb + (int64_t)h * HD;
+    const float* lse_h = lse + ((int64_t)b * Hq + h) * Sq;
+    const float* dl_h = delta + ((int64_t)b * Hq + h) * Sq;
+    for (int i0 = q_begin / BT * BT; i0 < q_end; i0 += BT) {
+      __syncthreads();              // the previous tile's reads are done
+      bwd_load<T, HD, BT>(qs, qh, qss, i0, Sq);
+      bwd_load<T, HD, BT>(dos, dh, oss, i0, Sq);
+      for (int r = threadIdx.x; r < BT; r += kThreads) {
+        lse_s[r] = i0 + r < Sq ? lse_h[i0 + r] : 0.f;
+        dl_s[r] = i0 + r < Sq ? dl_h[i0 + r] : 0.f;
+      }
+      __syncthreads();
+      float s[R][R], dp[R][R];
+      bwd_scores<HD>(qs, dos, ks, vs, s, dp);
+#pragma unroll
+      for (int a = 0; a < R; ++a)
+#pragma unroll
+        for (int c = 0; c < R; ++c) {
+          const int r = R * ty + a, j = tx + 16 * c;
+          const float p =
+              live(i0 + r, k0 + j, Sq, Skv, causal, window) ? expf(s[a][c] * scale - lse_s[r]) : 0.f;
+          ps[r * PT + j] = p;
+          dss[r * PT + j] = p * (dp[a][c] - dl_s[r]);
+        }
+      __syncthreads();
+      // dV += P^T dO, dK += dS^T Q: this thread's keys R ty + a, columns tx + 16 n
+#pragma unroll 2
+      for (int r = 0; r < BT; ++r) {
+        float pv[R], dsv[R];
+#pragma unroll
+        for (int a = 0; a < R; ++a) {
+          pv[a] = ps[r * PT + R * ty + a];
+          dsv[a] = dss[r * PT + R * ty + a];
+        }
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          const float ov = dos[r * P + tx + 16 * n], qv = qs[r * P + tx + 16 * n];
+#pragma unroll
+          for (int a = 0; a < R; ++a) {
+            acc_v[a][n] = fmaf(pv[a], ov, acc_v[a][n]);
+            acc_k[a][n] = fmaf(dsv[a], qv, acc_k[a][n]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    const int j = k0 + R * ty + a;
+    if (j >= Skv) continue;
+    const int64_t off = ((int64_t)b * Skv + j) * Hkv * HD + (int64_t)hk * HD + tx;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      dk[off + 16 * n] = from_f<T>(acc_k[a][n] * scale);
+      dv[off + 16 * n] = from_f<T>(acc_v[a][n]);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Skv,
+                    int Hq, int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss,
+                    int64_t vsb, int64_t vss, float scale, int causal, int window) {
+  using C = BwdCfg<HD>;
+  constexpr int BT = C::BT, R = C::R, P = C::P, PT = C::PT, NC = C::NC;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                 // [BT][P]
+  float* dos = qs + BT * P;         // [BT][P]
+  float* ks = dos + BT * P;         // [BT][P]
+  float* vs = ks + BT * P;          // [BT][P]
+  float* dss = vs + BT * P;         // [BT][PT]  dS[query][key]
+  float* lse_s = dss + BT * PT;     // [BT]
+  float* dl_s = lse_s + BT;         // [BT]
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;   // the most causal work first
+  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq;
+  const int64_t osb = (int64_t)Sq * Hq * HD, oss = (int64_t)Hq * HD;   // dO is contiguous
+  bwd_load<T, HD, BT>(qs, q + b * qsb + (int64_t)h * HD, qss, q0, Sq);
+  bwd_load<T, HD, BT>(dos, dout + b * osb + (int64_t)h * HD, oss, q0, Sq);
+  for (int r = threadIdx.x; r < BT; r += kThreads) {
+    const int64_t i = ((int64_t)b * Hq + h) * Sq + q0 + r;
+    lse_s[r] = q0 + r < Sq ? lse[i] : 0.f;
+    dl_s[r] = q0 + r < Sq ? delta[i] : 0.f;
+  }
+  const T* kb = k + b * ksb + (int64_t)(h / rep) * HD;
+  const T* vb = v + b * vsb + (int64_t)(h / rep) * HD;
+
+  // keys that some row of this tile may attend to: [k_begin, k_end)
+  int k_end = Skv;
+  if (causal) k_end = min(k_end, min(q0 + BT, Sq));
+  const int k_begin = window >= 0 ? max(0, q0 - window + 1) : 0;
+
+  float acc[R][NC];
+#pragma unroll
+  for (int a = 0; a < R; ++a)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) acc[a][n] = 0.f;
+
+  for (int j0 = k_begin / BT * BT; j0 < k_end; j0 += BT) {
+    __syncthreads();                // the previous tile's reads are done
+    bwd_load<T, HD, BT>(ks, kb, kss, j0, Skv);
+    bwd_load<T, HD, BT>(vs, vb, vss, j0, Skv);
+    __syncthreads();
+    float s[R][R], dp[R][R];
+    bwd_scores<HD>(qs, dos, ks, vs, s, dp);
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+#pragma unroll
+      for (int c = 0; c < R; ++c) {
+        const int r = R * ty + a, j = tx + 16 * c;
+        const float p =
+            live(q0 + r, j0 + j, Sq, Skv, causal, window) ? expf(s[a][c] * scale - lse_s[r]) : 0.f;
+        dss[r * PT + j] = p * (dp[a][c] - dl_s[r]);
+      }
+    __syncthreads();
+    // dQ += dS K: this thread's rows R ty + a, columns tx + 16 n
+#pragma unroll 2
+    for (int j = 0; j < BT; ++j) {
+      float dsv[R];
+#pragma unroll
+      for (int a = 0; a < R; ++a) dsv[a] = dss[(R * ty + a) * PT + j];
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        const float kv = ks[j * P + tx + 16 * n];
+#pragma unroll
+        for (int a = 0; a < R; ++a) acc[a][n] = fmaf(dsv[a], kv, acc[a][n]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    const int i = q0 + R * ty + a;
+    if (i >= Sq) continue;          // ragged q tail: not written
+    T* row = dq + (((int64_t)b * Sq + i) * Hq + h) * HD + tx;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) row[16 * n] = from_f<T>(acc[a][n] * scale);
   }
 }
 
@@ -511,6 +834,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;
   int B, Sq, Skv, Hq, rep;
   int64_t qsb, qss, ksb, kss, vsb, vss, osb, oss;
   float scale;
@@ -537,7 +861,7 @@ int launch_fp32(const Args& a) {
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.Hq);
   flash_kernel<HD><<<grid, kThreads, smem_bytes(HD), a.st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.Sq, a.Skv, a.Hq, a.rep,
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.Sq, a.Skv, a.Hq, a.rep,
       a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.osb, a.oss, a.scale, a.causal, a.window);
   return (int)cudaGetLastError();
 }
@@ -551,37 +875,90 @@ int launch_bf16(const Args& a) {
   const float scale_log2 = (float)((double)a.scale * 1.4426950408889634);
   flash_mma_kernel<HD><<<grid, kMmaThreads, MmaCfg<HD>::SMEM, a.st>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.Sq, a.Skv, a.Hq, a.rep,
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.Sq, a.Skv, a.Hq, a.rep,
       a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.osb, a.oss, scale_log2, a.causal,
       a.window);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch(int dtype, const Args& a) {
-  if (dtype == 0) return launch_fp32<HD>(a);
-  if (dtype == 1) return launch_bf16<HD>(a);
-  return (int)cudaErrorInvalidValue;
+struct Fwd {
+  static int run(int dtype, const Args& a) {
+    if (dtype == 0) return launch_fp32<HD>(a);
+    if (dtype == 1) return launch_bf16<HD>(a);
+    return (int)cudaErrorInvalidValue;
+  }
+};
+
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* delta;
+  void *dq, *dk, *dv;
+  int B, Sq, Skv, Hq, rep;
+  int64_t qsb, qss, ksb, kss, vsb, vss;
+  float scale;
+  int causal, window;
+  cudaStream_t st;
+};
+
+template <typename T, int HD>
+int launch_bwd(const BwdArgs& a) {
+  using C = BwdCfg<HD>;
+  static int attr_kv = -1, attr_q = -1;
+  cudaError_t e = raise_smem_limit(flash_bwd_dkdv_kernel<T, HD>, C::SMEM_KV, attr_kv);
+  if (e != cudaSuccess) return (int)e;
+  e = raise_smem_limit(flash_bwd_dq_kernel<T, HD>, C::SMEM_Q, attr_q);
+  if (e != cudaSuccess) return (int)e;
+  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
+          *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
+  const int64_t rows = (int64_t)a.B * a.Sq * a.Hq;
+  flash_bwd_preprocess_kernel<T, HD><<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)),
+                                       kThreads, 0, a.st>>>(static_cast<const T*>(a.o), dout,
+                                                            a.delta, rows, a.Sq, a.Hq);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dkdv_kernel<T, HD><<<dim3((a.Skv + C::BT - 1) / C::BT, a.B * (a.Hq / a.rep)),
+                                 kThreads, C::SMEM_KV, a.st>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Skv,
+      a.Hq, a.rep, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, a.causal, a.window);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dq_kernel<T, HD><<<dim3((a.Sq + C::BT - 1) / C::BT, a.B * a.Hq), kThreads,
+                               C::SMEM_Q, a.st>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), a.Sq, a.Skv, a.Hq, a.rep, a.qsb,
+      a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, a.causal, a.window);
+  return (int)cudaGetLastError();
 }
 
-int dispatch(int hd, int dtype, const Args& a) {
+template <int HD>
+struct Bwd {
+  static int run(int dtype, const BwdArgs& a) {
+    if (dtype == 0) return launch_bwd<float, HD>(a);
+    if (dtype == 1) return launch_bwd<bf16, HD>(a);
+    return (int)cudaErrorInvalidValue;
+  }
+};
+
+template <template <int> class L, typename A>
+int dispatch(int hd, int dtype, const A& a) {
   switch (hd) {
-    case 16: return launch<16>(dtype, a);
-    case 32: return launch<32>(dtype, a);
-    case 48: return launch<48>(dtype, a);
-    case 64: return launch<64>(dtype, a);
-    case 80: return launch<80>(dtype, a);
-    case 96: return launch<96>(dtype, a);
-    case 112: return launch<112>(dtype, a);
-    case 128: return launch<128>(dtype, a);
-    case 144: return launch<144>(dtype, a);
-    case 160: return launch<160>(dtype, a);
-    case 176: return launch<176>(dtype, a);
-    case 192: return launch<192>(dtype, a);
-    case 208: return launch<208>(dtype, a);
-    case 224: return launch<224>(dtype, a);
-    case 240: return launch<240>(dtype, a);
-    case 256: return launch<256>(dtype, a);
+    case 16: return L<16>::run(dtype, a);
+    case 32: return L<32>::run(dtype, a);
+    case 48: return L<48>::run(dtype, a);
+    case 64: return L<64>::run(dtype, a);
+    case 80: return L<80>::run(dtype, a);
+    case 96: return L<96>::run(dtype, a);
+    case 112: return L<112>::run(dtype, a);
+    case 128: return L<128>::run(dtype, a);
+    case 144: return L<144>::run(dtype, a);
+    case 160: return L<160>::run(dtype, a);
+    case 176: return L<176>::run(dtype, a);
+    case 192: return L<192>::run(dtype, a);
+    case 208: return L<208>::run(dtype, a);
+    case 224: return L<224>::run(dtype, a);
+    case 240: return L<240>::run(dtype, a);
+    case 256: return L<256>::run(dtype, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -592,18 +969,44 @@ int dispatch(int hd, int dtype, const Args& a) {
 // 1 = bfloat16 (flash_mma_kernel) for all four. Strides in elements: *sb
 // between batches, *ss between rows; the head stride must be hd and the
 // element stride 1; for bfloat16 the pointers and the batch and row strides
-// must be 16-byte aligned. window < 0 = none. Requires hd in 16..256 a
-// multiple of 16, Hq % Hkv == 0, Sq >= 1, B * Hq <= 65535.
-// Returns cudaGetLastError().
+// must be 16-byte aligned. window < 0 = none. lse, when not null, receives
+// each row's log-sum-exp of scale * q . k over its unmasked keys, fp32,
+// contiguous (B, Hq, Sq) (the backward's input); o does not depend on it.
+// Requires hd in 16..256 a multiple of 16, Hq % Hkv == 0, Sq >= 1,
+// B * Hq <= 65535. Returns cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int B, int Sq, int Skv, int Hq, int Hkv, int hd,
+                                      void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int hd,
                                       long long qsb, long long qss, long long ksb,
                                       long long kss, long long vsb, long long vss,
                                       long long osb, long long oss, float scale, int causal,
                                       int window, int dtype, void* stream) {
   if (Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || B < 1 || (long long)B * Hq > 65535)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, o, B, Sq, Skv, Hq, Hq / Hkv, qsb, qss, ksb, kss, vsb, vss, osb, oss,
-               scale, causal, window, static_cast<cudaStream_t>(stream)};
-  return dispatch(hd, dtype, a);
+  const Args a{q, k, v, o, static_cast<float*>(lse), B, Sq, Skv, Hq, Hq / Hkv, qsb, qss, ksb,
+               kss, vsb, vss, osb, oss, scale, causal, window,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<Fwd>(hd, dtype, a);
+}
+
+// The backward of flash_attention_launch (same B, Sq, Skv, Hq, Hkv, hd, scale,
+// causal, window and dtype): q, k, v with the forward's strides; o, dout and
+// dq (B, Sq, Hq, hd), dk and dv (B, Skv, Hkv, hd) contiguous in the dtype;
+// lse (the forward's) and delta (scratch) fp32 contiguous (B, Hq, Sq). Three
+// launches on `stream`: flash_bwd_preprocess_kernel, flash_bwd_dkdv_kernel,
+// flash_bwd_dq_kernel. Requires Sq, Skv >= 1 and the forward's limits.
+// Returns the first CUDA error, else cudaGetLastError().
+extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
+                                          const void* o, const void* dout, const void* lse,
+                                          void* delta, void* dq, void* dk, void* dv, int B,
+                                          int Sq, int Skv, int Hq, int Hkv, int hd,
+                                          long long qsb, long long qss, long long ksb,
+                                          long long kss, long long vsb, long long vss,
+                                          float scale, int causal, int window, int dtype,
+                                          void* stream) {
+  if (Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Skv < 1 || B < 1 || (long long)B * Hq > 65535)
+    return (int)cudaErrorInvalidValue;
+  const BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta),
+                  dq, dk, dv, B, Sq, Skv, Hq, Hq / Hkv, qsb, qss, ksb, kss, vsb, vss, scale,
+                  causal, window, static_cast<cudaStream_t>(stream)};
+  return dispatch<Bwd>(hd, dtype, a);
 }

@@ -10,6 +10,11 @@ contiguous, as they are after a reshape of a projection).
 `flash_attention.launches_by_case` counts them by call, keyed
 (B, Sq, Hq, Hkv, hd, causal, window).
 
+`flash_attention_bwd` is the backward (the `flash_bwd_*_kernel`s of the
+same source, fp32 arithmetic on the CUDA cores for both dtypes); its
+`launches` and `launches_by_case` count wrapper calls, three CUDA launches
+each. `ops.FlashAttentionFn` joins the two for autograd.
+
 The dtype picks the kernel, by a fixed rule and not as a fallback:
 bfloat16 goes to `flash_mma_kernel` (tensor cores, cp.async staging, so its
 pointers and batch and row strides must be 16-byte aligned, or the wrapper
@@ -32,23 +37,23 @@ HD_MAX = 256
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The C entry point with its signature, resolved once per process."""
-    fn = _build.load("flash_attention").flash_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
-    return fn
+    """The C entry points with their signatures, resolved once per process."""
+    lib = _build.load("flash_attention")
+    fwd = lib.flash_attention_launch
+    fwd.restype = ctypes.c_int
+    fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p])
+    bwd = lib.flash_attention_bwd_launch
+    bwd.restype = ctypes.c_int
+    bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p])
+    return fwd, bwd
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    softmax_scale: Optional[float] = None) -> torch.Tensor:
-    """Attention for aligned self-attention (query i and key j at positions
-    i and j) on the card. q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), all fp32
-    or all bf16, hd a multiple of 16 up to 256, Hq a multiple of Hkv.
-    Returns (B, Sq, Hq, hd) in q's dtype. `softmax_scale` defaults to
-    hd ** -0.5."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int]):
+    """Raise on inputs the kernels do not take."""
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if q.device.type != "cuda":
@@ -77,24 +82,89 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"flash_attention: bf16 {name} needs a 16-byte aligned pointer "
                              f"and batch and row strides, got pointer {t.data_ptr():#x} "
                              f"and strides {t.stride()}")
+
+
+def _count(fn, q, k, causal, window):
+    fn.launches += 1
+    case = (q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3], bool(causal), window)
+    fn.launches_by_case[case] = fn.launches_by_case.get(case, 0) + 1
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softmax_scale: Optional[float] = None, return_lse: bool = False):
+    """Attention for aligned self-attention (query i and key j at positions
+    i and j) on the card. q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), all fp32
+    or all bf16, hd a multiple of 16 up to 256, Hq a multiple of Hkv.
+    Returns (B, Sq, Hq, hd) in q's dtype; with `return_lse` also each row's
+    log-sum-exp of the masked scaled scores, (B, Hq, Sq) fp32, which the
+    backward takes (the output is the same bits either way).
+    `softmax_scale` defaults to hd ** -0.5."""
+    _check(q, k, v, window)
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     if Sq == 0:
-        return out
+        return (out, lse) if return_lse else out
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, Sq, Skv, Hq, Hkv, hd,
-                 q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                 v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-                 scale, int(causal), -1 if window is None else window,
-                 _DTYPES[q.dtype], stream)
+    err = _lib()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    None if lse is None else lse.data_ptr(),
+                    B, Sq, Skv, Hq, Hkv, hd,
+                    q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                    v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+                    scale, int(causal), -1 if window is None else window,
+                    _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    flash_attention.launches += 1
-    case = (B, Sq, Hq, Hkv, hd, bool(causal), window)
-    flash_attention.launches_by_case[case] = flash_attention.launches_by_case.get(case, 0) + 1
-    return out
+    _count(flash_attention, q, k, causal, window)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None, softmax_scale: Optional[float] = None):
+    """(dq, dk, dv) of `flash_attention(q, k, v, ...)` on the card, given its
+    output `o` and log-sum-exp `lse` (`return_lse=True`) and the output's
+    gradient `do`. The same inputs as the forward, the same options;
+    gradients in q's dtype, contiguous. Three CUDA launches (delta, dK/dV,
+    dQ), no atomics: the same inputs give the same bits."""
+    _check(q, k, v, window)
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype} and do "
+                         f"{tuple(do.shape)} {do.dtype} must match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be (B, Hq, Sq) fp32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if o.device != q.device or do.device != q.device or lse.device != q.device:
+        raise ValueError("flash_attention_bwd: all inputs must be on one device")
+    # the kernels read o, do and lse as contiguous; autograd's do may be a view
+    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    dq = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Skv, Hkv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if Sq == 0 or Skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), B, Sq, Skv, Hq, Hkv, hd,
+                    q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                    v.stride(0), v.stride(1),
+                    scale, int(causal), -1 if window is None else window,
+                    _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
+    _count(flash_attention_bwd, q, k, causal, window)
+    return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_case = {}
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_case = {}

@@ -11,7 +11,9 @@ It serves the decoder-only archs: mamba2-370m, zamba2-1.2b, smollm-135m,
 qwen2-0.5b, qwen1.5-32b, gemma3-4b, mixtral-8x7b, grok-1-314b (at full
 width the last three need more than one card's memory in fp32: see PERF.md
 for cut depths). On the card the runtime computes in bf16 with fp32
-parameters; on the CPU in fp32. Checkpoint restore is not ported yet. As in
+parameters; on the CPU in fp32. `--ckpt-dir` serves the newest valid
+checkpoint there (`repro`'s format: `train/checkpoint.py`, written by
+either package's trainer) instead of random weights. As in
 `repro`, the launcher refuses encdec and vlm (whisper-small, paligemma-3b):
 `serve.serve_step.make_prefill_step` / `make_decode_step` serve them.
 
@@ -30,9 +32,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import Model
 from repro_torch.models.runtime import Runtime
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.train import checkpoint as ckpt
 
 
 def main(argv=None):
@@ -40,6 +44,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="mamba2-370m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore params from the latest checkpoint here")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128,
@@ -60,8 +66,19 @@ def main(argv=None):
     on_cpu = torch.device(args.device).type == "cpu"
     rt = Runtime(device=args.device,
                  compute_dtype=torch.float32 if on_cpu else torch.bfloat16)
-    model = Model(cfg, rt, seed=0)
-    print(f"[serve] {cfg.name} on {args.device}: random-init params (seed 0)")
+    if args.ckpt_dir:
+        restored = ckpt.restore_latest(args.ckpt_dir)
+        if restored is None:
+            raise SystemExit(f"no checkpoint under {args.ckpt_dir}")
+        params_np, _, meta = restored
+        model = Model(cfg, rt, seed=None)
+        model.load_state_dict(params_from_jax(params_np, cfg))
+        print(f"[serve] {cfg.name} on {args.device}: restored step {meta['step']} "
+              f"from {args.ckpt_dir}")
+    else:
+        model = Model(cfg, rt, seed=0)
+        print(f"[serve] {cfg.name} on {args.device}: random-init params (seed 0; "
+              "pass --ckpt-dir for trained)")
 
     engine = ServeEngine(cfg, rt, model, slots=args.slots, max_len=args.max_len)
     rng = np.random.default_rng(0)

@@ -11,6 +11,12 @@ nothing is transposed or re-split (mamba2's in_proj stays (D, 2*di + 2*N + H)
 in the packed column order [z | x | B | C | dt]). Every other leaf
 (`embed`, `unembed`, `final_ln`, `enc_ln`, the hybrid's shared block
 `layers.shared.*`) is taken as it is.
+
+`params_to_jax` is the exact inverse: the port's state_dict (or any dict
+keyed like it, such as the optimizer's moments) back to `repro`'s nested
+tree with numpy leaves, each layer group stacked on axis 0. The
+checkpoints of `train/checkpoint.py` hold that tree, so each package
+restores the other's.
 """
 from __future__ import annotations
 
@@ -40,12 +46,13 @@ def _leaves(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, object]]:
 
 
 def params_from_jax(params_np: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """numpy leaves of a JAX param pytree -> the port's state_dict. The
-    tensors share memory with the arrays; `load_state_dict` copies them."""
+    """numpy (or tensor) leaves of a JAX param pytree -> the port's
+    state_dict. The tensors share memory with the leaves; `load_state_dict`
+    copies them."""
     groups = _stacked_groups(cfg)
     sd = {}
     for path, leaf in _leaves(params_np):
-        arr = torch.as_tensor(np.asarray(leaf))
+        arr = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(np.asarray(leaf))
         group = next((g for g in groups if path.startswith(g + ".")), None)
         if group is None:
             sd[path] = arr
@@ -57,3 +64,34 @@ def params_from_jax(params_np: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor
         for i in range(n_layers):
             sd[f"{group}.{i}.{name}"] = arr[i]
     return sd
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor], cfg: ModelConfig) -> Dict:
+    """The port's state_dict -> `repro`'s param tree: nested dicts of numpy
+    arrays (copies on the host), the layers of each stacked group stacked on
+    axis 0 in layer order. `params_from_jax(params_to_jax(sd, cfg), cfg)`
+    equals `sd` bit for bit."""
+    groups = _stacked_groups(cfg)
+    flat: Dict[str, np.ndarray] = {}
+    stacks: Dict[str, Dict[int, np.ndarray]] = {}
+    for key, t in state_dict.items():
+        arr = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+        group = next((g for g in groups if key.startswith(g + ".")), None)
+        if group is None:
+            flat[key] = arr
+            continue
+        idx, name = key[len(group) + 1:].split(".", 1)
+        stacks.setdefault(f"{group}.{name}", {})[int(idx)] = arr
+    for path, layers in stacks.items():
+        n_layers = groups[next(g for g in groups if path.startswith(g + "."))]
+        if sorted(layers) != list(range(n_layers)):
+            raise ValueError(f"{path}: layers {sorted(layers)}, config has {n_layers}")
+        flat[path] = np.stack([layers[i] for i in range(n_layers)])
+    tree: Dict = {}
+    for path, arr in flat.items():
+        node = tree
+        *parents, leaf = path.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return tree

@@ -19,7 +19,12 @@ MoE decoders (smollm, qwen, gemma3, mixtral, grok), SSM (mamba2), hybrid
     logits = model(tokens, patches=patches)
 
 Parameters live on `rt.device` in `rt.param_dtype` and are cast to
-`rt.compute_dtype` where they are used, as in `repro`. The logits are fp32,
+`rt.compute_dtype` where they are used, as in `repro`. They are created
+with requires_grad=False, so scoring and serving build no autograd graph;
+the trainer (`train/train_step.py`) turns them on. `forward`,
+`forward_with_aux` and `loss_fn` follow torch's grad mode (they are
+differentiable once the parameters require grad); `prefill`, `decode_step`
+and `reset_parameters` always run under no_grad. The logits are fp32,
 against the tied embedding or the separate `unembed`. prefill and
 decode_step update `cache` in place and return it.
 
@@ -116,14 +121,12 @@ class Model(nn.Module):
         enc_out = encdec.encode(frames, self.enc_layers, self.cfg, self.rt)
         return rmsnorm(enc_out, self.enc_ln, self.cfg.norm_eps)
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor, frames: Optional[torch.Tensor] = None,
                 patches: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full-sequence logits (B, S, V), fp32 (`loss_fn` scores them); for
         the vlm (B, prefix_len + S, V)."""
         return self.forward_with_aux(tokens, frames, patches)[0]
 
-    @torch.no_grad()
     def forward_with_aux(self, tokens: torch.Tensor, frames: Optional[torch.Tensor] = None,
                          patches: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -201,7 +204,6 @@ class Model(nn.Module):
         return self._logits(x)[:, 0], cache
 
 
-@torch.no_grad()
 def loss_fn(model: Model, batch: Dict, aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross entropy over the labels >= 0 (fp32 log-softmax)

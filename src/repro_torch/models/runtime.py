@@ -1,11 +1,16 @@
 """Runtime options threaded through every model call.
 
-The JAX package's sharding, remat and MoE-buffer fields do nothing on one
-device and are left out, and so are its cache and score options
+The JAX package's sharding and MoE-buffer fields do nothing on one device
+and are left out, and so are its cache and score options
 (`ring_cache`, `opt_cache_dus`, `opt_bf16_scores`): the port behaves as
 `repro` does at their defaults, and none of its entry points sets another
 value. `device` defaults to "cuda": an entry point runs on the card unless
 the caller asks for the CPU, and raises if there is no card.
+
+`remat` ("none" | "block") and `grad_acc_dtype` are `repro`'s training
+options: "block" recomputes each decoder layer in the backward
+(`models/transformer.py`), and microbatched gradients are summed in
+`grad_acc_dtype` (`train/train_step.py`).
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ class Runtime:
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     ssd_chunk: int = 128
+    remat: str = "block"            # none | block  (recompute each layer in the backward)
+    grad_acc_dtype: torch.dtype = torch.float32
 
     def torch_device(self) -> torch.device:
         """The device to run on; raises when it is a CUDA device and no card
@@ -29,4 +36,4 @@ class Runtime:
         return resolve_device(self.device)
 
 
-CPU_TEST = Runtime(device="cpu", compute_dtype=torch.float32)
+CPU_TEST = Runtime(device="cpu", compute_dtype=torch.float32, remat="none")

@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe
@@ -79,17 +80,37 @@ def _ffn(x: torch.Tensor, p_l: DecoderLayer, cfg: ModelConfig, rt: Runtime
     return x + out, aux
 
 
+def decoder_block(x: torch.Tensor, p_l: DecoderLayer, cfg: ModelConfig, rt: Runtime,
+                  positions: torch.Tensor, window: Optional[int], prefix_len: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm block. Returns (x, the layer's aux loss)."""
+    h = rmsnorm(x, p_l.ln1, cfg.norm_eps)
+    x = x + self_attention(h, p_l.attn, cfg, rt, positions, window=window,
+                           prefix_len=prefix_len)
+    return _ffn(x, p_l, cfg, rt)
+
+
 def decoder_stack(x: torch.Tensor, layers: nn.ModuleList, cfg: ModelConfig,
                   rt: Runtime, positions: torch.Tensor, prefix_len: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence stack. x (B, S, D) -> (x, the layers' summed aux loss).
-    `prefix_len > 0` (the VLM) puts a prefix-LM mask on every layer."""
+    `prefix_len > 0` (the VLM) puts a prefix-LM mask on every layer.
+
+    With `rt.remat == "block"`, while autograd records a graph (grad mode on
+    and an input or parameter that needs a gradient), each layer runs under
+    `torch.utils.checkpoint` (non-reentrant): its activations are dropped
+    and the whole block is recomputed in the backward. `repro`'s policy
+    (`dots_with_no_batch_dims_saveable`) keeps the matrix products instead;
+    the values are the same, the recompute differs (on the card the
+    attention kernel's forward runs twice per layer and step)."""
     aux = torch.zeros((), device=x.device)
     for p_l, window in zip(layers, layer_windows(cfg, len(layers))):
-        h = rmsnorm(x, p_l.ln1, cfg.norm_eps)
-        x = x + self_attention(h, p_l.attn, cfg, rt, positions, window=window,
-                               prefix_len=prefix_len)
-        x, a = _ffn(x, p_l, cfg, rt)
+        if rt.remat == "block" and torch.is_grad_enabled() and (
+                x.requires_grad or p_l.ln1.requires_grad):
+            x, a = checkpoint(decoder_block, x, p_l, cfg, rt, positions, window, prefix_len,
+                              use_reentrant=False)
+        else:
+            x, a = decoder_block(x, p_l, cfg, rt, positions, window, prefix_len)
         aux = aux + a
     return x, aux
 

@@ -53,6 +53,17 @@ card and the CPU to the same designs and their budgets, the serving
 workloads' float64 fields within 1e-12 relative of the NumPy pipeline; an
 f0 = "gnn" campaign with calibration on the card to its budget with one
 calibration record, resumed bit for bit.
+
+The training slice: K1's backward (`FlashAttentionFn`, the output has a
+grad_fn) against its plain version `attention_bwd_ref` on the kernel's own
+o and lse, at the JAX flash tests' cases and the training shape (8, 256,
+9/3 heads of 64, causal), fp32 within 2e-5 and bf16 within 2e-2 of the
+largest reference gradient (the forward's small-case tolerances, scaled to
+the gradients), two runs bit for bit; K2 refuses inputs that need a
+gradient; reduced smollm-135m trained 3 steps on the card and the CPU from
+the same weights, losses within 1e-5 and grad norms within 1e-4 relative;
+the launcher's injected-failure contract on the card with a bit-equal
+uninterrupted rerun.
 """
 import numpy as np
 import pytest
@@ -645,3 +656,93 @@ def test_calibrated_gnn_campaign_on_the_card(cuda, tmp_path):
     resumed = Campaign.resume(ckpt, device="cuda").run(checkpoint_path=ckpt)
     assert [float(h).hex() for h in resumed.trace.hv] == [float(h).hex() for h in full.trace.hv]
     assert [str(d) for d in resumed.trace.designs] == [str(d) for d in full.trace.designs]
+
+
+FLASH_TRAIN = (8, 256, 9, 3, 64, True, None)      # smollm-135m's training shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname", list(FLASH_DTYPES))
+@pytest.mark.parametrize("case", FLASH_CASES + [FLASH_TRAIN])
+def test_flash_backward_matches_plain_version(cuda, case, dname):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    B, S, Hq, Hkv, hd, causal, window = case
+    dtype, tol = FLASH_DTYPES[dname]
+    q, k, v = (t.requires_grad_() for t in _qkv(B, S, S, Hq, Hkv, hd, dtype, cuda))
+    do = _qkv(B, S, S, Hq, Hkv, hd, dtype, cuda, seed=1)[0]
+    pos = torch.arange(S, device=cuda)[None].expand(B, S)
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    out = fa_ops.mha(q, k, v, pos, pos, causal=causal, window=window)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    again = torch.autograd.grad(fa_ops.mha(q, k, v, pos, pos, causal=causal, window=window),
+                                (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - f0, flash_attention_bwd.launches - b0) == (2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    o, lse = flash_attention(q.detach(), k.detach(), v.detach(), causal=causal, window=window,
+                             return_lse=True)
+    assert torch.equal(o, out.detach())
+    want = attention_bwd_ref(q.detach(), k.detach(), v.detach(), o, lse, do, causal=causal,
+                             window=window)
+    for g, w in zip(grads, want):
+        assert g.dtype == dtype and g.shape == w.shape and torch.isfinite(g).all()
+        w = w.float()
+        assert bool(((g.float() - w).abs() <= tol * w.abs().max()).all())
+
+
+@pytest.mark.gpu
+def test_ssd_refuses_gradients_on_the_card(cuda):
+    case = CASES[0]
+    args = [a.to(cuda) for a in _inputs(case, torch.float32)]
+    args[0].requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.ssd(*args, chunk=case[-1])
+    with torch.no_grad():
+        y, _ = ops.ssd(*args, chunk=case[-1])
+    assert y.grad_fn is None
+
+
+@pytest.mark.gpu
+def test_training_on_the_card_matches_cpu(cuda):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
+    from repro_torch.train.data import MarkovLMDataset
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    cfg = reduced_config("smollm-135m")
+    opt = AdamWConfig(peak_lr=3e-3, warmup_steps=2, total_steps=3)
+    ds = MarkovLMDataset(vocab=cfg.vocab, seq_len=64, batch=4, seed=0)
+    cpu_model = Model(cfg, CPU_TEST, seed=3)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        rt = Runtime(device=dev, compute_dtype=torch.float32, remat="block")
+        model = Model(cfg, rt, seed=None)
+        model.load_state_dict(cpu_model.state_dict())
+        model.requires_grad_(True)
+        st = init_opt_state(dict(model.named_parameters()))
+        step = make_train_step(cfg, rt, opt)
+        f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+        out = []
+        for s in range(3):
+            batch = {k: torch.as_tensor(v).long().to(dev) for k, v in ds.batch_at(s).items()}
+            model, st, m = step(model, st, batch)
+            out.append((m["loss"].item(), m["grad_norm"].item()))
+        runs[dev] = out
+        launches = (flash_attention.launches - f0, flash_attention_bwd.launches - b0)
+        assert launches == ((0, 0) if dev == "cpu" else (6 * cfg.num_layers, 3 * cfg.num_layers))
+    for (lc, gc), (lg, gg) in zip(runs["cpu"], runs["cuda"]):
+        assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(gg - gc) <= 1e-4 * abs(gc)
+
+
+@pytest.mark.gpu
+def test_train_launcher_on_the_card_resumes_bit_for_bit(cuda, tmp_path):
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint as ckpt
+    args = ["--arch", "smollm-135m", "--reduced", "--steps", "8", "--batch", "2", "--seq", "32",
+            "--ckpt-every", "3", "--log-every", "100"]
+    out = launch_train.main(args + ["--ckpt-dir", str(tmp_path / "a"), "--fail-at", "5"])
+    assert out["restarts"] == 1 and [m["step"] for m in out["metrics"]] == list(range(8))
+    assert ckpt.list_checkpoints(str(tmp_path / "a"))[-1] == 8
+    clean = launch_train.main(args + ["--ckpt-dir", str(tmp_path / "b")])
+    assert [m["loss"] for m in out["metrics"]] == [m["loss"] for m in clean["metrics"]]

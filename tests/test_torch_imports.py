@@ -50,6 +50,8 @@ SLICE_MODULES = (
     "core/noc_analytical.py", "core/noc_sim.py", "core/evalcache.py",
     "explore/__main__.py", "explore/campaign.py", "explore/objectives.py", "explore/runner.py",
     "core/serving.py", "core/heterogeneity.py", "core/noc_gnn.py", "core/calibration.py",
+    "train/data.py", "train/optimizer.py", "train/train_step.py", "train/checkpoint.py",
+    "dist/fault.py", "launch/train.py",
 )
 
 
