@@ -7,9 +7,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), compute capability 9.0;
   2. build: every CUDA source of the port, compiled with nvcc, timed, with
      the registers and spills of every tensor-core kernel (none may spill
-     at the serving shapes' instantiations: K1 at hd=64, 128 and 256, the K2
-     kernels) and of K1's backward kernels at the training instantiation
-     (float, hd 64; none may spill);
+     at the serving shapes' instantiations: K1's bf16 forward at hd=64, 128
+     and 256, the K2 kernels; nor at the training ones: K1's fp32 forward
+     `flash_tf32_kernel` at hd 64 and its backward `flash_tf32_bwd_dq_kernel`
+     and `flash_tf32_bwd_dkdv_kernel` at (float, 64) and (bf16, 64); every
+     other instantiation printed), and, where the toolkit has cuobjdump,
+     the count of HMMA TF32 instructions in the split-TF32 kernels' SASS;
   3. the SSD-scan kernel against its plain PyTorch version on the card, at
      the JAX kernel tests' shapes and the serving shapes (mamba2-370m's and
      zamba2-1.2b's: H=64, N=64, S=1024, a ragged 1000 and its forward's
@@ -35,9 +38,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
   7. the flash-attention kernel against its plain PyTorch version on the
      card, at the JAX kernel tests' shapes and at long shapes (the whisper
      encoder's, its decoder's teacher-forced one, a GQA and an hd=256
-     windowed one), fp32 and bf16, and the bf16 tensor-core kernel at
+     windowed one), fp32 (split-TF32 `flash_tf32_kernel`) and bf16
+     (`flash_mma_kernel`), and the bf16 tensor-core kernel at
      every head-dim class (16, 48, 80, 128, 144, 256) with ragged S, GQA 7,
-     causal plus window; window=1 gives each row its own value; bf16 at the
+     causal plus window; window=1 gives each row its own value bit for bit
+     in both dtypes; bf16 at the
      four full-sequence forward shapes of the decoder paths (gemma3-4b's
      local and global layers, mixtral-8x7b's, zamba2-1.2b's shared block:
      MHA, 32 heads of 64, causal, 4096 tokens);
@@ -138,7 +143,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      designs; K1 and K2 launches over the phase (0). One JSON line
      ({"gnn_serving": ...}).
  19. training (K1 forward and backward on every layer): (a) K1's backward
-     (`flash_bwd_*_kernel`, fp32 and bf16) against its plain version
+     (`flash_tf32_bwd_dq_kernel` with delta, then
+     `flash_tf32_bwd_dkdv_kernel`: split-TF32 products on the tensor cores
+     for fp32 and bf16) against its plain version
      `attention_bwd_ref` on the kernel's own o and lse, at the JAX flash
      tests' cases, ragged S = 200 with GQA 7, causal and window 50 at hd 64,
      128 and 256, a non-causal hd 256 one and the training shape (8, 256,
@@ -146,10 +153,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
      reference gradient; two runs bit for bit; the forward's output with its
      lse the same bits as without, the lse against the plain version's;
      (b) K1 forward (with lse) and backward at the training shape, fp32,
-     device time beside the bound, the plain version and
-     scaled_dot_product_attention forward and forward + backward through
-     autograd (timed only), and K1's forward + backward through
-     `FlashAttentionFn` beside the latter; (c) `repro_torch.launch.train.main` for smollm-135m at full width
+     device time beside both bounds (IEEE fp32 operations on the CUDA
+     cores, and the split-TF32 route's own: three TF32 products per fp32
+     one, or bytes, whichever is larger), the plain version and
+     scaled_dot_product_attention forward, forward + backward through
+     autograd and its backward alone (the difference; timed only), and K1's
+     forward + backward through `FlashAttentionFn` beside SDPA's; (c) `repro_torch.launch.train.main` for smollm-135m at full width
      (random weights from seed 0, fp32, remat "block", batch 8 x 256): 40
      steps, a checkpoint every 10, a failure injected before step 25: one
      restart, a contiguous log, the final checkpoint at step 40, 60 K1
@@ -184,24 +193,28 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 0
-# H100 SXM peaks (NVIDIA data sheet, dense): device memory and bf16/fp32 rates
+# H100 SXM peaks (NVIDIA data sheet, dense): device memory, the bf16 and TF32
+# tensor-core rates and the fp32 CUDA-core rate
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 
 
 MMA_KERNELS = ("flash_mma_kernel", "chunk_state_kernel", "state_pass_kernel",
                "chunk_scan_kernel")
+K1_FP32 = "flash_tf32_kernel"       # K1's fp32 forward (split TF32)
 
 
 def ptxas_report(log):
     """{tensor-core kernel name (with its head dim): [registers, spill store
-    bytes, spill load bytes]} from nvcc's -Xptxas -v output."""
+    bytes, spill load bytes]} of the forward kernels from nvcc's -Xptxas -v
+    output."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             # mangled: <length><name>, then I Li<hd> E for a head-dim template
-            k = re.search(r"\d(" + "|".join(MMA_KERNELS) + r")(ILi(\d+)E)?", m.group(1))
+            k = re.search(r"\d(" + "|".join(MMA_KERNELS + (K1_FP32,)) + r")(ILi(\d+)E)?",
+                          m.group(1))
             name = k and k.group(1) + (f"<{k.group(3)}>" if k.group(3) else "")
             if name:
                 out[name] = [0, 0, 0]
@@ -1128,18 +1141,24 @@ def gnn_serving_path(torch, np):
     return out
 
 
-BWD_KERNEL = re.compile(r"\d(flash_bwd_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+BWD_KERNEL = re.compile(r"\d(flash_tf32_bwd_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+FWD_TF32 = re.compile(r"\d(" + K1_FP32 + r")ILi(\d+)E")
+
+
+def bwd_name(mangled):
+    """"flash_tf32_bwd_*_kernel<dtype, hd>" of a mangled backward kernel, or None."""
+    k = BWD_KERNEL.search(mangled)
+    return k and f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, {k.group(3)}>"
 
 
 def bwd_ptxas_report(log):
-    """{"flash_bwd_*_kernel<dtype, hd>": [registers, spill store bytes, spill
-    load bytes]} of K1's backward kernels from nvcc's -Xptxas -v output."""
+    """{"flash_tf32_bwd_*_kernel<dtype, hd>": [registers, spill store bytes,
+    spill load bytes]} of K1's backward kernels from nvcc's -Xptxas -v output."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = BWD_KERNEL.search(m.group(1))
-            name = k and f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, {k.group(3)}>"
+            name = bwd_name(m.group(1))
             if name:
                 out[name] = [0, 0, 0]
         elif name and "spill stores" in line:
@@ -1150,13 +1169,39 @@ def bwd_ptxas_report(log):
     return out
 
 
+def sass_hmma_counts():
+    """{split-TF32 kernel name: (HMMA instructions, of them TF32)} from
+    cuobjdump -sass of the built flash-attention library, or None where the
+    toolkit has no cuobjdump."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    lib = _build._lib_path(next(s for s in _build.sources() if s.stem == "flash_attention"))
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            f = FWD_TF32.search(m.group(1))
+            name = f"{f.group(1)}<{f.group(2)}>" if f else bwd_name(m.group(1))
+            if name:
+                out[name] = [0, 0]
+        elif name and "HMMA" in line:
+            out[name][0] += 1
+            out[name][1] += "TF32" in line
+    return out
+
+
 def flash_bwd_work(case, dtype_name):
-    """Bytes (q, k, v, o, dO and lse read once, dq, dk, dv written once) and
-    FLOPs (the five products QK^T, dO V^T, P^T dO, dS^T Q, dS K over the
-    (query, key) pairs the mask keeps) of one backward, for the bound."""
+    """Bytes (q, k, v, o, dO and lse read once, dq, dk, dv written once: four
+    q-sized and four kv-sized tensors) and FLOPs (the five products QK^T,
+    dO V^T, P^T dO, dS^T Q, dS K over the (query, key) pairs the mask keeps)
+    of one backward, for the bound."""
     B, S, Hq, Hkv, hd, causal, window = case
     e = 2 if dtype_name == "bf16" else 4
-    nbytes = (6 * B * S * Hq * hd + 4 * B * S * Hkv * hd) * e + B * Hq * S * 4
+    nbytes = (4 * B * S * Hq * hd + 4 * B * S * Hkv * hd) * e + B * Hq * S * 4
     flops = flash_work(case, dtype_name)[1] // 4 * 10
     return nbytes, flops
 
@@ -1276,21 +1321,30 @@ def train_path(torch, np):
     kfb_ms = graph_ms(torch, lambda: torch.autograd.grad(
         fa_ops.mha(qg, kg, vg, pos, pos), (qg, kg, vg), do))
     out = {}
+    fwd_work = flash_work(train_case, "fp32")
+    fwd_work = (fwd_work[0] + B * cfg.n_heads * S * 4, fwd_work[1])    # and the lse written
     for name, ms, p_ms, l_ms, (nbytes, flops) in (
-            ("forward (with lse)", f_ms, pf_ms, lf_ms, flash_work(train_case, "fp32")),
+            ("forward (with lse)", f_ms, pf_ms, lf_ms, fwd_work),
             ("backward", b_ms, pb_ms, lfb_ms, flash_bwd_work(train_case, "fp32"))):
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS["fp32"] * 1e3
+        # two bounds: IEEE fp32 operations on the CUDA cores, and the route's
+        # own, three TF32 products per fp32 one or the bytes (the record's)
+        fp32_ms = flops / PEAK_FLOPS["fp32"] * 1e3
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, 3 * flops / PEAK_FLOPS["tf32"] * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"    {name}: kernel {ms:.4f} ms, bound {bound:.5f} ms ({by}: "
-              f"{flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.2f} MB; H100 SXM peaks), "
-              f"{bound / ms:.1%} of the bound; plain {p_ms:.4f} ms; "
-              f"scaled_dot_product_attention {'forward' if name[0] == 'f' else 'forward + backward'}"
-              f" {l_ms:.4f} ms (K/V repeated for GQA, BHSD; backend {backend})")
+        lib = (f"forward {l_ms:.4f} ms" if name[0] == "f" else
+               f"backward alone {lfb_ms - lf_ms:.4f} ms (forward + backward {lfb_ms:.4f} "
+               f"less forward {lf_ms:.4f})")
+        print(f"    {name}: kernel {ms:.4f} ms; bounds (H100 SXM peaks): fp32 on the CUDA cores "
+              f"{fp32_ms:.5f} ms ({flops / 1e9:.3f} GFLOP at 67 TFLOP/s, {fp32_ms / ms:.1%}), "
+              f"split TF32 {bound:.5f} ms ({by}: 3 x {flops / 1e9:.3f} GFLOP at 495 TFLOP/s, "
+              f"{nbytes / 1e6:.2f} MB at 3.35 TB/s; {bound / ms:.1%}); plain {p_ms:.4f} ms; "
+              f"scaled_dot_product_attention {lib} (K/V repeated for GQA, BHSD; "
+              f"backend {backend})")
         out[name] = {"ms": ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
                      "library_ms": l_ms}
     print(f"    forward + backward through autograd: K1 (FlashAttentionFn) {kfb_ms:.4f} ms, "
-          f"SDPA {lfb_ms:.4f} ms")
+          f"SDPA {lfb_ms:.4f} ms ({kfb_ms / lfb_ms:.2f}x)")
     del q, k, v, o, lse, do, qt, kt, vt, dot, ref, qg, kg, vg
 
     print("  (c) python -m repro_torch.launch.train --arch smollm-135m at full width, "
@@ -1375,13 +1429,13 @@ def train_path(torch, np):
     if not by_name:
         print(f"    host {wall_ms:.2f} ms; the profiler recorded no device time")
     else:
-        parts = kernel_share(by_name, counts, ("flash_kernel", "flash_bwd_"))
+        parts = kernel_share(by_name, counts, (K1_FP32, "flash_tf32_bwd_"))
         print(f"    host {wall_ms:.2f} ms ({B * S / wall_ms * 1e3:.0f} tokens/s), device busy "
               f"{dev_ms:.2f} ms (idle {1 - dev_ms / wall_ms:.1%}), {len(by_name)} kernel names, "
               f"{sum(counts.values())} launches")
         for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             print(f"      {ms:8.3f} ms x{counts[kname]:<5d} {kname[:90]}")
-        for part, label in (("flash_kernel", "K1 forward"), ("flash_bwd_", "K1 backward")):
+        for part, label in ((K1_FP32, "K1 forward"), ("flash_tf32_bwd_", "K1 backward")):
             ms, n = parts[part]
             print(f"    {label} ({part}*) {ms:.3f} ms x{n}, {ms / dev_ms:.1%} of device time")
     del model, st
@@ -1441,18 +1495,28 @@ def main() -> int:
     for k, (regs, st, ld) in sorted(report.items()):
         print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
     if report:                      # nvcc ran (no library was built before)
-        for k in ("flash_mma_kernel<64>", "flash_mma_kernel<128>",
-                  "flash_mma_kernel<256>") + MMA_KERNELS[1:]:
+        for k in ("flash_mma_kernel<64>", "flash_mma_kernel<128>", "flash_mma_kernel<256>",
+                  f"{K1_FP32}<64>") + MMA_KERNELS[1:]:
             check(k in report and report[k][1:] == [0, 0], f"{k} has no spills")
     bwd = {k: v for log in logs.values() for k, v in bwd_ptxas_report(log).items()}
+    # the training path's instantiations (fp32, hd 64) and bf16's at hd 64
+    k1_train = [f"{K1_FP32}<64>"] + [f"flash_tf32_bwd_{part}_kernel<{dt}, 64>"
+                                    for dt in ("float", "bf16") for part in ("dq", "dkdv")]
     if bwd:
-        print(f"  K1 backward: {len(bwd)} instantiations; at the training one (float, 64) and "
-              "wherever they spill:")
+        print(f"  K1 backward: {len(bwd)} instantiations")
         for k, (regs, st, ld) in sorted(bwd.items()):
-            if ", 64>" in k and "float" in k or st or ld:
-                print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
-        for k in ("flash_bwd_dkdv_kernel<float, 64>", "flash_bwd_dq_kernel<float, 64>"):
+            print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+        for k in k1_train[1:]:
             check(k in bwd and bwd[k][1:] == [0, 0], f"{k} has no spills")
+    hmma = sass_hmma_counts()
+    if hmma is None:
+        print("  cuobjdump not in the toolkit: SASS HMMA counts not read")
+    else:
+        print(f"  SASS of the split-TF32 kernels ({len(hmma)} instantiations): "
+              + ", ".join(f"{k} {n} HMMA ({n32} TF32)" for k, (n, n32) in hmma.items()
+                          if k in k1_train))
+        for k in k1_train:
+            check(hmma.get(k, [0, 0])[1] > 0, f"{k} runs TF32 mma on the tensor cores")
 
     phase("3. SSD-scan kernel against its plain version")
     small = [(1, 32, 2, 8, 8, 8), (2, 64, 4, 16, 16, 16),

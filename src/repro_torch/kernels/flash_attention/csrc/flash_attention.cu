@@ -1,7 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA C++ with a plain C entry point.
+// Flash attention for Hopper (sm_90a), forward and backward, CUDA C++ with
+// plain C entry points.
 //
 // Replaces the Pallas TPU kernel `flash_attention` / `_flash_kernel` of
-// src/repro/kernels/flash_attention/kernel.py. Same function: for aligned
+// src/repro/kernels/flash_attention/kernel.py:87. Same function: for aligned
 // self-attention (query row i and key j sit at positions i and j),
 //   o[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, h / rep]) v[b, j, h / rep]
 // over the keys j that the mask keeps: j < Skv, j <= i when causal, and
@@ -9,17 +10,50 @@
 // h / rep (rep = Hq / Hkv) without repeating K or V. As on the TPU: scores
 // and the softmax state (m, l, acc) are fp32, masked scores are -1e30 and
 // their p is 0, l is clamped at 1e-30 (an empty row gives 0, not NaN), and
-// the output is cast to q's dtype.
+// the output is cast to q's dtype. The TPU kernel has no backward; the
+// backward here is the gradient of the same function (see below).
 //
-// Two kernels, chosen by a fixed rule on the dtype (not a fallback: each
-// dtype reaches exactly one kernel, and a failed launch is returned):
-//   * bfloat16 -> flash_mma_kernel, products on the tensor cores;
-//   * float32  -> flash_kernel, products as fp32 FMAs on the CUDA cores, so
-//     fp32 inputs stay IEEE fp32 (TF32 would miss the JAX tests' 2e-5).
+// One forward kernel per dtype and one backward, chosen by a fixed rule on
+// the dtype (not a fallback; a failed launch is returned):
+//   * bfloat16 forward -> flash_mma_kernel, bf16 mma.sync m16n8k16;
+//   * float32 forward  -> flash_tf32_kernel, split-TF32 mma.sync m16n8k8;
+//   * backward, both dtypes -> flash_tf32_bwd_dq_kernel (dQ and delta), then
+//     flash_tf32_bwd_dkdv_kernel (dK, dV), split-TF32 mma.sync m16n8k8,
+//     templated on the type in memory.
 //
-// What bounds it on this card: at the whisper encoder's shape (B=4, S=1500,
-// 12 heads of 64, bf16) the function does 2.8e10 FLOP on 37 MB, so its least
-// time is set by operations (0.028 ms at the tensor cores' 989 TFLOP/s).
+// What bounds them on this card: at the whisper encoder's shape (B=4,
+// S=1500, 12 heads of 64, bf16) the forward does 2.8e10 FLOP on 37 MB, so
+// operations set its least time (0.028 ms at the tensor cores' 989 TFLOP/s).
+// At the training shape (B=8, S=256, 9/3 heads of 64, causal, fp32) the
+// forward does 0.61 GFLOP on 12.6 MB and the backward 1.52 GFLOP (five
+// products) on 25.2 MB. IEEE fp32 on the CUDA cores (67 TFLOP/s) would bound
+// them by operations at 9.0 and 22.6 us; the split-TF32 route does three
+// TF32 products for each fp32 one at 495 TFLOP/s, 3.7 and 9.2 us, so the
+// forward's least time is set by its bytes (3.8 us) and the backward's by
+// its operations.
+//
+// Split TF32. A TF32 product keeps 11 significant bits of each operand; one
+// such product misses the fp32 rules (|d| <= 1e-4 max|ref| at long rows) by
+// ~5x. Each fp32 operand is split in registers into hi = tf32(x) and lo =
+// tf32(x - hi), rounded to nearest as cvt.rna.tf32.f32 rounds, and a
+// product takes lo_a hi_b + hi_a lo_b + hi_a hi_b into one fp32 accumulator
+// (the lo_a lo_b term, ~2^-22 of the product, is dropped): ~22 bits per
+// operand, as close to the function as IEEE fp32 itself, for three
+// tensor-core products. A bf16 value is exact in TF32 (lo = 0), so the
+// backward skips the products of a bf16 operand's lo term (`if constexpr`);
+// P and dS are fp32 and keep both terms. The forward's P V splits V in
+// three terms (hi + mid + lo is exactly v): four products, so a row whose
+// only live key has p = 1 returns that key's v bit for bit, as IEEE fp32
+// does.
+//
+// The m16n8k8 accumulator is not its A operand's layout: a lane holds
+// columns 2t and 2t+1 of an 8-wide n-tile (t = lane % 4), where the A
+// fragment wants k-columns t and t+4. P (dS, P^T, dS^T) goes from the
+// accumulator straight to the A fragment by permuting the keys (queries)
+// inside each group of 8: physical key 2t plays k-index t and key 2t+1
+// plays t+4, and the B fragment (V, K, dO or Q) reads its rows 2t and 2t+1
+// in that same order. A sum over keys does not depend on their order, so
+// no value is shuffled.
 //
 // flash_mma_kernel (bf16). Grid (ceil(Sq/64), B*Hq), tiles with the most
 // causal work first; 4 warps, each owning 16 of the block's 64 query rows.
@@ -51,15 +85,54 @@
 //   * Epilogue: l reduced over the quad and clamped at 1e-30, O cast to
 //     bf16 once; rows of a ragged q tail are never written.
 //
-// flash_kernel (fp32), the first version: 256 threads as 16 x 16, thread
-// (ty, tx) owns rows 4*ty .. 4*ty+3, score columns tx + 16*j of each 64-key
-// tile and HD/16 output columns; q (scaled), K, V and P tiles in fp32
-// shared memory with pitches of HD+4 floats.
+// The split-TF32 kernels are bound by instruction issue, not by the tensor
+// cores: each product needs its operands split (about four instructions per
+// value) beside the HMMAs themselves. Under a causal mask the warp that owns
+// a sequence's last rows (or, for dK/dV, first keys) walks the most tiles,
+// and that walk sets the kernel's time at the training shape. So: blocks
+// are ordered longest walk first across the whole grid (row or key tiles on
+// grid y), and the longest walks are split over more warps, with
+// fixed-order sums at the end.
 //
-// Both: HD is a template argument (16 .. 256 in steps of 16); q, k, v, o
-// are read and written in place in BSHD through their batch and row strides
-// (head stride HD, element stride 1); the live key range of a tile comes
-// from causal, window and Skv, and tiles outside it are skipped.
+// flash_tf32_kernel (fp32). Grid (B*Hq, ceil(Sq/64)); 8 warps in two groups
+// of 4 over the block's 64 query rows (16 per warp): group 0 walks the even
+// K/V tiles of the rows' key range, group 1 the odd ones, each with its own
+// double buffer and named barrier (bar.sync 1 or 2, 128 threads). Tiles of
+// 32 keys (16 above hd = 128), fp32 in shared memory with rows padded by 16
+// bytes (HD + 4 floats), so a warp's 32-bit fragment loads fall on 32 banks.
+// Q stays in shared memory and is re-read and split per tile. S = Q K^T in
+// three products, scaled by scale * log2 e in fp32, the softmax of
+// flash_mma_kernel, O += P V in four (above). At the end group 1 hands its
+// (m, l, O) to group 0 through shared memory, which rescales both to the
+// larger m and writes O and the LSE.
+//
+// The backward: with P = exp(scale Q K^T - lse) (lse from the forward,
+// masked entries 0), dP = dO V^T, delta = rowsum(dO * O) and
+// dS = P * (dP - delta): dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.
+// Deterministic, with no atomics: every gradient element is summed by one
+// lane in a fixed order, then the warps' sums are added in a fixed order,
+// so two runs give the same bits.
+//   * flash_tf32_bwd_dq_kernel: grid (B*Hq, ceil(Sq/64)), the forward's two
+//     groups over 64 query rows. It stages Q and dO once, computes delta
+//     for its rows (fp32; 8 rows per warp, written out for the next
+//     kernel), then each group walks its live K/V tiles (32 keys, 8 above
+//     hd = 128) double-buffered: S and dP (recomputed), P by ex2 of the
+//     scores pre-scaled by log2 e, dS, and dQ += dS K; group 1 hands its
+//     dQ to group 0.
+//   * flash_tf32_bwd_dkdv_kernel: grid (B*Hkv, ceil(Skv/16), HD/DN). A block
+//     owns 16 keys of one KV head and DN of its dK/dV columns (DN = HD up to
+//     hd = 64, HD/2 above, so the two fp32 accumulators fit in registers);
+//     its 4 warps take the 4 quarters of each query tile (64 rows, 32 above
+//     hd = 128). It walks (query head, query tile) over its rep query heads,
+//     so GQA's sum stays in the block, with the Q and dO tiles
+//     double-buffered across heads. It computes S^T = K Q^T and dP^T =
+//     V dO^T directly, so P^T and dS^T come out in accumulator layout and
+//     feed dV += P^T dO and dK += dS^T Q; warps 1-3 hand their sums to warp
+//     0, which adds them in warp order. At the training shape that is
+//     16 x 24 = 384 blocks on 132 SMs.
+//   The backward does seven products where five are needed (the dQ kernel
+//   recomputes S and dP): the fused alternative writes dQ partials per key
+//   tile to memory for a second pass.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -70,184 +143,7 @@ namespace {
 constexpr int kBQ = 64;         // query rows per block
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// ---------------------------------------------------------------------------
-// fp32: flash_kernel on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kBK = 64;         // keys per tile
-constexpr int kThreads = 256;   // 16 row groups x 16 column groups
-constexpr int kPP = kBK + 4;    // row pitch of the P tile
-
-constexpr size_t smem_bytes(int hd) {
-  return sizeof(float) * ((size_t)(kBQ + 2 * kBK) * (hd + 4) + (size_t)kBQ * kPP);
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  if constexpr (VEC == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-  } else if constexpr (VEC == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    out[0] = t.x; out[1] = t.y;
-  } else {
-    out[0] = *p;
-  }
-}
-
-// Copy rows [r0, r0 + rows) of one head of a BSHD tensor into a (rows, HD)
-// fp32 tile of pitch HD+4, times `mul`; rows at or past `n` are zero.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int64_t rs,
-                                          int r0, int rows, int n, float mul) {
-  for (int idx = threadIdx.x; idx < rows * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx % HD;
-    const int s = r0 + r;
-    dst[r * (HD + 4) + d] = s < n ? src[(int64_t)s * rs + d] * mul : 0.f;
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-             int Sq, int Skv, int Hq,
-             int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss, int64_t vsb,
-             int64_t vss, int64_t osb, int64_t oss, float scale, int causal, int window) {
-  constexpr int P = HD + 4;
-  constexpr int NC = HD / 16;                        // output columns per thread
-  constexpr int VEC = NC % 4 == 0 ? 4 : (NC % 2 == 0 ? 2 : 1);
-  constexpr int NV = NC / VEC;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // [kBQ][P]  q * scale
-  float* ks = qs + kBQ * P;         // [kBK][P]
-  float* vs = ks + kBK * P;         // [kBK][P]
-  float* ps = vs + kBK * P;         // [kBQ][kPP]
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq;
-  const float* kb = k + b * ksb + (int64_t)(h / rep) * HD;
-  const float* vb = v + b * vsb + (int64_t)(h / rep) * HD;
-  load_tile<HD>(qs, q + b * qsb + (int64_t)h * HD, qss, q0, kBQ, Sq, scale);
-
-  // keys that some row of this tile may attend to: [k_begin, k_end)
-  int k_end = Skv;
-  if (causal) k_end = min(k_end, min(q0 + kBQ, Sq));
-  const int k_begin = window >= 0 ? max(0, q0 - window + 1) : 0;
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = k_begin / kBK * kBK; k0 < k_end; k0 += kBK) {
-    __syncthreads();                // the previous tile's reads are done
-    load_tile<HD>(ks, kb, kss, k0, kBK, Skv, 1.f);
-    load_tile<HD>(vs, vb, vss, k0, kBK, Skv, 1.f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(&qs[(4 * ty + i) * P + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = *reinterpret_cast<const float4*>(&ks[(tx + 16 * j) * P + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, bk[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, bk[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, bk[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, bk[j].w, s[i][j]);
-        }
-    }
-
-    // mask, online softmax; each row's 64 scores are spread over 16 lanes
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + 4 * ty + i;
-      bool keep[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        keep[j] = kp < Skv && (!causal || kp <= qp) && (window < 0 || kp > qp - window);
-        s[i][j] = keep[j] ? s[i][j] : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = keep[j] ? expf(s[i][j] - m_new) : 0.f;
-        ps[(4 * ty + i) * kPP + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * alpha + rs;     // this thread's part of the row sum
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
-    }
-    __syncthreads();
-
-    // acc += P V; this thread's columns are VEC*tx + 16*VEC*n + e
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = *reinterpret_cast<const float4*>(&ps[(4 * ty + i) * kPP + kk]);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float* vrow = &vs[(kk + t) * P + VEC * tx];
-#pragma unroll
-        for (int n = 0; n < NV; ++n) {
-          float vv[VEC];
-          load_vec<VEC>(vrow + 16 * VEC * n, vv);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = t == 0 ? pr[i].x : t == 1 ? pr[i].y : t == 2 ? pr[i].z : pr[i].w;
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) acc[i][n * VEC + e] = fmaf(p, vv[e], acc[i][n * VEC + e]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float li = l[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
-    const int s = q0 + 4 * ty + i;
-    if (s >= Sq) continue;          // ragged q tail: not written
-    const float den = fmaxf(li, 1e-30f);
-    // the scores are scaled already (q * scale), so m + log(l) is the row's
-    // log-sum-exp of scale * q . k
-    if (lse != nullptr && tx == 0) lse[((int64_t)b * Hq + h) * Sq + s] = m[i] + logf(den);
-    float* orow = o + b * osb + (int64_t)s * oss + (int64_t)h * HD + VEC * tx;
-#pragma unroll
-    for (int n = 0; n < NV; ++n)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) orow[16 * VEC * n + e] = acc[i][n * VEC + e] / den;
-  }
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // bf16: flash_mma_kernel on the tensor cores
@@ -514,60 +410,129 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// backward: three kernels on the CUDA cores, fp32 arithmetic
+// split TF32 on the tensor cores: the fp32 forward and the backward
 // ---------------------------------------------------------------------------
-//
-// With P = exp(scale * Q K^T - lse) (lse from the forward; masked entries 0),
-// dP = dO V^T, delta = rowsum(dO * O) and dS = P * (dP - delta):
-//   dV = P^T dO,  dK = scale * dS^T Q,  dQ = scale * dS K.
-// flash_bwd_preprocess_kernel computes delta (one warp per row);
-// flash_bwd_dkdv_kernel owns a tile of keys of one KV head and loops over
-// its rep query heads and their live query tiles, so GQA's sum over the
-// query heads of a KV head stays inside the block; flash_bwd_dq_kernel owns
-// a tile of query rows of one head and loops over its live key tiles. Each
-// gradient element is summed by one thread in a fixed order, with no
-// atomics: two runs give the same bits. Masks and dead tiles as in the
-// forward. T (float or bf16) is the type in memory: bf16 is widened on load
-// and dq, dk, dv are written in T.
-//
-// What bounds it: at the training shape (B=8, S=256, 9/3 heads of 64,
-// causal, fp32) the five products of the function (QK^T, dO V^T, dV, dK,
-// dQ) are 1.5 GFLOP on ~20 MB, so operations bound it (0.023 ms at the CUDA
-// cores' 67 TFLOP/s). The design is the simple one: both kernels recompute
-// S and dP (seven products, not five), tiles of 64 (32 above hd = 128) in
-// fp32 shared memory, 4 x 4 (2 x 2) register blocks per thread.
+
+// x rounded to TF32 (10 mantissa bits; to nearest, ties away from zero):
+// the bits of cvt.rna.tf32.f32 for every input but NaN, in two integer
+// operations (half the dropped range added, the 13 low bits cleared), where
+// ptxas expands cvt.rna with an inf/NaN test and a select
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x ~ hi + lo to ~22 significant bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// x = hi + mid + lo exactly: x - hi and (x - hi) - mid are exact in fp32,
+// and the last has at most 2 significant bits, so it is a TF32 value
+__device__ __forceinline__ void split3_tf32(float x, uint32_t& hi, uint32_t& mid,
+                                            uint32_t& lo) {
+  hi = tf32(x);
+  const float r = x - __uint_as_float(hi);
+  mid = tf32(r);
+  lo = __float_as_uint(r - __uint_as_float(mid));
+}
+
+// d += a (16x8 tf32, row) * b (8x8 tf32, col), fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
 
-template <int HD>
-struct BwdCfg {
-  static constexpr int BT = HD <= 128 ? 64 : 32;   // query rows and keys per tile
-  static constexpr int R = BT / 16;                // rows (and columns) per thread
-  static constexpr int P = HD + 4;                 // pitch of an HD-wide tile
-  static constexpr int PT = BT + 4;                // pitch of a BT-wide tile
-  static constexpr int NC = HD / 16;               // output columns per thread
-  // K, V, Q, dO tiles; the P and dS tiles (dkdv) or the dS tile (dq); lse, delta
-  static constexpr size_t SMEM_KV =
-      sizeof(float) * ((size_t)4 * BT * P + (size_t)2 * BT * PT + 2 * BT);
-  static constexpr size_t SMEM_Q =
-      sizeof(float) * ((size_t)4 * BT * P + (size_t)BT * PT + 2 * BT);
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// An operand fragment in two TF32 terms. EXACT: the values are TF32 already
+// (widened bf16), lo stays unset and its products are skipped.
+template <int N>
+struct Frag {
+  uint32_t hi[N], lo[N];
 };
 
-// rows [r0, r0 + ROWS) of one head (HD contiguous values per row, rows rs
-// apart) into an fp32 tile of pitch HD + 4; rows at or past n are zero
-template <typename T, int HD, int ROWS>
-__device__ __forceinline__ void bwd_load(float* dst, const T* __restrict__ src, int64_t rs,
-                                         int r0, int n) {
-  for (int idx = threadIdx.x; idx < ROWS * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx % HD;
-    dst[r * (HD + 4) + d] = r0 + r < n ? to_f(src[(int64_t)(r0 + r) * rs + d]) : 0.f;
+template <bool EXACT, int N>
+__device__ __forceinline__ void set_frag(Frag<N>& f, int i, float x) {
+  if constexpr (EXACT) {
+    f.hi[i] = __float_as_uint(x);
+  } else {
+    split_tf32(x, f.hi[i], f.lo[i]);
+  }
+}
+
+// d += A B in split TF32: lo_a hi_b + hi_a lo_b + hi_a hi_b, small terms
+// first; the terms of an exact operand's lo are skipped
+template <bool AX, bool BX>
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
+  if constexpr (!AX) mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
+  if constexpr (!BX) mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+}
+
+// Fragment loads from a shared tile of pitch P (g = lane / 4, t = lane % 4).
+// A, from a [row][k] tile at its (row 0, k 0): a0 (g, t), a1 (g+8, t),
+// a2 (g, t+4), a3 (g+8, t+4). With P = 4 mod 8 words (fp32: HD + 4; bf16:
+// HD + 8 halves) the 32 lanes' words g P + t fall on 32 banks.
+template <bool EXACT, int P, typename T>
+__device__ __forceinline__ void load_a(Frag<4>& f, const T* base, int g, int t) {
+  const T* p = base + g * P + t;
+  set_frag<EXACT>(f, 0, to_f(p[0]));
+  set_frag<EXACT>(f, 1, to_f(p[8 * P]));
+  set_frag<EXACT>(f, 2, to_f(p[4]));
+  set_frag<EXACT>(f, 3, to_f(p[8 * P + 4]));
+}
+// B, from an [n][k] tile (K for Q K^T): b0 (k t, n g), b1 (k t+4, n g)
+template <bool EXACT, int P, typename T>
+__device__ __forceinline__ void load_b_nk(Frag<2>& f, const T* base, int g, int t) {
+  const T* p = base + g * P + t;
+  set_frag<EXACT>(f, 0, to_f(p[0]));
+  set_frag<EXACT>(f, 1, to_f(p[4]));
+}
+// B, from a [k][n] tile (V for P V) whose k rows are permuted in pairs:
+// k-index t is row 2t, k-index t+4 is row 2t+1 (words 2t P + g: 32 banks)
+template <bool EXACT, int P, typename T>
+__device__ __forceinline__ void load_b_kn(Frag<2>& f, const T* base, int g, int t) {
+  const T* p = base + 2 * t * P + g;
+  set_frag<EXACT>(f, 0, to_f(p[0]));
+  set_frag<EXACT>(f, 1, to_f(p[P]));
+}
+// A, from an accumulator n-tile c (rows g, g+8; columns 2t, 2t+1) under the
+// same permutation: column 2t is k-index t, column 2t+1 is k-index t+4
+__device__ __forceinline__ void acc_to_a(Frag<4>& f, const float (&c)[4]) {
+  split_tf32(c[0], f.hi[0], f.lo[0]);
+  split_tf32(c[2], f.hi[1], f.lo[1]);
+  split_tf32(c[1], f.hi[2], f.lo[2]);
+  split_tf32(c[3], f.hi[3], f.lo[3]);
+}
+
+// Elements of T per shared row of HD values: padded by 16 bytes.
+template <typename T, int HD>
+constexpr int kPitch = HD + 16 / (int)sizeof(T);
+
+// rows [r0, r0 + ROWS) of one head (HD contiguous T per row, rows rs apart)
+// into a shared tile of pitch kPitch, by 16-byte cp.async from the NT
+// threads numbered tid; rows at or past n are zero-filled
+template <typename T, int HD, int ROWS, int NT>
+__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src, int64_t rs, int r0,
+                                           int n, int tid) {
+  constexpr int V = 16 / sizeof(T), CH = HD / V, P = kPitch<T, HD>;
+  for (int idx = tid; idx < ROWS * CH; idx += NT) {
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = r0 + r < n;
+    const T* s = ok ? src + (int64_t)(r0 + r) * rs + V * c : src;
+    cp_async16(dst + r * P + V * c, s, ok ? 16 : 0);
   }
 }
 
@@ -575,255 +540,605 @@ __device__ __forceinline__ bool live(int i, int j, int Sq, int Skv, int causal, 
   return i < Sq && j < Skv && (!causal || j <= i) && (window < 0 || j > i - window);
 }
 
-// s = Q K^T and dp = dO V^T over one (query tile, key tile) pair: this
-// thread's query rows R ty + a and keys tx + 16 c
+// The forward and dQ kernels run two groups of 4 warps over the same 64
+// query rows: group 0 takes the even K/V tiles of the row tile's key range,
+// group 1 the odd ones, each with its own double buffer and barrier, and
+// group 1 hands its sums to group 0 at the end (a fixed order). The warp
+// that owns the last rows of a causal sequence walks every key; the split
+// halves that longest walk.
+constexpr int kGroupThreads = 128;             // 4 warps
+constexpr int kPairThreads = 2 * kGroupThreads;
+
+// barrier over one group's 128 threads (ids 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(grp + 1), "n"(kGroupThreads));
+}
+
 template <int HD>
-__device__ __forceinline__ void bwd_scores(const float* qs, const float* dos, const float* ks,
-                                           const float* vs,
-                                           float (&s)[BwdCfg<HD>::R][BwdCfg<HD>::R],
-                                           float (&dp)[BwdCfg<HD>::R][BwdCfg<HD>::R]) {
-  constexpr int R = BwdCfg<HD>::R, P = BwdCfg<HD>::P;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int a = 0; a < R; ++a)
-#pragma unroll
-    for (int c = 0; c < R; ++c) s[a][c] = dp[a][c] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < HD; d += 4) {
-    float4 qa[R], da[R], kb[R], vb[R];
-#pragma unroll
-    for (int a = 0; a < R; ++a) {
-      qa[a] = *reinterpret_cast<const float4*>(&qs[(R * ty + a) * P + d]);
-      da[a] = *reinterpret_cast<const float4*>(&dos[(R * ty + a) * P + d]);
-    }
-#pragma unroll
-    for (int c = 0; c < R; ++c) {
-      kb[c] = *reinterpret_cast<const float4*>(&ks[(tx + 16 * c) * P + d]);
-      vb[c] = *reinterpret_cast<const float4*>(&vs[(tx + 16 * c) * P + d]);
-    }
-#pragma unroll
-    for (int a = 0; a < R; ++a)
-#pragma unroll
-      for (int c = 0; c < R; ++c) {
-        s[a][c] = fmaf(qa[a].x, kb[c].x, s[a][c]);
-        s[a][c] = fmaf(qa[a].y, kb[c].y, s[a][c]);
-        s[a][c] = fmaf(qa[a].z, kb[c].z, s[a][c]);
-        s[a][c] = fmaf(qa[a].w, kb[c].w, s[a][c]);
-        dp[a][c] = fmaf(da[a].x, vb[c].x, dp[a][c]);
-        dp[a][c] = fmaf(da[a].y, vb[c].y, dp[a][c]);
-        dp[a][c] = fmaf(da[a].z, vb[c].z, dp[a][c]);
-        dp[a][c] = fmaf(da[a].w, vb[c].w, dp[a][c]);
-      }
-  }
-}
+struct Tf32Cfg {
+  static constexpr int BK = HD <= 128 ? 32 : 16;     // keys per tile
+  static constexpr int P = kPitch<float, HD>;
+  static constexpr int NS = BK / 8;                  // score n-tiles per warp
+  static constexpr int NO = HD / 8;                  // output n-tiles per warp
+  static constexpr int TILE = BK * P;                // floats of a K or V tile
+  // Q; per group K and V double-buffered
+  static constexpr size_t SMEM = sizeof(float) * ((size_t)kBQ * P + 8 * (size_t)TILE);
+  // group 1's hand-over (m, l, O of 4 warps) in the K/V region
+  static_assert(4 * (4 + 4 * NO) * 32 <= 8 * TILE, "hand-over");
+};
 
-// delta[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d]; o and dout contiguous
-// (B, Sq, Hq, HD) = rows x HD, one warp per row
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_preprocess_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                            float* __restrict__ delta, int64_t rows, int Sq, int Hq) {
-  const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;          // the whole warp
-  float acc = 0.f;
-  for (int d = lane; d < HD; d += 32)
-    acc = fmaf(to_f(o[row * HD + d]), to_f(dout[row * HD + d]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const int64_t h = row % Hq, bi = row / Hq;      // bi = b * Sq + i
-    delta[(bi / Sq * Hq + h) * Sq + bi % Sq] = acc;
-  }
-}
+template <int HD>
+__global__ void __launch_bounds__(kPairThreads, HD <= 64 ? 2 : 1)
+flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                  int Sq, int Skv, int Hq, int rep, int64_t qsb, int64_t qss, int64_t ksb,
+                  int64_t kss, int64_t vsb, int64_t vss, int64_t osb, int64_t oss,
+                  float scale_log2, int causal, int window) {
+  using C = Tf32Cfg<HD>;
+  constexpr int BK = C::BK, P = C::P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);   // [kBQ][P]
+  const int grp = threadIdx.x / kGroupThreads, gtid = threadIdx.x % kGroupThreads;
+  float* ks = qs + kBQ * P + grp * 4 * C::TILE;     // this group's [2][BK][P]
+  float* vs = ks + 2 * C::TILE;                     // [2][BK][P]
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const T* __restrict__ dout, const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                      int Sq, int Skv, int Hq, int rep, int64_t qsb, int64_t qss, int64_t ksb,
-                      int64_t kss, int64_t vsb, int64_t vss, float scale, int causal,
-                      int window) {
-  using C = BwdCfg<HD>;
-  constexpr int BT = C::BT, R = C::R, P = C::P, PT = C::PT, NC = C::NC;
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                 // [BT][P]
-  float* vs = ks + BT * P;          // [BT][P]
-  float* qs = vs + BT * P;          // [BT][P]
-  float* dos = qs + BT * P;         // [BT][P]
-  float* ps = dos + BT * P;         // [BT][PT]  P[query][key]
-  float* dss = ps + BT * PT;        // [BT][PT]  dS[query][key]
-  float* lse_s = dss + BT * PT;     // [BT]
-  float* dl_s = lse_s + BT;         // [BT]
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int k0 = blockIdx.x * BT;
-  const int Hkv = Hq / rep;
-  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
-  bwd_load<T, HD, BT>(ks, k + b * ksb + (int64_t)hk * HD, kss, k0, Skv);
-  bwd_load<T, HD, BT>(vs, v + b * vsb + (int64_t)hk * HD, vss, k0, Skv);
-
-  // query rows that may attend to a key of this tile: [q_begin, q_end)
-  const int q_begin = causal ? k0 : 0;
-  long long q_end = Sq;
-  if (window >= 0) {
-    const long long last = (long long)(k0 + BT < Skv ? k0 + BT : Skv) - 1 + window;
-    q_end = last < q_end ? last : q_end;
-  }
-
-  float acc_k[R][NC], acc_v[R][NC];
-#pragma unroll
-  for (int a = 0; a < R; ++a)
-#pragma unroll
-    for (int n = 0; n < NC; ++n) acc_k[a][n] = acc_v[a][n] = 0.f;
-
-  const int64_t osb = (int64_t)Sq * Hq * HD, oss = (int64_t)Hq * HD;   // dO is contiguous
-  for (int hh = 0; hh < rep; ++hh) {
-    const int h = hk * rep + hh;
-    const T* qh = q + b * qsb + (int64_t)h * HD;
-    const T* dh = dout + b * osb + (int64_t)h * HD;
-    const float* lse_h = lse + ((int64_t)b * Hq + h) * Sq;
-    const float* dl_h = delta + ((int64_t)b * Hq + h) * Sq;
-    for (int i0 = q_begin / BT * BT; i0 < q_end; i0 += BT) {
-      __syncthreads();              // the previous tile's reads are done
-      bwd_load<T, HD, BT>(qs, qh, qss, i0, Sq);
-      bwd_load<T, HD, BT>(dos, dh, oss, i0, Sq);
-      for (int r = threadIdx.x; r < BT; r += kThreads) {
-        lse_s[r] = i0 + r < Sq ? lse_h[i0 + r] : 0.f;
-        dl_s[r] = i0 + r < Sq ? dl_h[i0 + r] : 0.f;
-      }
-      __syncthreads();
-      float s[R][R], dp[R][R];
-      bwd_scores<HD>(qs, dos, ks, vs, s, dp);
-#pragma unroll
-      for (int a = 0; a < R; ++a)
-#pragma unroll
-        for (int c = 0; c < R; ++c) {
-          const int r = R * ty + a, j = tx + 16 * c;
-          const float p =
-              live(i0 + r, k0 + j, Sq, Skv, causal, window) ? expf(s[a][c] * scale - lse_s[r]) : 0.f;
-          ps[r * PT + j] = p;
-          dss[r * PT + j] = p * (dp[a][c] - dl_s[r]);
-        }
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q: this thread's keys R ty + a, columns tx + 16 n
-#pragma unroll 2
-      for (int r = 0; r < BT; ++r) {
-        float pv[R], dsv[R];
-#pragma unroll
-        for (int a = 0; a < R; ++a) {
-          pv[a] = ps[r * PT + R * ty + a];
-          dsv[a] = dss[r * PT + R * ty + a];
-        }
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          const float ov = dos[r * P + tx + 16 * n], qv = qs[r * P + tx + 16 * n];
-#pragma unroll
-          for (int a = 0; a < R; ++a) {
-            acc_v[a][n] = fmaf(pv[a], ov, acc_v[a][n]);
-            acc_k[a][n] = fmaf(dsv[a], qv, acc_k[a][n]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int j = k0 + R * ty + a;
-    if (j >= Skv) continue;
-    const int64_t off = ((int64_t)b * Skv + j) * Hkv * HD + (int64_t)hk * HD + tx;
-#pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      dk[off + 16 * n] = from_f<T>(acc_k[a][n] * scale);
-      dv[off + 16 * n] = from_f<T>(acc_v[a][n]);
-    }
-  }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Skv,
-                    int Hq, int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss,
-                    int64_t vsb, int64_t vss, float scale, int causal, int window) {
-  using C = BwdCfg<HD>;
-  constexpr int BT = C::BT, R = C::R, P = C::P, PT = C::PT, NC = C::NC;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // [BT][P]
-  float* dos = qs + BT * P;         // [BT][P]
-  float* ks = dos + BT * P;         // [BT][P]
-  float* vs = ks + BT * P;          // [BT][P]
-  float* dss = vs + BT * P;         // [BT][PT]  dS[query][key]
-  float* lse_s = dss + BT * PT;     // [BT]
-  float* dl_s = lse_s + BT;         // [BT]
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;   // the most causal work first
-  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq;
-  const int64_t osb = (int64_t)Sq * Hq * HD, oss = (int64_t)Hq * HD;   // dO is contiguous
-  bwd_load<T, HD, BT>(qs, q + b * qsb + (int64_t)h * HD, qss, q0, Sq);
-  bwd_load<T, HD, BT>(dos, dout + b * osb + (int64_t)h * HD, oss, q0, Sq);
-  for (int r = threadIdx.x; r < BT; r += kThreads) {
-    const int64_t i = ((int64_t)b * Hq + h) * Sq + q0 + r;
-    lse_s[r] = q0 + r < Sq ? lse[i] : 0.f;
-    dl_s[r] = q0 + r < Sq ? delta[i] : 0.f;
-  }
-  const T* kb = k + b * ksb + (int64_t)(h / rep) * HD;
-  const T* vb = v + b * vsb + (int64_t)(h / rep) * HD;
+  const int warp = gtid / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // the most causal work first
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
+  const float* kb = k + b * ksb + (int64_t)(h / rep) * HD;
+  const float* vb = v + b * vsb + (int64_t)(h / rep) * HD;
 
   // keys that some row of this tile may attend to: [k_begin, k_end)
   int k_end = Skv;
-  if (causal) k_end = min(k_end, min(q0 + BT, Sq));
+  if (causal) k_end = min(k_end, min(q0 + kBQ, Sq));
   const int k_begin = window >= 0 ? max(0, q0 - window + 1) : 0;
+  const int t_end = (k_end + BK - 1) / BK;
+  const int t_first = k_begin / BK + grp;           // this group's tiles: t_first + 2 i
 
-  float acc[R][NC];
-#pragma unroll
-  for (int a = 0; a < R; ++a)
-#pragma unroll
-    for (int n = 0; n < NC; ++n) acc[a][n] = 0.f;
+  stage_tile<float, HD, kBQ, kPairThreads>(qs, q + b * qsb + (int64_t)h * HD, qss, q0, Sq,
+                                           threadIdx.x);
+  if (t_first < t_end) {
+    stage_tile<float, HD, BK, kGroupThreads>(ks, kb, kss, t_first * BK, Skv, gtid);
+    stage_tile<float, HD, BK, kGroupThreads>(vs, vb, vss, t_first * BK, Skv, gtid);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();                  // Q (both groups' copies) and the first tiles
 
-  for (int j0 = k_begin / BT * BT; j0 < k_end; j0 += BT) {
-    __syncthreads();                // the previous tile's reads are done
-    bwd_load<T, HD, BT>(ks, kb, kss, j0, Skv);
-    bwd_load<T, HD, BT>(vs, vb, vss, j0, Skv);
-    __syncthreads();
-    float s[R][R], dp[R][R];
-    bwd_scores<HD>(qs, dos, ks, vs, s, dp);
+  const int wr0 = q0 + 16 * warp;                 // first row of the warp
+  const int row_lo = wr0 + g, row_hi = row_lo + 8;
+  const float* qw = qs + 16 * warp * P;
+
+  float acc[C::NO][4];
 #pragma unroll
-    for (int a = 0; a < R; ++a)
+  for (int n = 0; n < C::NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int tt = t_first, it = 0; tt < t_end; tt += 2, ++it) {
+    const int buf = it & 1;
+    if (tt + 2 < t_end) {
+      stage_tile<float, HD, BK, kGroupThreads>(ks + (buf ^ 1) * C::TILE, kb, kss, (tt + 2) * BK,
+                                               Skv, gtid);
+      stage_tile<float, HD, BK, kGroupThreads>(vs + (buf ^ 1) * C::TILE, vb, vss, (tt + 2) * BK,
+                                               Skv, gtid);
+    }
+    cp_async_commit();              // possibly empty: keeps the group count uniform
+    cp_async_wait<1>();             // tile tt has landed
+    group_sync(grp);
+    const float* kt = ks + buf * C::TILE;
+    const float* vt = vs + buf * C::TILE;
+
+    // S = Q K^T, three products per k-step (fp32 scores, unscaled)
+    float s[C::NS][4];
 #pragma unroll
-      for (int c = 0; c < R; ++c) {
-        const int r = R * ty + a, j = tx + 16 * c;
-        const float p =
-            live(q0 + r, j0 + j, Sq, Skv, causal, window) ? expf(s[a][c] * scale - lse_s[r]) : 0.f;
-        dss[r * PT + j] = p * (dp[a][c] - dl_s[r]);
-      }
-    __syncthreads();
-    // dQ += dS K: this thread's rows R ty + a, columns tx + 16 n
-#pragma unroll 2
-    for (int j = 0; j < BT; ++j) {
-      float dsv[R];
+    for (int j = 0; j < C::NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int a = 0; a < R; ++a) dsv[a] = dss[(R * ty + a) * PT + j];
+    for (int kd = 0; kd < HD / 8; ++kd) {
+      Frag<4> a;
+      load_a<false, P>(a, qw + 8 * kd, g, t);
 #pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        const float kv = ks[j * P + tx + 16 * n];
-#pragma unroll
-        for (int a = 0; a < R; ++a) acc[a][n] = fmaf(dsv[a], kv, acc[a][n]);
+      for (int j = 0; j < C::NS; ++j) {
+        Frag<2> bk;
+        load_b_nk<false, P>(bk, kt + 8 * j * P + 8 * kd, g, t);
+        mma3<false, false>(s[j], a, bk);
       }
     }
+
+    // scale, mask, online softmax as in flash_mma_kernel (a tile inside
+    // every row's live range skips the mask); element e of n-tile j sits at
+    // row (e < 2 ? row_lo : row_hi), key k0 + 8 j + 2 t + (e & 1)
+    const int k0 = tt * BK;
+    const bool need_mask = k0 + BK > Skv || (causal && k0 + BK - 1 > wr0) ||
+                           (window >= 0 && k0 <= wr0 + 15 - window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        const int kp = k0 + 8 * j + 2 * t + (e & 1), qp = e < 2 ? row_lo : row_hi;
+        if (need_mask && !live(qp, kp, Sq, Skv, causal, window)) x = kNegInf;
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2_ftz(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = s[j][e] == kNegInf ? 0.f : exp2_ftz(s[j][e] - m[e / 2]);
+        s[j][e] = p;
+        rs[e / 2] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];   // this lane's part
+#pragma unroll
+    for (int n = 0; n < C::NO; ++n) {
+      acc[n][0] *= alpha[0]; acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
+    }
+
+    // O += P V: P (two terms) from the score registers, keys permuted in
+    // pairs; V in three terms, four products
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j) {
+      Frag<4> pa;
+      acc_to_a(pa, s[j]);
+#pragma unroll
+      for (int n = 0; n < C::NO; ++n) {
+        const float* vp = vt + (8 * j + 2 * t) * P + 8 * n + g;
+        uint32_t h0, m0, l0, h1, m1, l1;
+        split3_tf32(vp[0], h0, m0, l0);
+        split3_tf32(vp[P], h1, m1, l1);
+        mma_tf32(acc[n], pa.lo, h0, h1);
+        mma_tf32(acc[n], pa.hi, l0, l1);
+        mma_tf32(acc[n], pa.hi, m0, m1);
+        mma_tf32(acc[n], pa.hi, h0, h1);
+      }
+    }
+    group_sync(grp);                // tile tt's buffer may be refilled next
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {     // the quad's row sums
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
 
+  // group 1 hands (m, l, O) to group 0, which rescales both to the larger m
+  __syncthreads();                  // every K/V buffer is read: reuse the region
+  float* red = qs + kBQ * P + warp * (4 + 4 * C::NO) * 32 + lane;
+  if (grp == 1) {
 #pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int i = q0 + R * ty + a;
-    if (i >= Sq) continue;          // ragged q tail: not written
-    T* row = dq + (((int64_t)b * Sq + i) * Hq + h) * HD + tx;
+    for (int i = 0; i < 2; ++i) {
+      red[i * 32] = m[i];
+      red[(2 + i) * 32] = l[i];
+    }
 #pragma unroll
-    for (int n = 0; n < NC; ++n) row[16 * n] = from_f<T>(acc[a][n] * scale);
+    for (int n = 0; n < C::NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(4 + 4 * n + e) * 32] = acc[n][e];
+  }
+  __syncthreads();
+  if (grp == 1) return;
+  float a0[2], a1[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m1 = red[i * 32], m_new = fmaxf(m[i], m1);
+    a0[i] = exp2_ftz(m[i] - m_new);
+    a1[i] = exp2_ftz(m1 - m_new);
+    l[i] = l[i] * a0[i] + red[(2 + i) * 32] * a1[i];
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int n = 0; n < C::NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[n][e] = acc[n][e] * a0[e / 2] + red[(4 + 4 * n + e) * 32] * a1[e / 2];
+
+  // epilogue: ragged rows unwritten
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i == 0 ? row_lo : row_hi;
+    if (row >= Sq) continue;
+    const float den = fmaxf(l[i], 1e-30f), inv = 1.f / den;
+    // m is in log2 units (scores pre-scaled by log2 e): back to natural log
+    if (lse != nullptr && t == 0) lse[((int64_t)b * Hq + h) * Sq + row] = m[i] * kLn2 + logf(den);
+    float* orow = o + b * osb + (int64_t)row * oss + (int64_t)h * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < C::NO; ++n)
+      store2(orow + 8 * n, acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+template <typename T, int HD>
+struct BwdQCfg {
+  static constexpr int BK = HD <= 128 ? 32 : 8;      // keys per tile
+  static constexpr int P = kPitch<T, HD>;
+  static constexpr int NS = BK / 8, NO = HD / 8;
+  static constexpr int TILE = BK * P;                // elements of a K or V tile
+  // Q, dO; per group K and V double-buffered; the rows' delta
+  static constexpr size_t SMEM =
+      sizeof(T) * ((size_t)2 * kBQ * P + 8 * (size_t)TILE) + sizeof(float) * kBQ;
+  // group 1's hand-over (dQ of 4 warps) over the Q, dO and K/V tiles
+  static_assert(sizeof(float) * 4 * 4 * NO * 32 <= sizeof(T) * (2 * kBQ * P + 8 * TILE),
+                "hand-over");
+};
+
+// dQ and delta of 64 query rows of one head. o, dout, dq contiguous
+// (B, Sq, Hq, HD); lse, delta (B, Hq, Sq).
+template <typename T, int HD>
+__global__ void __launch_bounds__(kPairThreads, HD <= 64 ? 2 : 1)
+flash_tf32_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ o,
+                         const T* __restrict__ dout, const float* __restrict__ lse,
+                         float* __restrict__ delta, T* __restrict__ dq, int Sq, int Skv, int Hq,
+                         int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss,
+                         int64_t vsb, int64_t vss, float scale, float scale_log2, int causal,
+                         int window) {
+  using C = BwdQCfg<T, HD>;
+  constexpr bool X = sizeof(T) == 2;                 // bf16: exact in TF32
+  constexpr int BK = C::BK, P = C::P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);            // [kBQ][P]
+  T* dos = qs + kBQ * P;                             // [kBQ][P]
+  const int grp = threadIdx.x / kGroupThreads, gtid = threadIdx.x % kGroupThreads;
+  T* kv0 = dos + kBQ * P;                            // both groups' K/V region
+  T* ks = kv0 + grp * 4 * C::TILE;                   // this group's [2][BK][P]
+  T* vs = ks + 2 * C::TILE;                          // [2][BK][P]
+  float* dl_s = reinterpret_cast<float*>(kv0 + 8 * C::TILE);   // [kBQ]
+
+  const int warp = gtid / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // the most causal work first
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
+  const int64_t oss = (int64_t)Hq * HD, osb = (int64_t)Sq * oss;
+  const T* kb = k + b * ksb + (int64_t)(h / rep) * HD;
+  const T* vb = v + b * vsb + (int64_t)(h / rep) * HD;
+
+  int k_end = Skv;
+  if (causal) k_end = min(k_end, min(q0 + kBQ, Sq));
+  const int k_begin = window >= 0 ? max(0, q0 - window + 1) : 0;
+  const int t_end = (k_end + BK - 1) / BK;
+  const int t_first = k_begin / BK + grp;            // this group's tiles: t_first + 2 i
+
+  stage_tile<T, HD, kBQ, kPairThreads>(qs, q + b * qsb + (int64_t)h * HD, qss, q0, Sq,
+                                       threadIdx.x);
+  stage_tile<T, HD, kBQ, kPairThreads>(dos, dout + b * osb + (int64_t)h * HD, oss, q0, Sq,
+                                       threadIdx.x);
+  if (t_first < t_end) {
+    stage_tile<T, HD, BK, kGroupThreads>(ks, kb, kss, t_first * BK, Skv, gtid);
+    stage_tile<T, HD, BK, kGroupThreads>(vs, vb, vss, t_first * BK, Skv, gtid);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();                  // Q, dO and the first tiles have landed
+
+  // delta = rowsum(dO * O) of the 64 rows, fp32: each of the 8 warps takes
+  // 8 rows, one at a time over its lanes
+  const int w8 = threadIdx.x / 32;
+#pragma unroll
+  for (int r = 8 * w8; r < 8 * w8 + 8; ++r) {
+    const int row = q0 + r;
+    float sum = 0.f;
+    if (row < Sq) {
+      const T* orow = o + b * osb + (int64_t)row * oss + (int64_t)h * HD;
+      for (int d = lane; d < HD; d += 32) sum = fmaf(to_f(orow[d]), to_f(dos[r * P + d]), sum);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      dl_s[r] = sum;
+      if (row < Sq) delta[((int64_t)b * Hq + h) * Sq + row] = sum;
+    }
+  }
+  __syncthreads();
+  const int row_lo = q0 + 16 * warp + g, row_hi = row_lo + 8;
+  const float dl[2] = {dl_s[16 * warp + g], dl_s[16 * warp + g + 8]};
+  float l2[2];                      // the rows' lse in log2 units
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i == 0 ? row_lo : row_hi;
+    l2[i] = row < Sq ? lse[((int64_t)b * Hq + h) * Sq + row] * kLog2e : 0.f;
+  }
+
+  const T* qw = qs + 16 * warp * P;
+  const T* dw = dos + 16 * warp * P;
+  float acc[C::NO][4];
+#pragma unroll
+  for (int n = 0; n < C::NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int tt = t_first, it = 0; tt < t_end; tt += 2, ++it) {
+    const int buf = it & 1;
+    if (tt + 2 < t_end) {
+      stage_tile<T, HD, BK, kGroupThreads>(ks + (buf ^ 1) * C::TILE, kb, kss, (tt + 2) * BK,
+                                           Skv, gtid);
+      stage_tile<T, HD, BK, kGroupThreads>(vs + (buf ^ 1) * C::TILE, vb, vss, (tt + 2) * BK,
+                                           Skv, gtid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();             // tile tt has landed
+    group_sync(grp);
+    const T* kt = ks + buf * C::TILE;
+    const T* vt = vs + buf * C::TILE;
+
+    // S = Q K^T and dP = dO V^T
+    float s[C::NS][4], dp[C::NS][4];
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < HD / 8; ++kd) {
+      Frag<4> aq, ad;
+      load_a<X, P>(aq, qw + 8 * kd, g, t);
+      load_a<X, P>(ad, dw + 8 * kd, g, t);
+#pragma unroll
+      for (int j = 0; j < C::NS; ++j) {
+        Frag<2> bk, bv;
+        load_b_nk<X, P>(bk, kt + 8 * j * P + 8 * kd, g, t);
+        load_b_nk<X, P>(bv, vt + 8 * j * P + 8 * kd, g, t);
+        mma3<X, X>(s[j], aq, bk);
+        mma3<X, X>(dp[j], ad, bv);
+      }
+    }
+
+    // dS = P (dP - delta), P = 2^(scale log2e s - lse log2e), masked 0;
+    // element e of n-tile j: row (e < 2 ? row_lo : row_hi), key k0 + 8 j + 2 t + (e & 1)
+    const int k0 = tt * BK;
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + 8 * j + 2 * t + (e & 1), qp = e < 2 ? row_lo : row_hi;
+        const float p = live(qp, kp, Sq, Skv, causal, window)
+                            ? exp2_ftz(fmaf(s[j][e], scale_log2, -l2[e / 2]))
+                            : 0.f;
+        s[j][e] = p * (dp[j][e] - dl[e / 2]);
+      }
+
+    // dQ += dS K, keys permuted in pairs
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j) {
+      Frag<4> a;
+      acc_to_a(a, s[j]);
+#pragma unroll
+      for (int n = 0; n < C::NO; ++n) {
+        Frag<2> bk;
+        load_b_kn<X, P>(bk, kt + 8 * j * P + 8 * n, g, t);
+        mma3<false, X>(acc[n], a, bk);
+      }
+    }
+    group_sync(grp);                // tile tt's buffer may be refilled next
+  }
+  cp_async_wait<0>();
+
+  // group 1 hands its sums to group 0 (a fixed order)
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_raw) + warp * 4 * C::NO * 32 + lane;
+  if (grp == 1) {
+#pragma unroll
+    for (int n = 0; n < C::NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(4 * n + e) * 32] = acc[n][e];
+  }
+  __syncthreads();
+  if (grp == 1) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i == 0 ? row_lo : row_hi;
+    if (row >= Sq) continue;        // ragged q tail: not written
+    T* drow = dq + b * osb + (int64_t)row * oss + (int64_t)h * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < C::NO; ++n)
+      store2(drow + 8 * n, (acc[n][2 * i] + red[(4 * n + 2 * i) * 32]) * scale,
+             (acc[n][2 * i + 1] + red[(4 * n + 2 * i + 1) * 32]) * scale);
+  }
+}
+
+constexpr int kKVThreads = 128;     // 4 warps: the 4 quarters of a query tile
+
+template <typename T, int HD>
+struct BwdKVCfg {
+  static constexpr int BKV = 16;                     // keys per block
+  static constexpr int BQ = HD <= 128 ? 64 : 32;     // query rows per tile: 4 quarters
+  static constexpr int NQ = BQ / 32;                 // score n-tiles per warp
+  static constexpr int DN = HD <= 64 ? HD : HD / 2;  // dK/dV columns per block
+  static constexpr int NO = DN / 8;
+  static constexpr int P = kPitch<T, HD>;
+  // K, V; Q, dO double-buffered
+  static constexpr size_t SMEM = sizeof(T) * (size_t)(2 * BKV + 4 * BQ) * P;
+  // warps 1-3's hand-over (dK, dV) in the Q and dO buffers
+  static_assert(sizeof(float) * 3 * 2 * NO * 4 * 32 <= sizeof(T) * 4 * BQ * P, "hand-over");
+};
+
+// dK and dV of 16 keys of one KV head, columns [d0, d0 + DN), summed over
+// the rep query heads of that KV head; warp w takes quarter w of each query
+// tile. dout contiguous (B, Sq, Hq, HD); dk, dv contiguous (B, Skv, Hkv,
+// HD); lse, delta (B, Hq, Sq).
+template <typename T, int HD>
+__global__ void __launch_bounds__(kKVThreads)
+flash_tf32_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int Hq,
+                           int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss,
+                           int64_t vsb, int64_t vss, float scale, float scale_log2, int causal,
+                           int window) {
+  using C = BwdKVCfg<T, HD>;
+  constexpr bool X = sizeof(T) == 2;
+  constexpr int BKV = C::BKV, BQ = C::BQ, NQ = C::NQ, NO = C::NO, P = C::P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);            // [BKV][P]
+  T* vs = ks + BKV * P;                              // [BKV][P]
+  T* qs = vs + BKV * P;                              // [2][BQ][P]
+  T* dos = qs + 2 * BQ * P;                          // [2][BQ][P]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int k0 = blockIdx.y * BKV;                   // the most causal work first
+  const int Hkv = Hq / rep;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int d0 = blockIdx.z * C::DN;
+  const int64_t oss = (int64_t)Hq * HD, osb = (int64_t)Sq * oss;
+
+  stage_tile<T, HD, BKV, kKVThreads>(ks, k + b * ksb + (int64_t)hk * HD, kss, k0, Skv,
+                                     threadIdx.x);
+  stage_tile<T, HD, BKV, kKVThreads>(vs, v + b * vsb + (int64_t)hk * HD, vss, k0, Skv,
+                                     threadIdx.x);
+
+  // query rows that may attend to a key of this tile: [q_begin, q_end);
+  // the work items are (query head, query tile), heads outermost
+  const int q_begin = causal ? k0 : 0;
+  long long q_end = Sq;
+  if (window >= 0) {
+    const long long last = (long long)min(k0 + BKV, Skv) - 1 + window;
+    q_end = last < q_end ? last : q_end;
+  }
+  const int qt_begin = q_begin / BQ;
+  const int n_qt = q_end > q_begin ? (int)((q_end + BQ - 1) / BQ) - qt_begin : 0;
+  const int items = rep * n_qt;
+  auto stage_item = [&](int it, int buf) {
+    const int h = hk * rep + it / n_qt, i0 = (qt_begin + it % n_qt) * BQ;
+    stage_tile<T, HD, BQ, kKVThreads>(qs + buf * BQ * P, q + b * qsb + (int64_t)h * HD, qss,
+                                      i0, Sq, threadIdx.x);
+    stage_tile<T, HD, BQ, kKVThreads>(dos + buf * BQ * P, dout + b * osb + (int64_t)h * HD,
+                                      oss, i0, Sq, threadIdx.x);
+  };
+  if (items > 0) stage_item(0, 0);
+  cp_async_commit();                // K, V and the first item
+
+  const int key_lo = k0 + g, key_hi = key_lo + 8;
+  float adk[NO][4], adv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+
+  for (int it = 0; it < items; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < items) stage_item(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();             // item it has landed
+    __syncthreads();
+    const int h = hk * rep + it / n_qt;
+    const int qb = (qt_begin + it % n_qt) * BQ + warp * (BQ / 4);   // the warp's first query
+    const T* qt = qs + buf * BQ * P + warp * (BQ / 4) * P;
+    const T* dt = dos + buf * BQ * P + warp * (BQ / 4) * P;
+
+    // lse (log2 units) and delta of this lane's queries qb + 8 j + 2 t + c
+    float l2[NQ][2], dl[NQ][2];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int qp = qb + 8 * j + 2 * t + c;
+        const int64_t i = ((int64_t)b * Hq + h) * Sq + qp;
+        l2[j][c] = qp < Sq ? lse[i] * kLog2e : 0.f;
+        dl[j][c] = qp < Sq ? delta[i] : 0.f;
+      }
+
+    // S^T = K Q^T and dP^T = V dO^T: rows the block's 16 keys, columns the
+    // warp's queries
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < HD / 8; ++kd) {
+      Frag<4> ak, av;
+      load_a<X, P>(ak, ks + 8 * kd, g, t);
+      load_a<X, P>(av, vs + 8 * kd, g, t);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        Frag<2> bq, bd;
+        load_b_nk<X, P>(bq, qt + 8 * j * P + 8 * kd, g, t);
+        load_b_nk<X, P>(bd, dt + 8 * j * P + 8 * kd, g, t);
+        mma3<X, X>(st[j], ak, bq);
+        mma3<X, X>(dpt[j], av, bd);
+      }
+    }
+
+    // P^T and dS^T; element e of n-tile j: key (e < 2 ? key_lo : key_hi),
+    // query qb + 8 j + 2 t + (e & 1)
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = e & 1, kp = e < 2 ? key_lo : key_hi, qp = qb + 8 * j + 2 * t + c;
+        const float p = live(qp, kp, Sq, Skv, causal, window)
+                            ? exp2_ftz(fmaf(st[j][e], scale_log2, -l2[j][c]))
+                            : 0.f;
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - dl[j][c]);
+      }
+
+    // dV += P^T dO, dK += dS^T Q, queries permuted in pairs
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      Frag<4> ap, as;
+      acc_to_a(ap, st[j]);
+      acc_to_a(as, dpt[j]);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        Frag<2> bd, bq;
+        load_b_kn<X, P>(bd, dt + 8 * j * P + d0 + 8 * n, g, t);
+        load_b_kn<X, P>(bq, qt + 8 * j * P + d0 + 8 * n, g, t);
+        mma3<false, X>(adv[n], ap, bd);
+        mma3<false, X>(adk[n], as, bq);
+      }
+    }
+    __syncthreads();                // item it's buffer may be refilled next
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // warps 1-3 hand their sums to warp 0, which adds them in warp order
+  float* red = reinterpret_cast<float*>(qs) + lane;  // [warp 1..3][dK, dV][NO][4][32]
+  if (warp > 0) {
+    float* mine = red + (warp - 1) * 2 * NO * 4 * 32;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        mine[(n * 4 + e) * 32] = adk[n][e];
+        mine[((NO + n) * 4 + e) * 32] = adv[n][e];
+      }
+  }
+  __syncthreads();
+  if (warp > 0) return;
+#pragma unroll
+  for (int w = 0; w < 3; ++w) {
+    const float* other = red + w * 2 * NO * 4 * 32;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        adk[n][e] += other[(n * 4 + e) * 32];
+        adv[n][e] += other[((NO + n) * 4 + e) * 32];
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = i == 0 ? key_lo : key_hi;
+    if (key >= Skv) continue;
+    const int64_t off = ((int64_t)b * Skv + key) * Hkv * HD + (int64_t)hk * HD + d0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      store2(dk + off + 8 * n, adk[n][2 * i] * scale, adk[n][2 * i + 1] * scale);
+      store2(dv + off + 8 * n, adv[n][2 * i], adv[n][2 * i + 1]);
+    }
   }
 }
 
@@ -853,16 +1168,20 @@ cudaError_t raise_smem_limit(K kernel, size_t bytes, int& attr_dev) {
   return e;
 }
 
+float log2_scale(float scale) { return (float)((double)scale * 1.4426950408889634); }
+
 template <int HD>
 int launch_fp32(const Args& a) {
   static int attr_dev = -1;
-  cudaError_t e = raise_smem_limit(flash_kernel<HD>, smem_bytes(HD), attr_dev);
+  cudaError_t e = raise_smem_limit(flash_tf32_kernel<HD>, Tf32Cfg<HD>::SMEM, attr_dev);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.Hq);
-  flash_kernel<HD><<<grid, kThreads, smem_bytes(HD), a.st>>>(
+  // query tiles on y: the blocks with the most causal work start first
+  const dim3 grid(a.B * a.Hq, (a.Sq + kBQ - 1) / kBQ);
+  flash_tf32_kernel<HD><<<grid, kPairThreads, Tf32Cfg<HD>::SMEM, a.st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.Sq, a.Skv, a.Hq, a.rep,
-      a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.osb, a.oss, a.scale, a.causal, a.window);
+      a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.osb, a.oss, log2_scale(a.scale), a.causal,
+      a.window);
   return (int)cudaGetLastError();
 }
 
@@ -904,30 +1223,30 @@ struct BwdArgs {
 
 template <typename T, int HD>
 int launch_bwd(const BwdArgs& a) {
-  using C = BwdCfg<HD>;
-  static int attr_kv = -1, attr_q = -1;
-  cudaError_t e = raise_smem_limit(flash_bwd_dkdv_kernel<T, HD>, C::SMEM_KV, attr_kv);
+  using CQ = BwdQCfg<T, HD>;
+  using CKV = BwdKVCfg<T, HD>;
+  static int attr_q = -1, attr_kv = -1;
+  cudaError_t e = raise_smem_limit(flash_tf32_bwd_dq_kernel<T, HD>, CQ::SMEM, attr_q);
   if (e != cudaSuccess) return (int)e;
-  e = raise_smem_limit(flash_bwd_dq_kernel<T, HD>, C::SMEM_Q, attr_q);
+  e = raise_smem_limit(flash_tf32_bwd_dkdv_kernel<T, HD>, CKV::SMEM, attr_kv);
   if (e != cudaSuccess) return (int)e;
   const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
           *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
-  const int64_t rows = (int64_t)a.B * a.Sq * a.Hq;
-  flash_bwd_preprocess_kernel<T, HD><<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)),
-                                       kThreads, 0, a.st>>>(static_cast<const T*>(a.o), dout,
-                                                            a.delta, rows, a.Sq, a.Hq);
+  const float scale_log2 = log2_scale(a.scale);
+  // query (key) tiles on y: the blocks with the most causal work start first
+  flash_tf32_bwd_dq_kernel<T, HD><<<dim3(a.B * a.Hq, (a.Sq + kBQ - 1) / kBQ), kPairThreads,
+                                    CQ::SMEM, a.st>>>(
+      q, k, v, static_cast<const T*>(a.o), dout, a.lse, a.delta, static_cast<T*>(a.dq), a.Sq,
+      a.Skv, a.Hq, a.rep, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, scale_log2,
+      a.causal, a.window);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkdv_kernel<T, HD><<<dim3((a.Skv + C::BT - 1) / C::BT, a.B * (a.Hq / a.rep)),
-                                 kThreads, C::SMEM_KV, a.st>>>(
+  flash_tf32_bwd_dkdv_kernel<T, HD><<<dim3(a.B * (a.Hq / a.rep),
+                                           (a.Skv + CKV::BKV - 1) / CKV::BKV, HD / CKV::DN),
+                                      kKVThreads, CKV::SMEM, a.st>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Skv,
-      a.Hq, a.rep, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, a.causal, a.window);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  flash_bwd_dq_kernel<T, HD><<<dim3((a.Sq + C::BT - 1) / C::BT, a.B * a.Hq), kThreads,
-                               C::SMEM_Q, a.st>>>(
-      q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), a.Sq, a.Skv, a.Hq, a.rep, a.qsb,
-      a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, a.causal, a.window);
+      a.Hq, a.rep, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, scale_log2, a.causal,
+      a.window);
   return (int)cudaGetLastError();
 }
 
@@ -965,15 +1284,15 @@ int dispatch(int hd, int dtype, const A& a) {
 
 }  // namespace
 
-// q, o (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd); dtype 0 = float32 (flash_kernel),
-// 1 = bfloat16 (flash_mma_kernel) for all four. Strides in elements: *sb
-// between batches, *ss between rows; the head stride must be hd and the
-// element stride 1; for bfloat16 the pointers and the batch and row strides
-// must be 16-byte aligned. window < 0 = none. lse, when not null, receives
-// each row's log-sum-exp of scale * q . k over its unmasked keys, fp32,
-// contiguous (B, Hq, Sq) (the backward's input); o does not depend on it.
-// Requires hd in 16..256 a multiple of 16, Hq % Hkv == 0, Sq >= 1,
-// B * Hq <= 65535. Returns cudaGetLastError().
+// q, o (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd); dtype 0 = float32
+// (flash_tf32_kernel), 1 = bfloat16 (flash_mma_kernel) for all four.
+// Strides in elements: *sb between batches, *ss between rows; the head
+// stride must be hd and the element stride 1; the pointers and the batch
+// and row strides must be 16-byte aligned (cp.async). window < 0 = none.
+// lse, when not null, receives each row's log-sum-exp of scale * q . k over
+// its unmasked keys, fp32, contiguous (B, Hq, Sq) (the backward's input); o
+// does not depend on it. Requires hd in 16..256 a multiple of 16,
+// Hq % Hkv == 0, Sq >= 1, B * Hq <= 65535. Returns cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int hd,
                                       long long qsb, long long qss, long long ksb,
@@ -990,11 +1309,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 
 // The backward of flash_attention_launch (same B, Sq, Skv, Hq, Hkv, hd, scale,
 // causal, window and dtype): q, k, v with the forward's strides; o, dout and
-// dq (B, Sq, Hq, hd), dk and dv (B, Skv, Hkv, hd) contiguous in the dtype;
-// lse (the forward's) and delta (scratch) fp32 contiguous (B, Hq, Sq). Three
-// launches on `stream`: flash_bwd_preprocess_kernel, flash_bwd_dkdv_kernel,
-// flash_bwd_dq_kernel. Requires Sq, Skv >= 1 and the forward's limits.
-// Returns the first CUDA error, else cudaGetLastError().
+// dq (B, Sq, Hq, hd), dk and dv (B, Skv, Hkv, hd) contiguous in the dtype,
+// dout 16-byte aligned; lse (the forward's) and delta (scratch) fp32
+// contiguous (B, Hq, Sq). Two launches on `stream`: flash_tf32_bwd_dq_kernel
+// (dq, and delta for the next), then flash_tf32_bwd_dkdv_kernel. Requires
+// Sq, Skv >= 1, Skv <= 16 * 65535 and the forward's limits. Returns the
+// first CUDA error, else cudaGetLastError().
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           void* delta, void* dq, void* dk, void* dv, int B,
@@ -1003,7 +1323,8 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
                                           long long kss, long long vsb, long long vss,
                                           float scale, int causal, int window, int dtype,
                                           void* stream) {
-  if (Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Skv < 1 || B < 1 || (long long)B * Hq > 65535)
+  if (Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Skv < 1 || B < 1 || (long long)B * Hq > 65535 ||
+      Skv > 16 * 65535)
     return (int)cudaErrorInvalidValue;
   const BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta),
                   dq, dk, dv, B, Sq, Skv, Hq, Hq / Hkv, qsb, qss, ksb, kss, vsb, vss, scale,

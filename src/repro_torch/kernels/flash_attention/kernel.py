@@ -1,4 +1,4 @@
-"""Wrapper of the hand-written CUDA flash-attention kernel
+"""Wrapper of the hand-written CUDA flash-attention kernels
 (csrc/flash_attention.cu).
 
 `flash_attention` checks its inputs, allocates the output and launches the
@@ -10,16 +10,19 @@ contiguous, as they are after a reshape of a projection).
 `flash_attention.launches_by_case` counts them by call, keyed
 (B, Sq, Hq, Hkv, hd, causal, window).
 
-`flash_attention_bwd` is the backward (the `flash_bwd_*_kernel`s of the
-same source, fp32 arithmetic on the CUDA cores for both dtypes); its
-`launches` and `launches_by_case` count wrapper calls, three CUDA launches
-each. `ops.FlashAttentionFn` joins the two for autograd.
+`flash_attention_bwd` is the backward (`flash_tf32_bwd_dq_kernel`, which
+also computes delta, then `flash_tf32_bwd_dkdv_kernel`, split-TF32 products
+on the tensor cores for both dtypes); its `launches` and `launches_by_case`
+count wrapper calls, two CUDA launches each. `ops.FlashAttentionFn` joins
+the two for autograd.
 
-The dtype picks the kernel, by a fixed rule and not as a fallback:
-bfloat16 goes to `flash_mma_kernel` (tensor cores, cp.async staging, so its
-pointers and batch and row strides must be 16-byte aligned, or the wrapper
-raises), float32 to `flash_kernel` (fp32 FMAs on the CUDA cores, so fp32
-stays IEEE fp32).
+The dtype picks the forward kernel, by a fixed rule and not as a fallback:
+bfloat16 goes to `flash_mma_kernel` (bf16 products on the tensor cores),
+float32 to `flash_tf32_kernel` (each fp32 operand split into two TF32
+terms, three tensor-core products per fp32 one: as close to the function
+as IEEE fp32). Every kernel stages its tiles by 16-byte cp.async, so q, k,
+v need 16-byte aligned pointers and batch and row strides in both dtypes,
+or the wrapper raises.
 """
 from __future__ import annotations
 
@@ -77,11 +80,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[i
         if t.stride(3) != 1 or t.stride(2) != hd:
             raise ValueError(f"flash_attention: {name} needs head stride hd and element "
                              f"stride 1, got strides {t.stride()}")
-        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(
-                t.shape[d] > 1 and t.stride(d) % 8 for d in (0, 1))):
-            raise ValueError(f"flash_attention: bf16 {name} needs a 16-byte aligned pointer "
-                             f"and batch and row strides, got pointer {t.data_ptr():#x} "
-                             f"and strides {t.stride()}")
+        if not _aligned(t):
+            raise ValueError(f"flash_attention: {name} needs a 16-byte aligned pointer and "
+                             f"batch and row strides, got pointer {t.data_ptr():#x} and "
+                             f"strides {t.stride()} of {t.element_size()}-byte elements")
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """cp.async moves 16 bytes: the pointer and the batch and row strides
+    must be multiples of 16 bytes."""
+    per = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and not any(
+        t.shape[d] > 1 and t.stride(d) % per for d in (0, 1))
 
 
 def _count(fn, q, k, causal, window):
@@ -128,8 +138,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     """(dq, dk, dv) of `flash_attention(q, k, v, ...)` on the card, given its
     output `o` and log-sum-exp `lse` (`return_lse=True`) and the output's
     gradient `do`. The same inputs as the forward, the same options;
-    gradients in q's dtype, contiguous. Three CUDA launches (delta, dK/dV,
-    dQ), no atomics: the same inputs give the same bits."""
+    gradients in q's dtype, contiguous. Two CUDA launches (dQ and delta,
+    then dK/dV), no atomics: the same inputs give the same bits."""
     _check(q, k, v, window)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -141,8 +151,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                          f"{tuple(lse.shape)} {lse.dtype}")
     if o.device != q.device or do.device != q.device or lse.device != q.device:
         raise ValueError("flash_attention_bwd: all inputs must be on one device")
-    # the kernels read o, do and lse as contiguous; autograd's do may be a view
+    # the kernels read o, do and lse as contiguous, do by cp.async; autograd's
+    # do may be a view (a copy makes it contiguous and aligned)
     o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    if not _aligned(do):
+        do = do.clone()
     dq = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Skv, Hkv, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)

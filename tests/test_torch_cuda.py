@@ -21,6 +21,12 @@ one packed (B, S, H*P + 2N) tensor at four alignments, equal bit for bit to
 the contiguous call and within the JAX tests' tolerance of the plain
 version; a misaligned bf16 K1 input raises before any launch.
 
+K1's fp32 kernels (split TF32 on the tensor cores): the forward at every
+head-dim class under the long fp32 rule (|d| <= 1e-4 max|ref|), the
+backward at every head-dim class in fp32 and bf16 (GQA 7, causal plus
+window, two runs bit for bit), and a misaligned fp32 input raises before
+any launch, forward and backward.
+
 The decoder slice: K1 in bf16 at the full-sequence forward shapes of
 gemma3-4b (S=4096, 8/4 heads of 256, window 1024) and mixtral-8x7b (S=4096,
 32/8 heads of 128, window 4096) under the same per-element rule; reduced
@@ -328,6 +334,78 @@ def test_bf16_kernel_raises_on_misaligned_input(cuda, where):
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention(q, k, v)
     assert flash_attention.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MMA_CASES)
+@pytest.mark.parametrize("hd", MMA_HDS)
+def test_fp32_kernel_at_every_head_dim(cuda, hd, case):
+    """flash_tf32_kernel (split TF32) at every head-dim class (64-key tiles
+    up to hd = 128, 32 above) with ragged Sq and Skv, under chip_smoke.py's
+    long fp32 rule |d| <= 1e-4 max|ref|."""
+    B, Sq, Skv, Hq, Hkv, causal, window = case
+    q, k, v = _qkv(B, Sq, Skv, Hq, Hkv, hd, torch.float32, cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    qp = torch.arange(Sq, device=cuda)[None].expand(B, Sq)
+    kp = torch.arange(Skv, device=cuda)[None].expand(B, Skv)
+    ref = attention_ref(q, k, v, qp, kp, causal=causal, window=window)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["pointer", "row stride"])
+def test_fp32_kernel_raises_on_misaligned_input(cuda, where):
+    """The fp32 kernels stage by 16-byte cp.async too: an fp32 q whose
+    pointer or row stride is not 16-byte aligned is refused before anything
+    launches, forward and backward."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
+    B, S, H, hd = 1, 64, 2, 16
+    if where == "pointer":
+        q = torch.randn(B * S * H * hd + 1, device=cuda)[1:].view(B, S, H, hd)
+    else:
+        q = torch.randn(B, S, H * hd + 2, device=cuda)[..., :H * hd].unflatten(-1, (H, hd))
+    k, v = (torch.randn(B, S, H, hd, device=cuda) for _ in range(2))
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, k, v)
+    o, lse = flash_attention(q.clone(), k, v, return_lse=True)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bwd(q, k, v, o, lse, torch.randn_like(o))
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (f0 + 1, b0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname", ["fp32", "bf16"])
+@pytest.mark.parametrize("hd", MMA_HDS)
+def test_flash_backward_at_every_head_dim(cuda, hd, dname):
+    """The split-TF32 backward at every head-dim class (dK/dV columns split
+    in two blocks above hd = 64, 16-key dQ tiles above 128), ragged S, GQA 7,
+    causal plus window, against attention_bwd_ref on the kernel's own o and
+    lse under chip_smoke.py's long rules (fp32 |d| <= 1e-4 max|ref|; bf16
+    |d| <= 1e-2 |ref| + 1e-4 max|ref|), two runs bit for bit."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    dtype = torch.float32 if dname == "fp32" else torch.bfloat16
+    B, S, Hq, Hkv = 2, 200, 7, 1
+    q, k, v = _qkv(B, S, S, Hq, Hkv, hd, dtype, cuda)
+    do = _qkv(B, S, S, Hq, Hkv, hd, dtype, cuda, seed=1)[0]
+    o, lse = flash_attention(q, k, v, causal=True, window=50, return_lse=True)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=50)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=50)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=50)
+    for g, w in zip(grads, want):
+        w, err = w.float(), (g.float() - w.float()).abs()
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        if dname == "fp32":
+            assert err.max() <= 1e-4 * w.abs().max()
+        else:
+            assert bool((err <= 1e-2 * w.abs() + 1e-4 * w.abs().max()).all())
 
 
 @pytest.mark.gpu

@@ -1,0 +1,211 @@
+"""The split-TF32 arithmetic of K1's fp32 kernels, emulated on the CPU.
+
+The CUDA kernels (src/repro_torch/kernels/flash_attention/csrc/
+flash_attention.cu: `flash_tf32_kernel`, `flash_tf32_bwd_dq_kernel`,
+`flash_tf32_bwd_dkdv_kernel`) round each fp32 operand to TF32 with
+`cvt.rna.tf32.f32` (hi), round its residue again (lo), and take three
+tensor-core products lo_a hi_b + hi_a lo_b + hi_a hi_b into one fp32
+accumulator; the forward's P V splits V in three terms (four products).
+Here that arithmetic is written in plain torch: TF32 rounding by int32 bit
+operations, exact products and sums (float64), each product's result
+rounded to fp32. The emulated forward and the backward's five products
+(S, dP, dV, dK, dQ) are held against float64 (`attention_ref`,
+`attention_bwd_ref`) under chip_smoke.py's fp32 rules: small cases
+|d| <= 2e-5 (|ref| + max|ref|), long ones |d| <= 1e-4 max|ref|. A single
+TF32 product at the same inputs misses the long rule, so the split cannot
+be dropped quietly. Inputs are standard normal (the JAX flash tests'
+distribution), from numpy with a seed.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+
+# (B, S, Hq, Hkv, hd, causal, window): three of chip_smoke.py phase 19 (a)'s
+# small cases and one of its long ones
+SMALL = [(1, 64, 4, 4, 16, True, None), (2, 128, 4, 2, 32, True, None),
+         (1, 80, 3, 1, 16, True, 24)]
+LONG = [(2, 200, 7, 1, 64, True, 50)]
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 as cvt.rna.tf32.f32 does: to nearest on the 10
+    mantissa bits, ties away from zero (add half of the dropped range to
+    the bit pattern, then clear the 13 low bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split(x):
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def split3(x):
+    hi = tf32(x)
+    r = x - hi
+    mid = tf32(r)
+    return hi, mid, r - mid
+
+
+def _mm(eq, pairs):
+    """sum of einsum(eq, a, b) over (a, b) pairs, exact products and sum in
+    float64, the result rounded to fp32 (one fp32 accumulator)."""
+    return sum(torch.einsum(eq, a.double(), b.double()) for a, b in pairs).float()
+
+
+def mm3(eq, a, b):
+    (ah, al), (bh, bl) = split(a), split(b)
+    return _mm(eq, [(al, bh), (ah, bl), (ah, bh)])
+
+
+def mm1(eq, a, b):
+    return _mm(eq, [(tf32(a), tf32(b))])
+
+
+def mm_pv(eq, p, v):
+    """the forward's P V: P in two terms, V in three (hi + mid + lo = v)."""
+    (ph, pl), (vh, vm, vl) = split(p), split3(v)
+    return _mm(eq, [(pl, vh), (ph, vl), (ph, vm), (ph, vh)])
+
+
+def _inputs(case, seed=0):
+    B, S, Hq, Hkv, hd, _, _ = case
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, S, h, hd), dtype=np.float32))
+                   for h in (Hq, Hkv, Hkv, Hq))
+    pos = torch.arange(S)[None].expand(B, S)
+    return q, k, v, do, pos
+
+
+def _mask(case):
+    B, S, _, _, _, causal, window = case
+    i = torch.arange(S)
+    keep = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        keep &= i[None, :] <= i[:, None]
+    if window is not None:
+        keep &= i[None, :] > i[:, None] - window
+    return keep                                          # (query, key)
+
+
+def emulated_forward(case, q, k, v, mm=mm3, pv=mm_pv):
+    """The kernel's forward in split TF32: S = Q K^T, scores scaled in fp32,
+    masked, softmax in fp32, O = P V / l. Returns (o, lse)."""
+    rep, hd = case[2] // case[3], case[4]
+    kr, vr = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
+    s = mm("bqhd,bkhd->bhqk", q, kr) * hd ** -0.5
+    s = torch.where(_mask(case), s, torch.tensor(-1e30))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(_mask(case), torch.exp(s - m), torch.tensor(0.0))
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = pv("bhqk,bkhd->bqhd", p, vr) / l.permute(0, 2, 1, 3)
+    return o, (m + torch.log(l))[..., 0]
+
+
+def emulated_backward(case, q, k, v, o, lse, do, mm=mm3):
+    """The kernels' backward in split TF32: the five products S, dP, dV, dK,
+    dQ; P = exp(scale S - lse) masked, delta = rowsum(dO O) in fp32."""
+    B, S, Hq, Hkv, hd = case[:5]
+    rep, scale = Hq // Hkv, hd ** -0.5
+    kr, vr = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
+    s = mm("bqhd,bkhd->bhqk", q, kr)
+    p = torch.where(_mask(case), torch.exp(s * scale - lse[..., None]), torch.tensor(0.0))
+    dp = mm("bqhd,bkhd->bhqk", do, vr)
+    delta = (do * o).sum(-1).transpose(1, 2)
+    ds = p * (dp - delta[..., None])
+    dv = mm("bhqk,bqhd->bkhd", p, do)
+    dk = mm("bhqk,bqhd->bkhd", ds, q) * scale
+    dq = mm("bhqk,bkhd->bqhd", ds, kr) * scale
+    return (dq, dk.view(B, S, Hkv, rep, hd).sum(3), dv.view(B, S, Hkv, rep, hd).sum(3))
+
+
+def _reference(case, q, k, v, do, pos):
+    """float64 output, lse and gradients of the plain versions."""
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    o64, lse64 = attention_ref(q64, k64, v64, pos, pos, causal=case[5], window=case[6],
+                               return_lse=True)
+    grads = attention_bwd_ref(q64, k64, v64, o64, lse64, do64, causal=case[5],
+                              window=case[6])
+    return o64, grads
+
+
+def _passes(got, ref, small):
+    """chip_smoke.py's fp32 rule; also the largest |d| / max|ref|."""
+    err = (got.double() - ref).abs()
+    mref = ref.abs().max().item()
+    ok = bool((err <= 2e-5 * (ref.abs() + mref)).all()) if small else err.max().item() <= 1e-4 * mref
+    return ok, err.max().item() / mref
+
+
+@pytest.mark.parametrize("case", SMALL + LONG)
+def test_split_tf32_forward_passes_the_fp32_rule(case):
+    q, k, v, do, pos = _inputs(case)
+    o, lse = emulated_forward(case, q, k, v)
+    o64, lse64 = attention_ref(q.double(), k.double(), v.double(), pos, pos, causal=case[5],
+                               window=case[6], return_lse=True)
+    ok, rel = _passes(o, o64, case in SMALL)
+    assert ok and rel < 1e-6, rel
+    assert (lse.double() - lse64).abs().max().item() <= 1e-5 * lse64.abs().max().item()
+
+
+@pytest.mark.parametrize("case", SMALL + LONG)
+def test_split_tf32_backward_passes_the_fp32_rule(case):
+    q, k, v, do, pos = _inputs(case)
+    o, lse = attention_ref(q, k, v, pos, pos, causal=case[5], window=case[6], return_lse=True)
+    _, refs = _reference(case, q, k, v, do, pos)
+    for name, g, r in zip(("dq", "dk", "dv"), emulated_backward(case, q, k, v, o, lse, do), refs):
+        ok, rel = _passes(g, r, case in SMALL)
+        assert ok and rel < 1e-6, (name, rel)
+
+
+@pytest.mark.parametrize("case", LONG)
+def test_one_tf32_product_misses_the_long_rule(case):
+    """The design's reason: one TF32 product per fp32 product keeps 11 bits
+    of each operand, ~5x outside |d| <= 1e-4 max|ref| on o and on every
+    gradient."""
+    q, k, v, do, pos = _inputs(case)
+    o64, refs = _reference(case, q, k, v, do, pos)
+    o, lse = emulated_forward(case, q, k, v, mm=mm1, pv=mm1)
+    assert not _passes(o, o64, small=False)[0]
+    o32, lse32 = attention_ref(q, k, v, pos, pos, causal=case[5], window=case[6],
+                               return_lse=True)
+    for g, r in zip(emulated_backward(case, q, k, v, o32, lse32, do, mm=mm1), refs):
+        assert not _passes(g, r, small=False)[0]
+
+
+def test_three_term_v_returns_each_rows_value_at_window_one():
+    """window = 1: each row's only live key has p = 1, so O = V. With V in
+    three TF32 terms (the forward's P V) that holds bit for bit, as in IEEE
+    fp32 and chip_smoke.py phase 7's check; with two terms it does not."""
+    case = (1, 64, 2, 2, 16, True, 1)
+    q, k, v, _, _ = _inputs(case, seed=3)
+    o, _ = emulated_forward(case, q, k, v)
+    assert torch.equal(o, v)
+    two = lambda eq, p, x: _mm(eq, [(split(p)[1], split(x)[0]), (split(p)[0], split(x)[1]),
+                                     (split(p)[0], split(x)[0])])
+    o2, _ = emulated_forward(case, q, k, v, pv=two)
+    assert not torch.equal(o2, v)
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    one = torch.tensor([1.0, -1.0])
+    ulp = 2.0 ** -10                                     # TF32's step at 1
+    x = torch.cat([one * (1 + ulp / 2), one * (1 + ulp / 2 - 2.0 ** -20),
+                   one * (1 + 3 * ulp / 4)])
+    want = torch.cat([one * (1 + ulp), one, one * (1 + ulp)])
+    assert torch.equal(tf32(x), want)
+    assert (tf32(torch.randn(1000)).view(torch.int32) & 0x1FFF).eq(0).all()
+
+
+def test_split_terms_carry_the_value():
+    """hi + lo keeps ~22 bits (|x - hi - lo| <= 2^-22 |x|); hi + mid + lo of
+    the three-term split is x exactly, each term a TF32 value."""
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(4096, dtype=np.float32))
+    hi, lo = split(x)
+    assert ((x.double() - hi.double() - lo.double()).abs() <= 2.0 ** -22 * x.double().abs()).all()
+    h, m, lw = split3(x)
+    assert torch.equal(h.double() + m.double() + lw.double(), x.double())
+    for t in (h, m, lw):
+        assert torch.equal(tf32(t), t)
