@@ -13,6 +13,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      and `flash_tf32_bwd_dkdv_kernel` at (float, 64) and (bf16, 64); every
      other instantiation printed), and, where the toolkit has cuobjdump,
      the count of HMMA TF32 instructions in the split-TF32 kernels' SASS;
+     K2's CUDA-core kernels (the fp32 forward's and the backward's, both
+     dtypes) printed and held to no spills;
   3. the SSD-scan kernel against its plain PyTorch version on the card, at
      the JAX kernel tests' shapes and the serving shapes (mamba2-370m's and
      zamba2-1.2b's: H=64, N=64, S=1024, a ragged 1000 and its forward's
@@ -168,12 +170,39 @@ Phases, each printed on its own lines; any failure exits non-zero:
      within 1e-5, grad norms within 1e-4 relative; (e) host and device time
      of one step, idle share, launches, the largest device items, K1's
      forward and backward shares, tokens/s.
+ 20. SSM and hybrid training (K2 forward and backward on every SSM layer,
+     K1's on zamba2's shared block): (a) K2's backward (`ssd_bwd_*`
+     kernels on the CUDA cores, fp32 arithmetic for both dtypes) against
+     `ssd_chunked_bwd_ref` on the forward's own states, at the JAX kernel
+     tests' shapes, a ragged S = 1000 and the two training shapes (8, 256,
+     32 heads of 64, N 128; 8, 256, 64 heads of 64, N 64), fp32 and bf16,
+     contiguous and strided, and with a nonzero final-state gradient, under
+     phase 3's rules relative to each reference gradient's largest
+     magnitude; two runs bit for bit; the forward with its states the same
+     bits as without; (b) K2's fp32 forward (with states) and backward at
+     both training shapes on the strided views: device time beside the
+     bound (IEEE fp32 on the CUDA cores, or bytes) and the plain versions,
+     and `SSDScanFn`'s forward + backward through autograd; (c)
+     `repro_torch.launch.train.main` for mamba2-370m at full width (random
+     weights from seed 0, fp32, remat "block", batch 8 x 256): 20 steps, a
+     checkpoint every 5, a failure injected before step 12: one restart, a
+     contiguous log, the final checkpoint at step 20, 96 K2 forward and 48
+     backward calls per step run, falling losses, and an uninterrupted run
+     with every loss equal bit for bit; (d) zamba2-1.2b at full width
+     through the launcher, 4 steps: 76 K2 forward, 38 backward, 6 K1
+     forward and 6 backward calls per step, finite losses; (e) mamba2 cut
+     to 2 layers (8 x 256) and zamba2 to 6 (one application, 2 x 256)
+     trained 3 steps on the card and the CPU: losses within 1e-5, grad
+     norms within 1e-4 relative; (f) host and device time of one step of
+     each: idle share, launches, the largest device items, K2's forward and
+     backward shares, tokens/s (one JSON line, {"ssm_training": ...}).
 The line before the last is the kernels' JSON record: the SSD scan once per
 path and shape it ran (mamba2-370m's prefills; zamba2-1.2b's forward,
 prefills and replay) and the flash-attention kernel
 once per path and shape (the whisper encoder, gemma3-4b's local and global
 layers, mixtral-8x7b, zamba2-1.2b, and K1's forward and backward on the
-training path of phase 19), each with the launches of its path's run and
+training path of phase 19), and K2's fp32 forward and backward on the two
+training paths of phase 20, each with the launches of its path's run and
 the error and times at its shape; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repo's
 sources beside it, the script fails before printing any result.
@@ -204,18 +233,15 @@ MMA_KERNELS = ("flash_mma_kernel", "chunk_state_kernel", "state_pass_kernel",
 K1_FP32 = "flash_tf32_kernel"       # K1's fp32 forward (split TF32)
 
 
-def ptxas_report(log):
-    """{tensor-core kernel name (with its head dim): [registers, spill store
-    bytes, spill load bytes]} of the forward kernels from nvcc's -Xptxas -v
-    output."""
+def ptxas_table(log, name_of):
+    """{name_of(mangled name): [registers, spill store bytes, spill load
+    bytes]} from nvcc's -Xptxas -v output, for the kernels name_of names
+    (it returns None for the others)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            # mangled: <length><name>, then I Li<hd> E for a head-dim template
-            k = re.search(r"\d(" + "|".join(MMA_KERNELS + (K1_FP32,)) + r")(ILi(\d+)E)?",
-                          m.group(1))
-            name = k and k.group(1) + (f"<{k.group(3)}>" if k.group(3) else "")
+            name = name_of(m.group(1))
             if name:
                 out[name] = [0, 0, 0]
         elif name and "spill stores" in line:
@@ -224,6 +250,13 @@ def ptxas_report(log):
         elif name and "registers" in line:
             out[name][0] = int(re.search(r"Used (\d+) registers", line).group(1))
     return out
+
+
+def fwd_name(mangled):
+    """"<tensor-core forward kernel><hd>" of a mangled name, or None:
+    <length><name>, then I Li<hd> E for a head-dim template."""
+    k = re.search(r"\d(" + "|".join(MMA_KERNELS + (K1_FP32,)) + r")(ILi(\d+)E)?", mangled)
+    return k and k.group(1) + (f"<{k.group(3)}>" if k.group(3) else "")
 
 
 def check(cond, msg):
@@ -258,18 +291,30 @@ def strided_views(torch, case, args):
     return xs.unflatten(-1, (H, P)), dt, A, Bs, Cs, D
 
 
-def ssd_work(case, dtype_name):
-    """Bytes (each input read once, each output written once) and FLOPs of
-    one scan, as counted for the bound."""
-    B, S, H, P, N, chunk = case
+def chunk_pairs(case):
+    """(T, the first chunk's rows, the last chunk's rows) of `case`'s chunks:
+    T is the number of causal pairs s <= t within a chunk, summed over the
+    chunks; a ragged last chunk counts its real rows only."""
+    _, S, _, _, _, chunk = case
     Q = min(chunk, S)
-    nc = -(-S // Q)
+    rows = [Q] * (S // Q) + ([S % Q] if S % Q else [])
+    return sum(q * (q + 1) // 2 for q in rows), rows[0], rows[-1]
+
+
+def ssd_work(case, dtype_name):
+    """Bytes (each input read once, each output written once) and the FLOPs
+    one scan needs: per sequence C B^T over the causal pairs (2 T N), per
+    head the masked M x (2 T P), each chunk's state from its rows (2 S N P)
+    and the entering state's term in every chunk but the first, whose
+    entering state is zero (2 (S - q0) N P)."""
+    B, S, H, P, N, chunk = case
+    T, q0, _ = chunk_pairs(case)
     e = 2 if dtype_name == "bf16" else 4
     nbytes = (2 * B * S * H * P * e          # x in, y out
               + 2 * B * S * N * e            # B, C
               + B * S * H * 4 + 2 * H * 4    # dt, A, D
               + B * H * P * N * 4)           # final state
-    flops = B * nc * (2 * Q * Q * N + H * (2 * Q * Q * P + 4 * Q * N * P))
+    flops = B * (2 * T * N + H * (2 * T * P + 2 * S * N * P + 2 * (S - q0) * N * P))
     return nbytes, flops
 
 
@@ -1151,24 +1196,6 @@ def bwd_name(mangled):
     return k and f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, {k.group(3)}>"
 
 
-def bwd_ptxas_report(log):
-    """{"flash_tf32_bwd_*_kernel<dtype, hd>": [registers, spill store bytes,
-    spill load bytes]} of K1's backward kernels from nvcc's -Xptxas -v output."""
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = bwd_name(m.group(1))
-            if name:
-                out[name] = [0, 0, 0]
-        elif name and "spill stores" in line:
-            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
-            out[name][1:] = [int(st), int(ld)]
-        elif name and "registers" in line:
-            out[name][0] = int(re.search(r"Used (\d+) registers", line).group(1))
-    return out
-
-
 def sass_hmma_counts():
     """{split-TF32 kernel name: (HMMA instructions, of them TF32)} from
     cuobjdump -sass of the built flash-attention library, or None where the
@@ -1451,6 +1478,371 @@ def train_path(torch, np):
              "max_abs_err": err_train, **out["backward"]}]
 
 
+K2_CUDA_CORE = re.compile(r"\d(ssd_bwd_\w+?_kernel|scan_kernel|cb_kernel)(?:I(f|13__nv_bfloat16)E)?")
+
+
+def k2_cuda_core_name(mangled):
+    """"<kernel><dtype>" of K2's CUDA-core kernels (the fp32 forward's and
+    the backward's) from a mangled name, or None."""
+    k = K2_CUDA_CORE.search(mangled)
+    return k and k.group(1) + ("" if not k.group(2) else
+                               "<float>" if k.group(2) == "f" else "<bf16>")
+
+
+def ssd_bwd_work(case, dtype_name, final_state=False):
+    """Bytes (x, dy, B, C, dt, A, D, the forward's states and dhT read once;
+    dx, dB, dC, ddt, dA, dD written once) and the FLOPs one backward needs,
+    over the causal pairs of each chunk (T, `chunk_pairs`): per sequence
+    C B^T recomputed and its two gradients dC and dB (6 T N); per head
+    dy x^T for dS and M^T dy for dx (4 T P), U = sum_t e^L_t dy_t^T C_t and
+    dC's inter term in every chunk but the first, whose entering state is
+    zero and whose state gradient nothing reads (4 (S - q0) N P), and dx's
+    and dB's state terms where the gradient of the state leaving the chunk
+    is nonzero: every chunk but the last, or all with dhT (4 S' N P)."""
+    B, S, H, P, N, chunk = case
+    T, q0, q_last = chunk_pairs(case)
+    nc = -(-S // min(chunk, S))
+    e = 2 if dtype_name == "bf16" else 4
+    nbytes = (3 * B * S * H * P * e + 4 * B * S * N * e + 2 * B * S * H * 4 + 4 * H * 4
+              + B * nc * H * P * N * 4 + (B * H * P * N * 4 if final_state else 0))
+    s_state = S if final_state else S - q_last
+    flops = B * (6 * T * N + H * (4 * T * P + 4 * (S - q0) * N * P + 4 * s_state * N * P))
+    return nbytes, flops
+
+
+def hold_ssd_bwd(torch, case, dname, final_state):
+    """K2's backward at `case` in `dname` ("fp32", "bf16", either with
+    " strided": x, B, C as views of one packed tensor), given the kernel
+    forward's states, against `ssd_chunked_bwd_ref` given the plain
+    forward's, with the final state's gradient or without; two runs bit for
+    bit; the forward with its states the same bits as without, and its
+    states (fp32 in both dtypes) within phase 3's fp32 rule of the plain
+    forward's. The gradients' rule is phase 3's, relative to each reference
+    gradient's largest magnitude: fp32 gradients (and the fp32 ddt, dA, dD
+    of a bf16 call) |d| <= 3e-4 max|ref|; bf16 dx, dB, dC
+    |d| <= 1e-2 |ref| + 3e-4 max|ref|. Returns the largest |d| over the six."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_bwd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref, ssd_chunked_ref
+    dtype = torch.float32 if dname.startswith("fp32") else torch.bfloat16
+    args = ssd_inputs(torch, case, dtype)
+    if dname.endswith("strided"):
+        args = strided_views(torch, case, args)
+    g = torch.Generator("cuda").manual_seed(SEED + 1)
+    B, S, H, P, N, chunk = case
+    dy = torch.randn(B, S, H, P, generator=g, device="cuda").to(dtype)
+    dhT = torch.randn(B, H, P, N, generator=g, device="cuda") if final_state else None
+    y0, h0 = ssd_scan(*args, chunk=chunk)
+    y, h, h_prev = ssd_scan(*args, chunk=chunk, return_states=True)
+    grads = ssd_scan_bwd(*args, h_prev, dy, dhT, chunk=chunk)
+    again = ssd_scan_bwd(*args, h_prev, dy, dhT, chunk=chunk)
+    torch.cuda.synchronize()
+    hp_ref = ssd_chunked_ref(*args, chunk=chunk, return_states=True)[2]
+    e_states, m_states = (h_prev - hp_ref).abs().max().item(), hp_ref.abs().max().item()
+    refs = ssd_chunked_bwd_ref(*args, hp_ref, dy, dhT, chunk=chunk)
+    worst, line, ok = 0.0, [], True
+    for name, gk, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), grads, refs):
+        err = (gk.float() - r).abs()
+        mref = r.abs().max().item()
+        tol = 3e-4 * mref + (1e-2 * r.abs() if gk.dtype == torch.bfloat16 else 0.0)
+        ok = ok and bool((err <= tol).all()) and bool(torch.isfinite(gk).all())
+        worst = max(worst, err.max().item())
+        line.append(f"{name} {err.max().item():.3g}/{mref:.3g}")
+    bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+    same = torch.equal(y, y0) and torch.equal(h, h0)
+    states_ok = e_states <= 3e-4 * max(1.0, m_states)
+    print(f"  {case} {dname}{' +dhT' if final_state else ''}: max|d|/max|ref| "
+          + ", ".join(line) + f"; states {e_states:.3g}/{m_states:.3g}; rerun bitwise {bits}; "
+          f"forward with states bitwise {same} {'ok' if ok and states_ok else 'FAIL'}")
+    check(states_ok, f"ssd_scan {case} {dname}: the states entering each chunk")
+    check(ok, f"ssd_scan_bwd {case} {dname}")
+    check(bits, f"ssd_scan_bwd {case} {dname}: two runs bit for bit")
+    check(same, f"ssd_scan {case} {dname}: return_states keeps y's and the state's bits")
+    return worst
+
+
+def time_k2_train(torch, case):
+    """K2 at a training shape, fp32, on strided views of one packed tensor
+    (as the trainer passes them): device time of the forward with its
+    states, of the backward and of SSDScanFn's forward + backward through
+    autograd, each beside the plain version's and the bound (IEEE fp32
+    operations on the CUDA cores, or bytes). Returns ({"forward": record
+    numbers, "backward": ...}, the forward's max|dy| against the plain
+    version)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_bwd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref, ssd_chunked_ref
+    B, S, H, P, N, chunk = case
+    args = strided_views(torch, case, ssd_inputs(torch, case, torch.float32))
+    dy = torch.randn(B, S, H, P, generator=torch.Generator("cuda").manual_seed(SEED + 1),
+                     device="cuda")
+    y, _, h_prev = ssd_scan(*args, chunk=chunk, return_states=True)
+    y_ref, _, hp_ref = ssd_chunked_ref(*args, chunk=chunk, return_states=True)
+    err_fwd = (y - y_ref).abs().max().item()
+    check(err_fwd <= 3e-4 * y_ref.abs().max().item(), f"ssd_scan {case} fp32 on the views")
+    check((h_prev - hp_ref).abs().max().item() <= 3e-4 * hp_ref.abs().max().item(),
+          f"ssd_scan {case} fp32: the states entering each chunk")
+    f_ms = graph_ms(torch, lambda: ssd_scan(*args, chunk=chunk, return_states=True))
+    b_ms = graph_ms(torch, lambda: ssd_scan_bwd(*args, h_prev, dy, chunk=chunk))
+    pf_ms = graph_ms(torch, lambda: ssd_chunked_ref(*args, chunk=chunk, return_states=True),
+                     calls=3, reps=5)
+    pb_ms = graph_ms(torch, lambda: ssd_chunked_bwd_ref(*args, hp_ref, dy, chunk=chunk),
+                     calls=3, reps=5)
+    packed = torch.cat([args[0].flatten(-2), args[3], args[4]], -1).requires_grad_()
+    leaves = [t.clone().requires_grad_() for t in (args[1], args[2], args[5])]
+
+    def fn_pair():
+        xs, Bs, Cs = packed.split([H * P, N, N], -1)
+        out, _ = ssd_ops.ssd(xs.unflatten(-1, (H, P)), leaves[0], leaves[1], Bs, Cs,
+                             leaves[2], chunk=chunk)
+        return torch.autograd.grad(out, [packed] + leaves, dy)
+    fb_ms = graph_ms(torch, fn_pair)
+    nb_f, fl_f = ssd_work(case, "fp32")
+    Q = min(chunk, S)
+    nb_f += B * -(-S // Q) * H * P * N * 4                  # and the states written
+    out = {}
+    for name, ms, p_ms, (nbytes, flops) in (
+            ("forward (with states)", f_ms, pf_ms, (nb_f, fl_f)),
+            ("backward", b_ms, pb_ms, ssd_bwd_work(case, "fp32"))):
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS["fp32"] * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"    {name}: kernel {ms:.4f} ms; bound {bound:.5f} ms ({by}: {flops / 1e9:.3f} "
+              f"GFLOP at 67 TFLOP/s fp32 on the CUDA cores, {nbytes / 1e6:.2f} MB at 3.35 TB/s; "
+              f"H100 SXM peaks), {bound / ms:.1%} of the bound; plain {p_ms:.4f} ms; no "
+              "library call computes it")
+        out[name] = {"ms": ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None}
+    print(f"    SSDScanFn forward + backward through autograd (the trainer's call, on the "
+          f"packed tensor's views): {fb_ms:.4f} ms (kernels alone {f_ms + b_ms:.4f} ms)")
+    return out, err_fwd
+
+
+def k2_step_breakdown(torch, name, model, opt, batch, tokens):
+    """Host ms of one training step, its device time by kernel, idle share,
+    launches, the largest items, and the shares of K2's forward
+    (scan_kernel, with cb_kernel's launches of the forward) and backward
+    (the ssd_bwd_* kernels and cb_kernel's launch of the backward) and of
+    K1's. Returns a dict of those figures."""
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    step = make_train_step(model.cfg, model.rt, opt)
+    st = init_opt_state(dict(model.named_parameters()))
+
+    def one_step():
+        step(model, st, batch)
+    wall_ms, by_name, counts = device_breakdown(torch, one_step)
+    dev_ms = sum(by_name.values())
+    res = {"host_ms": wall_ms, "tokens_per_s": tokens / wall_ms * 1e3}
+    if not by_name:
+        print(f"    {name}: host {wall_ms:.2f} ms; the profiler recorded no device time")
+        return res
+    def share(keep):
+        names = [k for k in by_name if keep(k)]
+        return sum(by_name[k] for k in names), sum(counts[k] for k in names)
+    # scan_kernel is the fp32 forward's (chunk_scan_kernel is bf16's)
+    scan_ms, n_scan = share(lambda k: "scan_kernel" in k and "chunk_scan_kernel" not in k)
+    cb_ms, n_cb = share(lambda k: "cb_kernel" in k)
+    bwd_ms, _ = share(lambda k: "ssd_bwd_" in k)
+    parts = kernel_share(by_name, counts, (K1_FP32, "flash_tf32_bwd_"))
+    # one cb_kernel launch per forward and per backward, the same work each
+    k2f = scan_ms + cb_ms * n_scan / max(n_cb, 1)
+    k2b = bwd_ms + cb_ms * (n_cb - n_scan) / max(n_cb, 1)
+    res.update(device_ms=dev_ms, idle=1 - dev_ms / wall_ms, launches=sum(counts.values()),
+               k2_forward_ms=k2f, k2_backward_ms=k2b, k1_ms=parts[K1_FP32][0] +
+               parts["flash_tf32_bwd_"][0])
+    print(f"    {name}: host {wall_ms:.2f} ms ({res['tokens_per_s']:.0f} tokens/s), device busy "
+          f"{dev_ms:.2f} ms (idle {res['idle']:.1%}), {len(by_name)} kernel names, "
+          f"{res['launches']} launches")
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"      {ms:8.3f} ms x{counts[kname]:<5d} {kname[:90]}")
+    print(f"    K2 forward (scan_kernel x{n_scan} + cb_kernel) {k2f:.3f} ms, "
+          f"{k2f / dev_ms:.1%}; K2 backward (ssd_bwd_* + cb_kernel) {k2b:.3f} ms, "
+          f"{k2b / dev_ms:.1%}; K1 forward + backward {res['k1_ms']:.3f} ms, "
+          f"{res['k1_ms'] / dev_ms:.1%} of device time")
+    return res
+
+
+def ssm_train_path(torch, np):
+    """Phase 20: K2's backward held and timed; mamba2-370m at full width
+    through `repro_torch.launch.train.main` with an injected failure;
+    zamba2-1.2b at full width; card against CPU; where one step's time goes.
+    Returns the kernels record's K2 entries of the two training paths."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_bwd
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.hybrid import n_applications
+    from repro_torch.models.model import Model
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import MarkovLMDataset
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg_m, cfg_z = get_config("mamba2-370m"), get_config("zamba2-1.2b")
+    B, S = 8, 256
+
+    def train_case(cfg):
+        s = cfg.ssm
+        return (B, S, s.n_heads(cfg.d_model), s.head_dim, s.state_dim, 128)
+    cases = {cfg_m.name: train_case(cfg_m), cfg_z.name: train_case(cfg_z)}
+    print(f"  (a) K2 backward against its plain version; training shapes {cases}")
+    small = [(1, 32, 2, 8, 8, 8), (2, 64, 4, 16, 16, 16), (1, 100, 2, 16, 8, 32),
+             (2, 128, 2, 32, 16, 128)]
+    err_bwd = {}
+    for case in small + [(1, 1000, 32, 64, 128, 128)] + list(cases.values()):
+        for dname in ("fp32", "bf16", "fp32 strided", "bf16 strided"):
+            e = hold_ssd_bwd(torch, case, dname, final_state=False)
+            if dname == "fp32 strided":
+                err_bwd[case] = e
+    for case in (small[2], cases[cfg_m.name]):          # a nonzero dhT
+        for dname in ("fp32", "bf16 strided"):
+            hold_ssd_bwd(torch, case, dname, final_state=True)
+
+    print("  (b) K2 at the training shapes, fp32 (the trainer's dtype), device time")
+    timed, err_fwd = {}, {}
+    for arch, case in cases.items():
+        print(f"   {arch} {case}:")
+        timed[arch], err_fwd[arch] = time_k2_train(torch, case)
+
+    counters = (ssd_scan, ssd_scan_bwd, flash_attention, flash_attention_bwd)
+
+    def reset():
+        for c in counters:
+            c.launches, c.launches_by_case = 0, {}
+
+    steps, every, fail = 20, 5, 12
+    print(f"  (c) python -m repro_torch.launch.train --arch mamba2-370m at full width, {steps} "
+          f"steps, a checkpoint every {every}, a failure injected before step {fail}")
+    base = ["--batch", str(B), "--seq", str(S), "--steps", str(steps), "--log-every", "5"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ssm_train_")
+    try:
+        reset()
+        t0 = time.perf_counter()
+        res = launch_train.main(["--arch", cfg_m.name] + base + [
+            "--ckpt-dir", f"{tmp}/a", "--ckpt-every", str(every), "--fail-at", str(fail)])
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        n_m = tuple(c.launches for c in counters)
+        by_f = dict(ssd_scan.launches_by_case)
+        ran = steps + fail % every              # the steps after the rollback run again
+        L = cfg_m.num_layers
+        saved = ckpt.list_checkpoints(f"{tmp}/a")
+        print(f"    {wall_a:.1f} s; restarts {res['restarts']}; checkpoints {saved}; K2 forward "
+              f"{n_m[0]}, backward {n_m[1]} calls over {ran} steps ({n_m[0] / ran:g} and "
+              f"{n_m[1] / ran:g} per step); K1 {n_m[2]} + {n_m[3]}")
+        check(res["restarts"] == 1, "one restart")
+        check([m["step"] for m in res["metrics"]] == list(range(steps)), "a contiguous log")
+        check(saved[-1] == steps, "a final checkpoint at the last step")
+        check(n_m == (ran * 2 * L, ran * L, 0, 0) and by_f == {cases[cfg_m.name]: n_m[0]},
+              f"{2 * L} K2 forward (remat: twice per layer) and {L} backward calls per step")
+        losses = [m["loss"] for m in res["metrics"]]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0], "finite, falling losses")
+        print("    loss curve: " + " ".join(f"{x:.4f}" for x in losses[::5])
+              + f" ... {losses[-1]:.4f}")
+        shutil.rmtree(f"{tmp}/a", ignore_errors=True)
+        t0 = time.perf_counter()
+        clean = launch_train.main(["--arch", cfg_m.name] + base + [
+            "--ckpt-dir", f"{tmp}/b", "--ckpt-every", "0"])
+        wall_b = time.perf_counter() - t0
+        same = [m["loss"] for m in clean["metrics"]] == losses
+        print(f"    uninterrupted run: {wall_b:.1f} s, final loss {clean['metrics'][-1]['loss']!r} "
+              f"against {losses[-1]!r}: every loss bitwise equal {same}")
+        check(clean["restarts"] == 0 and same,
+              "the resumed run equals an uninterrupted one bit for bit")
+        model_m = clean["params"]
+        shutil.rmtree(f"{tmp}/b", ignore_errors=True)
+
+        z_steps = 4
+        print(f"  (d) python -m repro_torch.launch.train --arch zamba2-1.2b at full width, "
+              f"{z_steps} steps")
+        reset()
+        t0 = time.perf_counter()
+        res_z = launch_train.main(["--arch", cfg_z.name, "--batch", str(B), "--seq", str(S),
+                                   "--steps", str(z_steps), "--log-every", "1",
+                                   "--ckpt-dir", f"{tmp}/z", "--ckpt-every", "0"])
+        torch.cuda.synchronize()
+        wall_z = time.perf_counter() - t0
+        n_z = tuple(c.launches for c in counters)
+        Lz, apps = cfg_z.num_layers, n_applications(cfg_z)
+        losses_z = [m["loss"] for m in res_z["metrics"]]
+        print(f"    {wall_z:.1f} s (no checkpoint); K2 forward {n_z[0]}, "
+              f"backward {n_z[1]}; K1 forward {n_z[2]}, backward {n_z[3]} over {z_steps} steps "
+              f"({n_z[0] / z_steps:g}, {n_z[1] / z_steps:g}, {n_z[2] / z_steps:g}, "
+              f"{n_z[3] / z_steps:g} per step); losses " + " ".join(f"{x:.4f}" for x in losses_z))
+        check(n_z == (z_steps * 2 * Lz, z_steps * Lz, z_steps * apps, z_steps * apps),
+              f"{2 * Lz} K2 forward and {Lz} backward, {apps} K1 forward and {apps} backward "
+              "calls per step")
+        check(len(losses_z) == z_steps and all(np.isfinite(losses_z)), "finite zamba2 losses")
+        model_z = res_z["params"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    print("  (e) card against CPU: the same weights cut in depth, fp32, 3 steps")
+    for cfg, n_layers, batch in ((cfg_m, 2, B), (cfg_z, 6, 2)):
+        cfg2 = dataclasses.replace(cfg, num_layers=n_layers)
+        opt = AdamWConfig(peak_lr=3e-3, warmup_steps=5, total_steps=steps)
+        ds2 = MarkovLMDataset(vocab=cfg.vocab, seq_len=S, batch=batch, seed=0)
+        src = Model(cfg2, Runtime(device="cuda", compute_dtype=torch.float32), seed=SEED)
+        curves, calls = {}, {}
+        for dev in ("cuda", "cpu"):
+            rt = Runtime(device=dev, compute_dtype=torch.float32, remat="block")
+            m2 = Model(cfg2, rt, seed=None)
+            m2.load_state_dict(src.state_dict())
+            st2 = init_opt_state(dict(m2.requires_grad_(True).named_parameters()))
+            step2 = make_train_step(cfg2, rt, opt)
+            reset()
+            t0 = time.perf_counter()
+            curve = []
+            for s in range(3):
+                b2 = {kk: torch.as_tensor(vv).long().to(dev) for kk, vv in ds2.batch_at(s).items()}
+                m2, st2, mm = step2(m2, st2, b2)
+                curve.append((mm["loss"].item(), mm["grad_norm"].item()))
+            curves[dev], calls[dev] = curve, tuple(c.launches for c in counters)
+            print(f"    {cfg.name}, {n_layers} layers, {batch} x {S}, {dev}: "
+                  + ", ".join(f"loss {a:.6f} gnorm {g:.6f}" for a, g in curve)
+                  + f"; K2 {calls[dev][0]} + {calls[dev][1]}, K1 {calls[dev][2]} + "
+                  f"{calls[dev][3]} ({time.perf_counter() - t0:.1f} s)")
+            del m2, st2
+        dl = max(abs(a - c) / abs(c) for (a, _), (c, _) in zip(curves["cuda"], curves["cpu"]))
+        dg = max(abs(a - c) / abs(c) for (_, a), (_, c) in zip(curves["cuda"], curves["cpu"]))
+        apps = n_applications(cfg2) if cfg2.family == "hybrid" else 0
+        print(f"    largest relative difference: loss {dl:.3g} (<= 1e-5), grad norm {dg:.3g} "
+              "(<= 1e-4)")
+        check(dl <= 1e-5 and dg <= 1e-4, f"{cfg.name}: card against CPU")
+        check(calls["cpu"] == (0, 0, 0, 0) and calls["cuda"] == (
+            6 * n_layers, 3 * n_layers, 3 * apps, 3 * apps), "the kernels on the card only")
+        del src
+    torch.cuda.empty_cache()
+
+    print("  (f) where the time goes: one full-width training step (8 x 256 tokens)")
+    opt = AdamWConfig(peak_lr=3e-3, warmup_steps=5, total_steps=steps)
+    steps_out = {}
+    for name, model in ((cfg_m.name, model_m), (cfg_z.name, model_z)):
+        ds_f = MarkovLMDataset(vocab=model.cfg.vocab, seq_len=S, batch=B, seed=0)
+        batch = {kk: torch.as_tensor(vv).long().cuda() for kk, vv in ds_f.batch_at(steps).items()}
+        steps_out[name] = k2_step_breakdown(torch, name, model, opt, batch, B * S)
+    del model_m, model_z
+    torch.cuda.empty_cache()
+    print(json.dumps({"ssm_training": steps_out}, default=float))
+
+    entries = []
+    for arch, n_f, n_b in ((cfg_m.name, n_m[0], n_m[1]), (cfg_z.name, n_z[0], n_z[1])):
+        entry = {"route": "cuda", "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                 "replaces": "src/repro/kernels/ssd_scan/kernel.py:72",
+                 "path": f"{arch} training, python -m repro_torch.launch.train (phase 20 "
+                         f"({'c' if arch == cfg_m.name else 'd'}))",
+                 "shape": "(B, S, H, P, N, chunk) = " + str(cases[arch]) + ", fp32"}
+        entries += [{"name": f"ssd_scan/{arch} training", **entry, "launches": n_f,
+                     "max_abs_err": err_fwd[arch], **timed[arch]["forward (with states)"]},
+                    {"name": f"ssd_scan_bwd/{arch} training", **entry, "launches": n_b,
+                     "max_abs_err": err_bwd[cases[arch]], **timed[arch]["backward"]}]
+    return entries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1491,14 +1883,14 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
-    report = {k: v for log in logs.values() for k, v in ptxas_report(log).items()}
+    report = {k: v for log in logs.values() for k, v in ptxas_table(log, fwd_name).items()}
     for k, (regs, st, ld) in sorted(report.items()):
         print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
     if report:                      # nvcc ran (no library was built before)
         for k in ("flash_mma_kernel<64>", "flash_mma_kernel<128>", "flash_mma_kernel<256>",
                   f"{K1_FP32}<64>") + MMA_KERNELS[1:]:
             check(k in report and report[k][1:] == [0, 0], f"{k} has no spills")
-    bwd = {k: v for log in logs.values() for k, v in bwd_ptxas_report(log).items()}
+    bwd = {k: v for log in logs.values() for k, v in ptxas_table(log, bwd_name).items()}
     # the training path's instantiations (fp32, hd 64) and bf16's at hd 64
     k1_train = [f"{K1_FP32}<64>"] + [f"flash_tf32_bwd_{part}_kernel<{dt}, 64>"
                                     for dt in ("float", "bf16") for part in ("dq", "dkdv")]
@@ -1517,6 +1909,13 @@ def main() -> int:
                           if k in k1_train))
         for k in k1_train:
             check(hmma.get(k, [0, 0])[1] > 0, f"{k} runs TF32 mma on the tensor cores")
+    k2 = {k: v for log in logs.values() for k, v in ptxas_table(log, k2_cuda_core_name).items()}
+    if k2:
+        print("  K2's CUDA-core kernels (the fp32 forward's, the backward's): "
+              + ", ".join(f"{k} {r} registers ({st}/{ld} bytes spilled)"
+                          for k, (r, st, ld) in sorted(k2.items())))
+        for k, v in k2.items():
+            check(v[1:] == [0, 0], f"{k} has no spills")
 
     phase("3. SSD-scan kernel against its plain version")
     small = [(1, 32, 2, 8, 8, 8), (2, 64, 4, 16, 16, 16),
@@ -2230,6 +2629,14 @@ def main() -> int:
     k1_train_record = train_path(torch, np)
     print(f"  phase 19: {time.perf_counter() - t19:.1f} s")
 
+    phase("20. SSM and hybrid training on the card: K2's backward against its plain version "
+          "and timed; mamba2-370m at full width through python -m repro_torch.launch.train with "
+          "an injected failure; zamba2-1.2b at full width; card against CPU; where one step's "
+          "time goes")
+    t20 = time.perf_counter()
+    k2_train_record = ssm_train_path(torch, np)
+    print(f"  phase 20: {time.perf_counter() - t20:.1f} s")
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # K2 once per path and shape (phases 5 and 14): launches from that
     # path's run (wrapper calls, three CUDA launches each in bf16), the other
@@ -2260,6 +2667,8 @@ def main() -> int:
         })
     # K1 forward and backward on the training path (phase 19)
     record["kernels"] += k1_train_record
+    # K2 forward and backward on the two training paths (phase 20)
+    record["kernels"] += k2_train_record
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 
 `TrainSupervisor` owns the outer training loop: it restores the newest
 valid checkpoint on start, runs the step function, checkpoints
-every `ckpt_every` completed steps, and — on an (injected or real) failure
+every `ckpt_every` completed steps and after the last (never, when
+`ckpt_every` is 0), and — on an (injected or real) failure
 — rolls back to the latest checkpoint, trims the metric log to the resume
 point, and re-runs, so the returned metric log is contiguous across any
 number of restarts. Corrupted checkpoints are quarantined by
@@ -87,7 +88,7 @@ class TrainSupervisor:
                  max_restarts: int = 100, max_futile_restarts: int = 3,
                  run_tag: Optional[str] = None, device=None):
         self.ckpt_dir = ckpt_dir
-        self.ckpt_every = max(int(ckpt_every), 1)
+        self.ckpt_every = max(int(ckpt_every), 0)     # 0: no checkpoints
         self.straggler = straggler or StragglerPolicy()
         self.max_restarts = max_restarts
         # where restored numpy trees go before they are copied into the
@@ -183,11 +184,11 @@ class TrainSupervisor:
             self.straggler.observe(time.time() - t0)
 
             step += 1
-            if step % self.ckpt_every == 0:
+            if self.ckpt_every and step % self.ckpt_every == 0:
                 self._save(step, params, opt_state)
                 last_saved = step
 
-        if last_saved < total_steps:
+        if self.ckpt_every and last_saved < total_steps:
             self._save(total_steps, params, opt_state)
         return {"params": params, "opt_state": opt_state, "metrics": metrics,
                 "restarts": restarts,

@@ -54,7 +54,11 @@
 // by all heads; scan_kernel runs one block per (b, h, 16 head channels),
 // walks the chunks in order with its (16, N) state slice in registers and
 // the decay tile, B, C and x in ~216 KB of dynamic shared memory. Inputs
-// contiguous.
+// contiguous. When asked, it writes the state entering each chunk for the
+// backward.
+//
+// The backward (ssd_scan_bwd_launch, both dtypes; see its section below):
+// cb_kernel and six ssd_bwd_* kernels on the CUDA cores, fp32 arithmetic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -68,17 +72,22 @@ constexpr int kPS = 16;       // head channels per block
 constexpr int kThreads = 256;
 constexpr int kTile = 32;     // cb_kernel output tile
 
+using bf16 = __nv_bfloat16;
+
 __device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
 
 // cb[b, c, t, s] = C_t . B_s for one 32x32 tile of chunk c (tiles above the
-// diagonal are skipped: scan_kernel reads only s <= t).
+// diagonal are skipped: scan_kernel and the backward read only s <= t).
+// B and C are read through their batch (*sb) and row (*ss) strides.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict__ cb,
-          int S, int N, int Q, int nc) {
+          int S, int N, int Q, int nc, int64_t bsb, int64_t bss, int64_t csb, int64_t css) {
   const int nt = (Q + kTile - 1) / kTile;
   const int tt = blockIdx.x / nt, ts = blockIdx.x % nt;
   if (ts > tt) return;
@@ -89,8 +98,8 @@ cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict_
     const int r = idx / N, n = idx % N;
     const int t = tt * kTile + r, s = ts * kTile + r;
     const int64_t tok_t = (int64_t)c * Q + t, tok_s = (int64_t)c * Q + s;
-    cs[r][n] = (t < Q && tok_t < S) ? to_f(Cm[((int64_t)b * S + tok_t) * N + n]) : 0.f;
-    bs[r][n] = (s < Q && tok_s < S) ? to_f(Bm[((int64_t)b * S + tok_s) * N + n]) : 0.f;
+    cs[r][n] = (t < Q && tok_t < S) ? to_f(Cm[b * csb + tok_t * css + n]) : 0.f;
+    bs[r][n] = (s < Q && tok_s < S) ? to_f(Bm[b * bsb + tok_s * bss + n]) : 0.f;
   }
   __syncthreads();
   const int sl = tid % kTile;
@@ -115,7 +124,8 @@ scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
             const float* __restrict__ A, const T* __restrict__ Bm,
             const T* __restrict__ Cm, const float* __restrict__ D,
             const float* __restrict__ cb, T* __restrict__ y,
-            float* __restrict__ state, int S, int H, int P, int N, int Q, int nc) {
+            float* __restrict__ state, float* __restrict__ states, int S, int H, int P, int N,
+            int Q, int nc) {
   extern __shared__ __align__(16) float smem[];
   const int Q4 = (Q + 3) & ~3;
   const int MS = Q4 + 4;          // row stride of the decay tile
@@ -147,6 +157,13 @@ scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   for (int c = 0; c < nc; ++c) {
     const int64_t c0 = (int64_t)c * Q;
+    if (states && nq < N) {    // the state entering the chunk, for the backward
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int p = p0 + pg2 * 8 + j;
+        if (p < P) states[((((int64_t)b * nc + c) * H + h) * P + p) * N + nq] = hreg[j];
+      }
+    }
     __syncthreads();
     // 1. dt and the inclusive cumsum of dt*A over the chunk (4 warps)
     float v = 0.f;
@@ -275,13 +292,14 @@ constexpr size_t scan_smem_bytes(int Q4, int N) {
 
 template <typename T>
 int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
-           const void* D, void* cb, void* y, void* state, int Bsz, int S, int H, int P,
-           int N, int Q, cudaStream_t st) {
+           const void* D, void* cb, void* y, void* state, void* states, int Bsz, int S, int H,
+           int P, int N, int Q, cudaStream_t st) {
   const int nc = (S + Q - 1) / Q;
   const int nt = (Q + kTile - 1) / kTile;
+  const int64_t sn = (int64_t)S * N;
   cb_kernel<T><<<dim3(nt * nt, nc, Bsz), kThreads, 0, st>>>(
       static_cast<const T*>(Bm), static_cast<const T*>(Cm), static_cast<float*>(cb), S, N,
-      Q, nc);
+      Q, nc, sn, N, sn, N);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t smem = scan_smem_bytes((Q + 3) & ~3, N);
@@ -299,8 +317,8 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
   scan_kernel<T><<<dim3((P + kPS - 1) / kPS, H, Bsz), kThreads, smem, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const T*>(Bm), static_cast<const T*>(Cm), static_cast<const float*>(D),
-      static_cast<const float*>(cb), static_cast<T*>(y), static_cast<float*>(state), S, H, P,
-      N, Q, nc);
+      static_cast<const float*>(cb), static_cast<T*>(y), static_cast<float*>(state),
+      static_cast<float*>(states), S, H, P, N, Q, nc);
   return (int)cudaGetLastError();
 }
 
@@ -310,7 +328,6 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
 // the products on the tensor cores
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
 constexpr int kPB = 64;           // head channels per block (chunk_scan may take 32)
 constexpr int kXP = kPB + 8;      // bf16 pitch of an x tile (+16 bytes: no bank conflicts)
 constexpr int kMmaThreads = 256;  // 8 warps
@@ -728,18 +745,591 @@ int launch_bf16(const Bf16Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The backward, both dtypes: fp32 arithmetic on the CUDA cores
+// ---------------------------------------------------------------------------
+//
+// Per (b, h) and chunk c, with L the inclusive cumsum of dt A over the chunk
+// (the forward's warp scan, so the same bits), w_s = exp(L_Q - L_s) dt_s,
+// M'_ts = (C_t.B_s) exp(L_t - L_s) on s <= t and dH_c the gradient of the
+// state after chunk c (see ref.py's ssd_chunked_bwd_ref):
+//   1. cb_kernel: C.B^T per chunk, shared by the heads (as in the forward);
+//   2. ssd_bwd_dstate_kernel, grid (nc, H, B x 64-channel slices): L and L_Q to
+//      scratch, U_c = sum_t exp(L_t) dy_t^T C_t to dstates;
+//   3. ssd_bwd_state_pass_kernel: in place over dstates, the chunks in reverse,
+//      dH_c = dhT for the last, dH_c-1 = exp(L_Q,c) dH_c + U_c;
+//   4. ssd_bwd_chunk_kernel, grid (nc, H, B): per head, in 32-channel passes,
+//      dxi_s = sum_t M'_ts dy_t, dxs_s = dH_c B_s, dx = dt dxi + w dxs + D dy,
+//      and the per-row dots behind dL (dy.yi with yi the forward's intra y,
+//      exp(L_t) dy.(C_t h_prev^T), x.dxi, x.dxs); then dL, its reverse
+//      cumsum within the chunk (a fixed-order warp scan), ddt, and the
+//      chunk's partial sums of dA and dD;
+//   5. ssd_bwd_ds_kernel, grid (32x32 tiles of the lower triangle, nc, B):
+//      dS_ts = sum_h exp(L_t - L_s) dt_s (dy_t.x_s), the heads in order;
+//   6. ssd_bwd_bc_kernel, grid (32-row tiles, nc, B x {dC, dB}):
+//      dC_t = sum_s dS_ts B_s + sum_h exp(L_t) dy_t h_prev,
+//      dB_s = sum_t dS_ts C_t + sum_h w_s x_s dH_c, the heads in order;
+//   7. ssd_bwd_reduce_kernel: dA and dD over (b, chunk) in order.
+// No atomics: every sum has one order, so a rerun gives the same bits. The
+// exponent is masked before exp (s <= t), so nothing overflows. Ragged rows
+// (past S in the last chunk) read as zero (dt = 0) and are never written.
+// What bounds it: at the training shapes (8, 256, 32 or 64 heads of 64,
+// N = 128 or 64) ~6.6 GFLOP against ~75 MB, so fp32 operations on the CUDA
+// cores; this first version is simple and correct, not tuned.
+
+constexpr int kPW = 64;   // head channels per block: dstate, ds and bc kernels
+constexpr int kPC = 32;   // head channels per pass of ssd_bwd_chunk_kernel
+constexpr int kMS = kQMax + 4;   // row stride of the Q x Q tiles in shared memory
+
+template <typename T>
+struct BwdArgs {
+  const T *x, *Bm, *Cm, *dy;
+  const float *dt, *A, *D, *h_prev, *dhT;
+  T *dx, *dB, *dC;
+  float *ddt, *dA, *dD;
+  float *cb, *cum, *lq, *dstates, *dS, *dA_part, *dD_part;
+  int Bsz, S, H, P, N, Q, nc;
+  int64_t xsb, xss, bsb, bss, csb, css;
+
+  // x, B, C through their strides; dt, dy, dx, ddt, dB, dC contiguous
+  __device__ float xv(int b, int64_t tok, int h, int p) const {
+    return to_f(x[b * xsb + tok * xss + (int64_t)h * P + p]);
+  }
+  __device__ float bv(int b, int64_t tok, int n) const { return to_f(Bm[b * bsb + tok * bss + n]); }
+  __device__ float cv(int b, int64_t tok, int n) const { return to_f(Cm[b * csb + tok * css + n]); }
+  __device__ float dyv(int b, int64_t tok, int h, int p) const {
+    return to_f(dy[(((int64_t)b * S + tok) * H + h) * P + p]);
+  }
+  // index of (b, chunk c, head h) in the (B, nc, H, ...) scratch
+  __device__ int64_t bch(int b, int c, int h) const { return ((int64_t)b * nc + c) * H + h; }
+};
+
+// the sum of v over the block, in one order, returned to every thread (all
+// kThreads threads call it; red holds kThreads / 32 floats)
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < kThreads / 32; ++w) t += red[w];
+  return t;
+}
+
+constexpr size_t dstate_smem(int N) {
+  return sizeof(float) * ((size_t)kQMax * (N + 4) + kQMax * kPW + 2 * kQMax + 4);
+}
+
+// U_c[p, n] = sum_t exp(L_t) dy_t[p] C_t[n] for one (chunk, head, batch,
+// slice of kPW channels) into dstates (B, nc, H, P, N); L to cum (B, nc, H,
+// Q) and L_Q to lq (B, nc, H). Thread: n = 4 lane .. + 3, p = warp + 8 j.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_dstate_kernel(BwdArgs<T> a) {
+  const int c = blockIdx.x, h = blockIdx.y;
+  const int npb = (a.P + kPW - 1) / kPW;
+  const int b = blockIdx.z / npb, p0 = (blockIdx.z % npb) * kPW;
+  const int nv = min(a.Q, a.S - c * a.Q), NS = a.N + 4, tid = threadIdx.x;
+  const int64_t tok0 = (int64_t)c * a.Q, row0 = (int64_t)b * a.S + tok0;
+  extern __shared__ __align__(16) float smem[];
+  float* cs = smem;                     // [kQMax][NS]  C of the chunk
+  float* ys = cs + kQMax * NS;          // [kQMax][kPW] exp(L_t) dy_t, the slice's channels
+  float* dts = ys + kQMax * kPW;        // [kQMax]
+  float* cum = dts + kQMax;             // [kQMax]
+  float* wtot = cum + kQMax;            // [4]
+
+  chunk_cumsum(a.dt, row0, a.H, h, a.A[h], nv, dts, cum, wtot);
+  for (int idx = tid; idx < a.Q * a.N; idx += kThreads) {
+    const int r = idx / a.N, n = idx % a.N;
+    cs[r * NS + n] = r < nv ? a.cv(b, tok0 + r, n) : 0.f;
+  }
+  __syncthreads();
+  const int64_t base = a.bch(b, c, h);
+  if (p0 == 0 && tid < a.Q) a.cum[base * a.Q + tid] = cum[tid];
+  if (p0 == 0 && tid == 0) a.lq[base] = cum[a.Q - 1];
+  for (int idx = tid; idx < a.Q * kPW; idx += kThreads) {
+    const int r = idx / kPW, p = idx % kPW;
+    ys[idx] = (r < nv && p0 + p < a.P) ? expf(cum[r]) * a.dyv(b, tok0 + r, h, p0 + p) : 0.f;
+  }
+  __syncthreads();
+
+  const int n = 4 * (tid & 31), pr = tid >> 5;
+  if (n >= a.N) return;                 // no sync follows
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int t = 0; t < nv; ++t) {
+    const float4 cv = *reinterpret_cast<const float4*>(&cs[t * NS + n]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float yv = ys[t * kPW + pr + 8 * j];
+      acc[j][0] += yv * cv.x; acc[j][1] += yv * cv.y; acc[j][2] += yv * cv.z; acc[j][3] += yv * cv.w;
+    }
+  }
+  float* out = a.dstates + base * a.P * a.N;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int p = p0 + pr + 8 * j;
+    if (p < a.P)
+      *reinterpret_cast<float4*>(out + (int64_t)p * a.N + n) =
+          make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  }
+}
+
+// In place over dstates, the chunks in reverse: slot c receives dH_c (the
+// gradient of the state after chunk c; dhT, or 0 when null, for the last)
+// and the carry becomes exp(L_Q,c) dH_c + U_c. Grid (ceil(P N / 1024), H, B).
+__global__ void __launch_bounds__(256)
+ssd_bwd_state_pass_kernel(const float* __restrict__ dhT, float* __restrict__ dstates,
+                      const float* __restrict__ lq, int H, int P, int N, int nc) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int64_t PN = (int64_t)P * N;
+  const int64_t e = 4 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+  if (e >= PN) return;
+  float4 g = dhT ? *reinterpret_cast<const float4*>(dhT + ((int64_t)b * H + h) * PN + e)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4* base = reinterpret_cast<float4*>(dstates + ((int64_t)b * nc * H + h) * PN + e);
+  const int64_t step = H * PN / 4;                  // float4s from chunk c to c + 1
+  for (int c = nc - 1; c >= 0; --c) {
+    float4* cur = base + c * step;
+    const float4 u = *cur;
+    *cur = g;
+    const float d = expf(lq[((int64_t)b * nc + c) * H + h]);
+    g = make_float4(d * g.x + u.x, d * g.y + u.y, d * g.z + u.z, d * g.w + u.w);
+  }
+}
+
+constexpr size_t chunk_smem(int N) {
+  return sizeof(float) * ((size_t)kQMax * kMS + (size_t)kQMax * (N + 4) + (size_t)kPC * (N + 4) +
+                          2 * kQMax * kPC + 5 * kQMax + kThreads / 32);
+}
+
+// dx, ddt and the chunk's partial dA and dD for one (chunk, head, batch).
+// Thread tile: rows r_i = tg + 32 i (i < 4), channels p0 + pc + 8 j (j < 4)
+// of each 32-channel pass.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_bwd_chunk_kernel(BwdArgs<T> a) {
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nv = min(a.Q, a.S - c * a.Q), Q4 = (a.Q + 3) & ~3, NS = a.N + 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tg = tid >> 3, pc = tid & 7;
+  const int64_t tok0 = (int64_t)c * a.Q;
+  const int64_t base = a.bch(b, c, h);
+  extern __shared__ __align__(16) float smem[];
+  float* ms = smem;                     // [kQMax][kMS]  M'_ts
+  float* mat = ms + kQMax * kMS;        // [kQMax][NS]   C, then B
+  float* st = mat + kQMax * NS;         // [kPC][NS]     h_prev, then dH_c, of the pass
+  float* xs = st + kPC * NS;            // [kQMax][kPC]  x of the pass
+  float* dys = xs + kQMax * kPC;        // [kQMax][kPC]  dy of the pass
+  float* dts = dys + kQMax * kPC;       // [kQMax]       dt
+  float* cum = dts + kQMax;             // [kQMax]       L
+  float* plus = cum + kQMax;            // [kQMax]       dy.yi + exp(L_t) dy.(C_t h_prev^T)
+  float* xdi = plus + kQMax;            // [kQMax]       x.dxi
+  float* xds = xdi + kQMax;             // [kQMax]       x.dxs
+  float* red = xds + kQMax;             // [kThreads / 32]
+
+  if (tid < kQMax) {
+    dts[tid] = tid < nv ? a.dt[((int64_t)b * a.S + tok0 + tid) * a.H + h] : 0.f;
+    cum[tid] = tid < a.Q ? a.cum[base * a.Q + tid] : 0.f;
+  }
+  __syncthreads();
+  const float lq = cum[a.Q - 1];
+  const float* cbc = a.cb + ((int64_t)b * a.nc + c) * a.Q * a.Q;
+  for (int idx = tid; idx < kQMax * kQMax; idx += kThreads) {
+    const int t = idx / kQMax, s = idx % kQMax;
+    ms[t * kMS + s] = (s <= t && t < nv) ? cbc[t * a.Q + s] * expf(cum[t] - cum[s]) : 0.f;
+  }
+
+  float rplus[4] = {0.f, 0.f, 0.f, 0.f}, rxdi[4] = {0.f, 0.f, 0.f, 0.f};
+  float rxds[4] = {0.f, 0.f, 0.f, 0.f};
+  float ddot = 0.f, dd = 0.f;           // h_prev . dH over the thread's entries; dy . x
+  const float dsk = a.D[h];
+  for (int p0 = 0; p0 < a.P; p0 += kPC) {
+    __syncthreads();                    // the previous pass is done with the tiles
+    for (int idx = tid; idx < kQMax * kPC; idx += kThreads) {
+      const int r = idx / kPC, p = idx % kPC;
+      const bool ok = r < nv && p0 + p < a.P;
+      xs[idx] = ok ? a.xv(b, tok0 + r, h, p0 + p) : 0.f;
+      dys[idx] = ok ? a.dyv(b, tok0 + r, h, p0 + p) : 0.f;
+    }
+    for (int idx = tid; idx < kQMax * a.N; idx += kThreads) {
+      const int r = idx / a.N, n = idx % a.N;
+      mat[r * NS + n] = r < nv ? a.cv(b, tok0 + r, n) : 0.f;
+    }
+    for (int idx = tid; idx < kPC * a.N; idx += kThreads) {
+      const int p = idx / a.N, n = idx % a.N;
+      st[p * NS + n] = p0 + p < a.P ? a.h_prev[(base * a.P + p0 + p) * a.N + n] : 0.f;
+    }
+    __syncthreads();
+
+    // the intra-chunk terms: yi_t = sum_s M'_ts dt_s x_s, dxi_s = sum_t M'_ts dy_t
+    float yi[4][4], dxi[4][4], yh[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) yi[i][j] = dxi[i][j] = yh[i][j] = 0.f;
+    for (int s = 0; s < Q4; s += 4) {
+      float xv[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float d = dts[s + k];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) xv[k][j] = d * xs[(s + k) * kPC + pc + 8 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 m = *reinterpret_cast<const float4*>(&ms[(tg + 32 * i) * kMS + s]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          yi[i][j] += m.x * xv[0][j] + m.y * xv[1][j] + m.z * xv[2][j] + m.w * xv[3][j];
+      }
+    }
+    for (int t = 0; t < nv; ++t) {
+      float dv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dv[j] = dys[t * kPC + pc + 8 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float m = ms[t * kMS + tg + 32 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dxi[i][j] += m * dv[j];
+      }
+    }
+    // the inter-chunk term: yh_t = C_t h_prev^T
+    for (int n = 0; n < a.N; n += 4) {
+      float4 hv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hv[j] = *reinterpret_cast<const float4*>(&st[(pc + 8 * j) * NS + n]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 cv = *reinterpret_cast<const float4*>(&mat[(tg + 32 * i) * NS + n]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          yh[i][j] += cv.x * hv[j].x + cv.y * hv[j].y + cv.z * hv[j].z + cv.w * hv[j].w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = tg + 32 * i;
+      const float el = expf(cum[r]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float dv = dys[r * kPC + pc + 8 * j], xv = xs[r * kPC + pc + 8 * j];
+        rplus[i] += dv * (yi[i][j] + el * yh[i][j]);
+        rxdi[i] += xv * dxi[i][j];
+        dd += dv * xv;
+      }
+    }
+    __syncthreads();                    // done with C and h_prev
+    for (int idx = tid; idx < kQMax * a.N; idx += kThreads) {
+      const int r = idx / a.N, n = idx % a.N;
+      mat[r * NS + n] = r < nv ? a.bv(b, tok0 + r, n) : 0.f;
+    }
+    const float* dh = a.dstates + base * a.P * a.N;
+    for (int idx = tid; idx < kPC * a.N; idx += kThreads) {
+      const int p = idx / a.N, n = idx % a.N;
+      const bool ok = p0 + p < a.P;
+      const float g = ok ? dh[(int64_t)(p0 + p) * a.N + n] : 0.f;
+      st[p * NS + n] = g;
+      if (ok) ddot += a.h_prev[(base * a.P + p0 + p) * a.N + n] * g;
+    }
+    __syncthreads();
+    // the state term: dxs_s = dH_c B_s; then dx
+    float dxs[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dxs[i][j] = 0.f;
+    for (int n = 0; n < a.N; n += 4) {
+      float4 gv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) gv[j] = *reinterpret_cast<const float4*>(&st[(pc + 8 * j) * NS + n]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 bv = *reinterpret_cast<const float4*>(&mat[(tg + 32 * i) * NS + n]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          dxs[i][j] += bv.x * gv[j].x + bv.y * gv[j].y + bv.z * gv[j].z + bv.w * gv[j].w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = tg + 32 * i;
+      const float w = expf(lq - cum[r]) * dts[r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = p0 + pc + 8 * j;
+        const float dv = dys[r * kPC + pc + 8 * j], xv = xs[r * kPC + pc + 8 * j];
+        rxds[i] += xv * dxs[i][j];
+        if (r < nv && p < a.P)
+          a.dx[(((int64_t)b * a.S + tok0 + r) * a.H + h) * a.P + p] =
+              from_f<T>(dts[r] * dxi[i][j] + w * dxs[i][j] + dsk * dv);
+      }
+    }
+  }
+
+  // the row dots: the 8 threads of a row group hold its partial sums
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      rplus[i] += __shfl_xor_sync(0xffffffffu, rplus[i], off);
+      rxdi[i] += __shfl_xor_sync(0xffffffffu, rxdi[i], off);
+      rxds[i] += __shfl_xor_sync(0xffffffffu, rxds[i], off);
+    }
+    if (pc == 0) {
+      plus[tg + 32 * i] = rplus[i];
+      xdi[tg + 32 * i] = rxdi[i];
+      xds[tg + 32 * i] = rxds[i];
+    }
+  }
+  const float dD = block_sum(dd, red);
+  const float decay = expf(lq) * block_sum(ddot, red);   // syncs: plus, xdi, xds are written
+  // dL_t = dy.yi + exp(L_t) dy.yh - dt_t (x.dxi + exp(L_Q - L_t) x.dxs), and
+  // at t = Q - 1 the state and chunk-decay terms
+  float direct = 0.f, dL = 0.f, wx = 0.f;
+  if (tid < kQMax) {
+    const float tl = expf(lq - cum[tid]);
+    direct = xdi[tid] + tl * xds[tid];
+    dL = plus[tid] - dts[tid] * direct;
+    wx = tl * dts[tid] * xds[tid];
+  }
+  const float state_term = block_sum(wx, red);
+  if (tid == a.Q - 1) dL += state_term + decay;
+  // da_u = sum_{t >= u} dL_t: a suffix scan within each warp, then the
+  // totals of the later warps in order
+  float da = dL;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_down_sync(0xffffffffu, da, off);
+    if (lane + off < 32) da += u;
+  }
+  __syncthreads();
+  if (lane == 0) red[warp] = da;
+  __syncthreads();
+  if (tid < kQMax)
+    for (int w2 = kQMax / 32 - 1; w2 > warp; --w2) da += red[w2];
+  const float a_h = a.A[h];
+  if (tid < nv) a.ddt[((int64_t)b * a.S + tok0 + tid) * a.H + h] = direct + a_h * da;
+  const float dA = block_sum(tid < kQMax ? dts[tid] * da : 0.f, red);
+  if (tid == 0) {
+    a.dA_part[base] = dA;
+    a.dD_part[base] = dD;
+  }
+}
+
+// dS_ts = sum_h exp(L_t - L_s) dt_s (dy_t . x_s) on s <= t for one 32x32
+// tile of chunk c (tiles above the diagonal are skipped; entries above it in
+// a diagonal tile are written 0). Thread: s = lane, t = warp + 8 i.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_ds_kernel(BwdArgs<T> a) {
+  const int nt = (a.Q + kTile - 1) / kTile;
+  const int tt = blockIdx.x / nt, ts = blockIdx.x % nt;
+  if (ts > tt) return;
+  const int c = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int nv = min(a.Q, a.S - c * a.Q);
+  const int64_t tok0 = (int64_t)c * a.Q;
+  __shared__ float dyt[kTile][kPW + 1];   // dy, rows t of the tile, one head's channel slice
+  __shared__ float xt[kTile][kPW + 1];    // x, rows s
+  __shared__ float lt[kTile], ls[kTile], dls[kTile];
+  const int sl = tid % kTile, tl = tid / kTile;
+  const int s = ts * kTile + sl;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int h = 0; h < a.H; ++h) {
+    float g[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int p0 = 0; p0 < a.P; p0 += kPW) {
+      __syncthreads();
+      for (int idx = tid; idx < kTile * kPW; idx += kThreads) {
+        const int r = idx / kPW, p = idx % kPW;
+        const int t_r = tt * kTile + r, s_r = ts * kTile + r;
+        const bool okp = p0 + p < a.P;
+        dyt[r][p] = (t_r < nv && okp) ? a.dyv(b, tok0 + t_r, h, p0 + p) : 0.f;
+        xt[r][p] = (s_r < nv && okp) ? a.xv(b, tok0 + s_r, h, p0 + p) : 0.f;
+      }
+      if (p0 == 0 && tid < kTile) {
+        const int64_t cb0 = a.bch(b, c, h) * a.Q;
+        const int t_r = tt * kTile + tid, s_r = ts * kTile + tid;
+        lt[tid] = t_r < a.Q ? a.cum[cb0 + t_r] : 0.f;
+        ls[tid] = s_r < a.Q ? a.cum[cb0 + s_r] : 0.f;
+        dls[tid] = s_r < nv ? a.dt[((int64_t)b * a.S + tok0 + s_r) * a.H + h] : 0.f;
+      }
+      __syncthreads();
+      const int pw = min(kPW, a.P - p0);
+      for (int p = 0; p < pw; ++p) {
+        const float xv = xt[sl][p];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) g[i] += dyt[tl + 8 * i][p] * xv;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = tt * kTile + tl + 8 * i;
+      if (s <= t && t < nv) acc[i] += g[i] * expf(lt[tl + 8 * i] - ls[sl]) * dls[sl];
+    }
+  }
+  float* out = a.dS + ((int64_t)b * a.nc + c) * a.Q * a.Q;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = tt * kTile + tl + 8 * i;
+    if (t < a.Q && s < a.Q) out[(int64_t)t * a.Q + s] = s <= t ? acc[i] : 0.f;
+  }
+}
+
+constexpr size_t bc_smem(int N) {
+  return sizeof(float) * ((size_t)kQMax * (N + 4) + (size_t)kTile * kMS + kTile * kPW);
+}
+
+// dC (blockIdx.z even) or dB (odd) for 32 rows of chunk c:
+//   dC_t = sum_{s<=t} dS_ts B_s + sum_h exp(L_t) sum_p dy_t[p] h_prev[p, :]
+//   dB_s = sum_{t>=s} dS_ts C_t + sum_h w_s sum_p x_s[p] dH_c[p, :]
+// the heads in order. Thread: rows warp + 8 i, n = 4 lane .. + 3.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_bc_kernel(BwdArgs<T> a) {
+  const int r0 = blockIdx.x * kTile, c = blockIdx.y;
+  const int b = blockIdx.z >> 1, is_db = blockIdx.z & 1;
+  const int nv = min(a.Q, a.S - c * a.Q), NS = a.N + 4, tid = threadIdx.x;
+  const int64_t tok0 = (int64_t)c * a.Q;
+  extern __shared__ __align__(16) float smem[];
+  float* mat = smem;                    // [kQMax][NS] B or C; later [kPW][NS] a head's state slice
+  float* sds = mat + kQMax * NS;        // [kTile][kMS] dS rows (dC) or columns (dB)
+  float* ops = sds + kTile * kMS;       // [kTile][kPW] exp(L_t) dy_t or w_s x_s, one head's slice
+  const int rg = tid >> 5, n = 4 * (tid & 31);
+
+  for (int idx = tid; idx < kQMax * a.N; idx += kThreads) {
+    const int r = idx / a.N, nn = idx % a.N;
+    mat[r * NS + nn] = r < nv ? (is_db ? a.cv(b, tok0 + r, nn) : a.bv(b, tok0 + r, nn)) : 0.f;
+  }
+  const float* dsc = a.dS + ((int64_t)b * a.nc + c) * a.Q * a.Q;
+  for (int idx = tid; idx < kTile * kQMax; idx += kThreads) {
+    const int i = idx / kQMax, k = idx % kQMax, row = r0 + i;
+    const int t = is_db ? k : row, s = is_db ? row : k;
+    sds[i * kMS + k] = (s <= t && t < nv) ? dsc[(int64_t)t * a.Q + s] : 0.f;
+  }
+  __syncthreads();
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  if (n < a.N) {
+    for (int k = 0; k < nv; ++k) {
+      const float4 mv = *reinterpret_cast<const float4*>(&mat[k * NS + n]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float d = sds[(rg + 8 * i) * kMS + k];
+        acc[i][0] += d * mv.x; acc[i][1] += d * mv.y; acc[i][2] += d * mv.z; acc[i][3] += d * mv.w;
+      }
+    }
+  }
+  const float* state = is_db ? a.dstates : a.h_prev;
+  for (int h = 0; h < a.H; ++h) {
+    const int64_t base = a.bch(b, c, h);
+    const float lq = a.lq[base];
+    for (int p0 = 0; p0 < a.P; p0 += kPW) {
+      __syncthreads();                  // the last reads of mat and ops are done
+      for (int idx = tid; idx < kPW * a.N; idx += kThreads) {
+        const int p = idx / a.N, nn = idx % a.N;
+        mat[p * NS + nn] = p0 + p < a.P ? state[(base * a.P + p0 + p) * a.N + nn] : 0.f;
+      }
+      for (int idx = tid; idx < kTile * kPW; idx += kThreads) {
+        const int i = idx / kPW, p = idx % kPW, row = r0 + i;
+        float v = 0.f;
+        if (row < nv && p0 + p < a.P) {
+          const float L = a.cum[base * a.Q + row];
+          v = is_db ? expf(lq - L) * a.dt[((int64_t)b * a.S + tok0 + row) * a.H + h] *
+                          a.xv(b, tok0 + row, h, p0 + p)
+                    : expf(L) * a.dyv(b, tok0 + row, h, p0 + p);
+        }
+        ops[idx] = v;
+      }
+      __syncthreads();
+      if (n < a.N) {
+        const int pw = min(kPW, a.P - p0);
+        for (int p = 0; p < pw; ++p) {
+          const float4 sv = *reinterpret_cast<const float4*>(&mat[p * NS + n]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float o = ops[(rg + 8 * i) * kPW + p];
+            acc[i][0] += o * sv.x; acc[i][1] += o * sv.y; acc[i][2] += o * sv.z; acc[i][3] += o * sv.w;
+          }
+        }
+      }
+    }
+  }
+  if (n >= a.N) return;
+  T* out = is_db ? a.dB : a.dC;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + rg + 8 * i;
+    if (row < nv) {
+      T* o = out + ((int64_t)b * a.S + tok0 + row) * a.N + n;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) o[k] = from_f<T>(acc[i][k]);
+    }
+  }
+}
+
+// dA and dD: the chunks' partial sums over (b, chunk) in order
+__global__ void ssd_bwd_reduce_kernel(const float* __restrict__ dA_part,
+                                  const float* __restrict__ dD_part, float* __restrict__ dA,
+                                  float* __restrict__ dD, int n_bc, int H) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= H) return;
+  float sa = 0.f, sd = 0.f;
+  for (int i = 0; i < n_bc; ++i) {
+    sa += dA_part[(int64_t)i * H + h];
+    sd += dD_part[(int64_t)i * H + h];
+  }
+  dA[h] = sa;
+  dD[h] = sd;
+}
+
+template <typename T>
+int launch_bwd(const BwdArgs<T>& a, cudaStream_t st) {
+  static int dev_dstate = -1, dev_chunk = -1, dev_bc = -1;
+  cudaError_t e = raise_smem_limit(ssd_bwd_dstate_kernel<T>, dstate_smem(kNMax), dev_dstate);
+  if (e != cudaSuccess) return (int)e;
+  e = raise_smem_limit(ssd_bwd_chunk_kernel<T>, chunk_smem(kNMax), dev_chunk);
+  if (e != cudaSuccess) return (int)e;
+  e = raise_smem_limit(ssd_bwd_bc_kernel<T>, bc_smem(kNMax), dev_bc);
+  if (e != cudaSuccess) return (int)e;
+  const int nt = (a.Q + kTile - 1) / kTile;
+  cb_kernel<T><<<dim3(nt * nt, a.nc, a.Bsz), kThreads, 0, st>>>(a.Bm, a.Cm, a.cb, a.S, a.N, a.Q,
+                                                                a.nc, a.bsb, a.bss, a.csb, a.css);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ssd_bwd_dstate_kernel<T><<<dim3(a.nc, a.H, a.Bsz * ((a.P + kPW - 1) / kPW)), kThreads,
+                         dstate_smem(a.N), st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int n4 = a.P * a.N / 4;
+  ssd_bwd_state_pass_kernel<<<dim3((n4 + 255) / 256, a.H, a.Bsz), 256, 0, st>>>(
+      a.dhT, a.dstates, a.lq, a.H, a.P, a.N, a.nc);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ssd_bwd_chunk_kernel<T><<<dim3(a.nc, a.H, a.Bsz), kThreads, chunk_smem(a.N), st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ssd_bwd_ds_kernel<T><<<dim3(nt * nt, a.nc, a.Bsz), kThreads, 0, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ssd_bwd_bc_kernel<T><<<dim3(nt, a.nc, 2 * a.Bsz), kThreads, bc_smem(a.N), st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ssd_bwd_reduce_kernel<<<(a.H + 127) / 128, 128, 0, st>>>(a.dA_part, a.dD_part, a.dA, a.dD,
+                                                        a.Bsz * a.nc, a.H);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // float32: x, Bm, Cm, y, dt, A, D, state, cb all float32 and contiguous:
 // x, y (B,S,H,P); dt (B,S,H); Bm, Cm (B,S,N); A, D (H,); state (B,H,P,N);
-// cb scratch (B, ceil(S/Q), Q, Q).
+// cb scratch (B, ceil(S/Q), Q, Q); states (B, ceil(S/Q), H, P, N) receives
+// the state entering each chunk, or is null.
 // Requires 1 <= Q <= 128, N <= 128, N % 4 == 0. Returns cudaGetLastError().
 extern "C" int ssd_scan_fp32_launch(const void* x, const void* dt, const void* A,
                                     const void* Bm, const void* Cm, const void* D, void* cb,
-                                    void* y, void* state, int Bsz, int S, int H, int P, int N,
-                                    int Q, void* stream) {
+                                    void* y, void* state, void* states, int Bsz, int S, int H,
+                                    int P, int N, int Q, void* stream) {
   if (!D || Q < 1 || Q > kQMax || N > kNMax || N % 4 != 0) return (int)cudaErrorInvalidValue;
-  return launch<float>(x, dt, A, Bm, Cm, D, cb, y, state, Bsz, S, H, P, N, Q,
+  return launch<float>(x, dt, A, Bm, Cm, D, cb, y, state, states, Bsz, S, H, P, N, Q,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -769,4 +1359,41 @@ extern "C" int ssd_scan_bf16_launch(const void* x, const void* dt, const void* A
                    Bsz, S, H, P, N, Q, (S + Q - 1) / Q, xsb, xss, bsb, bss, csb, css,
                    vx, vb, vc};
   return launch_bf16(a, static_cast<cudaStream_t>(stream));
+}
+
+// The backward of either forward: x, Bm, Cm, dy and the outputs dx, dB, dC
+// in the forward's dtype (bf16 != 0: bfloat16, else float32), the rest
+// float32. x (B,S,H,P) with head stride P and element stride 1, Bm, Cm
+// (B,S,N) with element stride 1, each with its batch (*sb) and row (*ss)
+// strides in elements; dt, dy, dx (B,S,H[,P]), dB, dC (B,S,N) contiguous;
+// h_prev (B, nc, H, P, N) the forward's states; dhT (B,H,P,N) or null.
+// Out: dx, ddt (B,S,H), dA, dD (H,), dB, dC. Scratch: cb, dS (B, nc, Q, Q),
+// cum (B, nc, H, Q), lq, dA_part, dD_part (B, nc, H), dstates (B, nc, H, P, N).
+// Requires 1 <= Q <= 128, N <= 128, N % 4 == 0. Returns cudaGetLastError().
+extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A, const void* Bm,
+                                   const void* Cm, const void* D, const void* h_prev,
+                                   const void* dy, const void* dhT, void* dx, void* ddt,
+                                   void* dA, void* dB, void* dC, void* dD, void* cb, void* cum,
+                                   void* lq, void* dstates, void* dS, void* dA_part,
+                                   void* dD_part, int Bsz, int S, int H, int P, int N, int Q,
+                                   long long xsb, long long xss, long long bsb, long long bss,
+                                   long long csb, long long css, int bf16_in, void* stream) {
+  if (!D || Q < 1 || Q > kQMax || N > kNMax || N % 4 != 0) return (int)cudaErrorInvalidValue;
+  const int nc = (S + Q - 1) / Q;
+  auto run = [&](auto tag) {
+    using T = decltype(tag);
+    const BwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(Bm),
+                       static_cast<const T*>(Cm), static_cast<const T*>(dy),
+                       static_cast<const float*>(dt), static_cast<const float*>(A),
+                       static_cast<const float*>(D), static_cast<const float*>(h_prev),
+                       static_cast<const float*>(dhT), static_cast<T*>(dx), static_cast<T*>(dB),
+                       static_cast<T*>(dC), static_cast<float*>(ddt), static_cast<float*>(dA),
+                       static_cast<float*>(dD), static_cast<float*>(cb),
+                       static_cast<float*>(cum), static_cast<float*>(lq),
+                       static_cast<float*>(dstates), static_cast<float*>(dS),
+                       static_cast<float*>(dA_part), static_cast<float*>(dD_part),
+                       Bsz, S, H, P, N, Q, nc, xsb, xss, bsb, bss, csb, css};
+    return launch_bwd<T>(a, static_cast<cudaStream_t>(stream));
+  };
+  return bf16_in ? run(bf16{}) : run(float{});
 }

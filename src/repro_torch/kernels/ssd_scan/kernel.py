@@ -4,20 +4,25 @@
 launches on PyTorch's current stream. It takes CUDA tensors only; `ops.ssd`
 sends CPU tensors to the plain version instead. `ssd_scan.launches` counts
 the wrapper's calls that launched, and `ssd_scan.launches_by_case` counts
-them by call, keyed (B, S, H, P, N, chunk).
+them by call, keyed (B, S, H, P, N, chunk). With `return_states` it also
+returns the state entering each chunk, which `ssd_scan_bwd`, the backward,
+takes; `ssd_scan_bwd.launches` and `.launches_by_case` count its calls
+(seven CUDA launches each), and `ops.SSDScanFn` joins the two for autograd.
 
 The dtype picks the kernels, by a fixed rule and not as a fallback:
 bfloat16 goes to the tensor-core kernels (chunk_state, state_pass,
 chunk_scan: three CUDA launches per call), which read x, B and C in place
 through their batch and row strides; float32 goes to the CUDA-core kernels
 (cb_kernel, scan_kernel: two launches), which take contiguous inputs, so
-the wrapper copies strided fp32 views first.
+the wrapper copies strided fp32 views first. The backward's kernels run
+on the CUDA cores in fp32 arithmetic for both dtypes and read x, B and C
+through their strides in either.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional
 
 import torch
 
@@ -32,11 +37,14 @@ def _lib():
     """The C entry points with their signatures, resolved once per process."""
     lib = _build.load("ssd_scan")
     fp32, bf16 = lib.ssd_scan_fp32_launch, lib.ssd_scan_bf16_launch
-    fp32.restype = bf16.restype = ctypes.c_int
-    fp32.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    bwd = lib.ssd_scan_bwd_launch
+    fp32.restype = bf16.restype = bwd.restype = ctypes.c_int
+    fp32.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     bf16.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
                      + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    return fp32, bf16
+    bwd.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+                    + [ctypes.c_int, ctypes.c_void_p])
+    return fp32, bf16, bwd
 
 
 def _copy_width(t: torch.Tensor, width: int) -> int:
@@ -49,15 +57,8 @@ def _copy_width(t: torch.Tensor, width: int) -> int:
     return 1
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
-             Cm: torch.Tensor, D: torch.Tensor, *, chunk: int = 128
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan on the card. x (B,S,H,P) fp32 or bf16; dt (B,S,H)
-    fp32; A (H,) fp32; Bm, Cm (B,S,N) in x's dtype; D (H,) fp32. x, Bm and
-    Cm need a contiguous last dimension (x also its head dimension), so the
-    split views of a packed projection qualify; dt, A and D contiguous.
-    Returns y (B,S,H,P) in x's dtype and the final state (B,H,P,N) fp32.
-    Chunks are Q = min(chunk, S) tokens."""
+def _check(x, dt, A, Bm, Cm, D, chunk):
+    """Raise on inputs the kernels do not take."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -75,8 +76,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     if not 1 <= Q <= Q_MAX or N > N_MAX or N % 4:
         raise ValueError(f"ssd_scan takes chunk <= {Q_MAX} and N <= {N_MAX}, "
                          f"N % 4 == 0; got Q={Q}, N={N}")
-    ins = (x, dt, A, Bm, Cm, D)
-    if any(t.device != x.device for t in ins):
+    if any(t.device != x.device for t in (x, dt, A, Bm, Cm, D)):
         raise ValueError("ssd_scan: inputs must be on one device")
     if not all(t.is_contiguous() for t in (dt, A, D)):
         raise ValueError("ssd_scan: dt, A and D must be contiguous")
@@ -86,12 +86,36 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
                          f"element stride 1; got strides {x.stride()}, {Bm.stride()}, "
                          f"{Cm.stride()}")
 
+
+def _count(fn, x, Bm, chunk):
+    fn.launches += 1
+    case = (*x.shape, Bm.shape[-1], chunk)
+    fn.launches_by_case[case] = fn.launches_by_case.get(case, 0) + 1
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, D: torch.Tensor, *, chunk: int = 128,
+             return_states: bool = False):
+    """Chunked SSD scan on the card. x (B,S,H,P) fp32 or bf16; dt (B,S,H)
+    fp32; A (H,) fp32; Bm, Cm (B,S,N) in x's dtype; D (H,) fp32. x, Bm and
+    Cm need a contiguous last dimension (x also its head dimension), so the
+    split views of a packed projection qualify; dt, A and D contiguous.
+    Returns y (B,S,H,P) in x's dtype and the final state (B,H,P,N) fp32;
+    with `return_states` also the state entering each chunk, h_prev
+    (B, nc, H, P, N) fp32 (y and the state are the same bits either way).
+    Chunks are Q = min(chunk, S) tokens."""
+    _check(x, dt, A, Bm, Cm, D, chunk)
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
     nc = -(-S // Q)
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    states = None
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    fp32, bf16 = _lib()
+    fp32, bf16, _ = _lib()
     if x.dtype == torch.bfloat16:
+        # state_pass_kernel leaves h_prev in the scratch it reads the chunk states from
         states = torch.empty((Bsz, nc, H, P, N), dtype=torch.float32, device=x.device)
         lq = torch.empty((Bsz, nc, H), dtype=torch.float32, device=x.device)
         err = bf16(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
@@ -103,16 +127,79 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     else:
         x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
         cb = torch.empty((Bsz, nc, Q, Q), dtype=torch.float32, device=x.device)
+        if return_states:
+            states = torch.empty((Bsz, nc, H, P, N), dtype=torch.float32, device=x.device)
         err = fp32(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                    D.data_ptr(), cb.data_ptr(), y.data_ptr(), state.data_ptr(),
+                   states.data_ptr() if return_states else None,
                    Bsz, S, H, P, N, Q, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
-    ssd_scan.launches += 1
-    case = (Bsz, S, H, P, N, chunk)
-    ssd_scan.launches_by_case[case] = ssd_scan.launches_by_case.get(case, 0) + 1
-    return y, state
+    _count(ssd_scan, x, Bm, chunk)
+    return (y, state, states) if return_states else (y, state)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, D: torch.Tensor, h_prev: torch.Tensor, dy: torch.Tensor,
+                 dhT: Optional[torch.Tensor] = None, *, chunk: int = 128):
+    """Gradients of `ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)` on the card,
+    given its `h_prev` (`return_states=True`), y's gradient `dy` (B,S,H,P)
+    in x's dtype and the final state's `dhT` (B,H,P,N) fp32 (None: unused).
+    The inputs as the forward takes them, x, Bm and Cm read through their
+    strides in both dtypes. Returns (dx, ddt, dA, dB, dC, dD): dx, dB, dC
+    in x's dtype, contiguous, the others fp32. Seven CUDA launches, no
+    atomics: the same inputs give the same bits."""
+    _check(x, dt, A, Bm, Cm, D, chunk)
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    if h_prev.shape != (Bsz, nc, H, P, N) or h_prev.dtype != torch.float32 \
+            or not h_prev.is_contiguous():
+        raise ValueError(f"ssd_scan_bwd: h_prev must be ({Bsz}, {nc}, {H}, {P}, {N}) fp32 "
+                         f"contiguous, got {tuple(h_prev.shape)} {h_prev.dtype}")
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} {dy.dtype} must match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if dhT is not None and (dhT.shape != (Bsz, H, P, N) or dhT.dtype != torch.float32):
+        raise ValueError(f"ssd_scan_bwd: dhT must be ({Bsz}, {H}, {P}, {N}) fp32, got "
+                         f"{tuple(dhT.shape)} {dhT.dtype}")
+    if any(t is not None and t.device != x.device for t in (h_prev, dy, dhT)):
+        raise ValueError("ssd_scan_bwd: inputs must be on one device")
+    dy = dy.contiguous()
+    dhT = None if dhT is None else dhT.contiguous()
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
+    dB = torch.empty((Bsz, S, N), dtype=x.dtype, device=dev)
+    dC = torch.empty_like(dB)
+    ddt = torch.empty((Bsz, S, H), dtype=f32, device=dev)
+    dA = torch.empty((H,), dtype=f32, device=dev)
+    dD = torch.empty_like(dA)
+    # scratch: C.B^T and dS per chunk, L and L_Q, the chunks' state
+    # gradients, the per-chunk partial sums of dA and dD
+    cb = torch.empty((Bsz, nc, Q, Q), dtype=f32, device=dev)
+    dS = torch.empty_like(cb)
+    cum = torch.empty((Bsz, nc, H, Q), dtype=f32, device=dev)
+    lq = torch.empty((Bsz, nc, H), dtype=f32, device=dev)
+    dstates = torch.empty((Bsz, nc, H, P, N), dtype=f32, device=dev)
+    dA_part, dD_part = torch.empty_like(lq), torch.empty_like(lq)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib()[2](x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                    D.data_ptr(), h_prev.data_ptr(), dy.data_ptr(),
+                    None if dhT is None else dhT.data_ptr(),
+                    dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+                    dC.data_ptr(), dD.data_ptr(), cb.data_ptr(), cum.data_ptr(),
+                    lq.data_ptr(), dstates.data_ptr(), dS.data_ptr(), dA_part.data_ptr(),
+                    dD_part.data_ptr(), Bsz, S, H, P, N, Q,
+                    x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
+                    Cm.stride(0), Cm.stride(1), int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {err}")
+    _count(ssd_scan_bwd, x, Bm, chunk)
+    return dx, ddt, dA, dB, dC, dD
 
 
 ssd_scan.launches = 0
 ssd_scan.launches_by_case = {}
+ssd_scan_bwd.launches = 0
+ssd_scan_bwd.launches_by_case = {}

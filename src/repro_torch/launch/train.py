@@ -3,11 +3,19 @@ one device, with the fault-tolerant supervisor (`dist/fault.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
         --steps 300 --batch 8 --seq 256 --ckpt-dir ckpt       # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
+        --steps 300 --ckpt-dir ckpt_mamba2                    # SSM, on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
+        --steps 300 --ckpt-dir ckpt_zamba2                    # hybrid, on the card
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 8 \
         --device cpu --ckpt-dir ckpt                          # tiny, on the CPU
 
-Random weights from seed 0, fp32 compute (`repro`'s choice on one device),
-`remat` "block" at full width and "none" with `--reduced`, AdamW with
+Every family trains: on the card the attention layers run K1's forward and
+backward kernels (`FlashAttentionFn`) and the SSM layers K2's
+(`SSDScanFn`); on the CPU their plain versions. Random weights from seed
+0, fp32 compute (`repro`'s choice on one device), `remat` "block" at full
+width (each decoder or SSM layer recomputed in the backward; the hybrid's
+shared block is not) and "none" with `--reduced`, AdamW with
 `repro`'s schedule, `MarkovLMDataset` batches (seed 0). Checkpoints are
 `repro`'s format (`train/checkpoint.py`), so `repro` can restore them and
 `launch/serve.py --ckpt-dir` serves them. `--fail-at` injects node failures
@@ -47,7 +55,9 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
-    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="steps between checkpoints; 0 writes none, not even "
+                         "the final one (a failure then restarts from step 0)")
     ap.add_argument("--data", type=int, default=1,
                     help="mesh data axis (1: one device)")
     ap.add_argument("--model", type=int, default=1)

@@ -27,7 +27,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import MLP, mlp, rmsnorm
 from repro_torch.models.mamba2 import SSMBlock, init_ssm_cache
-from repro_torch.models.runtime import Runtime
+from repro_torch.models.runtime import Runtime, remat_block
 
 
 def n_applications(cfg: ModelConfig) -> int:
@@ -77,10 +77,12 @@ def _application(cfg: ModelConfig, layer: int) -> Optional[int]:
 
 def hybrid_forward(x: torch.Tensor, layers: HybridLayers, cfg: ModelConfig,
                    rt: Runtime, positions: torch.Tensor) -> torch.Tensor:
-    """Full sequence. x (B, S, D) -> (B, S, D)."""
+    """Full sequence. x (B, S, D) -> (B, S, D). With `rt.remat == "block"`
+    each SSM layer is recomputed in the backward (`remat_block`); the
+    shared block is not, as in `repro`."""
     shared = layers.shared
     for i, block in enumerate(layers.ssm_layers):
-        x = block(x, rt)
+        x = remat_block(rt, block, x, rt, probe=block.ln)
         if _application(cfg, i) is not None:
             h = rmsnorm(x, shared.ln1, cfg.norm_eps)
             x = x + self_attention(h, shared.attn, cfg, rt, positions)

@@ -44,7 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, hybrid, transformer
 from repro_torch.models.layers import embed_init_, rmsnorm
 from repro_torch.models.mamba2 import SSMBlock, init_ssm_cache
-from repro_torch.models.runtime import Runtime
+from repro_torch.models.runtime import Runtime, remat_block
 
 # the families whose layers are the decoder stack of `models.transformer`
 DECODER_FAMILIES = ("dense", "moe", "vlm")
@@ -142,7 +142,7 @@ class Model(nn.Module):
                                                prefix_len=self.cfg.prefix_len)
         elif fam == "ssm":
             for layer in self.layers:
-                x = layer(x, self.rt)
+                x = remat_block(self.rt, layer, x, self.rt, probe=layer.ln)
         elif fam == "hybrid":
             positions = encdec.iota_positions(B, S, tokens.device)
             x = hybrid.hybrid_forward(x, self.layers, self.cfg, self.rt, positions)

@@ -17,7 +17,6 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe
@@ -28,7 +27,7 @@ from repro_torch.models.attention import (
     self_attention,
 )
 from repro_torch.models.layers import MLP, mlp, rmsnorm
-from repro_torch.models.runtime import Runtime
+from repro_torch.models.runtime import Runtime, remat_block
 
 
 def global_flags(cfg: ModelConfig, n_layers: int) -> Optional[List[bool]]:
@@ -96,21 +95,16 @@ def decoder_stack(x: torch.Tensor, layers: nn.ModuleList, cfg: ModelConfig,
     """Full-sequence stack. x (B, S, D) -> (x, the layers' summed aux loss).
     `prefix_len > 0` (the VLM) puts a prefix-LM mask on every layer.
 
-    With `rt.remat == "block"`, while autograd records a graph (grad mode on
-    and an input or parameter that needs a gradient), each layer runs under
-    `torch.utils.checkpoint` (non-reentrant): its activations are dropped
-    and the whole block is recomputed in the backward. `repro`'s policy
+    With `rt.remat == "block"` each layer runs under `remat_block`: while
+    autograd records a graph, the whole block is recomputed in the
+    backward. `repro`'s policy
     (`dots_with_no_batch_dims_saveable`) keeps the matrix products instead;
     the values are the same, the recompute differs (on the card the
     attention kernel's forward runs twice per layer and step)."""
     aux = torch.zeros((), device=x.device)
     for p_l, window in zip(layers, layer_windows(cfg, len(layers))):
-        if rt.remat == "block" and torch.is_grad_enabled() and (
-                x.requires_grad or p_l.ln1.requires_grad):
-            x, a = checkpoint(decoder_block, x, p_l, cfg, rt, positions, window, prefix_len,
-                              use_reentrant=False)
-        else:
-            x, a = decoder_block(x, p_l, cfg, rt, positions, window, prefix_len)
+        x, a = remat_block(rt, decoder_block, x, p_l, cfg, rt, positions, window, prefix_len,
+                           probe=p_l.ln1)
         aux = aux + a
     return x, aux
 

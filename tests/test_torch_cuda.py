@@ -65,11 +65,19 @@ grad_fn) against its plain version `attention_bwd_ref` on the kernel's own
 o and lse, at the JAX flash tests' cases and the training shape (8, 256,
 9/3 heads of 64, causal), fp32 within 2e-5 and bf16 within 2e-2 of the
 largest reference gradient (the forward's small-case tolerances, scaled to
-the gradients), two runs bit for bit; K2 refuses inputs that need a
-gradient; reduced smollm-135m trained 3 steps on the card and the CPU from
-the same weights, losses within 1e-5 and grad norms within 1e-4 relative;
-the launcher's injected-failure contract on the card with a bit-equal
-uninterrupted rerun.
+the gradients), two runs bit for bit; reduced smollm-135m trained 3 steps
+on the card and the CPU from the same weights, losses within 1e-5 and grad
+norms within 1e-4 relative; the launcher's injected-failure contract on the
+card with a bit-equal uninterrupted rerun.
+
+K2's backward (`SSDScanFn`: `ops.ssd`'s outputs have a grad_fn) against
+`ssd_chunked_bwd_ref` on the forward's own states, at the cases above and
+the two training shapes, fp32 and bf16, contiguous and through strided
+views, with and without the final state's gradient: fp32 gradients within
+3e-4 of the largest reference gradient, bf16 ones (dx, dB, dC) element by
+element within 1e-2 * |ref| + 3e-4 * max|ref| (chip_smoke.py's rules), two
+runs bit for bit; reduced mamba2-370m and zamba2-1.2b trained 3 steps on
+the card and the CPU as smollm is.
 """
 import numpy as np
 import pytest
@@ -770,29 +778,68 @@ def test_flash_backward_matches_plain_version(cuda, case, dname):
         assert bool(((g.float() - w).abs() <= tol * w.abs().max()).all())
 
 
-@pytest.mark.gpu
-def test_ssd_refuses_gradients_on_the_card(cuda):
-    case = CASES[0]
-    args = [a.to(cuda) for a in _inputs(case, torch.float32)]
-    args[0].requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssd(*args, chunk=case[-1])
-    with torch.no_grad():
-        y, _ = ops.ssd(*args, chunk=case[-1])
-    assert y.grad_fn is None
+SSD_TRAIN = [(8, 256, 32, 64, 128, 128), (8, 256, 64, 64, 64, 128)]   # mamba2, zamba2
+
+
+def _strided(args):
+    """x, Bm, Cm of `args` as views cut from one packed (B, S, H*P + 2N)
+    tensor, as models/mamba2.py passes the conv output."""
+    x, dt, A, Bm, Cm, D = args
+    H, P, N = x.shape[2], x.shape[3], Bm.shape[-1]
+    xs, Bs, Cs = torch.cat([x.flatten(-2), Bm, Cm], -1).split([H * P, N, N], -1)
+    return [xs.unflatten(-1, (H, P)), dt, A, Bs, Cs, D]
 
 
 @pytest.mark.gpu
-def test_training_on_the_card_matches_cpu(cuda):
+@pytest.mark.parametrize("final_state", [False, True], ids=["y", "y+state"])
+@pytest.mark.parametrize("dname", ["fp32", "bf16", "fp32 strided", "bf16 strided"])
+@pytest.mark.parametrize("case", CASES + SSD_TRAIN)
+def test_ssd_backward_on_the_card_matches_plain_version(cuda, case, dname, final_state):
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref
+    dtype = DTYPES[dname.split()[0]][0]
+    args = [a.to(cuda) for a in _inputs(case, dtype)]
+    if dname.endswith("strided"):
+        args = _strided(args)
+    g = torch.Generator(cuda).manual_seed(1)
+    dy = torch.randn(args[0].shape, generator=g, device=cuda).to(dtype)
+    dhT = torch.randn(case[0], case[2], case[3], case[4], generator=g, device=cuda)
+    leaves = [a.detach().requires_grad_() for a in args]
+    f0, b0 = ssd_scan.launches, ssd_scan_bwd.launches
+    runs = []
+    for _ in range(2):
+        y, h = ops.ssd(*leaves, chunk=case[-1])
+        assert type(y.grad_fn).__name__ == "SSDScanFnBackward"
+        runs.append(torch.autograd.grad((y, h) if final_state else (y,), leaves,
+                                        (dy, dhT) if final_state else (dy,)))
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches - f0, ssd_scan_bwd.launches - b0) == (2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    _, _, h_prev = ssd_chunked_ref(*args, chunk=case[-1], return_states=True)
+    want = ssd_chunked_bwd_ref(*args, h_prev, dy, dhT if final_state else None, chunk=case[-1])
+    for got, w, a in zip(runs[0], want, args):
+        assert got.dtype == a.dtype and got.shape == a.shape and torch.isfinite(got).all()
+        err, tol = (got.float() - w).abs(), 3e-4 * w.abs().max()
+        if got.dtype == torch.bfloat16:
+            tol = tol + 1e-2 * w.abs()
+        assert bool((err <= tol).all())
+
+
+def _three_steps_card_and_cpu(arch):
+    """Reduced `arch` trained 3 steps (remat "block") on the CPU and on the
+    card from the same weights: the losses within 1e-5 and grad norms within
+    1e-4 relative. Returns the card's K1 and K2 calls over the 3 steps
+    (forward, backward, forward, backward); the CPU makes none."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd
     from repro_torch.train.data import MarkovLMDataset
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_step import make_train_step
-    cfg = reduced_config("smollm-135m")
+    cfg = reduced_config(arch)
     opt = AdamWConfig(peak_lr=3e-3, warmup_steps=2, total_steps=3)
     ds = MarkovLMDataset(vocab=cfg.vocab, seq_len=64, batch=4, seed=0)
     cpu_model = Model(cfg, CPU_TEST, seed=3)
-    runs = {}
+    runs, calls = {}, {}
     for dev in ("cpu", "cuda"):
         rt = Runtime(device=dev, compute_dtype=torch.float32, remat="block")
         model = Model(cfg, rt, seed=None)
@@ -800,17 +847,38 @@ def test_training_on_the_card_matches_cpu(cuda):
         model.requires_grad_(True)
         st = init_opt_state(dict(model.named_parameters()))
         step = make_train_step(cfg, rt, opt)
-        f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+        counters = (flash_attention, flash_attention_bwd, ssd_scan, ssd_scan_bwd)
+        before = [c.launches for c in counters]
         out = []
         for s in range(3):
             batch = {k: torch.as_tensor(v).long().to(dev) for k, v in ds.batch_at(s).items()}
             model, st, m = step(model, st, batch)
             out.append((m["loss"].item(), m["grad_norm"].item()))
         runs[dev] = out
-        launches = (flash_attention.launches - f0, flash_attention_bwd.launches - b0)
-        assert launches == ((0, 0) if dev == "cpu" else (6 * cfg.num_layers, 3 * cfg.num_layers))
+        calls[dev] = tuple(c.launches - b for c, b in zip(counters, before))
     for (lc, gc), (lg, gg) in zip(runs["cpu"], runs["cuda"]):
         assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(gg - gc) <= 1e-4 * abs(gc)
+    assert calls["cpu"] == (0, 0, 0, 0)
+    return calls["cuda"]
+
+
+@pytest.mark.gpu
+def test_training_on_the_card_matches_cpu(cuda):
+    L = reduced_config("smollm-135m").num_layers
+    assert _three_steps_card_and_cpu("smollm-135m") == (6 * L, 3 * L, 0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_ssm_training_on_the_card_matches_cpu(cuda, arch):
+    """Both kernels' backwards in one model (zamba2): per step, K2's forward
+    twice per SSM layer (remat), its backward once; K1's forward and
+    backward once per application of the shared block (not recomputed)."""
+    from repro_torch.models.hybrid import n_applications
+    cfg = reduced_config(arch)
+    apps = n_applications(cfg) if cfg.family == "hybrid" else 0
+    L = cfg.num_layers
+    assert _three_steps_card_and_cpu(arch) == (3 * apps, 3 * apps, 6 * L, 3 * L)
 
 
 @pytest.mark.gpu

@@ -1,6 +1,8 @@
 """The port's training stack against `repro`'s, on the CPU: optimizer,
-data, the train step over reduced smollm-135m, checkpoints both ways, the
-fault-tolerant launcher and serving from a checkpoint.
+data, the train step over reduced smollm-135m, mamba2-370m and zamba2-1.2b
+(the SSD scan's backward is the plain `ssd_chunked_bwd_ref` through
+`SSDScanFn`), remat of the decoder, SSM and hybrid stacks, checkpoints both
+ways, the fault-tolerant launcher and serving from a checkpoint.
 
 Inputs are numpy from a seed (weights drawn in `init_params`' tree and
 carried over by `params_from_jax`; `MarkovLMDataset` batches), handed to
@@ -50,7 +52,7 @@ from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.dist.fault import StragglerPolicy  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import hybrid, mamba2, transformer  # noqa: E402
 from repro_torch.models.convert import params_from_jax, params_to_jax  # noqa: E402
 from repro_torch.models.model import Model, loss_fn  # noqa: E402
 from repro_torch.models.runtime import CPU_TEST  # noqa: E402
@@ -207,12 +209,12 @@ def test_data_is_repros_bit_for_bit():
 # --------------------------- the train step -------------------------------
 
 
-def _five_steps(remat, microbatches, opt):
+def _five_steps(remat, microbatches, opt, arch=ARCH):
     """The port's and repro's train steps side by side for 5 steps from the
     same weights and batches; loss, grad norm and lr within 1e-5 relative at
     every step. Returns (the port's final params, repro's), repro's tree."""
-    jcfg, params = _params_np()
-    model = _model(params, remat)
+    jcfg, params = _params_np(arch)
+    model = _model(params, remat, arch)
     cfg = model.cfg
     step = make_train_step(cfg, model.rt, opt_mod.AdamWConfig(**opt), microbatches)
     jstep = jax.jit(jax_make_train_step(jcfg, dataclasses.replace(JAX_CPU_TEST, remat=remat),
@@ -231,10 +233,17 @@ def _five_steps(remat, microbatches, opt):
     return params_to_jax(model.state_dict(), cfg), jax.tree.map(np.asarray, jp), sum(lrs)
 
 
-@pytest.mark.parametrize("microbatches", [1, 2])
-@pytest.mark.parametrize("remat", ["none", "block"])
-def test_train_step_matches_jax_over_five_steps(remat, microbatches):
-    ours, theirs, _ = _five_steps(remat, microbatches, OPT_REPRO_TEST)
+# smollm's cases keep their ids ("none-1", ...); the SSM and hybrid cases
+# carry the arch in theirs
+FIVE_STEP_CASES = [
+    pytest.param(arch, remat, mb, id=f"{remat}-{mb}" if arch == ARCH else f"{arch}-{remat}-{mb}")
+    for arch in (ARCH, "mamba2-370m", "zamba2-1.2b")
+    for remat in ("none", "block") for mb in (1, 2)]
+
+
+@pytest.mark.parametrize("arch,remat,microbatches", FIVE_STEP_CASES)
+def test_train_step_matches_jax_over_five_steps(arch, remat, microbatches):
+    ours, theirs, _ = _five_steps(remat, microbatches, OPT_REPRO_TEST, arch)
     _close_trees(ours, theirs, rtol=2e-4, atol=2e-5)
 
 
@@ -265,6 +274,40 @@ def test_remat_block_recomputes_each_layer_and_gives_the_same_gradients(monkeypa
         loss, _ = loss_fn(model, batch)
         grads[remat] = torch.autograd.grad(loss, list(model.parameters()))
         assert len(calls) == model.cfg.num_layers * (2 if remat == "block" else 1)
+    for a, b in zip(grads["none"], grads["block"]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_remat_block_recomputes_each_ssm_layer_not_the_shared_block(monkeypatch, arch):
+    """remat "block" on the SSM and hybrid stacks: every SSMBlock runs twice
+    (forward and recompute), the hybrid's shared attention block once per
+    application (not recomputed, as in repro), and the gradients equal
+    remat "none"'s."""
+    _, params = _params_np(arch)
+    ssm_calls, shared_calls = [], []
+    block_forward, attention = mamba2.SSMBlock.forward, hybrid.self_attention
+
+    def counted_block(self, *a, **kw):
+        ssm_calls.append(1)
+        return block_forward(self, *a, **kw)
+
+    def counted_attention(*a, **kw):
+        shared_calls.append(1)
+        return attention(*a, **kw)
+    monkeypatch.setattr(mamba2.SSMBlock, "forward", counted_block)
+    monkeypatch.setattr(hybrid, "self_attention", counted_attention)
+    batch = _batch(data.MarkovLMDataset(vocab=256, seq_len=SEQ, batch=BATCH, seed=0), 0)[1]
+    grads = {}
+    for remat in ("none", "block"):
+        model = _model(params, remat, arch)
+        ssm_calls.clear()
+        shared_calls.clear()
+        loss, _ = loss_fn(model, batch)
+        grads[remat] = torch.autograd.grad(loss, list(model.parameters()))
+        cfg = model.cfg
+        assert len(ssm_calls) == cfg.num_layers * (2 if remat == "block" else 1)
+        assert len(shared_calls) == (hybrid.n_applications(cfg) if arch == "zamba2-1.2b" else 0)
     for a, b in zip(grads["none"], grads["block"]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
 
@@ -373,20 +416,49 @@ LAUNCH = ["--arch", ARCH, "--reduced", "--steps", "8", "--batch", "2", "--seq", 
           "--ckpt-every", "3", "--log-every", "100", "--device", "cpu"]
 
 
-def test_train_launch_resumes_after_injected_failure(tmp_path):
-    """tests/test_launch_smoke.py's contract, on the port; the resumed run's
-    final loss equals an uninterrupted run's bit for bit."""
-    out = launch_train.main(LAUNCH + ["--ckpt-dir", str(tmp_path / "a"), "--fail-at", "5"])
+def _resume_contract(tmp_path, launch):
+    out = launch_train.main(launch + ["--ckpt-dir", str(tmp_path / "a"), "--fail-at", "5"])
     assert out["restarts"] == 1
     assert [m["step"] for m in out["metrics"]] == list(range(8)), "metric log must be contiguous"
     assert np.isfinite([m["loss"] for m in out["metrics"]]).all()
     assert ckpt.list_checkpoints(str(tmp_path / "a"))[-1] == 8
-    clean = launch_train.main(LAUNCH + ["--ckpt-dir", str(tmp_path / "b")])
+    clean = launch_train.main(launch + ["--ckpt-dir", str(tmp_path / "b")])
     assert clean["restarts"] == 0
     assert [m["loss"] for m in out["metrics"]] == [m["loss"] for m in clean["metrics"]]
     # a finished run resumes at its final checkpoint and does nothing
-    again = launch_train.main(LAUNCH + ["--ckpt-dir", str(tmp_path / "b")])
+    again = launch_train.main(launch + ["--ckpt-dir", str(tmp_path / "b")])
     assert again["metrics"] == [] and again["restarts"] == 0
+
+
+def test_train_launch_resumes_after_injected_failure(tmp_path):
+    """tests/test_launch_smoke.py's contract, on the port; the resumed run's
+    final loss equals an uninterrupted run's bit for bit."""
+    _resume_contract(tmp_path, LAUNCH)
+
+
+def test_ssm_train_launch_resumes_after_injected_failure(tmp_path):
+    """The same contract for reduced mamba2-370m: the SSD scan's forward and
+    backward (the plain pair on the CPU) rerun after the rollback give every
+    loss of an uninterrupted run bit for bit; launch/serve.py serves the
+    trained checkpoint."""
+    _resume_contract(tmp_path, ["--arch", "mamba2-370m"] + LAUNCH[2:])
+    served = launch_serve.main(["--arch", "mamba2-370m", "--reduced", "--device", "cpu",
+                                "--ckpt-dir", str(tmp_path / "b"), "--requests", "2",
+                                "--max-new", "3"])
+    assert sorted(served) == [0, 1] and all(len(t) == 3 for t in served.values())
+
+
+def test_train_launch_without_checkpoints_restarts_from_step_0(tmp_path):
+    """`--ckpt-every 0` writes no checkpoint, the final one included; an
+    injected failure then rolls back to a fresh init, and every loss still
+    equals an uninterrupted run's."""
+    launch = LAUNCH[:-6] + ["--ckpt-every", "0", "--log-every", "100", "--device", "cpu"]
+    out = launch_train.main(launch + ["--ckpt-dir", str(tmp_path / "a"), "--fail-at", "5"])
+    assert out["restarts"] == 1 and [m["step"] for m in out["metrics"]] == list(range(8))
+    assert ckpt.list_checkpoints(str(tmp_path / "a")) == []
+    clean = launch_train.main(launch + ["--ckpt-dir", str(tmp_path / "b")])
+    assert [m["loss"] for m in out["metrics"]] == [m["loss"] for m in clean["metrics"]]
+    assert ckpt.list_checkpoints(str(tmp_path / "b")) == []
 
 
 def test_train_launch_needs_a_card_and_one_device(monkeypatch, tmp_path):
