@@ -13,20 +13,21 @@ Phases, each printed on its own lines; any failure exits non-zero:
      and `flash_tf32_bwd_dkdv_kernel` at (float, 64) and (bf16, 64); every
      other instantiation printed), and, where the toolkit has cuobjdump,
      the count of HMMA TF32 instructions in the split-TF32 kernels' SASS;
-     K2's CUDA-core kernels (the fp32 forward's and the backward's, both
-     dtypes) printed and held to no spills;
+     K2's split-TF32 kernels (the fp32 forward's and the backward's, both
+     dtypes) printed with their HMMA TF32 counts and held to no spills;
   3. the SSD-scan kernel against its plain PyTorch version on the card, at
      the JAX kernel tests' shapes and the serving shapes (mamba2-370m's and
      zamba2-1.2b's: H=64, N=64, S=1024, a ragged 1000 and its forward's
-     4096), fp32 and bf16 (bf16 reaches the tensor-core kernels, fp32 the
-     CUDA-core ones), and bf16 again through strided views cut from one
+     4096), fp32 and bf16 (bf16 reaches the bf16 tensor-core kernels, fp32
+     the split-TF32 ones), and bf16 again through strided views cut from one
      (B, S, H*P + 2N) tensor, as the model passes them, equal bit for bit to
      the contiguous call;
   4. the kernel's time at mamba2's S=1024 prefill shape and zamba2's S=1024
      and S=4096 shapes beside the plain version's and its bound (device
      time: calls captured in a CUDA graph and replayed between CUDA
      events; the eager back-to-back time, which the wrapper's Python can
-     pace, printed beside);
+     pace, printed beside), and `ops.ssd` on the strided views in bf16 and
+     fp32 launching its three kernels and no copy;
   5. the main path: mamba2-370m at full width (48 layers, random weights
      from a seed, bf16 compute) serving 8 requests x 32 greedy tokens on 4
      slots through ServeEngine; the kernel's launch count (wrapper calls,
@@ -171,8 +172,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      of one step, idle share, launches, the largest device items, K1's
      forward and backward shares, tokens/s.
  20. SSM and hybrid training (K2 forward and backward on every SSM layer,
-     K1's on zamba2's shared block): (a) K2's backward (`ssd_bwd_*`
-     kernels on the CUDA cores, fp32 arithmetic for both dtypes) against
+     K1's on zamba2's shared block): (a) K2's backward (six split-TF32
+     kernels on the tensor cores, fp32 sums for both dtypes) against
      `ssd_chunked_bwd_ref` on the forward's own states, at the JAX kernel
      tests' shapes, a ragged S = 1000 and the two training shapes (8, 256,
      32 heads of 64, N 128; 8, 256, 64 heads of 64, N 64), fp32 and bf16,
@@ -180,9 +181,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
      phase 3's rules relative to each reference gradient's largest
      magnitude; two runs bit for bit; the forward with its states the same
      bits as without; (b) K2's fp32 forward (with states) and backward at
-     both training shapes on the strided views: device time beside the
-     bound (IEEE fp32 on the CUDA cores, or bytes) and the plain versions,
-     and `SSDScanFn`'s forward + backward through autograd; (c)
+     both training shapes on the strided views: device time beside both
+     bounds (IEEE fp32 on the CUDA cores; split TF32's own, three TF32
+     products per fp32 one or the bytes, whichever is larger, the record's)
+     and the plain versions, and `SSDScanFn`'s forward + backward through
+     autograd; (c)
      `repro_torch.launch.train.main` for mamba2-370m at full width (random
      weights from seed 0, fp32, remat "block", batch 8 x 256): 20 steps, a
      checkpoint every 5, a failure injected before step 12: one restart, a
@@ -195,7 +198,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      trained 3 steps on the card and the CPU: losses within 1e-5, grad
      norms within 1e-4 relative; (f) host and device time of one step of
      each: idle share, launches, the largest device items, K2's forward and
-     backward shares, tokens/s (one JSON line, {"ssm_training": ...}).
+     backward shares by kernel name, tokens/s (one JSON line,
+     {"ssm_training": ...}).
 The line before the last is the kernels' JSON record: the SSD scan once per
 path and shape it ran (mamba2-370m's prefills; zamba2-1.2b's forward,
 prefills and replay) and the flash-attention kernel
@@ -231,6 +235,18 @@ PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 MMA_KERNELS = ("flash_mma_kernel", "chunk_state_kernel", "state_pass_kernel",
                "chunk_scan_kernel")
 K1_FP32 = "flash_tf32_kernel"       # K1's fp32 forward (split TF32)
+# K2's split-TF32 kernels: the fp32 forward's (with state_pass_kernel<false>)
+# and the backward's for both dtypes (with state_pass_kernel<true>)
+K2_FWD_TF32 = ("chunk_state_tf32_kernel<false, float>", "chunk_scan_tf32_kernel")
+K2_BWD_TF32 = tuple(f"{k}<{arg}{t}>" for t in ("float", "bf16") for k, arg in (
+    ("ssd_bwd_cbds_kernel", ""), ("chunk_state_tf32_kernel", "true, "),
+    ("ssd_bwd_chunk_tf32_kernel", ""), ("ssd_bwd_bc_tf32_kernel", ""),
+    ("ssd_bwd_bc_sum_tf32_kernel", "")))
+K2_TRAIN = K2_FWD_TF32 + K2_BWD_TF32
+# the profiler's names of K2's fp32 forward and of its backward, either dtype
+K2_FWD_PROFILE = ("chunk_state_tf32_kernel<false", "state_pass_kernel<false>",
+                  "chunk_scan_tf32_kernel")
+K2_BWD_PROFILE = ("ssd_bwd_", "chunk_state_tf32_kernel<true", "state_pass_kernel<true>")
 
 
 def ptxas_table(log, name_of):
@@ -1196,28 +1212,35 @@ def bwd_name(mangled):
     return k and f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, {k.group(3)}>"
 
 
+def k1_tf32_name(mangled):
+    """"<K1 split-TF32 kernel><template arguments>" of a mangled name, or None."""
+    f = FWD_TF32.search(mangled)
+    return f"{f.group(1)}<{f.group(2)}>" if f else bwd_name(mangled)
+
+
 def sass_hmma_counts():
     """{split-TF32 kernel name: (HMMA instructions, of them TF32)} from
-    cuobjdump -sass of the built flash-attention library, or None where the
-    toolkit has no cuobjdump."""
+    cuobjdump -sass of the built flash-attention and SSD-scan libraries
+    (K1's and K2's kernels), or None where the toolkit has no cuobjdump."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).parent / "cuobjdump"
     if not tool.exists():
         return None
-    lib = _build._lib_path(next(s for s in _build.sources() if s.stem == "flash_attention"))
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
-                          timeout=300).stdout
-    out, name = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            f = FWD_TF32.search(m.group(1))
-            name = f"{f.group(1)}<{f.group(2)}>" if f else bwd_name(m.group(1))
-            if name:
-                out[name] = [0, 0]
-        elif name and "HMMA" in line:
-            out[name][0] += 1
-            out[name][1] += "TF32" in line
+    out = {}
+    for stem, name_of in (("flash_attention", k1_tf32_name), ("ssd_scan", k2_name)):
+        lib = _build._lib_path(next(s for s in _build.sources() if s.stem == stem))
+        sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=300).stdout
+        name = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = name_of(m.group(1))
+                if name:
+                    out[name] = [0, 0]
+            elif name and "HMMA" in line:
+                out[name][0] += 1
+                out[name][1] += "TF32" in line
     return out
 
 
@@ -1478,15 +1501,20 @@ def train_path(torch, np):
              "max_abs_err": err_train, **out["backward"]}]
 
 
-K2_CUDA_CORE = re.compile(r"\d(ssd_bwd_\w+?_kernel|scan_kernel|cb_kernel)(?:I(f|13__nv_bfloat16)E)?")
+K2_TF32 = re.compile(r"\d(chunk_state_tf32_kernel|chunk_scan_tf32_kernel|ssd_bwd_\w+?_kernel"
+                     r"|state_pass_kernel)(?:I(?:Lb([01])E)?(f|13__nv_bfloat16)?E)?")
 
 
-def k2_cuda_core_name(mangled):
-    """"<kernel><dtype>" of K2's CUDA-core kernels (the fp32 forward's and
-    the backward's) from a mangled name, or None."""
-    k = K2_CUDA_CORE.search(mangled)
-    return k and k.group(1) + ("" if not k.group(2) else
-                               "<float>" if k.group(2) == "f" else "<bf16>")
+def k2_name(mangled):
+    """"<kernel><template arguments>" of K2's split-TF32 kernels (the fp32
+    forward's and the backward's) and of its state passes, from a mangled
+    name, or None."""
+    k = K2_TF32.search(mangled)
+    if not k:
+        return None
+    args = ([] if k.group(2) is None else ["true" if k.group(2) == "1" else "false"]) + (
+        [] if not k.group(3) else ["float" if k.group(3) == "f" else "bf16"])
+    return k.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def ssd_bwd_work(case, dtype_name, final_state=False):
@@ -1564,8 +1592,8 @@ def time_k2_train(torch, case):
     """K2 at a training shape, fp32, on strided views of one packed tensor
     (as the trainer passes them): device time of the forward with its
     states, of the backward and of SSDScanFn's forward + backward through
-    autograd, each beside the plain version's and the bound (IEEE fp32
-    operations on the CUDA cores, or bytes). Returns ({"forward": record
+    autograd, each beside the plain version's and both bounds (IEEE fp32
+    on the CUDA cores; split TF32's own, the record's). Returns ({"forward": record
     numbers, "backward": ...}, the forward's max|dy| against the plain
     version)."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -1603,12 +1631,18 @@ def time_k2_train(torch, case):
     for name, ms, p_ms, (nbytes, flops) in (
             ("forward (with states)", f_ms, pf_ms, (nb_f, fl_f)),
             ("backward", b_ms, pb_ms, ssd_bwd_work(case, "fp32"))):
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS["fp32"] * 1e3
+        # two bounds, as phase 19 (b) gives K1's: IEEE fp32 operations on the
+        # CUDA cores, and the route's own, three TF32 products per fp32 one or
+        # the bytes, whichever is larger (the record's)
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        fp32_ms = max(t_bytes, flops / PEAK_FLOPS["fp32"] * 1e3)
+        t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"    {name}: kernel {ms:.4f} ms; bound {bound:.5f} ms ({by}: {flops / 1e9:.3f} "
-              f"GFLOP at 67 TFLOP/s fp32 on the CUDA cores, {nbytes / 1e6:.2f} MB at 3.35 TB/s; "
-              f"H100 SXM peaks), {bound / ms:.1%} of the bound; plain {p_ms:.4f} ms; no "
+        print(f"    {name}: kernel {ms:.4f} ms; bounds (H100 SXM peaks): fp32 on the CUDA cores "
+              f"{fp32_ms:.5f} ms ({flops / 1e9:.3f} GFLOP at 67 TFLOP/s, {fp32_ms / ms:.1%}), "
+              f"split TF32 {bound:.5f} ms ({by}: 3 x {flops / 1e9:.3f} GFLOP at 495 TFLOP/s, "
+              f"{nbytes / 1e6:.2f} MB at 3.35 TB/s; {bound / ms:.1%}); plain {p_ms:.4f} ms; no "
               "library call computes it")
         out[name] = {"ms": ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
                      "library_ms": None}
@@ -1619,10 +1653,11 @@ def time_k2_train(torch, case):
 
 def k2_step_breakdown(torch, name, model, opt, batch, tokens):
     """Host ms of one training step, its device time by kernel, idle share,
-    launches, the largest items, and the shares of K2's forward
-    (scan_kernel, with cb_kernel's launches of the forward) and backward
-    (the ssd_bwd_* kernels and cb_kernel's launch of the backward) and of
-    K1's. Returns a dict of those figures."""
+    launches, the largest items, K2's kernels by name and the shares of its
+    forward (chunk_state_tf32_kernel<false, ...>, state_pass_kernel<false>,
+    chunk_scan_tf32_kernel) and backward (the ssd_bwd_* kernels,
+    chunk_state_tf32_kernel<true, ...>, state_pass_kernel<true>), and K1's.
+    Returns a dict of those figures."""
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.train.train_step import make_train_step
     step = make_train_step(model.cfg, model.rt, opt)
@@ -1639,14 +1674,9 @@ def k2_step_breakdown(torch, name, model, opt, batch, tokens):
     def share(keep):
         names = [k for k in by_name if keep(k)]
         return sum(by_name[k] for k in names), sum(counts[k] for k in names)
-    # scan_kernel is the fp32 forward's (chunk_scan_kernel is bf16's)
-    scan_ms, n_scan = share(lambda k: "scan_kernel" in k and "chunk_scan_kernel" not in k)
-    cb_ms, n_cb = share(lambda k: "cb_kernel" in k)
-    bwd_ms, _ = share(lambda k: "ssd_bwd_" in k)
+    k2f, n_f = share(lambda k: any(m in k for m in K2_FWD_PROFILE))
+    k2b, n_b = share(lambda k: any(m in k for m in K2_BWD_PROFILE))
     parts = kernel_share(by_name, counts, (K1_FP32, "flash_tf32_bwd_"))
-    # one cb_kernel launch per forward and per backward, the same work each
-    k2f = scan_ms + cb_ms * n_scan / max(n_cb, 1)
-    k2b = bwd_ms + cb_ms * (n_cb - n_scan) / max(n_cb, 1)
     res.update(device_ms=dev_ms, idle=1 - dev_ms / wall_ms, launches=sum(counts.values()),
                k2_forward_ms=k2f, k2_backward_ms=k2b, k1_ms=parts[K1_FP32][0] +
                parts["flash_tf32_bwd_"][0])
@@ -1655,10 +1685,12 @@ def k2_step_breakdown(torch, name, model, opt, batch, tokens):
           f"{res['launches']} launches")
     for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"      {ms:8.3f} ms x{counts[kname]:<5d} {kname[:90]}")
-    print(f"    K2 forward (scan_kernel x{n_scan} + cb_kernel) {k2f:.3f} ms, "
-          f"{k2f / dev_ms:.1%}; K2 backward (ssd_bwd_* + cb_kernel) {k2b:.3f} ms, "
-          f"{k2b / dev_ms:.1%}; K1 forward + backward {res['k1_ms']:.3f} ms, "
-          f"{res['k1_ms'] / dev_ms:.1%} of device time")
+    print(f"    K2 forward ({n_f} launches) {k2f:.3f} ms, {k2f / dev_ms:.1%}; K2 backward "
+          f"({n_b} launches) {k2b:.3f} ms, {k2b / dev_ms:.1%}; K1 forward + backward "
+          f"{res['k1_ms']:.3f} ms, {res['k1_ms'] / dev_ms:.1%} of device time")
+    for kname in sorted(k for k in by_name if any(m in k for m in K2_FWD_PROFILE + K2_BWD_PROFILE)):
+        short = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", kname)
+        print(f"      K2 {short}: {by_name[kname]:.3f} ms x{counts[kname]}")
     return res
 
 
@@ -1909,13 +1941,18 @@ def main() -> int:
                           if k in k1_train))
         for k in k1_train:
             check(hmma.get(k, [0, 0])[1] > 0, f"{k} runs TF32 mma on the tensor cores")
-    k2 = {k: v for log in logs.values() for k, v in ptxas_table(log, k2_cuda_core_name).items()}
+        print("  SASS of K2's split-TF32 kernels: "
+              + ", ".join(f"{k} {n} HMMA ({n32} TF32)" for k, (n, n32) in sorted(hmma.items())
+                          if k in K2_TRAIN))
+        for k in K2_TRAIN:
+            check(hmma.get(k, [0, 0])[1] > 0, f"{k} runs TF32 mma on the tensor cores")
+    k2 = {k: v for log in logs.values() for k, v in ptxas_table(log, k2_name).items()}
     if k2:
-        print("  K2's CUDA-core kernels (the fp32 forward's, the backward's): "
-              + ", ".join(f"{k} {r} registers ({st}/{ld} bytes spilled)"
-                          for k, (r, st, ld) in sorted(k2.items())))
-        for k, v in k2.items():
-            check(v[1:] == [0, 0], f"{k} has no spills")
+        print("  K2's split-TF32 kernels and state passes (the fp32 forward's, the "
+              "backward's): " + ", ".join(f"{k} {r} registers ({st}/{ld} bytes spilled)"
+                                         for k, (r, st, ld) in sorted(k2.items())))
+        for k in K2_TRAIN + ("state_pass_kernel<false>", "state_pass_kernel<true>"):
+            check(k in k2 and k2[k][1:] == [0, 0], f"{k} has no spills")
 
     phase("3. SSD-scan kernel against its plain version")
     small = [(1, 32, 2, 8, 8, 8), (2, 64, 4, 16, 16, 16),
@@ -1937,14 +1974,17 @@ def main() -> int:
     ssd_timed = {}      # case -> the kernels record's numbers at that shape
     for case in (full, zamba2_ssd, zamba2_fwd):
         ssd_timed[case] = {"max_abs_err": err_ssd[case], **time_ssd(torch, case)}
-        # the model's entry point on the strided views: the three kernels and no copy
-        args = strided_views(torch, case, ssd_inputs(torch, case, torch.bfloat16))
-        _, _, counts = device_breakdown(torch, lambda: ssd_ops.ssd(*args, chunk=128), reps=1)
-        others = [k for k in counts if not any(m in k for m in MMA_KERNELS[1:])]
-        print(f"    ops.ssd on the strided views: {sum(counts.values())} device kernels, "
-              f"{len(others)} besides the three K2 kernels")
-        check(not others and sorted(counts.values()) == [1, 1, 1],
-              "ops.ssd launches the three K2 kernels once each and copies nothing")
+        # the model's entry point on the strided views, bf16 and fp32: the
+        # three kernels of the dtype and no copy
+        for dname, dtype, names in (("bf16", torch.bfloat16, MMA_KERNELS[1:]),
+                                    ("fp32", torch.float32, K2_FWD_PROFILE)):
+            args = strided_views(torch, case, ssd_inputs(torch, case, dtype))
+            _, _, counts = device_breakdown(torch, lambda: ssd_ops.ssd(*args, chunk=128), reps=1)
+            others = [k for k in counts if not any(m in k for m in names)]
+            print(f"    ops.ssd ({dname}) on the strided views: {sum(counts.values())} device "
+                  f"kernels, {len(others)} besides the three K2 kernels")
+            check(not others and sorted(counts.values()) == [1, 1, 1],
+                  f"ops.ssd ({dname}) launches the three K2 kernels once each and copies nothing")
 
     phase("5. serve mamba2-370m at full width (48 layers, bf16 compute)")
     cfg = get_config("mamba2-370m")

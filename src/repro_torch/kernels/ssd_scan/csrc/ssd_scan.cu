@@ -7,21 +7,35 @@
 //   y_t    = sum_{s<=t} (C_t.B_s) exp(L_t-L_s) dt_s x_s  +  exp(L_t) C_t.h_prev
 //   h      = exp(L_Q) h_prev + sum_s exp(L_Q-L_s) dt_s x_s B_s^T
 // plus the D skip, added in fp32 before the single cast of y to x's dtype
-// (the TPU wrapper casts first and adds D after; see ref.py).
+// (the TPU wrapper casts first and adds D after; see ref.py). The TPU kernel
+// has no backward; the backward here is the gradient of the same function.
 //
-// The dtype picks the kernels, by a fixed rule and not as a fallback:
-//   * bfloat16 (ssd_scan_bf16_launch): chunk_state_kernel, state_pass_kernel,
-//     chunk_scan_kernel, with the products on the tensor cores;
-//   * float32 (ssd_scan_fp32_launch): cb_kernel then scan_kernel, fp32 FMAs
-//     on the CUDA cores, so fp32 stays IEEE fp32.
+// One forward per dtype and one backward, chosen by a fixed rule on the
+// dtype (not a fallback; a failed launch is returned), all on the tensor
+// cores with the same three-stage forward:
+//   * bfloat16 forward (ssd_scan_launch, bf16_in): chunk_state_kernel,
+//     state_pass_kernel<false>, chunk_scan_kernel, bf16 mma.sync m16n8k16;
+//   * float32 forward (ssd_scan_launch): chunk_state_tf32_kernel<false,
+//     float>, state_pass_kernel<false>, chunk_scan_tf32_kernel, split-TF32
+//     mma.sync m16n8k8;
+//   * backward, both dtypes (ssd_scan_bwd_launch; see its section below):
+//     six launches, split-TF32 mma.sync m16n8k8, templated on the type in
+//     memory.
+// x, B and C are read through their batch and row strides in every kernel:
+// the split views of the conv output need no copy.
 //
 // What bounds it on this card: at the serving shapes (B=1, S<=1024, H=32,
 // P=64, N=128, Q=128) the function moves ~10 MB and does ~1.6 GFLOP, so its
 // least time is set by device-memory bytes (~3 us at 3.35 TB/s), not by the
-// tensor cores.
+// tensor cores. At the training shapes (B=8, S=256, 32 heads of 64 with
+// N=128, or 64 heads with N=64; fp32) the forward does 2.2-2.7 GFLOP on
+// 61-94 MB and the backward 3.3-4.4 GFLOP on 72-121 MB: IEEE fp32 on the
+// CUDA cores (67 TFLOP/s) would be bound by operations, split TF32 (three
+// TF32 products per fp32 one at 495 TFLOP/s) by bytes.
 //
-// bf16 design: the TPU kernel's sequential chunk axis is split chunk-parallel
-// (three launches, all scratch fp32 and allocated by the wrapper):
+// bf16 forward: the TPU kernel's sequential chunk axis is split
+// chunk-parallel (three launches, all scratch fp32 and allocated by the
+// wrapper):
 //   1. chunk_state_kernel, grid (nc, H, B x 64-channel slices): the chunk's
 //      cumsum L (warp scan), x'_s = exp(L_Q - L_s) dt_s x_s in fp32 split
 //      into hi + lo bf16, and S_c = x'^T B by mma.sync m16n8k16 (bf16 in,
@@ -43,34 +57,56 @@
 // (PERF.md); hi + lo keeps ~16 bits for twice the tensor-core work.
 // Tiles are staged by cp.async (16-, 8- or 4-byte copies, the widest the
 // pointers and strides allow, zero-filled past the chunk's rows) into rows
-// padded by 16 bytes, so ldmatrix is free of bank conflicts. x, B and C are
-// read through their batch and row strides: the split views of the conv
-// output need no copy. Any Q <= 128, any S (ragged rows act as padding with
-// dt = 0: zero x, B, C, excluded from M, never written), any P (64-channel
-// slices, padded to 16), N <= 128 with N % 4 == 0 (padded to 32).
+// padded by 16 bytes, so ldmatrix is free of bank conflicts. Any Q <= 128,
+// any S (ragged rows act as padding with dt = 0: zero x, B, C, excluded
+// from M, never written), any P (64-channel slices, padded to 16),
+// N <= 128 with N % 4 == 0 (padded to 32).
 //
-// fp32 design, the first version: cb_kernel computes C.B^T once per
-// (b, chunk, 32x32 tile of the lower triangle) into an fp32 scratch shared
-// by all heads; scan_kernel runs one block per (b, h, 16 head channels),
-// walks the chunks in order with its (16, N) state slice in registers and
-// the decay tile, B, C and x in ~216 KB of dynamic shared memory. Inputs
-// contiguous. When asked, it writes the state entering each chunk for the
-// backward.
+// Split TF32 (the fp32 forward and the backward). A TF32 product keeps 11
+// significant bits of each operand, which misses the fp32 rule. Each fp32
+// operand is split in registers into hi = tf32(v) and lo = tf32(v - hi),
+// rounded to nearest as cvt.rna.tf32.f32 rounds, and a product takes
+// lo_a hi_b + hi_a lo_b + hi_a hi_b: ~22 bits per operand for three
+// tensor-core products (flash_attention.cu's scheme; its helpers are copied
+// below). Each k-step's three products go into a zeroed accumulator that is
+// added to the running sum in IEEE fp32 (`mma3`). A bf16 value is exact in TF32 (lo = 0), so the
+// backward skips the products of a bf16 operand's lo term (`if constexpr`).
+// The m16n8k8 accumulator is not its A operand's layout: a lane holds
+// columns 2t and 2t+1 of an 8-wide n-tile (t = lane % 4), where the A
+// fragment wants k-columns t and t+4. chunk_scan_tf32_kernel feeds M from
+// the accumulator straight to the A fragment by permuting the keys inside
+// each group of 8 (key 2t plays k-index t, key 2t+1 plays t+4) and reads
+// x's rows 2t and 2t+1 in that order; a sum over keys does not depend on
+// their order, so no value is shuffled. The fp32 tiles live in shared
+// memory as fp32 with rows padded so that a warp's fragment loads fall on
+// 32 banks, and are split as they are loaded.
 //
-// The backward (ssd_scan_bwd_launch, both dtypes; see its section below):
-// cb_kernel and six ssd_bwd_* kernels on the CUDA cores, fp32 arithmetic.
+// fp32 forward: the bf16 path's three stages.
+//   1. chunk_state_tf32_kernel<false, float>, grid (nc, H, B x 64-channel
+//      slices): L, x'_s = exp(L_Q - L_s) dt_s x_s in fp32, S_c = x'^T B;
+//      L_Q to lq.
+//   2. state_pass_kernel<false> (the bf16 path's), h_prev over S_c.
+//   3. chunk_scan_tf32_kernel, grid as chunk_scan_kernel's, 16 warps: warp
+//      (i, kh) owns rows [16 i, 16 i + 16) and the kh-th half of their
+//      8-key tiles s <= t (the causal triangle's work split evenly): C B^T
+//      on those tiles and C h_prev^T on half of the channels in one pass
+//      over n, M = (C B^T) o exp(L_t - L_s) o dt_s formed in registers from
+//      the accumulator (the exponent masked to s <= t first) and fed back as
+//      the A fragment of M x; half 1 hands its partial y to half 0, which
+//      adds it, + D x in fp32, and writes each y once.
+// C, B, x and h_prev of a chunk fill ~204 KB at N = 128 (one block of 16
+// warps per SM). h_prev is the state_pass output the backward takes
+// (return_states), so y and the state have the same bits either way.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kQMax = 128;    // largest chunk the kernel takes
-constexpr int kNMax = 128;    // largest state size the kernel takes
-constexpr int kPS = 16;       // head channels per block
-constexpr int kThreads = 256;
-constexpr int kTile = 32;     // cb_kernel output tile
+constexpr int kQMax = 128;    // largest chunk the kernels take
+constexpr int kNMax = 128;    // largest state size the kernels take
 
 using bf16 = __nv_bfloat16;
 
@@ -80,248 +116,6 @@ __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
-
-// cb[b, c, t, s] = C_t . B_s for one 32x32 tile of chunk c (tiles above the
-// diagonal are skipped: scan_kernel and the backward read only s <= t).
-// B and C are read through their batch (*sb) and row (*ss) strides.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict__ cb,
-          int S, int N, int Q, int nc, int64_t bsb, int64_t bss, int64_t csb, int64_t css) {
-  const int nt = (Q + kTile - 1) / kTile;
-  const int tt = blockIdx.x / nt, ts = blockIdx.x % nt;
-  if (ts > tt) return;
-  const int c = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  __shared__ float cs[kTile][kNMax + 1];
-  __shared__ float bs[kTile][kNMax + 1];
-  for (int idx = tid; idx < kTile * N; idx += kThreads) {
-    const int r = idx / N, n = idx % N;
-    const int t = tt * kTile + r, s = ts * kTile + r;
-    const int64_t tok_t = (int64_t)c * Q + t, tok_s = (int64_t)c * Q + s;
-    cs[r][n] = (t < Q && tok_t < S) ? to_f(Cm[b * csb + tok_t * css + n]) : 0.f;
-    bs[r][n] = (s < Q && tok_s < S) ? to_f(Bm[b * bsb + tok_s * bss + n]) : 0.f;
-  }
-  __syncthreads();
-  const int sl = tid % kTile;
-  const int tl = tid / kTile;     // 0..7, one row per warp: cs reads broadcast
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int n = 0; n < N; ++n) {
-    const float bv = bs[sl][n];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] += cs[tl + 8 * i][n] * bv;
-  }
-  const int s = ts * kTile + sl;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = tt * kTile + tl + 8 * i;
-    if (t < Q && s < Q) cb[(((int64_t)b * nc + c) * Q + t) * Q + s] = acc[i];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-            const float* __restrict__ A, const T* __restrict__ Bm,
-            const T* __restrict__ Cm, const float* __restrict__ D,
-            const float* __restrict__ cb, T* __restrict__ y,
-            float* __restrict__ state, float* __restrict__ states, int S, int H, int P, int N,
-            int Q, int nc) {
-  extern __shared__ __align__(16) float smem[];
-  const int Q4 = (Q + 3) & ~3;
-  const int MS = Q4 + 4;          // row stride of the decay tile
-  const int NS = N + 4;           // row stride of B, C and the state
-  float* ms = smem;                       // [kQMax][MS]  decay-weighted C.B^T
-  float* cs = ms + kQMax * MS;            // [kQMax][NS]  C of the chunk
-  float* bs = cs + kQMax * NS;            // [kQMax][NS]  B of the chunk
-  float* xs = bs + kQMax * NS;            // [kQMax][kPS] x slice of the chunk
-  float* hs = xs + kQMax * kPS;           // [kPS][NS]    state before the chunk
-  float* cum = hs + kPS * NS;             // [kQMax]      L_t
-  float* dts = cum + kQMax;               // [kQMax]      dt_t
-  float* ws = dts + kQMax;                // [kQMax]      exp(L_Q-L_t) dt_t
-  float* wtot = ws + kQMax;               // [4]          warp totals of the scan
-
-  const int p0 = blockIdx.x * kPS, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float a = A[h];
-  const float dskip = D[h];
-
-  // the thread's 8 state values: h[pg2*8 + j][nq]
-  const int nq = tid % kQMax, pg2 = tid / kQMax;
-  float hreg[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) hreg[j] = 0.f;
-  for (int idx = tid; idx < kPS * NS; idx += kThreads) hs[idx] = 0.f;
-
-  // y mapping: rows tg + 32 i (i < 4), channels 2 pg, 2 pg + 1
-  const int pg = tid % 8, tg = tid / 8;
-
-  for (int c = 0; c < nc; ++c) {
-    const int64_t c0 = (int64_t)c * Q;
-    if (states && nq < N) {    // the state entering the chunk, for the backward
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int p = p0 + pg2 * 8 + j;
-        if (p < P) states[((((int64_t)b * nc + c) * H + h) * P + p) * N + nq] = hreg[j];
-      }
-    }
-    __syncthreads();
-    // 1. dt and the inclusive cumsum of dt*A over the chunk (4 warps)
-    float v = 0.f;
-    if (tid < kQMax) {
-      const bool ok = tid < Q && c0 + tid < S;
-      const float d = ok ? dt[((int64_t)b * S + c0 + tid) * H + h] : 0.f;
-      dts[tid] = d;
-      v = d * a;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, v, off);
-        if (lane >= off) v += u;
-      }
-      if (lane == 31) wtot[warp] = v;
-    }
-    __syncthreads();
-    if (tid < kQMax) {
-      for (int w = 0; w < warp; ++w) v += wtot[w];
-      cum[tid] = v;
-    }
-    __syncthreads();
-    const float lq = cum[Q - 1];
-    if (tid < kQMax) ws[tid] = expf(lq - cum[tid]) * dts[tid];
-
-    // 2. the chunk's x slice, B, C and decay tile into shared memory
-    for (int idx = tid; idx < kQMax * kPS; idx += kThreads) {
-      const int r = idx / kPS, p = idx % kPS;
-      const bool ok = r < Q && c0 + r < S && p0 + p < P;
-      xs[idx] = ok ? to_f(x[(((int64_t)b * S + c0 + r) * H + h) * P + p0 + p]) : 0.f;
-    }
-    for (int idx = tid; idx < kQMax * N; idx += kThreads) {
-      const int r = idx / N, n = idx % N;
-      const bool ok = r < Q && c0 + r < S;
-      const int64_t g = ((int64_t)b * S + c0 + r) * N + n;
-      bs[r * NS + n] = ok ? to_f(Bm[g]) : 0.f;
-      cs[r * NS + n] = ok ? to_f(Cm[g]) : 0.f;
-    }
-    const float* cbc = cb + ((int64_t)b * nc + c) * Q * Q;
-    for (int idx = tid; idx < kQMax * Q4; idx += kThreads) {
-      const int t = idx / Q4, s = idx % Q4;
-      float m = 0.f;
-      if (s <= t && t < Q) m = cbc[t * Q + s] * expf(cum[t] - cum[s]) * dts[s];
-      ms[t * MS + s] = m;
-    }
-    __syncthreads();
-
-    // 3. y = M x + exp(L_t) C h_prev^T + D x
-    float acc[4][2], inter[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = inter[i][0] = inter[i][1] = 0.f;
-    for (int s = 0; s < Q4; s += 4) {
-      float2 xv[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        xv[k] = *reinterpret_cast<const float2*>(&xs[(s + k) * kPS + 2 * pg]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 m = *reinterpret_cast<const float4*>(&ms[(tg + 32 * i) * MS + s]);
-        acc[i][0] += m.x * xv[0].x + m.y * xv[1].x + m.z * xv[2].x + m.w * xv[3].x;
-        acc[i][1] += m.x * xv[0].y + m.y * xv[1].y + m.z * xv[2].y + m.w * xv[3].y;
-      }
-    }
-    if (c > 0) {
-      for (int n = 0; n < N; n += 4) {
-        const float4 ha = *reinterpret_cast<const float4*>(&hs[(2 * pg) * NS + n]);
-        const float4 hb = *reinterpret_cast<const float4*>(&hs[(2 * pg + 1) * NS + n]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 cv = *reinterpret_cast<const float4*>(&cs[(tg + 32 * i) * NS + n]);
-          inter[i][0] += cv.x * ha.x + cv.y * ha.y + cv.z * ha.z + cv.w * ha.w;
-          inter[i][1] += cv.x * hb.x + cv.y * hb.y + cv.z * hb.z + cv.w * hb.w;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = tg + 32 * i;
-      if (t < Q && c0 + t < S) {
-        const float et = expf(cum[t]);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int p = 2 * pg + j;
-          if (p0 + p < P) {
-            const float out = acc[i][j] + et * inter[i][j] + dskip * xs[t * kPS + p];
-            y[(((int64_t)b * S + c0 + t) * H + h) * P + p0 + p] = from_f<T>(out);
-          }
-        }
-      }
-    }
-
-    // 4. state: h = exp(L_Q) h + sum_s ws_s x_s B_s^T, kept in registers
-    if (nq < N) {
-      const float dq = expf(lq);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) hreg[j] *= dq;
-      for (int s = 0; s < Q4; ++s) {
-        const float bw = bs[s * NS + nq] * ws[s];
-        const float4 xa = *reinterpret_cast<const float4*>(&xs[s * kPS + pg2 * 8]);
-        const float4 xb = *reinterpret_cast<const float4*>(&xs[s * kPS + pg2 * 8 + 4]);
-        hreg[0] += xa.x * bw; hreg[1] += xa.y * bw; hreg[2] += xa.z * bw; hreg[3] += xa.w * bw;
-        hreg[4] += xb.x * bw; hreg[5] += xb.y * bw; hreg[6] += xb.z * bw; hreg[7] += xb.w * bw;
-      }
-    }
-    __syncthreads();   // every read of hs in step 3 is done
-    if (nq < N) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) hs[(pg2 * 8 + j) * NS + nq] = hreg[j];
-    }
-  }
-
-  if (nq < N) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int p = p0 + pg2 * 8 + j;
-      if (p < P) state[(((int64_t)b * H + h) * P + p) * N + nq] = hreg[j];
-    }
-  }
-}
-
-// dynamic shared memory of scan_kernel for Q rounded up to Q4 (the layout
-// at the top of scan_kernel)
-constexpr size_t scan_smem_bytes(int Q4, int N) {
-  return sizeof(float) * ((size_t)kQMax * (Q4 + 4) + 2 * (size_t)kQMax * (N + 4) +
-                          kQMax * kPS + kPS * (N + 4) + 3 * kQMax + 4);
-}
-
-template <typename T>
-int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
-           const void* D, void* cb, void* y, void* state, void* states, int Bsz, int S, int H,
-           int P, int N, int Q, cudaStream_t st) {
-  const int nc = (S + Q - 1) / Q;
-  const int nt = (Q + kTile - 1) / kTile;
-  const int64_t sn = (int64_t)S * N;
-  cb_kernel<T><<<dim3(nt * nt, nc, Bsz), kThreads, 0, st>>>(
-      static_cast<const T*>(Bm), static_cast<const T*>(Cm), static_cast<float*>(cb), S, N,
-      Q, nc, sn, N, sn, N);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem = scan_smem_bytes((Q + 3) & ~3, N);
-  // the attribute belongs to the device: raise it to the largest block once per device
-  static int attr_dev = -1;
-  int dev = 0;
-  e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev != attr_dev) {
-    e = cudaFuncSetAttribute(scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)scan_smem_bytes(kQMax, kNMax));
-    if (e != cudaSuccess) return (int)e;
-    attr_dev = dev;
-  }
-  scan_kernel<T><<<dim3((P + kPS - 1) / kPS, H, Bsz), kThreads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
-      static_cast<const T*>(Bm), static_cast<const T*>(Cm), static_cast<const float*>(D),
-      static_cast<const float*>(cb), static_cast<T*>(y), static_cast<float*>(state),
-      static_cast<float*>(states), S, H, P, N, Q, nc);
-  return (int)cudaGetLastError();
-}
-
 
 // ---------------------------------------------------------------------------
 // bf16: chunk_state_kernel -> state_pass_kernel -> chunk_scan_kernel, with
@@ -375,32 +169,35 @@ __device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t&
   lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// Stage a (rows, wpad) bf16 tile of pitch `pitch`: element (r, c) is
-// src[r * rs + c] for r < nvalid and c < width, else 0. `vec` bf16 go per
-// copy (8, 4 or 2 by cp.async with zero-fill for the rest; 1 by plain
-// loads); the launcher picks the widest that the pointer, the strides and
-// width allow. wpad is a multiple of 16.
-__device__ __forceinline__ void stage(bf16* dst, int pitch, const bf16* __restrict__ src,
+// Stage a (rows, wpad) tile of T with pitch `pitch` by the NT threads of
+// the block: element (r, c) is src[r * rs + c] for r < nvalid and
+// c < width, else 0. `vec` elements go per copy (16, 8 or 4 bytes by
+// cp.async with zero-fill for the rest; a single bf16 by a plain load); the
+// launcher picks the widest that the pointer, the strides and width allow.
+// wpad is a multiple of 8; rows start 16-byte aligned.
+template <typename T, int NT = kMmaThreads>
+__device__ __forceinline__ void stage(T* dst, int pitch, const T* __restrict__ src,
                                       int64_t rs, int rows, int nvalid, int width, int wpad,
                                       int vec) {
   const int per_row = wpad / vec;
-  for (int idx = threadIdx.x; idx < rows * per_row; idx += kMmaThreads) {
+  const int vbytes = vec * (int)sizeof(T);
+  for (int idx = threadIdx.x; idx < rows * per_row; idx += NT) {
     const int r = idx / per_row, c = (idx % per_row) * vec;
     const bool ok = r < nvalid && c < width;
-    const bf16* s = ok ? src + (int64_t)r * rs + c : src;
-    bf16* d = dst + r * pitch + c;
-    const int bytes = ok ? 2 * vec : 0;
-    if (vec == 8) {
+    const T* s = ok ? src + (int64_t)r * rs + c : src;
+    T* d = dst + r * pitch + c;
+    const int bytes = ok ? vbytes : 0;
+    if (vbytes == 16) {
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                    :: "r"(smem_addr(d)), "l"(s), "r"(bytes));
-    } else if (vec == 4) {
+    } else if (vbytes == 8) {
       asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                    :: "r"(smem_addr(d)), "l"(s), "r"(bytes));
-    } else if (vec == 2) {
+    } else if (vbytes == 4) {
       asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                    :: "r"(smem_addr(d)), "l"(s), "r"(bytes));
     } else {
-      *d = ok ? *s : __float2bfloat16(0.f);
+      *d = ok ? *s : from_f<T>(0.f);
     }
   }
 }
@@ -430,15 +227,18 @@ __device__ __forceinline__ void chunk_cumsum(const float* __restrict__ dt, int64
   }
 }
 
-struct Bf16Args {
-  const bf16 *x, *Bm, *Cm;
+// The forward's arguments; x, B and C in the forward's dtype T.
+template <typename T>
+struct FwdArgs {
+  const T *x, *Bm, *Cm;
   const float *dt, *A, *D;
-  bf16* y;
+  T* y;
   float *state, *states, *lq;
   int Bsz, S, H, P, N, Q, nc;
   int64_t xsb, xss, bsb, bss, csb, css;
-  int vx, vb, vc;                // copy widths (bf16 per copy)
+  int vx, vb, vc;                // copy widths (elements per copy)
 };
+using Bf16Args = FwdArgs<bf16>;
 
 constexpr size_t chunk_state_smem(int Qp, int N) {
   return 2 * sizeof(bf16) * (size_t)Qp * kXP + sizeof(bf16) * (size_t)Qp * pad_n(N) +
@@ -534,29 +334,39 @@ chunk_state_kernel(Bf16Args a) {
   }
 }
 
-// In place over states: for each chunk in order, S_c is replaced by the
-// state before the chunk, h_prev, and h <- exp(L_Q,c) h + S_c; the last h
-// is the final state. Grid (ceil(P N / 4 / 256), H, Bsz), 4 values a thread.
+// In place over the chunks' states (B, nc, H, P, N), in order (REV false,
+// the forward: S_c becomes h_prev_c) or in reverse (REV true, the backward:
+// U_c becomes dH_c, the gradient of the state after chunk c): slot c
+// receives the carry, then the carry becomes exp(L_Q,c) carry + the slot's
+// old value. The carry starts at `init` (B, H, P, N), or 0 when null, and
+// ends in `last`, unless null. Grid (ceil(P N / 4 / 256), H, Bsz), 4 values
+// a thread.
+template <bool REV>
 __global__ void __launch_bounds__(256)
-state_pass_kernel(Bf16Args a) {
+state_pass_kernel(float* __restrict__ states, const float* __restrict__ lq,
+                  const float* __restrict__ init, float* __restrict__ last, int H, int P, int N,
+                  int nc) {
   const int h = blockIdx.y, b = blockIdx.z;
-  const int64_t PN = (int64_t)a.P * a.N;
+  const int64_t PN = (int64_t)P * N;
   const int64_t e = 4 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
   if (e >= PN) return;
-  float4 hv = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4* cur = reinterpret_cast<float4*>(a.states + ((int64_t)b * a.nc * a.H + h) * PN + e);
-  const int64_t step = a.H * PN / 4;                 // float4s from chunk c to c + 1
-  const float* lq = a.lq + (int64_t)b * a.nc * a.H + h;
+  float4 hv = init ? *reinterpret_cast<const float4*>(init + ((int64_t)b * H + h) * PN + e)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+  const int64_t step = (int64_t)H * PN / 4;          // float4s from chunk c to c + 1
+  const int64_t dstep = REV ? -step : step;
+  float4* cur = reinterpret_cast<float4*>(states + ((int64_t)b * nc * H + h) * PN + e) +
+                (REV ? (int64_t)(nc - 1) * step : 0);
   float4 sv = *cur;
-  for (int c = 0; c < a.nc; ++c) {
-    const float4 next = c + 1 < a.nc ? cur[step] : sv;   // prefetch the next chunk's S
-    const float d = expf(lq[(int64_t)c * a.H]);
+  for (int i = 0; i < nc; ++i) {
+    const int c = REV ? nc - 1 - i : i;
+    const float4 next = i + 1 < nc ? cur[dstep] : sv;   // prefetch the next chunk's slot
+    const float d = expf(lq[((int64_t)b * nc + c) * H + h]);
     *cur = hv;
     hv = make_float4(d * hv.x + sv.x, d * hv.y + sv.y, d * hv.z + sv.z, d * hv.w + sv.w);
     sv = next;
-    cur += step;
+    cur += dstep;
   }
-  *reinterpret_cast<float4*>(a.state + ((int64_t)b * a.H + h) * PN + e) = hv;
+  if (last) *reinterpret_cast<float4*>(last + ((int64_t)b * H + h) * PN + e) = hv;
 }
 
 constexpr size_t chunk_scan_smem(int Qp, int N, int pb) {
@@ -725,6 +535,13 @@ cudaError_t raise_smem_limit(K kernel, size_t bytes, int& attr_dev) {
   return e;
 }
 
+// the grid's z extent for slices of pb channels, and the slice width
+// chunk_scan takes: half-width slices when full ones would leave SMs idle
+// (132 on an H100)
+inline int scan_slice(int nc, int H, int Bsz, int P) {
+  return (long long)nc * H * Bsz * ((P + kPB - 1) / kPB) < 132 ? kPB / 2 : kPB;
+}
+
 int launch_bf16(const Bf16Args& a, cudaStream_t st) {
   static int dev_state = -1, dev_scan = -1;
   cudaError_t e = raise_smem_limit(chunk_state_kernel, chunk_state_smem(kQMax, kNMax), dev_state);
@@ -736,50 +553,445 @@ int launch_bf16(const Bf16Args& a, cudaStream_t st) {
                        chunk_state_smem(Qp, a.N), st>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const int n4 = a.P * a.N / 4;
-  state_pass_kernel<<<dim3((n4 + 255) / 256, a.H, a.Bsz), 256, 0, st>>>(a);
+  state_pass_kernel<false><<<dim3((n4 + 255) / 256, a.H, a.Bsz), 256, 0, st>>>(
+      a.states, a.lq, nullptr, a.state, a.H, a.P, a.N, a.nc);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  // half-width channel slices when full ones would leave SMs idle (132 on an H100)
-  const int pb = (long long)a.nc * a.H * a.Bsz * ((a.P + kPB - 1) / kPB) < 132 ? kPB / 2 : kPB;
+  const int pb = scan_slice(a.nc, a.H, a.Bsz, a.P);
   chunk_scan_kernel<<<dim3(a.nc, a.H, a.Bsz * ((a.P + pb - 1) / pb)), kMmaThreads,
                       chunk_scan_smem(Qp, a.N, pb), st>>>(a, pb);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// The backward, both dtypes: fp32 arithmetic on the CUDA cores
+// Split TF32 on the tensor cores (flash_attention.cu's helpers)
+// ---------------------------------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits; to nearest, ties away from zero):
+// the bits of cvt.rna.tf32.f32 for every input but NaN, in two integer
+// operations (half the dropped range added, the 13 low bits cleared)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x ~ hi + lo to ~22 significant bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// d += a (16x8 tf32, row) * b (8x8 tf32, col), fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An operand fragment in two TF32 terms. EXACT: the values are TF32 already
+// (widened bf16), lo stays unset and its products are skipped.
+template <int N>
+struct Frag {
+  uint32_t hi[N], lo[N];
+};
+
+template <bool EXACT, int N>
+__device__ __forceinline__ void set_frag(Frag<N>& f, int i, float x) {
+  if constexpr (EXACT) {
+    f.hi[i] = __float_as_uint(x);
+  } else {
+    split_tf32(x, f.hi[i], f.lo[i]);
+  }
+}
+
+// d += A B in split TF32: lo_a hi_b + hi_a lo_b + hi_a hi_b, small terms
+// first, into a zeroed accumulator that is then added to d in IEEE fp32;
+// the terms of an exact operand's lo are skipped. The tensor cores' own
+// fp32 accumulation rounds toward zero, and along a long K that bias
+// reached 3.4e-4 of max|dA| at (2, 300, 4 heads of 64, N 128), three times
+// IEEE fp32's error; one rounded add per k-step brings it back to fp32's.
+template <bool AX, bool BX>
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  if constexpr (!AX) mma_tf32(p, a.lo, b.hi[0], b.hi[1]);
+  if constexpr (!BX) mma_tf32(p, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(p, a.hi, b.hi[0], b.hi[1]);
+  d[0] += p[0]; d[1] += p[1]; d[2] += p[2]; d[3] += p[3];
+}
+
+// Fragment loads from shared memory (g = lane / 4, t = lane % 4).
+// A (16 x 8), element (row r, k) at p[r * rs + k * ks]: a0 (g, t),
+// a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4).
+template <bool EXACT, typename T>
+__device__ __forceinline__ void load_a(Frag<4>& f, const T* p, int rs, int ks, int g, int t) {
+  const T* q = p + g * rs + t * ks;
+  set_frag<EXACT>(f, 0, to_f(q[0]));
+  set_frag<EXACT>(f, 1, to_f(q[8 * rs]));
+  set_frag<EXACT>(f, 2, to_f(q[4 * ks]));
+  set_frag<EXACT>(f, 3, to_f(q[8 * rs + 4 * ks]));
+}
+// B (8 x 8), element (k, column n) at p[k * ks + n * ns]: b0 (t, g), b1 (t+4, g)
+template <bool EXACT, typename T>
+__device__ __forceinline__ void load_b(Frag<2>& f, const T* p, int ks, int ns, int g, int t) {
+  const T* q = p + t * ks + g * ns;
+  set_frag<EXACT>(f, 0, to_f(q[0]));
+  set_frag<EXACT>(f, 1, to_f(q[4 * ks]));
+}
+// B whose k rows are permuted in pairs, for an A fed from the accumulator:
+// k-index t is row 2t, k-index t+4 is row 2t+1
+template <bool EXACT, typename T>
+__device__ __forceinline__ void load_b_perm(Frag<2>& f, const T* p, int ks, int ns, int g,
+                                            int t) {
+  const T* q = p + 2 * t * ks + g * ns;
+  set_frag<EXACT>(f, 0, to_f(q[0]));
+  set_frag<EXACT>(f, 1, to_f(q[ks]));
+}
+// B from a tile split once into (hi, lo) pairs, element (k, n) at
+// p[k * ks + n * ns]: no split per load
+__device__ __forceinline__ void load_b_split(Frag<2>& f, const uint2* p, int ks, int ns, int g,
+                                             int t) {
+  const uint2* q = p + t * ks + g * ns;
+  const uint2 v0 = q[0], v1 = q[4 * ks];
+  f.hi[0] = v0.x; f.lo[0] = v0.y;
+  f.hi[1] = v1.x; f.lo[1] = v1.y;
+}
+// A from an accumulator n-tile c (rows g, g+8; columns 2t, 2t+1) under the
+// same permutation: column 2t is k-index t, column 2t+1 is k-index t+4
+__device__ __forceinline__ void acc_to_a(Frag<4>& f, const float (&c)[4]) {
+  split_tf32(c[0], f.hi[0], f.lo[0]);
+  split_tf32(c[2], f.hi[1], f.lo[1]);
+  split_tf32(c[1], f.hi[2], f.lo[2]);
+  split_tf32(c[3], f.hi[3], f.lo[3]);
+}
+
+// ---------------------------------------------------------------------------
+// fp32 forward: chunk_state_tf32_kernel<false, float> -> state_pass_kernel
+// -> chunk_scan_tf32_kernel
+// ---------------------------------------------------------------------------
+
+// One chunk's state-shaped product, shared by the forward and the backward:
+//   forward (BWD false): S_c = X'^T M, X = x, M = B, w_s = exp(L_Q - L_s) dt_s
+//   backward (BWD true): U_c = X'^T M, X = dy, M = C, w_t = exp(L_t)
+// with X'_s = w_s X_s formed in fp32. X is (B, S, H, P) with head stride P,
+// M (B, S, N); both with batch and row strides.
+template <typename T>
+struct StateArgs {
+  const T *X, *M;
+  const float *dt, *A;
+  float* out;            // (B, nc, H, P, N)
+  float* lq;             // (B, nc, H): L_Q
+  float* cum;            // (B, nc, H, Q): L, or null
+  int S, H, P, N, Q, nc;
+  int64_t xsb, xss, msb, mss;
+  int vm;                // copy width of M
+};
+
+constexpr int kSXP = kPB + 8;     // fp32 pitch of X' rows: t kSXP + g on 32 banks
+// M rows (t state_mp + g on 32 banks for fp32)
+__host__ __device__ constexpr int state_mp(int N) { return round_up(N, 32) + 8; }
+
+template <typename T>
+constexpr size_t state_tf32_smem(int Qp, int N) {
+  return sizeof(float) * (size_t)Qp * kSXP + sizeof(T) * (size_t)Qp * state_mp(N) +
+         sizeof(float) * (3 * kQMax + 4);
+}
+
+// X'^T M for one (chunk, head, batch, slice of kPB channels), split TF32.
+// Grid (nc, H, Bsz * ceil(P / kPB)); the output in (16 channel x 32 state)
+// strips spread over the warps, K = the chunk's rows in steps of 8.
+template <bool BWD, typename T>
+__global__ void __launch_bounds__(kMmaThreads)
+chunk_state_tf32_kernel(StateArgs<T> a) {
+  constexpr bool kExact = std::is_same<T, bf16>::value;
+  const int c = blockIdx.x, h = blockIdx.y;
+  const int npb = (a.P + kPB - 1) / kPB;
+  const int b = blockIdx.z / npb, p0 = (blockIdx.z % npb) * kPB;
+  const int pw = min(kPB, a.P - p0), Pp = round_up(pw, 16);
+  const int Qp = round_up(a.Q, 16), Np = round_up(a.N, 32), MP = state_mp(a.N);
+  const int nv = min(a.Q, a.S - c * a.Q);
+  const int64_t tok = (int64_t)c * a.Q, row0 = (int64_t)b * a.S + tok;
+  const int64_t bch = ((int64_t)b * a.nc + c) * a.H + h;
+  const int tid = threadIdx.x;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw);    // [Qp][kSXP]  X' (fp32)
+  T* ms = reinterpret_cast<T*>(xs + Qp * kSXP);      // [Qp][MP]    M
+  float* dts = reinterpret_cast<float*>(ms + Qp * MP);
+  float* cum = dts + kQMax;
+  float* ws = cum + kQMax;
+  float* wtot = ws + kQMax;
+
+  stage(ms, MP, a.M + b * a.msb + tok * a.mss, a.mss, Qp, nv, a.N, Np, a.vm);
+  cp_async_commit();
+  chunk_cumsum(a.dt, row0, a.H, h, a.A[h], nv, dts, cum, wtot);
+  __syncthreads();
+  const float lq = cum[a.Q - 1];
+  if (tid < kQMax) ws[tid] = BWD ? expf(cum[tid]) : expf(lq - cum[tid]) * dts[tid];
+  if (p0 == 0) {
+    if (tid == 0) a.lq[bch] = lq;
+    if (BWD && tid < a.Q) a.cum[bch * a.Q + tid] = cum[tid];
+  }
+  __syncthreads();
+  const T* xb = a.X + b * a.xsb + tok * a.xss + (int64_t)h * a.P + p0;
+  for (int idx = tid; idx < Qp * Pp; idx += kMmaThreads) {
+    const int s = idx / Pp, p = idx % Pp;
+    xs[s * kSXP + p] = (s < nv && p < pw) ? ws[s] * to_f(xb[s * a.xss + p]) : 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int n_strips = Np / 32;
+  float* out = a.out + bch * a.P * a.N;
+  for (int strip = warp; strip < (Pp / 16) * n_strips; strip += kMmaThreads / 32) {
+    const int pt = 16 * (strip / n_strips), nt = 32 * (strip % n_strips);
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int s0 = 0; s0 < Qp; s0 += 8) {
+      Frag<4> fa;
+      load_a<false>(fa, xs + s0 * kSXP + pt, 1, kSXP, g, t);      // A(p, s) = X'[s][p]
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        Frag<2> fb;
+        load_b<kExact>(fb, ms + s0 * MP + nt + 8 * j, MP, 1, g, t);  // B(s, n) = M[s][n]
+        mma3<false, kExact>(acc[j], fa, fb);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = nt + 8 * j + 2 * t;               // N % 4 == 0: n and n + 1 both in
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int p = pt + g + 8 * i;
+        if (p < pw && n < a.N)
+          *reinterpret_cast<float2*>(out + (int64_t)(p0 + p) * a.N + n) =
+              make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+      }
+    }
+  }
+}
+
+__host__ __device__ constexpr int scan_cp(int N) { return round_up(N, 32) + 4; }
+
+constexpr size_t scan_tf32_smem(int Qp, int N, int pb) {
+  return sizeof(float) * (2 * (size_t)Qp * scan_cp(N) + (size_t)Qp * (pb + 4) +
+                          (size_t)pb * scan_cp(N) + 2 * kQMax + 4);
+}
+
+constexpr int kScanThreads = 512;    // 16 warps: 8 row strips x 2 halves of their keys
+
+// y for one (chunk, head, batch, slice of pb channels), fp32 in split TF32:
+//   y = M x + exp(L_t) C h_prev^T + D x,  M = (C B^T) o exp(L_t - L_s) o dt_s on s <= t.
+// Warp (i = warp % 8, kh = warp / 8) owns rows [16 i, 16 i + 16) and the
+// kh-th half of their 8-key tiles (i + 1 of the 2 (i + 1) tiles s < 16 (i + 1)),
+// so the causal triangle's work is split evenly between the two, and the
+// kh-th half of the channels of C h_prev^T. Each keeps its C B^T tiles in
+// registers, forms M there and feeds it back as the A fragment of M x; half
+// 1 hands its partial y to half 0 through shared memory, which adds the two
+// in that order, + D x, and writes each y once. C, B and h_prev rows are
+// padded to N + 4 floats (g CP + t on 32 banks), x rows to pb + 4 (the
+// permuted B fragment's 8 t + g). Grid (nc, H, Bsz * ceil(P / pb)).
+__global__ void __launch_bounds__(kScanThreads, 1)
+chunk_scan_tf32_kernel(FwdArgs<float> a, int pb) {
+  const int c = blockIdx.x, h = blockIdx.y;
+  const int npb = (a.P + pb - 1) / pb;
+  const int b = blockIdx.z / npb, p0 = (blockIdx.z % npb) * pb;
+  const int pw = min(pb, a.P - p0), Pp = round_up(pw, 16);
+  const int Qp = round_up(a.Q, 16), Np = round_up(a.N, 32), CP = scan_cp(a.N), XP = pb + 4;
+  const int nv = min(a.Q, a.S - c * a.Q);
+  const int64_t tok = (int64_t)c * a.Q, row0 = (int64_t)b * a.S + tok;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* cs = reinterpret_cast<float*>(smem_raw);   // [Qp][CP]  C
+  float* bs = cs + Qp * CP;                          // [Qp][CP]  B
+  float* xs = bs + Qp * CP;                          // [Qp][XP]  x slice
+  float* hs = xs + Qp * XP;                          // [pb][CP]  h_prev slice
+  float* dts = hs + pb * CP;
+  float* cum = dts + kQMax;
+  float* wtot = cum + kQMax;
+  float* ys = cs;                                    // [Qp][pb + 8] half 1's y, over C and B
+
+  stage<float, kScanThreads>(cs, CP, a.Cm + b * a.csb + tok * a.css, a.css, Qp, nv, a.N, Np,
+                             a.vc);
+  stage<float, kScanThreads>(bs, CP, a.Bm + b * a.bsb + tok * a.bss, a.bss, Qp, nv, a.N, Np,
+                             a.vb);
+  stage<float, kScanThreads>(xs, XP, a.x + b * a.xsb + tok * a.xss + (int64_t)h * a.P + p0,
+                             a.xss, Qp, nv, pw, Pp, a.vx);
+  if (c > 0)     // h_prev, written by state_pass_kernel: contiguous rows of N floats
+    stage<float, kScanThreads>(
+        hs, CP, a.states + ((((int64_t)b * a.nc + c) * a.H + h) * a.P + p0) * a.N, a.N, Pp, pw,
+        a.N, Np, 4);
+  cp_async_commit();
+  chunk_cumsum(a.dt, row0, a.H, h, a.A[h], nv, dts, cum, wtot);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int i = warp & 7, kh = warp >> 3;
+  const bool live = 16 * i < nv;                   // the strip has a valid row
+  const int nk = i + 1, k0 = kh * nk;              // this warp's 8-key tiles: k0 .. k0 + nk - 1
+  const int t_lo = 16 * i + g, t_hi = t_lo + 8;
+
+  float cb[kQMax / 16][4];     // C B^T of the warp's key tiles, rows t_lo / t_hi
+  float y[kPB / 8][4];         // y, 8 channels per n-tile
+#pragma unroll
+  for (int j = 0; j < kQMax / 16; ++j) cb[j][0] = cb[j][1] = cb[j][2] = cb[j][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPB / 8; ++j) y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
+
+  // one pass over the states n: C B^T on the warp's key tiles, and C
+  // h_prev^T on its half of the channels
+  if (live) {
+    for (int n0 = 0; n0 < Np; n0 += 8) {
+      Frag<4> fa;
+      load_a<false>(fa, cs + 16 * i * CP + n0, CP, 1, g, t);          // A(t, n) = C[t][n]
+#pragma unroll
+      for (int jj = 0; jj < kQMax / 16; ++jj) {
+        if (jj < nk) {
+          Frag<2> fb;
+          load_b<false>(fb, bs + 8 * (k0 + jj) * CP + n0, 1, CP, g, t);  // B(n, s) = B[s][n]
+          mma3<false, false>(cb[jj], fa, fb);
+        }
+      }
+      if (c > 0) {
+#pragma unroll
+        for (int j = 0; j < kPB / 8; ++j) {
+          if ((j >> 2) == kh && 8 * j < Pp) {
+            Frag<2> fb;
+            load_b<false>(fb, hs + 8 * j * CP + n0, 1, CP, g, t);      // B(n, p) = h_prev[p][n]
+            mma3<false, false>(y[j], fa, fb);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();             // every warp is done with C and B: their rows take ys
+
+  if (live) {
+    const float L_lo = cum[t_lo], L_hi = cum[t_hi];
+    if (c > 0) {
+      const float e_lo = expf(L_lo), e_hi = expf(L_hi);
+#pragma unroll
+      for (int j = 0; j < kPB / 8; ++j) {
+        y[j][0] *= e_lo; y[j][1] *= e_lo;
+        y[j][2] *= e_hi; y[j][3] *= e_hi;
+      }
+    }
+    // y += M x over the warp's key tiles: M formed in registers (the
+    // exponent only where s <= t and s is a valid row) and fed back as the A
+    // fragment, x's rows read in the permuted order
+#pragma unroll
+    for (int jj = 0; jj < kQMax / 16; ++jj) {
+      if (jj < nk) {
+        const int kk = k0 + jj;
+        float mv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int s = 8 * kk + 2 * t + (e & 1);
+          const int tt = e < 2 ? t_lo : t_hi;
+          const float Lt = e < 2 ? L_lo : L_hi;
+          mv[e] = (s <= tt && s < nv) ? cb[jj][e] * expf(Lt - cum[s]) * dts[s] : 0.f;
+        }
+        Frag<4> fm;
+        acc_to_a(fm, mv);
+#pragma unroll
+        for (int j = 0; j < kPB / 8; ++j) {
+          if (8 * j < Pp) {
+            Frag<2> fb;
+            load_b_perm<false>(fb, xs + 8 * kk * XP + 8 * j, XP, 1, g, t);  // B(s, p) = x[s][p]
+            mma3<false, false>(y[j], fm, fb);
+          }
+        }
+      }
+    }
+    if (kh == 1) {
+#pragma unroll
+      for (int j = 0; j < kPB / 8; ++j) {
+        if (8 * j < Pp) {
+          *reinterpret_cast<float2*>(ys + t_lo * (pb + 8) + 8 * j + 2 * t) =
+              make_float2(y[j][0], y[j][1]);
+          *reinterpret_cast<float2*>(ys + t_hi * (pb + 8) + 8 * j + 2 * t) =
+              make_float2(y[j][2], y[j][3]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (!live || kh == 1) return;
+
+  // half 0's y + half 1's, + D x in fp32; rows past the chunk's valid ones
+  // are not written
+  const float dsk = a.D[h];
+#pragma unroll
+  for (int j = 0; j < kPB / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int tt = e < 2 ? t_lo : t_hi, p = 8 * j + 2 * t + (e & 1);
+      if (tt < nv && p < pw)
+        a.y[(row0 + tt) * a.H * a.P + (int64_t)h * a.P + p0 + p] =
+            (y[j][e] + ys[tt * (pb + 8) + p]) + dsk * xs[tt * XP + p];
+    }
+}
+
+int launch_fp32(const FwdArgs<float>& a, cudaStream_t st) {
+  static int dev_state = -1, dev_scan = -1;
+  cudaError_t e = raise_smem_limit(chunk_state_tf32_kernel<false, float>,
+                                   state_tf32_smem<float>(kQMax, kNMax), dev_state);
+  if (e != cudaSuccess) return (int)e;
+  e = raise_smem_limit(chunk_scan_tf32_kernel, scan_tf32_smem(kQMax, kNMax, kPB), dev_scan);
+  if (e != cudaSuccess) return (int)e;
+  const int Qp = round_up(a.Q, 16);
+  const StateArgs<float> sa{a.x, a.Bm, a.dt, a.A, a.states, a.lq, nullptr,
+                            a.S, a.H, a.P, a.N, a.Q, a.nc, a.xsb, a.xss, a.bsb, a.bss, a.vb};
+  chunk_state_tf32_kernel<false, float><<<dim3(a.nc, a.H, a.Bsz * ((a.P + kPB - 1) / kPB)),
+                                          kMmaThreads, state_tf32_smem<float>(Qp, a.N), st>>>(sa);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int n4 = a.P * a.N / 4;
+  state_pass_kernel<false><<<dim3((n4 + 255) / 256, a.H, a.Bsz), 256, 0, st>>>(
+      a.states, a.lq, nullptr, a.state, a.H, a.P, a.N, a.nc);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int pb = scan_slice(a.nc, a.H, a.Bsz, a.P);
+  chunk_scan_tf32_kernel<<<dim3(a.nc, a.H, a.Bsz * ((a.P + pb - 1) / pb)), kScanThreads,
+                           scan_tf32_smem(Qp, a.N, pb), st>>>(a, pb);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The backward, both dtypes: split TF32 on the tensor cores
 // ---------------------------------------------------------------------------
 //
 // Per (b, h) and chunk c, with L the inclusive cumsum of dt A over the chunk
 // (the forward's warp scan, so the same bits), w_s = exp(L_Q - L_s) dt_s,
 // M'_ts = (C_t.B_s) exp(L_t - L_s) on s <= t and dH_c the gradient of the
-// state after chunk c (see ref.py's ssd_chunked_bwd_ref):
-//   1. cb_kernel: C.B^T per chunk, shared by the heads (as in the forward);
-//   2. ssd_bwd_dstate_kernel, grid (nc, H, B x 64-channel slices): L and L_Q to
-//      scratch, U_c = sum_t exp(L_t) dy_t^T C_t to dstates;
-//   3. ssd_bwd_state_pass_kernel: in place over dstates, the chunks in reverse,
-//      dH_c = dhT for the last, dH_c-1 = exp(L_Q,c) dH_c + U_c;
-//   4. ssd_bwd_chunk_kernel, grid (nc, H, B): per head, in 32-channel passes,
-//      dxi_s = sum_t M'_ts dy_t, dxs_s = dH_c B_s, dx = dt dxi + w dxs + D dy,
-//      and the per-row dots behind dL (dy.yi with yi the forward's intra y,
-//      exp(L_t) dy.(C_t h_prev^T), x.dxi, x.dxs); then dL, its reverse
-//      cumsum within the chunk (a fixed-order warp scan), ddt, and the
-//      chunk's partial sums of dA and dD;
-//   5. ssd_bwd_ds_kernel, grid (32x32 tiles of the lower triangle, nc, B):
+// state after chunk c (see ref.py's ssd_chunked_bwd_ref). Six launches:
+//   1. ssd_bwd_cbds_kernel, grid (nc, B, G + 1): C B^T per chunk (block
+//      z = G), and for each of G groups of heads the group's part of
 //      dS_ts = sum_h exp(L_t - L_s) dt_s (dy_t.x_s), the heads in order;
-//   6. ssd_bwd_bc_kernel, grid (32-row tiles, nc, B x {dC, dB}):
-//      dC_t = sum_s dS_ts B_s + sum_h exp(L_t) dy_t h_prev,
-//      dB_s = sum_t dS_ts C_t + sum_h w_s x_s dH_c, the heads in order;
-//   7. ssd_bwd_reduce_kernel: dA and dD over (b, chunk) in order.
+//      16 warps, each with 16 rows and half of their key tiles (as
+//      chunk_scan_tf32_kernel), K = P (or N) in passes of 64;
+//   2. chunk_state_tf32_kernel<true, T>: U_c = sum_t exp(L_t) dy_t^T C_t to
+//      dstates, L and L_Q to scratch;
+//   3. state_pass_kernel<true>: in place over dstates, the chunks in
+//      reverse, dH_c = dhT for the last, dH_c-1 = exp(L_Q,c) dH_c + U_c;
+//   4. ssd_bwd_chunk_tf32_kernel, grid (nc, H, B), 16 warps: the head's
+//      decay tile M' built once from C B^T, then per 64-channel pass, warp
+//      (strip i, half) computes y = exp(L_t) C h_prev^T + M' (dt x) (dotted
+//      with dy for dL), dxs = B dH^T and dxi = M'^T dy, and
+//      dx = dt dxi + w dxs + D dy; then dL from the per-row dots, its
+//      reverse cumsum (a fixed-order warp scan), ddt, and the chunk's parts
+//      of dA and dD;
+//   5. ssd_bwd_bc_tf32_kernel, grid (nc, B, 2 G): per group of heads, its
+//      part of sum_h exp(L_t) dy_t h_prev (dC) or sum_h w_s x_s dH_c (dB),
+//      K = the heads' channels, the state split into TF32 pairs once;
+//   6. ssd_bwd_bc_sum_tf32_kernel, grid (nc, B, 2 x 64-state slices): the
+//      groups' parts in order, plus dS B (dC) or dS^T C (dB) with dS summed
+//      over the groups in order, one cast; and dA, dD over (b, chunk).
 // No atomics: every sum has one order, so a rerun gives the same bits. The
 // exponent is masked before exp (s <= t), so nothing overflows. Ragged rows
 // (past S in the last chunk) read as zero (dt = 0) and are never written.
-// What bounds it: at the training shapes (8, 256, 32 or 64 heads of 64,
-// N = 128 or 64) ~6.6 GFLOP against ~75 MB, so fp32 operations on the CUDA
-// cores; this first version is simple and correct, not tuned.
-
-constexpr int kPW = 64;   // head channels per block: dstate, ds and bc kernels
-constexpr int kPC = 32;   // head channels per pass of ssd_bwd_chunk_kernel
-constexpr int kMS = kQMax + 4;   // row stride of the Q x Q tiles in shared memory
+// For bf16, x, B, C and dy are exact in TF32, and the products of their lo
+// terms are skipped.
 
 template <typename T>
 struct BwdArgs {
@@ -787,25 +999,27 @@ struct BwdArgs {
   const float *dt, *A, *D, *h_prev, *dhT;
   T *dx, *dB, *dC;
   float *ddt, *dA, *dD;
-  float *cb, *cum, *lq, *dstates, *dS, *dA_part, *dD_part;
-  int Bsz, S, H, P, N, Q, nc;
+  float *cb, *dsp, *cum, *lq, *dstates, *bcp, *dA_part, *dD_part;
+  int Bsz, S, H, P, N, Q, nc, G;
   int64_t xsb, xss, bsb, bss, csb, css;
+  int vx, vb, vc, vdy;
 
   // x, B, C through their strides; dt, dy, dx, ddt, dB, dC contiguous
   __device__ float xv(int b, int64_t tok, int h, int p) const {
     return to_f(x[b * xsb + tok * xss + (int64_t)h * P + p]);
   }
-  __device__ float bv(int b, int64_t tok, int n) const { return to_f(Bm[b * bsb + tok * bss + n]); }
-  __device__ float cv(int b, int64_t tok, int n) const { return to_f(Cm[b * csb + tok * css + n]); }
   __device__ float dyv(int b, int64_t tok, int h, int p) const {
     return to_f(dy[(((int64_t)b * S + tok) * H + h) * P + p]);
   }
   // index of (b, chunk c, head h) in the (B, nc, H, ...) scratch
   __device__ int64_t bch(int b, int c, int h) const { return ((int64_t)b * nc + c) * H + h; }
+  // heads per group: group z sums heads [z hg, min(H, (z + 1) hg))
+  __device__ int hg() const { return (H + G - 1) / G; }
 };
 
-// the sum of v over the block, in one order, returned to every thread (all
-// kThreads threads call it; red holds kThreads / 32 floats)
+// the sum of v over the block's NT threads, in one order, returned to every
+// thread (all threads call it; red holds NT / 32 floats)
+template <int NT>
 __device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -813,290 +1027,325 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float t = 0.f;
-  for (int w = 0; w < kThreads / 32; ++w) t += red[w];
+  for (int w = 0; w < NT / 32; ++w) t += red[w];
   return t;
 }
 
-constexpr size_t dstate_smem(int N) {
-  return sizeof(float) * ((size_t)kQMax * (N + 4) + kQMax * kPW + 2 * kQMax + 4);
+template <typename T>
+__host__ __device__ constexpr int kpitch() { return kPB + 16 / (int)sizeof(T); }
+
+template <typename T>
+constexpr size_t cbds_smem(int Qp) {
+  return 2 * sizeof(T) * (size_t)Qp * kpitch<T>() + sizeof(float) * (2 * kQMax + 4);
 }
 
-// U_c[p, n] = sum_t exp(L_t) dy_t[p] C_t[n] for one (chunk, head, batch,
-// slice of kPW channels) into dstates (B, nc, H, P, N); L to cum (B, nc, H,
-// Q) and L_Q to lq (B, nc, H). Thread: n = 4 lane .. + 3, p = warp + 8 j.
+// Block z < G: group z's part of dS_ts = sum_h exp(L_t - L_s) dt_s (dy_t.x_s)
+// into dsp (B, nc, G, Q, Q); block z = G: C_t.B_s into cb (B, nc, Q, Q).
+// Warp (i = warp % 8, kh = warp / 8) owns rows t of [16 i, 16 i + 16) and
+// the kh-th half of their 8-key tiles s < 16 (i + 1), so the causal
+// triangle's work is even over the warps; the depth (P, or N) goes in
+// passes of 64, each pass's partial product masked, decayed and added. Only
+// the tiles on and below the diagonal are written (entries above it in a
+// diagonal tile are 0 in dS).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_dstate_kernel(BwdArgs<T> a) {
-  const int c = blockIdx.x, h = blockIdx.y;
-  const int npb = (a.P + kPW - 1) / kPW;
-  const int b = blockIdx.z / npb, p0 = (blockIdx.z % npb) * kPW;
-  const int nv = min(a.Q, a.S - c * a.Q), NS = a.N + 4, tid = threadIdx.x;
+__global__ void __launch_bounds__(kScanThreads)
+ssd_bwd_cbds_kernel(BwdArgs<T> a) {
+  constexpr bool kExact = std::is_same<T, bf16>::value;
+  constexpr int KP = kpitch<T>();          // rows of a pass: g KP + t on 32 banks
+  const int c = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const bool is_cb = z == a.G;
+  const int K = is_cb ? a.N : a.P;
+  const int nv = min(a.Q, a.S - c * a.Q), Qp = round_up(a.Q, 16);
   const int64_t tok0 = (int64_t)c * a.Q, row0 = (int64_t)b * a.S + tok0;
-  extern __shared__ __align__(16) float smem[];
-  float* cs = smem;                     // [kQMax][NS]  C of the chunk
-  float* ys = cs + kQMax * NS;          // [kQMax][kPW] exp(L_t) dy_t, the slice's channels
-  float* dts = ys + kQMax * kPW;        // [kQMax]
-  float* cum = dts + kQMax;             // [kQMax]
-  float* wtot = cum + kQMax;            // [4]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int i = warp & 7, nk = i + 1, j0 = (warp >> 3) * nk;   // key tiles j0 .. j0 + nk - 1
 
-  chunk_cumsum(a.dt, row0, a.H, h, a.A[h], nv, dts, cum, wtot);
-  for (int idx = tid; idx < a.Q * a.N; idx += kThreads) {
-    const int r = idx / a.N, n = idx % a.N;
-    cs[r * NS + n] = r < nv ? a.cv(b, tok0 + r, n) : 0.f;
-  }
-  __syncthreads();
-  const int64_t base = a.bch(b, c, h);
-  if (p0 == 0 && tid < a.Q) a.cum[base * a.Q + tid] = cum[tid];
-  if (p0 == 0 && tid == 0) a.lq[base] = cum[a.Q - 1];
-  for (int idx = tid; idx < a.Q * kPW; idx += kThreads) {
-    const int r = idx / kPW, p = idx % kPW;
-    ys[idx] = (r < nv && p0 + p < a.P) ? expf(cum[r]) * a.dyv(b, tok0 + r, h, p0 + p) : 0.f;
-  }
-  __syncthreads();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* as = reinterpret_cast<T*>(smem_raw);       // [Qp][KP]  rows t: dy (or C) of the pass
+  T* bs = as + Qp * KP;                          // [Qp][KP]  rows s: x (or B) of the pass
+  float* dts = reinterpret_cast<float*>(bs + Qp * KP);
+  float* cum = dts + kQMax;
+  float* wtot = cum + kQMax;
 
-  const int n = 4 * (tid & 31), pr = tid >> 5;
-  if (n >= a.N) return;                 // no sync follows
-  float acc[8][4];
+  const int hb = is_cb ? 0 : z * a.hg();
+  const int he = is_cb ? 1 : min(a.H, hb + a.hg());
+  const bool live = 16 * i < nv;
+  float ds[kQMax / 16][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  for (int t = 0; t < nv; ++t) {
-    const float4 cv = *reinterpret_cast<const float4*>(&cs[t * NS + n]);
+  for (int j = 0; j < kQMax / 16; ++j) ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
+
+  for (int h = hb; h < he; ++h) {
+    for (int k0 = 0; k0 < K; k0 += kPB) {
+      const int kw = min(kPB, K - k0), Kp = round_up(kw, 8);
+      __syncthreads();                   // the previous pass is done with the tiles
+      if (is_cb) {
+        stage<T, kScanThreads>(as, KP, a.Cm + b * a.csb + tok0 * a.css + k0, a.css, Qp, nv, kw,
+                               Kp, a.vc);
+        stage<T, kScanThreads>(bs, KP, a.Bm + b * a.bsb + tok0 * a.bss + k0, a.bss, Qp, nv, kw,
+                               Kp, a.vb);
+      } else {
+        stage<T, kScanThreads>(as, KP, a.dy + (row0 * a.H + h) * a.P + k0, (int64_t)a.H * a.P,
+                               Qp, nv, kw, Kp, a.vdy);
+        stage<T, kScanThreads>(bs, KP, a.x + b * a.xsb + tok0 * a.xss + (int64_t)h * a.P + k0,
+                               a.xss, Qp, nv, kw, Kp, a.vx);
+      }
+      cp_async_commit();
+      if (!is_cb && k0 == 0) chunk_cumsum(a.dt, row0, a.H, h, a.A[h], nv, dts, cum, wtot);
+      cp_async_wait_all();
+      __syncthreads();
+      if (!live) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float yv = ys[t * kPW + pr + 8 * j];
-      acc[j][0] += yv * cv.x; acc[j][1] += yv * cv.y; acc[j][2] += yv * cv.z; acc[j][3] += yv * cv.w;
+      for (int jj = 0; jj < kQMax / 16; ++jj) {
+        if (jj < nk) {
+          const int j = j0 + jj;
+          float cur[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int kk = 0; kk < Kp; kk += 8) {
+            Frag<4> fa;
+            Frag<2> fb;
+            load_a<kExact>(fa, as + 16 * i * KP + kk, KP, 1, g, t);      // A(t, k)
+            load_b<kExact>(fb, bs + 8 * j * KP + kk, 1, KP, g, t);       // B(k, s)
+            mma3<kExact, kExact>(cur, fa, fb);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int tt = 16 * i + g + 8 * (e >> 1), s = 8 * j + 2 * t + (e & 1);
+            ds[jj][e] += is_cb ? cur[e]
+                               : (s <= tt && tt < nv) ? cur[e] * expf(cum[tt] - cum[s]) * dts[s]
+                                                      : 0.f;
+          }
+        }
+      }
     }
   }
-  float* out = a.dstates + base * a.P * a.N;
+  if (!live) return;
+  float* out = is_cb ? a.cb + ((int64_t)b * a.nc + c) * a.Q * a.Q
+                     : a.dsp + (((int64_t)b * a.nc + c) * a.G + z) * a.Q * a.Q;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int p = p0 + pr + 8 * j;
-    if (p < a.P)
-      *reinterpret_cast<float4*>(out + (int64_t)p * a.N + n) =
-          make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  for (int jj = 0; jj < kQMax / 16; ++jj) {
+    if (jj < nk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tt = 16 * i + g + 8 * (e >> 1), s = 8 * (j0 + jj) + 2 * t + (e & 1);
+        if (tt < a.Q && s < a.Q) out[(int64_t)tt * a.Q + s] = ds[jj][e];
+      }
+    }
   }
 }
 
-// In place over dstates, the chunks in reverse: slot c receives dH_c (the
-// gradient of the state after chunk c; dhT, or 0 when null, for the last)
-// and the carry becomes exp(L_Q,c) dH_c + U_c. Grid (ceil(P N / 1024), H, B).
-__global__ void __launch_bounds__(256)
-ssd_bwd_state_pass_kernel(const float* __restrict__ dhT, float* __restrict__ dstates,
-                      const float* __restrict__ lq, int H, int P, int N, int nc) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int64_t PN = (int64_t)P * N;
-  const int64_t e = 4 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
-  if (e >= PN) return;
-  float4 g = dhT ? *reinterpret_cast<const float4*>(dhT + ((int64_t)b * H + h) * PN + e)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  float4* base = reinterpret_cast<float4*>(dstates + ((int64_t)b * nc * H + h) * PN + e);
-  const int64_t step = H * PN / 4;                  // float4s from chunk c to c + 1
-  for (int c = nc - 1; c >= 0; --c) {
-    float4* cur = base + c * step;
-    const float4 u = *cur;
-    *cur = g;
-    const float d = expf(lq[((int64_t)b * nc + c) * H + h]);
-    g = make_float4(d * g.x + u.x, d * g.y + u.y, d * g.z + u.z, d * g.w + u.w);
-  }
-}
+constexpr int kChunkThreads = 512;   // 16 warps: 8 row strips x 2 channel halves
+constexpr int kBXP = kPB + 8;        // rows of dt x and dy: t kBXP + g on 32 banks
 
-constexpr size_t chunk_smem(int N) {
-  return sizeof(float) * ((size_t)kQMax * kMS + (size_t)kQMax * (N + 4) + (size_t)kPC * (N + 4) +
-                          2 * kQMax * kPC + 5 * kQMax + kThreads / 32);
-}
-
-// dx, ddt and the chunk's partial dA and dD for one (chunk, head, batch).
-// Thread tile: rows r_i = tg + 32 i (i < 4), channels p0 + pc + 8 j (j < 4)
-// of each 32-channel pass.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_bwd_chunk_kernel(BwdArgs<T> a) {
+constexpr size_t chunk_bwd_smem(int Qp, int N) {
+  return sizeof(float) * (size_t)Qp * (Qp + 4) +
+         sizeof(T) * (size_t)Qp * (round_up(N, 32) + 16 / sizeof(T)) +
+         sizeof(float) * ((size_t)kPB * scan_cp(N) + (size_t)Qp * kBXP + 9 * kQMax +
+                          kChunkThreads / 32);
+}
+
+// dx, ddt and the chunk's parts of dA and dD for one (chunk, head, batch).
+// Warp (i = warp % 8, hf = warp / 8) owns rows [16 i, 16 i + 16) and
+// channels [32 hf, 32 hf + 32) of each 64-channel pass; the causal walks of
+// M' x (keys s <= t) and M'^T dy (t >= s) are complementary, so the warps'
+// work is even.
+template <typename T>
+__global__ void __launch_bounds__(kChunkThreads, 1)
+ssd_bwd_chunk_tf32_kernel(BwdArgs<T> a) {
+  constexpr bool kExact = std::is_same<T, bf16>::value;
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nv = min(a.Q, a.S - c * a.Q), Q4 = (a.Q + 3) & ~3, NS = a.N + 4;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tg = tid >> 3, pc = tid & 7;
-  const int64_t tok0 = (int64_t)c * a.Q;
+  const int nv = min(a.Q, a.S - c * a.Q), Qp = round_up(a.Q, 16), Np = round_up(a.N, 32);
+  const int MP = Qp + 4;                            // M' rows
+  const int CP = Np + 16 / (int)sizeof(T);          // C, then B, rows
+  const int HP = scan_cp(a.N);                      // h_prev, then dH, rows (fp32)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int64_t tok0 = (int64_t)c * a.Q, row0 = (int64_t)b * a.S + tok0;
   const int64_t base = a.bch(b, c, h);
-  extern __shared__ __align__(16) float smem[];
-  float* ms = smem;                     // [kQMax][kMS]  M'_ts
-  float* mat = ms + kQMax * kMS;        // [kQMax][NS]   C, then B
-  float* st = mat + kQMax * NS;         // [kPC][NS]     h_prev, then dH_c, of the pass
-  float* xs = st + kPC * NS;            // [kQMax][kPC]  x of the pass
-  float* dys = xs + kQMax * kPC;        // [kQMax][kPC]  dy of the pass
-  float* dts = dys + kQMax * kPC;       // [kQMax]       dt
-  float* cum = dts + kQMax;             // [kQMax]       L
-  float* plus = cum + kQMax;            // [kQMax]       dy.yi + exp(L_t) dy.(C_t h_prev^T)
-  float* xdi = plus + kQMax;            // [kQMax]       x.dxi
-  float* xds = xdi + kQMax;             // [kQMax]       x.dxs
-  float* red = xds + kQMax;             // [kThreads / 32]
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ms = reinterpret_cast<float*>(smem_raw);   // [Qp][MP]   M'
+  T* cbs = reinterpret_cast<T*>(ms + Qp * MP);      // [Qp][CP]   C, then B
+  float* hs = reinterpret_cast<float*>(cbs + Qp * CP);   // [kPB][HP] h_prev, then dH
+  float* xs = hs + kPB * HP;                        // [Qp][kBXP] dt x, then dy (as T)
+  T* dys = reinterpret_cast<T*>(xs);
+  float* dts = xs + Qp * kBXP;                      // [kQMax]    dt
+  float* cum = dts + kQMax;                         // [kQMax]    L
+  float* wv = cum + kQMax;                          // [kQMax]    w = exp(L_Q - L) dt
+  float* rows = wv + kQMax;                         // [6][kQMax] row dots by channel half
+  float* red = rows + 6 * kQMax;                    // [kChunkThreads / 32]
 
   if (tid < kQMax) {
-    dts[tid] = tid < nv ? a.dt[((int64_t)b * a.S + tok0 + tid) * a.H + h] : 0.f;
+    dts[tid] = tid < nv ? a.dt[(row0 + tid) * a.H + h] : 0.f;
     cum[tid] = tid < a.Q ? a.cum[base * a.Q + tid] : 0.f;
   }
   __syncthreads();
   const float lq = cum[a.Q - 1];
+  if (tid < kQMax) wv[tid] = expf(lq - cum[tid]) * dts[tid];
   const float* cbc = a.cb + ((int64_t)b * a.nc + c) * a.Q * a.Q;
-  for (int idx = tid; idx < kQMax * kQMax; idx += kThreads) {
-    const int t = idx / kQMax, s = idx % kQMax;
-    ms[t * kMS + s] = (s <= t && t < nv) ? cbc[t * a.Q + s] * expf(cum[t] - cum[s]) : 0.f;
+  for (int idx = tid; idx < Qp * Qp; idx += kChunkThreads) {
+    const int tt = idx / Qp, s = idx % Qp;
+    ms[tt * MP + s] = (s <= tt && tt < nv) ? cbc[tt * a.Q + s] * expf(cum[tt] - cum[s]) : 0.f;
   }
 
-  float rplus[4] = {0.f, 0.f, 0.f, 0.f}, rxdi[4] = {0.f, 0.f, 0.f, 0.f};
-  float rxds[4] = {0.f, 0.f, 0.f, 0.f};
-  float ddot = 0.f, dd = 0.f;           // h_prev . dH over the thread's entries; dy . x
+  const int i = warp & 7, hf = warp >> 3, pc = 32 * hf;
+  const int r_lo = 16 * i + g, r_hi = r_lo + 8;
+  const bool live = 16 * i < nv;
   const float dsk = a.D[h];
-  for (int p0 = 0; p0 < a.P; p0 += kPC) {
-    __syncthreads();                    // the previous pass is done with the tiles
-    for (int idx = tid; idx < kQMax * kPC; idx += kThreads) {
-      const int r = idx / kPC, p = idx % kPC;
-      const bool ok = r < nv && p0 + p < a.P;
-      xs[idx] = ok ? a.xv(b, tok0 + r, h, p0 + p) : 0.f;
-      dys[idx] = ok ? a.dyv(b, tok0 + r, h, p0 + p) : 0.f;
+  float rp[2] = {0.f, 0.f}, rdi[2] = {0.f, 0.f}, rds[2] = {0.f, 0.f};
+  float dd = 0.f, ddot = 0.f;            // dy . x and h_prev . dH over the thread's entries
+  for (int p0 = 0; p0 < a.P; p0 += kPB) {
+    const int pw = min(kPB, a.P - p0), Pp = round_up(pw, 16);
+    const bool mine = live && pc < Pp;
+    const int64_t st0 = (base * a.P + p0) * a.N;    // the pass's rows of h_prev and dH
+    // phase 1: C, h_prev, dt x
+    __syncthreads();                     // M' is built; the last pass is done with the tiles
+    stage<T, kChunkThreads>(cbs, CP, a.Cm + b * a.csb + tok0 * a.css, a.css, Qp, nv, a.N, Np,
+                            a.vc);
+    if (c > 0) stage<float, kChunkThreads>(hs, HP, a.h_prev + st0, a.N, Pp, pw, a.N, Np, 4);
+    cp_async_commit();
+    for (int idx = tid; idx < Qp * Pp; idx += kChunkThreads) {
+      const int s = idx / Pp, p = idx % Pp;
+      xs[s * kBXP + p] = (s < nv && p < pw) ? dts[s] * a.xv(b, tok0 + s, h, p0 + p) : 0.f;
     }
-    for (int idx = tid; idx < kQMax * a.N; idx += kThreads) {
-      const int r = idx / a.N, n = idx % a.N;
-      mat[r * NS + n] = r < nv ? a.cv(b, tok0 + r, n) : 0.f;
-    }
-    for (int idx = tid; idx < kPC * a.N; idx += kThreads) {
-      const int p = idx / a.N, n = idx % a.N;
-      st[p * NS + n] = p0 + p < a.P ? a.h_prev[(base * a.P + p0 + p) * a.N + n] : 0.f;
-    }
+    cp_async_wait_all();
     __syncthreads();
-
-    // the intra-chunk terms: yi_t = sum_s M'_ts dt_s x_s, dxi_s = sum_t M'_ts dy_t
-    float yi[4][4], dxi[4][4], yh[4][4];
+    if (mine) {
+      float y[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j) y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
+      if (c > 0) {                       // C h_prev^T, then exp(L_t)
+        for (int n0 = 0; n0 < Np; n0 += 8) {
+          Frag<4> fa;
+          load_a<kExact>(fa, cbs + 16 * i * CP + n0, CP, 1, g, t4);      // A(t, n) = C[t][n]
 #pragma unroll
-      for (int j = 0; j < 4; ++j) yi[i][j] = dxi[i][j] = yh[i][j] = 0.f;
-    for (int s = 0; s < Q4; s += 4) {
-      float xv[4][4];
+          for (int j = 0; j < 4; ++j) {
+            if (pc + 8 * j < Pp) {
+              Frag<2> fb;
+              load_b<false>(fb, hs + (pc + 8 * j) * HP + n0, 1, HP, g, t4);  // B(n, p)
+              mma3<kExact, false>(y[j], fa, fb);
+            }
+          }
+        }
+        const float e_lo = expf(cum[r_lo]), e_hi = expf(cum[r_hi]);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float d = dts[s + k];
+        for (int j = 0; j < 4; ++j) {
+          y[j][0] *= e_lo; y[j][1] *= e_lo;
+          y[j][2] *= e_hi; y[j][3] *= e_hi;
+        }
+      }
+      for (int s0 = 0; s0 < 16 * (i + 1); s0 += 8) {              // + M' (dt x), s <= t
+        Frag<4> fa;
+        load_a<false>(fa, ms + 16 * i * MP + s0, MP, 1, g, t4);          // A(t, s) = M'[t][s]
 #pragma unroll
-        for (int j = 0; j < 4; ++j) xv[k][j] = d * xs[(s + k) * kPC + pc + 8 * j];
+        for (int j = 0; j < 4; ++j) {
+          if (pc + 8 * j < Pp) {
+            Frag<2> fb;
+            load_b<false>(fb, xs + s0 * kBXP + pc + 8 * j, kBXP, 1, g, t4);  // B(s, p)
+            mma3<false, false>(y[j], fa, fb);
+          }
+        }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 m = *reinterpret_cast<const float4*>(&ms[(tg + 32 * i) * kMS + s]);
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          yi[i][j] += m.x * xv[0][j] + m.y * xv[1][j] + m.z * xv[2][j] + m.w * xv[3][j];
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int r = e < 2 ? r_lo : r_hi, p = pc + 8 * j + 2 * t4 + (e & 1);
+          if (r < nv && p < pw) rp[e >> 1] += a.dyv(b, tok0 + r, h, p0 + p) * y[j][e];
+        }
     }
-    for (int t = 0; t < nv; ++t) {
-      float dv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dv[j] = dys[t * kPC + pc + 8 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float m = ms[t * kMS + tg + 32 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dxi[i][j] += m * dv[j];
-      }
-    }
-    // the inter-chunk term: yh_t = C_t h_prev^T
-    for (int n = 0; n < a.N; n += 4) {
-      float4 hv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) hv[j] = *reinterpret_cast<const float4*>(&st[(pc + 8 * j) * NS + n]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 cv = *reinterpret_cast<const float4*>(&mat[(tg + 32 * i) * NS + n]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          yh[i][j] += cv.x * hv[j].x + cv.y * hv[j].y + cv.z * hv[j].z + cv.w * hv[j].w;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = tg + 32 * i;
-      const float el = expf(cum[r]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float dv = dys[r * kPC + pc + 8 * j], xv = xs[r * kPC + pc + 8 * j];
-        rplus[i] += dv * (yi[i][j] + el * yh[i][j]);
-        rxdi[i] += xv * dxi[i][j];
-        dd += dv * xv;
-      }
-    }
-    __syncthreads();                    // done with C and h_prev
-    for (int idx = tid; idx < kQMax * a.N; idx += kThreads) {
-      const int r = idx / a.N, n = idx % a.N;
-      mat[r * NS + n] = r < nv ? a.bv(b, tok0 + r, n) : 0.f;
-    }
-    const float* dh = a.dstates + base * a.P * a.N;
-    for (int idx = tid; idx < kPC * a.N; idx += kThreads) {
-      const int p = idx / a.N, n = idx % a.N;
-      const bool ok = p0 + p < a.P;
-      const float g = ok ? dh[(int64_t)(p0 + p) * a.N + n] : 0.f;
-      st[p * NS + n] = g;
-      if (ok) ddot += a.h_prev[(base * a.P + p0 + p) * a.N + n] * g;
-    }
+    // phase 2: B, dH, dy
+    __syncthreads();                     // done with C, h_prev and dt x
+    stage<T, kChunkThreads>(cbs, CP, a.Bm + b * a.bsb + tok0 * a.bss, a.bss, Qp, nv, a.N, Np,
+                            a.vb);
+    stage<float, kChunkThreads>(hs, HP, a.dstates + st0, a.N, Pp, pw, a.N, Np, 4);
+    stage<T, kChunkThreads>(dys, kBXP, a.dy + (row0 * a.H + h) * a.P + p0, (int64_t)a.H * a.P,
+                            Qp, nv, pw, Pp, a.vdy);
+    cp_async_commit();
+    if (c > 0)
+      for (int idx = tid; idx < pw * a.N; idx += kChunkThreads)
+        ddot += a.h_prev[st0 + idx] * a.dstates[st0 + idx];
+    cp_async_wait_all();
     __syncthreads();
-    // the state term: dxs_s = dH_c B_s; then dx
-    float dxs[4][4];
+    if (mine) {
+      float dxs[4][4], dxi[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dxs[i][j] = 0.f;
-    for (int n = 0; n < a.N; n += 4) {
-      float4 gv[4];
+        for (int e = 0; e < 4; ++e) dxs[j][e] = dxi[j][e] = 0.f;
+      for (int n0 = 0; n0 < Np; n0 += 8) {                       // dxs = B dH^T
+        Frag<4> fa;
+        load_a<kExact>(fa, cbs + 16 * i * CP + n0, CP, 1, g, t4);        // A(s, n) = B[s][n]
 #pragma unroll
-      for (int j = 0; j < 4; ++j) gv[j] = *reinterpret_cast<const float4*>(&st[(pc + 8 * j) * NS + n]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 bv = *reinterpret_cast<const float4*>(&mat[(tg + 32 * i) * NS + n]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          dxs[i][j] += bv.x * gv[j].x + bv.y * gv[j].y + bv.z * gv[j].z + bv.w * gv[j].w;
+        for (int j = 0; j < 4; ++j) {
+          if (pc + 8 * j < Pp) {
+            Frag<2> fb;
+            load_b<false>(fb, hs + (pc + 8 * j) * HP + n0, 1, HP, g, t4);  // B(n, p) = dH[p][n]
+            mma3<kExact, false>(dxs[j], fa, fb);
+          }
+        }
       }
-    }
+      for (int t0 = 16 * i; t0 < Qp; t0 += 8) {                  // dxi = M'^T dy, t >= s
+        Frag<4> fa;
+        load_a<false>(fa, ms + t0 * MP + 16 * i, 1, MP, g, t4);          // A(s, t) = M'[t][s]
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = tg + 32 * i;
-      const float w = expf(lq - cum[r]) * dts[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = p0 + pc + 8 * j;
-        const float dv = dys[r * kPC + pc + 8 * j], xv = xs[r * kPC + pc + 8 * j];
-        rxds[i] += xv * dxs[i][j];
-        if (r < nv && p < a.P)
-          a.dx[(((int64_t)b * a.S + tok0 + r) * a.H + h) * a.P + p] =
-              from_f<T>(dts[r] * dxi[i][j] + w * dxs[i][j] + dsk * dv);
+        for (int j = 0; j < 4; ++j) {
+          if (pc + 8 * j < Pp) {
+            Frag<2> fb;
+            load_b<kExact>(fb, dys + t0 * kBXP + pc + 8 * j, kBXP, 1, g, t4);  // B(t, p)
+            mma3<false, kExact>(dxi[j], fa, fb);
+          }
+        }
       }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int s = e < 2 ? r_lo : r_hi, p = pc + 8 * j + 2 * t4 + (e & 1);
+          if (s < nv && p < pw) {
+            const float dyv = to_f(dys[s * kBXP + p]), xv = a.xv(b, tok0 + s, h, p0 + p);
+            a.dx[((row0 + s) * a.H + h) * a.P + p0 + p] =
+                from_f<T>(dts[s] * dxi[j][e] + wv[s] * dxs[j][e] + dsk * dyv);
+            rdi[e >> 1] += xv * dxi[j][e];
+            rds[e >> 1] += xv * dxs[j][e];
+            dd += dyv * xv;
+          }
+        }
     }
   }
 
-  // the row dots: the 8 threads of a row group hold its partial sums
+  // the row dots: the 4 lanes of a quad hold parts of rows r_lo and r_hi;
+  // the two channel halves are added in order below
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int k = 0; k < 2; ++k)
 #pragma unroll
-    for (int off = 1; off < 8; off <<= 1) {
-      rplus[i] += __shfl_xor_sync(0xffffffffu, rplus[i], off);
-      rxdi[i] += __shfl_xor_sync(0xffffffffu, rxdi[i], off);
-      rxds[i] += __shfl_xor_sync(0xffffffffu, rxds[i], off);
+    for (int off = 1; off < 4; off <<= 1) {
+      rp[k] += __shfl_xor_sync(0xffffffffu, rp[k], off);
+      rdi[k] += __shfl_xor_sync(0xffffffffu, rdi[k], off);
+      rds[k] += __shfl_xor_sync(0xffffffffu, rds[k], off);
     }
-    if (pc == 0) {
-      plus[tg + 32 * i] = rplus[i];
-      xdi[tg + 32 * i] = rxdi[i];
-      xds[tg + 32 * i] = rxds[i];
+  if (t4 == 0) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int r = k ? r_hi : r_lo;
+      rows[(0 + hf) * kQMax + r] = rp[k];
+      rows[(2 + hf) * kQMax + r] = rdi[k];
+      rows[(4 + hf) * kQMax + r] = rds[k];
     }
   }
-  const float dD = block_sum(dd, red);
-  const float decay = expf(lq) * block_sum(ddot, red);   // syncs: plus, xdi, xds are written
+  const float dD = block_sum<kChunkThreads>(dd, red);
+  const float decay = expf(lq) * block_sum<kChunkThreads>(ddot, red);   // syncs: rows written
   // dL_t = dy.yi + exp(L_t) dy.yh - dt_t (x.dxi + exp(L_Q - L_t) x.dxs), and
   // at t = Q - 1 the state and chunk-decay terms
   float direct = 0.f, dL = 0.f, wx = 0.f;
   if (tid < kQMax) {
+    const float plus = rows[tid] + rows[kQMax + tid];
+    const float xdi = rows[2 * kQMax + tid] + rows[3 * kQMax + tid];
+    const float xds = rows[4 * kQMax + tid] + rows[5 * kQMax + tid];
     const float tl = expf(lq - cum[tid]);
-    direct = xdi[tid] + tl * xds[tid];
-    dL = plus[tid] - dts[tid] * direct;
-    wx = tl * dts[tid] * xds[tid];
+    direct = xdi + tl * xds;
+    dL = plus - dts[tid] * direct;
+    wx = tl * dts[tid] * xds;
   }
-  const float state_term = block_sum(wx, red);
+  const float state_term = block_sum<kChunkThreads>(wx, red);
   if (tid == a.Q - 1) dL += state_term + decay;
   // da_u = sum_{t >= u} dL_t: a suffix scan within each warp, then the
   // totals of the later warps in order
@@ -1111,274 +1360,311 @@ ssd_bwd_chunk_kernel(BwdArgs<T> a) {
   __syncthreads();
   if (tid < kQMax)
     for (int w2 = kQMax / 32 - 1; w2 > warp; --w2) da += red[w2];
-  const float a_h = a.A[h];
-  if (tid < nv) a.ddt[((int64_t)b * a.S + tok0 + tid) * a.H + h] = direct + a_h * da;
-  const float dA = block_sum(tid < kQMax ? dts[tid] * da : 0.f, red);
+  if (tid < nv) a.ddt[(row0 + tid) * a.H + h] = direct + a.A[h] * da;
+  const float dA = block_sum<kChunkThreads>(tid < kQMax ? dts[tid] * da : 0.f, red);
   if (tid == 0) {
     a.dA_part[base] = dA;
     a.dD_part[base] = dD;
   }
 }
 
-// dS_ts = sum_h exp(L_t - L_s) dt_s (dy_t . x_s) on s <= t for one 32x32
-// tile of chunk c (tiles above the diagonal are skipped; entries above it in
-// a diagonal tile are written 0). Thread: s = lane, t = warp + 8 i.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_ds_kernel(BwdArgs<T> a) {
-  const int nt = (a.Q + kTile - 1) / kTile;
-  const int tt = blockIdx.x / nt, ts = blockIdx.x % nt;
-  if (ts > tt) return;
-  const int c = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int nv = min(a.Q, a.S - c * a.Q);
-  const int64_t tok0 = (int64_t)c * a.Q;
-  __shared__ float dyt[kTile][kPW + 1];   // dy, rows t of the tile, one head's channel slice
-  __shared__ float xt[kTile][kPW + 1];    // x, rows s
-  __shared__ float lt[kTile], ls[kTile], dls[kTile];
-  const int sl = tid % kTile, tl = tid / kTile;
-  const int s = ts * kTile + sl;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int h = 0; h < a.H; ++h) {
-    float g[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int p0 = 0; p0 < a.P; p0 += kPW) {
-      __syncthreads();
-      for (int idx = tid; idx < kTile * kPW; idx += kThreads) {
-        const int r = idx / kPW, p = idx % kPW;
-        const int t_r = tt * kTile + r, s_r = ts * kTile + r;
-        const bool okp = p0 + p < a.P;
-        dyt[r][p] = (t_r < nv && okp) ? a.dyv(b, tok0 + t_r, h, p0 + p) : 0.f;
-        xt[r][p] = (s_r < nv && okp) ? a.xv(b, tok0 + s_r, h, p0 + p) : 0.f;
-      }
-      if (p0 == 0 && tid < kTile) {
-        const int64_t cb0 = a.bch(b, c, h) * a.Q;
-        const int t_r = tt * kTile + tid, s_r = ts * kTile + tid;
-        lt[tid] = t_r < a.Q ? a.cum[cb0 + t_r] : 0.f;
-        ls[tid] = s_r < a.Q ? a.cum[cb0 + s_r] : 0.f;
-        dls[tid] = s_r < nv ? a.dt[((int64_t)b * a.S + tok0 + s_r) * a.H + h] : 0.f;
-      }
-      __syncthreads();
-      const int pw = min(kPW, a.P - p0);
-      for (int p = 0; p < pw; ++p) {
-        const float xv = xt[sl][p];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) g[i] += dyt[tl + 8 * i][p] * xv;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = tt * kTile + tl + 8 * i;
-      if (s <= t && t < nv) acc[i] += g[i] * expf(lt[tl + 8 * i] - ls[sl]) * dls[sl];
-    }
-  }
-  float* out = a.dS + ((int64_t)b * a.nc + c) * a.Q * a.Q;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = tt * kTile + tl + 8 * i;
-    if (t < a.Q && s < a.Q) out[(int64_t)t * a.Q + s] = s <= t ? acc[i] : 0.f;
-  }
+constexpr int kAP = kPB + 4;          // rows of the A source: g kAP + t on 32 banks
+// rows of the split state, in (hi, lo) pairs: a half-warp's 8-byte loads
+// t SP + g fall on 32 banks
+__host__ __device__ constexpr int bc_sp(int N) { return round_up(N, 32) + 4; }
+
+constexpr size_t bc_smem(int Qp, int N) {
+  return sizeof(float) * ((size_t)Qp * kAP + 2 * kQMax) + sizeof(uint2) * (size_t)kPB * bc_sp(N);
 }
 
-constexpr size_t bc_smem(int N) {
-  return sizeof(float) * ((size_t)kQMax * (N + 4) + (size_t)kTile * kMS + kTile * kPW);
-}
-
-// dC (blockIdx.z even) or dB (odd) for 32 rows of chunk c:
-//   dC_t = sum_{s<=t} dS_ts B_s + sum_h exp(L_t) sum_p dy_t[p] h_prev[p, :]
-//   dB_s = sum_{t>=s} dS_ts C_t + sum_h w_s sum_p x_s[p] dH_c[p, :]
-// the heads in order. Thread: rows warp + 8 i, n = 4 lane .. + 3.
+// Group grp's part of the state terms of dC (blockIdx.z even) or dB (odd):
+//   dC_t: sum_h exp(L_t) sum_p dy_t[p] h_prev[p, :]
+//   dB_s: sum_h w_s sum_p x_s[p] dH_c[p, :]
+// over the group's heads in order, into bcp (2, B, nc, G, Q, N). Warp w
+// owns rows [16 w, 16 w + 16) and every state n; K = the heads' channels,
+// 64 per pass. Every warp reads all of a pass's state, so it is split into
+// TF32 (hi, lo) once, as it is staged.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_bc_kernel(BwdArgs<T> a) {
-  const int r0 = blockIdx.x * kTile, c = blockIdx.y;
-  const int b = blockIdx.z >> 1, is_db = blockIdx.z & 1;
-  const int nv = min(a.Q, a.S - c * a.Q), NS = a.N + 4, tid = threadIdx.x;
-  const int64_t tok0 = (int64_t)c * a.Q;
-  extern __shared__ __align__(16) float smem[];
-  float* mat = smem;                    // [kQMax][NS] B or C; later [kPW][NS] a head's state slice
-  float* sds = mat + kQMax * NS;        // [kTile][kMS] dS rows (dC) or columns (dB)
-  float* ops = sds + kTile * kMS;       // [kTile][kPW] exp(L_t) dy_t or w_s x_s, one head's slice
-  const int rg = tid >> 5, n = 4 * (tid & 31);
+__global__ void __launch_bounds__(kMmaThreads)
+ssd_bwd_bc_tf32_kernel(BwdArgs<T> a) {
+  const int c = blockIdx.x, b = blockIdx.y, grp = blockIdx.z >> 1, is_db = blockIdx.z & 1;
+  const int nv = min(a.Q, a.S - c * a.Q), Qp = round_up(a.Q, 16), Np = round_up(a.N, 32);
+  const int SP = bc_sp(a.N);
+  const int64_t tok0 = (int64_t)c * a.Q, row0 = (int64_t)b * a.S + tok0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
 
-  for (int idx = tid; idx < kQMax * a.N; idx += kThreads) {
-    const int r = idx / a.N, nn = idx % a.N;
-    mat[r * NS + nn] = r < nv ? (is_db ? a.cv(b, tok0 + r, nn) : a.bv(b, tok0 + r, nn)) : 0.f;
-  }
-  const float* dsc = a.dS + ((int64_t)b * a.nc + c) * a.Q * a.Q;
-  for (int idx = tid; idx < kTile * kQMax; idx += kThreads) {
-    const int i = idx / kQMax, k = idx % kQMax, row = r0 + i;
-    const int t = is_db ? k : row, s = is_db ? row : k;
-    sds[i * kMS + k] = (s <= t && t < nv) ? dsc[(int64_t)t * a.Q + s] : 0.f;
-  }
-  __syncthreads();
-  float acc[4][4];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* as = reinterpret_cast<float*>(smem_raw);   // [Qp][kAP]  exp(L_t) dy_t or w_s x_s
+  float* cum = as + Qp * kAP;                        // [kQMax]
+  float* dts = cum + kQMax;                          // [kQMax]
+  uint2* st = reinterpret_cast<uint2*>(dts + kQMax); // [kPB][SP]  h_prev or dH, split
+
+  const bool live = 16 * warp < nv;
+  float acc[kNMax / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  if (n < a.N) {
-    for (int k = 0; k < nv; ++k) {
-      const float4 mv = *reinterpret_cast<const float4*>(&mat[k * NS + n]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float d = sds[(rg + 8 * i) * kMS + k];
-        acc[i][0] += d * mv.x; acc[i][1] += d * mv.y; acc[i][2] += d * mv.z; acc[i][3] += d * mv.w;
-      }
-    }
-  }
-  const float* state = is_db ? a.dstates : a.h_prev;
-  for (int h = 0; h < a.H; ++h) {
+  for (int j = 0; j < kNMax / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int hb = grp * a.hg(), he = min(a.H, hb + a.hg());
+  for (int h = hb; h < he; ++h) {
     const int64_t base = a.bch(b, c, h);
-    const float lq = a.lq[base];
-    for (int p0 = 0; p0 < a.P; p0 += kPW) {
-      __syncthreads();                  // the last reads of mat and ops are done
-      for (int idx = tid; idx < kPW * a.N; idx += kThreads) {
-        const int p = idx / a.N, nn = idx % a.N;
-        mat[p * NS + nn] = p0 + p < a.P ? state[(base * a.P + p0 + p) * a.N + nn] : 0.f;
+    for (int p0 = 0; p0 < a.P; p0 += kPB) {
+      const int pw = min(kPB, a.P - p0), Pp = round_up(pw, 16);
+      __syncthreads();                   // the previous pass is done with the tiles
+      const float* sp = (is_db ? a.dstates : a.h_prev) + (base * a.P + p0) * a.N;
+      for (int idx = tid; idx < Pp * Np / 4; idx += kMmaThreads) {
+        const int p = idx / (Np / 4), n = 4 * (idx % (Np / 4));
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (p < pw && n < a.N) v = *reinterpret_cast<const float4*>(sp + (int64_t)p * a.N + n);
+        uint2* d = st + p * SP + n;
+        split_tf32(v.x, d[0].x, d[0].y);
+        split_tf32(v.y, d[1].x, d[1].y);
+        split_tf32(v.z, d[2].x, d[2].y);
+        split_tf32(v.w, d[3].x, d[3].y);
       }
-      for (int idx = tid; idx < kTile * kPW; idx += kThreads) {
-        const int i = idx / kPW, p = idx % kPW, row = r0 + i;
-        float v = 0.f;
-        if (row < nv && p0 + p < a.P) {
-          const float L = a.cum[base * a.Q + row];
-          v = is_db ? expf(lq - L) * a.dt[((int64_t)b * a.S + tok0 + row) * a.H + h] *
-                          a.xv(b, tok0 + row, h, p0 + p)
-                    : expf(L) * a.dyv(b, tok0 + row, h, p0 + p);
-        }
-        ops[idx] = v;
+      if (p0 == 0 && tid < kQMax) {
+        cum[tid] = tid < a.Q ? a.cum[base * a.Q + tid] : 0.f;
+        dts[tid] = tid < nv ? a.dt[(row0 + tid) * a.H + h] : 0.f;
       }
       __syncthreads();
-      if (n < a.N) {
-        const int pw = min(kPW, a.P - p0);
-        for (int p = 0; p < pw; ++p) {
-          const float4 sv = *reinterpret_cast<const float4*>(&mat[p * NS + n]);
+      const float lq = cum[a.Q - 1];
+      for (int idx = tid; idx < Qp * Pp; idx += kMmaThreads) {
+        const int r = idx / Pp, p = idx % Pp;
+        float v = 0.f;
+        if (r < nv && p < pw)
+          v = is_db ? expf(lq - cum[r]) * dts[r] * a.xv(b, tok0 + r, h, p0 + p)
+                    : expf(cum[r]) * a.dyv(b, tok0 + r, h, p0 + p);
+        as[r * kAP + p] = v;
+      }
+      __syncthreads();
+      if (!live) continue;
+      for (int k0 = 0; k0 < Pp; k0 += 8) {
+        Frag<4> fa;
+        load_a<false>(fa, as + 16 * warp * kAP + k0, kAP, 1, g, t);      // A(r, p)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float o = ops[(rg + 8 * i) * kPW + p];
-            acc[i][0] += o * sv.x; acc[i][1] += o * sv.y; acc[i][2] += o * sv.z; acc[i][3] += o * sv.w;
+        for (int j = 0; j < kNMax / 8; ++j) {
+          if (8 * j < Np) {
+            Frag<2> fb;
+            load_b_split(fb, st + k0 * SP + 8 * j, SP, 1, g, t);          // B(p, n)
+            mma3<false, false>(acc[j], fa, fb);
           }
         }
       }
     }
   }
-  if (n >= a.N) return;
-  T* out = is_db ? a.dB : a.dC;
+  if (!live) return;
+  float* out = a.bcp + ((((int64_t)is_db * a.Bsz + b) * a.nc + c) * a.G + grp) * a.Q * a.N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + rg + 8 * i;
-    if (row < nv) {
-      T* o = out + ((int64_t)b * a.S + tok0 + row) * a.N + n;
+  for (int j = 0; j < kNMax / 8; ++j) {
+    const int n = 8 * j + 2 * t;          // N % 4 == 0: n and n + 1 both in
 #pragma unroll
-      for (int k = 0; k < 4; ++k) o[k] = from_f<T>(acc[i][k]);
+    for (int k = 0; k < 2; ++k) {
+      const int r = 16 * warp + g + 8 * k;
+      if (r < nv && n < a.N)
+        *reinterpret_cast<float2*>(out + (int64_t)r * a.N + n) =
+            make_float2(acc[j][2 * k], acc[j][2 * k + 1]);
     }
   }
 }
 
-// dA and dD: the chunks' partial sums over (b, chunk) in order
-__global__ void ssd_bwd_reduce_kernel(const float* __restrict__ dA_part,
-                                  const float* __restrict__ dD_part, float* __restrict__ dA,
-                                  float* __restrict__ dD, int n_bc, int H) {
-  const int h = blockIdx.x * blockDim.x + threadIdx.x;
-  if (h >= H) return;
-  float sa = 0.f, sd = 0.f;
-  for (int i = 0; i < n_bc; ++i) {
-    sa += dA_part[(int64_t)i * H + h];
-    sd += dD_part[(int64_t)i * H + h];
+constexpr int kNS = 64;               // states per block of the final dB / dC kernel
+constexpr int kSBP = kNS + 8;         // rows of its B or C slice: t kSBP + g on 32 banks
+
+template <typename T>
+constexpr size_t bc_sum_smem(int Qp) {
+  return sizeof(float) * (size_t)Qp * (Qp + 4) + sizeof(T) * (size_t)Qp * kSBP;
+}
+
+// dC (blockIdx.z even) or dB (odd) for states [64 (z / 2), 64 (z / 2) + 64):
+//   dC_t = sum_g part_g[t] + sum_{s<=t} dS_ts B_s
+//   dB_s = sum_g part_g[s] + sum_{t>=s} dS_ts C_t
+// with dS summed over the G groups in order; one cast, rows < nv written.
+// Warp w owns rows [16 w, 16 w + 16). The blocks of (c, b) = (0, 0) with
+// z < 2 also sum dA (even) or dD (odd) over (b, chunk) in order.
+template <typename T>
+__global__ void __launch_bounds__(kMmaThreads)
+ssd_bwd_bc_sum_tf32_kernel(BwdArgs<T> a) {
+  constexpr bool kExact = std::is_same<T, bf16>::value;
+  constexpr int BP = kSBP;
+  const int c = blockIdx.x, b = blockIdx.y, is_db = blockIdx.z & 1, n0 = kNS * (blockIdx.z >> 1);
+  const int nv = min(a.Q, a.S - c * a.Q), Qp = round_up(a.Q, 16), DP = Qp + 4;
+  const int nw = min(kNS, a.N - n0);
+  const int64_t tok0 = (int64_t)c * a.Q, row0 = (int64_t)b * a.S + tok0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+
+  if (c == 0 && b == 0 && n0 == 0) {
+    const float* part = is_db ? a.dD_part : a.dA_part;
+    for (int h = tid; h < a.H; h += kMmaThreads) {
+      float sum = 0.f;
+      for (int k = 0; k < a.Bsz * a.nc; ++k) sum += part[(int64_t)k * a.H + h];
+      (is_db ? a.dD : a.dA)[h] = sum;
+    }
   }
-  dA[h] = sa;
-  dD[h] = sd;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* dss = reinterpret_cast<float*>(smem_raw);  // [Qp][DP]  dS, s <= t < nv
+  T* ms = reinterpret_cast<T*>(dss + Qp * DP);      // [Qp][BP]  B (dC) or C (dB), the slice
+  if (is_db)
+    stage(ms, BP, a.Cm + b * a.csb + tok0 * a.css + n0, a.css, Qp, nv, nw, kNS, a.vc);
+  else
+    stage(ms, BP, a.Bm + b * a.bsb + tok0 * a.bss + n0, a.bss, Qp, nv, nw, kNS, a.vb);
+  cp_async_commit();
+  const float* dsp = a.dsp + ((int64_t)b * a.nc + c) * a.G * a.Q * a.Q;
+  for (int idx = tid; idx < Qp * Qp; idx += kMmaThreads) {
+    const int tt = idx / Qp, s = idx % Qp;
+    float v = 0.f;
+    if (s <= tt && tt < nv)
+      for (int k = 0; k < a.G; ++k) v += dsp[((int64_t)k * a.Q + tt) * a.Q + s];
+    dss[tt * DP + s] = v;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (16 * warp >= nv) return;                     // no valid row here; no sync follows
+
+  // the state terms: the groups' parts in order
+  const float* part = a.bcp + (((int64_t)is_db * a.Bsz + b) * a.nc + c) * a.G * a.Q * a.N;
+  float acc[kNS / 8][4];
+#pragma unroll
+  for (int j = 0; j < kNS / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int k = 0; k < a.G; ++k) {
+    const float* pk = part + (int64_t)k * a.Q * a.N;
+#pragma unroll
+    for (int j = 0; j < kNS / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * warp + g + 8 * (e >> 1), n = n0 + 8 * j + 2 * t + (e & 1);
+        if (r < nv && n < a.N) acc[j][e] += pk[(int64_t)r * a.N + n];
+      }
+  }
+  if (!is_db) {                          // dC_t += sum_{s <= t} dS_ts B_s
+    for (int s0 = 0; s0 < 16 * (warp + 1); s0 += 8) {
+      Frag<4> fa;
+      load_a<false>(fa, dss + 16 * warp * DP + s0, DP, 1, g, t);       // A(t, s) = dS[t][s]
+#pragma unroll
+      for (int j = 0; j < kNS / 8; ++j) {
+        Frag<2> fb;
+        load_b<kExact>(fb, ms + s0 * BP + 8 * j, BP, 1, g, t);           // B(s, n) = B[s][n]
+        mma3<false, kExact>(acc[j], fa, fb);
+      }
+    }
+  } else {                               // dB_s += sum_{t >= s} dS_ts C_t
+    for (int t0 = 16 * warp; t0 < Qp; t0 += 8) {
+      Frag<4> fa;
+      load_a<false>(fa, dss + t0 * DP + 16 * warp, 1, DP, g, t);       // A(s, t) = dS[t][s]
+#pragma unroll
+      for (int j = 0; j < kNS / 8; ++j) {
+        Frag<2> fb;
+        load_b<kExact>(fb, ms + t0 * BP + 8 * j, BP, 1, g, t);           // B(t, n) = C[t][n]
+        mma3<false, kExact>(acc[j], fa, fb);
+      }
+    }
+  }
+  T* out = (is_db ? a.dB : a.dC) + row0 * a.N;
+#pragma unroll
+  for (int j = 0; j < kNS / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * warp + g + 8 * (e >> 1), n = n0 + 8 * j + 2 * t + (e & 1);
+      if (r < nv && n < a.N) out[(int64_t)r * a.N + n] = from_f<T>(acc[j][e]);
+    }
 }
 
 template <typename T>
 int launch_bwd(const BwdArgs<T>& a, cudaStream_t st) {
-  static int dev_dstate = -1, dev_chunk = -1, dev_bc = -1;
-  cudaError_t e = raise_smem_limit(ssd_bwd_dstate_kernel<T>, dstate_smem(kNMax), dev_dstate);
-  if (e != cudaSuccess) return (int)e;
-  e = raise_smem_limit(ssd_bwd_chunk_kernel<T>, chunk_smem(kNMax), dev_chunk);
-  if (e != cudaSuccess) return (int)e;
-  e = raise_smem_limit(ssd_bwd_bc_kernel<T>, bc_smem(kNMax), dev_bc);
-  if (e != cudaSuccess) return (int)e;
-  const int nt = (a.Q + kTile - 1) / kTile;
-  cb_kernel<T><<<dim3(nt * nt, a.nc, a.Bsz), kThreads, 0, st>>>(a.Bm, a.Cm, a.cb, a.S, a.N, a.Q,
-                                                                a.nc, a.bsb, a.bss, a.csb, a.css);
+  static int dev_cbds = -1, dev_state = -1, dev_chunk = -1, dev_bc = -1, dev_sum = -1;
+  cudaError_t e;
+  if ((e = raise_smem_limit(ssd_bwd_cbds_kernel<T>, cbds_smem<T>(kQMax), dev_cbds)) ||
+      (e = raise_smem_limit(chunk_state_tf32_kernel<true, T>, state_tf32_smem<T>(kQMax, kNMax),
+                            dev_state)) ||
+      (e = raise_smem_limit(ssd_bwd_chunk_tf32_kernel<T>, chunk_bwd_smem<T>(kQMax, kNMax),
+                            dev_chunk)) ||
+      (e = raise_smem_limit(ssd_bwd_bc_tf32_kernel<T>, bc_smem(kQMax, kNMax), dev_bc)) ||
+      (e = raise_smem_limit(ssd_bwd_bc_sum_tf32_kernel<T>, bc_sum_smem<T>(kQMax), dev_sum)))
+    return (int)e;
+  const int Qp = round_up(a.Q, 16);
+  ssd_bwd_cbds_kernel<T><<<dim3(a.nc, a.Bsz, a.G + 1), kScanThreads, cbds_smem<T>(Qp), st>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  ssd_bwd_dstate_kernel<T><<<dim3(a.nc, a.H, a.Bsz * ((a.P + kPW - 1) / kPW)), kThreads,
-                         dstate_smem(a.N), st>>>(a);
+  const StateArgs<T> sa{a.dy, a.Cm, a.dt, a.A, a.dstates, a.lq, a.cum,
+                        a.S, a.H, a.P, a.N, a.Q, a.nc,
+                        (int64_t)a.S * a.H * a.P, (int64_t)a.H * a.P, a.csb, a.css, a.vc};
+  chunk_state_tf32_kernel<true, T><<<dim3(a.nc, a.H, a.Bsz * ((a.P + kPB - 1) / kPB)),
+                                     kMmaThreads, state_tf32_smem<T>(Qp, a.N), st>>>(sa);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const int n4 = a.P * a.N / 4;
-  ssd_bwd_state_pass_kernel<<<dim3((n4 + 255) / 256, a.H, a.Bsz), 256, 0, st>>>(
-      a.dhT, a.dstates, a.lq, a.H, a.P, a.N, a.nc);
+  state_pass_kernel<true><<<dim3((n4 + 255) / 256, a.H, a.Bsz), 256, 0, st>>>(
+      a.dstates, a.lq, a.dhT, nullptr, a.H, a.P, a.N, a.nc);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  ssd_bwd_chunk_kernel<T><<<dim3(a.nc, a.H, a.Bsz), kThreads, chunk_smem(a.N), st>>>(a);
+  ssd_bwd_chunk_tf32_kernel<T><<<dim3(a.nc, a.H, a.Bsz), kChunkThreads,
+                                 chunk_bwd_smem<T>(Qp, a.N), st>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  ssd_bwd_ds_kernel<T><<<dim3(nt * nt, a.nc, a.Bsz), kThreads, 0, st>>>(a);
+  ssd_bwd_bc_tf32_kernel<T><<<dim3(a.nc, a.Bsz, 2 * a.G), kMmaThreads, bc_smem(Qp, a.N), st>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  ssd_bwd_bc_kernel<T><<<dim3(nt, a.nc, 2 * a.Bsz), kThreads, bc_smem(a.N), st>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  ssd_bwd_reduce_kernel<<<(a.H + 127) / 128, 128, 0, st>>>(a.dA_part, a.dD_part, a.dA, a.dD,
-                                                        a.Bsz * a.nc, a.H);
+  ssd_bwd_bc_sum_tf32_kernel<T><<<dim3(a.nc, a.Bsz, 2 * ((a.N + kNS - 1) / kNS)), kMmaThreads,
+                                  bc_sum_smem<T>(Qp), st>>>(a);
   return (int)cudaGetLastError();
 }
 
+bool vec_ok(int v, int elem) { return (v == 1 || v == 2 || v == 4 || v == 8) && v * elem <= 16; }
+
 }  // namespace
 
-// float32: x, Bm, Cm, y, dt, A, D, state, cb all float32 and contiguous:
-// x, y (B,S,H,P); dt (B,S,H); Bm, Cm (B,S,N); A, D (H,); state (B,H,P,N);
-// cb scratch (B, ceil(S/Q), Q, Q); states (B, ceil(S/Q), H, P, N) receives
-// the state entering each chunk, or is null.
+// The forward, either dtype (bf16_in != 0: bfloat16, else float32): x
+// (B,S,H,P) with head stride P and element stride 1, Bm, Cm (B,S,N) with
+// element stride 1, each with its batch (*sb) and row (*ss) strides in
+// elements; vx, vb, vc elements per copy (1, 2, 4, or 8 for bf16) dividing
+// each tensor's pointer alignment, strides and row width. dt (B,S,H), A, D
+// (H,) float32 contiguous. Out: y (B,S,H,P) in x's dtype, contiguous, state
+// (B,H,P,N) float32; states (B, ceil(S/Q), H, P, N) float32 receives the
+// state entering each chunk; scratch lq (B, ceil(S/Q), H) float32.
 // Requires 1 <= Q <= 128, N <= 128, N % 4 == 0. Returns cudaGetLastError().
-extern "C" int ssd_scan_fp32_launch(const void* x, const void* dt, const void* A,
-                                    const void* Bm, const void* Cm, const void* D, void* cb,
-                                    void* y, void* state, void* states, int Bsz, int S, int H,
-                                    int P, int N, int Q, void* stream) {
-  if (!D || Q < 1 || Q > kQMax || N > kNMax || N % 4 != 0) return (int)cudaErrorInvalidValue;
-  return launch<float>(x, dt, A, Bm, Cm, D, cb, y, state, states, Bsz, S, H, P, N, Q,
-                       static_cast<cudaStream_t>(stream));
-}
-
-// bfloat16: x (B,S,H,P) with head stride P and element stride 1, Bm, Cm
-// (B,S,N) with element stride 1, each with its batch (*sb) and row (*ss)
-// strides in elements; vx, vb, vc bf16 per copy (8, 4, 2 or 1) dividing each
-// tensor's pointer alignment, strides and row width. dt (B,S,H), A, D (H,)
-// float32 contiguous. Out: y (B,S,H,P) bf16 contiguous, state (B,H,P,N)
-// float32; scratch: states (B, ceil(S/Q), H, P, N) and lq (B, ceil(S/Q), H)
-// float32. Requires 1 <= Q <= 128, N <= 128, N % 4 == 0.
-// Returns cudaGetLastError().
-extern "C" int ssd_scan_bf16_launch(const void* x, const void* dt, const void* A,
-                                    const void* Bm, const void* Cm, const void* D, void* y,
-                                    void* state, void* states, void* lq, int Bsz, int S, int H,
-                                    int P, int N, int Q, long long xsb, long long xss,
-                                    long long bsb, long long bss, long long csb,
-                                    long long css, int vx, int vb, int vc, void* stream) {
-  auto vec_ok = [](int v) { return v == 1 || v == 2 || v == 4 || v == 8; };
-  if (!D || Q < 1 || Q > kQMax || N > kNMax || N % 4 != 0 || !vec_ok(vx) || !vec_ok(vb) ||
-      !vec_ok(vc))
+extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A, const void* Bm,
+                               const void* Cm, const void* D, void* y, void* state, void* states,
+                               void* lq, int Bsz, int S, int H, int P, int N, int Q,
+                               long long xsb, long long xss, long long bsb, long long bss,
+                               long long csb, long long css, int vx, int vb, int vc, int bf16_in,
+                               void* stream) {
+  const int elem = bf16_in ? 2 : 4;
+  if (!D || Q < 1 || Q > kQMax || N > kNMax || N % 4 != 0 || !vec_ok(vx, elem) ||
+      !vec_ok(vb, elem) || !vec_ok(vc, elem))
     return (int)cudaErrorInvalidValue;
-  const Bf16Args a{static_cast<const bf16*>(x), static_cast<const bf16*>(Bm),
-                   static_cast<const bf16*>(Cm), static_cast<const float*>(dt),
-                   static_cast<const float*>(A), static_cast<const float*>(D),
-                   static_cast<bf16*>(y), static_cast<float*>(state),
-                   static_cast<float*>(states), static_cast<float*>(lq),
-                   Bsz, S, H, P, N, Q, (S + Q - 1) / Q, xsb, xss, bsb, bss, csb, css,
-                   vx, vb, vc};
-  return launch_bf16(a, static_cast<cudaStream_t>(stream));
+  const int nc = (S + Q - 1) / Q;
+  auto run = [&](auto tag) {
+    using T = decltype(tag);
+    const FwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(Bm),
+                       static_cast<const T*>(Cm), static_cast<const float*>(dt),
+                       static_cast<const float*>(A), static_cast<const float*>(D),
+                       static_cast<T*>(y), static_cast<float*>(state),
+                       static_cast<float*>(states), static_cast<float*>(lq),
+                       Bsz, S, H, P, N, Q, nc, xsb, xss, bsb, bss, csb, css, vx, vb, vc};
+    if constexpr (std::is_same<T, bf16>::value) {
+      return launch_bf16(a, static_cast<cudaStream_t>(stream));
+    } else {
+      return launch_fp32(a, static_cast<cudaStream_t>(stream));
+    }
+  };
+  return bf16_in ? run(bf16{}) : run(float{});
 }
 
 // The backward of either forward: x, Bm, Cm, dy and the outputs dx, dB, dC
-// in the forward's dtype (bf16 != 0: bfloat16, else float32), the rest
-// float32. x (B,S,H,P) with head stride P and element stride 1, Bm, Cm
-// (B,S,N) with element stride 1, each with its batch (*sb) and row (*ss)
-// strides in elements; dt, dy, dx (B,S,H[,P]), dB, dC (B,S,N) contiguous;
-// h_prev (B, nc, H, P, N) the forward's states; dhT (B,H,P,N) or null.
-// Out: dx, ddt (B,S,H), dA, dD (H,), dB, dC. Scratch: cb, dS (B, nc, Q, Q),
-// cum (B, nc, H, Q), lq, dA_part, dD_part (B, nc, H), dstates (B, nc, H, P, N).
-// Requires 1 <= Q <= 128, N <= 128, N % 4 == 0. Returns cudaGetLastError().
+// in the forward's dtype (bf16_in != 0: bfloat16, else float32), the rest
+// float32. x, Bm, Cm as the forward takes them; dt, dy, dx (B,S,H[,P]), dB,
+// dC (B,S,N) contiguous; vdy the copy width of dy; h_prev (B, nc, H, P, N)
+// the forward's states; dhT (B,H,P,N) or null. Out: dx, ddt (B,S,H), dA,
+// dD (H,), dB, dC. Scratch: cb (B, nc, Q, Q), dsp (B, nc, G, Q, Q), cum
+// (B, nc, H, Q), lq, dA_part, dD_part (B, nc, H), dstates (B, nc, H, P, N),
+// bcp (2, B, nc, G, Q, N); G (1 <= G <= H) groups of heads. Requires
+// 1 <= Q <= 128, N <= 128, N % 4 == 0. Returns cudaGetLastError().
 extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A, const void* Bm,
                                    const void* Cm, const void* D, const void* h_prev,
                                    const void* dy, const void* dhT, void* dx, void* ddt,
-                                   void* dA, void* dB, void* dC, void* dD, void* cb, void* cum,
-                                   void* lq, void* dstates, void* dS, void* dA_part,
+                                   void* dA, void* dB, void* dC, void* dD, void* cb, void* dsp,
+                                   void* cum, void* lq, void* dstates, void* bcp, void* dA_part,
                                    void* dD_part, int Bsz, int S, int H, int P, int N, int Q,
-                                   long long xsb, long long xss, long long bsb, long long bss,
-                                   long long csb, long long css, int bf16_in, void* stream) {
-  if (!D || Q < 1 || Q > kQMax || N > kNMax || N % 4 != 0) return (int)cudaErrorInvalidValue;
+                                   int G, long long xsb, long long xss, long long bsb,
+                                   long long bss, long long csb, long long css, int vx, int vb,
+                                   int vc, int vdy, int bf16_in, void* stream) {
+  const int elem = bf16_in ? 2 : 4;
+  if (!D || Q < 1 || Q > kQMax || N > kNMax || N % 4 != 0 || G < 1 || G > H ||
+      !vec_ok(vx, elem) || !vec_ok(vb, elem) || !vec_ok(vc, elem) || !vec_ok(vdy, elem))
+    return (int)cudaErrorInvalidValue;
   const int nc = (S + Q - 1) / Q;
   auto run = [&](auto tag) {
     using T = decltype(tag);
@@ -1388,11 +1674,12 @@ extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A,
                        static_cast<const float*>(D), static_cast<const float*>(h_prev),
                        static_cast<const float*>(dhT), static_cast<T*>(dx), static_cast<T*>(dB),
                        static_cast<T*>(dC), static_cast<float*>(ddt), static_cast<float*>(dA),
-                       static_cast<float*>(dD), static_cast<float*>(cb),
+                       static_cast<float*>(dD), static_cast<float*>(cb), static_cast<float*>(dsp),
                        static_cast<float*>(cum), static_cast<float*>(lq),
-                       static_cast<float*>(dstates), static_cast<float*>(dS),
+                       static_cast<float*>(dstates), static_cast<float*>(bcp),
                        static_cast<float*>(dA_part), static_cast<float*>(dD_part),
-                       Bsz, S, H, P, N, Q, nc, xsb, xss, bsb, bss, csb, css};
+                       Bsz, S, H, P, N, Q, nc, G, xsb, xss, bsb, bss, csb, css,
+                       vx, vb, vc, vdy};
     return launch_bwd<T>(a, static_cast<cudaStream_t>(stream));
   };
   return bf16_in ? run(bf16{}) : run(float{});

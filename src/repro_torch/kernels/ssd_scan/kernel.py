@@ -7,16 +7,16 @@ the wrapper's calls that launched, and `ssd_scan.launches_by_case` counts
 them by call, keyed (B, S, H, P, N, chunk). With `return_states` it also
 returns the state entering each chunk, which `ssd_scan_bwd`, the backward,
 takes; `ssd_scan_bwd.launches` and `.launches_by_case` count its calls
-(seven CUDA launches each), and `ops.SSDScanFn` joins the two for autograd.
+(six CUDA launches each), and `ops.SSDScanFn` joins the two for autograd.
 
-The dtype picks the kernels, by a fixed rule and not as a fallback:
-bfloat16 goes to the tensor-core kernels (chunk_state, state_pass,
-chunk_scan: three CUDA launches per call), which read x, B and C in place
-through their batch and row strides; float32 goes to the CUDA-core kernels
-(cb_kernel, scan_kernel: two launches), which take contiguous inputs, so
-the wrapper copies strided fp32 views first. The backward's kernels run
-on the CUDA cores in fp32 arithmetic for both dtypes and read x, B and C
-through their strides in either.
+The dtype picks the kernels, by a fixed rule and not as a fallback, and
+every one runs on the tensor cores: bfloat16 goes to chunk_state_kernel,
+state_pass_kernel and chunk_scan_kernel (bf16 mma.sync), float32 to
+chunk_state_tf32_kernel, state_pass_kernel and chunk_scan_tf32_kernel
+(split-TF32 mma.sync, three TF32 products per fp32 one): three CUDA
+launches per call either way. The backward runs split-TF32 kernels for
+both dtypes. Every kernel reads x, B and C in place through their batch
+and row strides, so the split views of a packed projection need no copy.
 """
 from __future__ import annotations
 
@@ -36,22 +36,22 @@ N_MAX = 128
 def _lib():
     """The C entry points with their signatures, resolved once per process."""
     lib = _build.load("ssd_scan")
-    fp32, bf16 = lib.ssd_scan_fp32_launch, lib.ssd_scan_bf16_launch
-    bwd = lib.ssd_scan_bwd_launch
-    fp32.restype = bf16.restype = bwd.restype = ctypes.c_int
-    fp32.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    bf16.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
-                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    bwd.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
-                    + [ctypes.c_int, ctypes.c_void_p])
-    return fp32, bf16, bwd
+    fwd, bwd = lib.ssd_scan_launch, lib.ssd_scan_bwd_launch
+    fwd.restype = bwd.restype = ctypes.c_int
+    fwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    bwd.argtypes = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
+                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    return fwd, bwd
 
 
 def _copy_width(t: torch.Tensor, width: int) -> int:
-    """bf16 values per copy (8, 4, 2 or 1): the widest that divides the
-    pointer's alignment, the batch and row strides and the row width."""
+    """Elements per copy (8, 4, 2 or 1, at most 16 bytes): the widest that
+    divides the pointer's alignment, the batch and row strides and the row
+    width."""
+    e = t.element_size()
     for v in (8, 4, 2):
-        if (t.data_ptr() % (2 * v) == 0 and width % v == 0
+        if (v * e <= 16 and t.data_ptr() % (e * v) == 0 and width % v == 0
                 and all(t.shape[d] <= 1 or t.stride(d) % v == 0 for d in (0, 1))):
             return v
     return 1
@@ -109,30 +109,20 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     N = Bm.shape[-1]
     Q = min(chunk, S)
     nc = -(-S // Q)
-    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
-    state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    states = None
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    fp32, bf16, _ = _lib()
-    if x.dtype == torch.bfloat16:
-        # state_pass_kernel leaves h_prev in the scratch it reads the chunk states from
-        states = torch.empty((Bsz, nc, H, P, N), dtype=torch.float32, device=x.device)
-        lq = torch.empty((Bsz, nc, H), dtype=torch.float32, device=x.device)
-        err = bf16(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                   D.data_ptr(), y.data_ptr(), state.data_ptr(), states.data_ptr(),
-                   lq.data_ptr(), Bsz, S, H, P, N, Q,
-                   x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
-                   Cm.stride(0), Cm.stride(1),
-                   _copy_width(x, P), _copy_width(Bm, N), _copy_width(Cm, N), stream)
-    else:
-        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
-        cb = torch.empty((Bsz, nc, Q, Q), dtype=torch.float32, device=x.device)
-        if return_states:
-            states = torch.empty((Bsz, nc, H, P, N), dtype=torch.float32, device=x.device)
-        err = fp32(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                   D.data_ptr(), cb.data_ptr(), y.data_ptr(), state.data_ptr(),
-                   states.data_ptr() if return_states else None,
-                   Bsz, S, H, P, N, Q, stream)
+    dev, f32 = x.device, torch.float32
+    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
+    state = torch.empty((Bsz, H, P, N), dtype=f32, device=dev)
+    # state_pass_kernel leaves h_prev in the scratch it reads the chunk states from
+    states = torch.empty((Bsz, nc, H, P, N), dtype=f32, device=dev)
+    lq = torch.empty((Bsz, nc, H), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib()[0](x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                    D.data_ptr(), y.data_ptr(), state.data_ptr(), states.data_ptr(),
+                    lq.data_ptr(), Bsz, S, H, P, N, Q,
+                    x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
+                    Cm.stride(0), Cm.stride(1),
+                    _copy_width(x, P), _copy_width(Bm, N), _copy_width(Cm, N),
+                    int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     _count(ssd_scan, x, Bm, chunk)
@@ -147,7 +137,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
     in x's dtype and the final state's `dhT` (B,H,P,N) fp32 (None: unused).
     The inputs as the forward takes them, x, Bm and Cm read through their
     strides in both dtypes. Returns (dx, ddt, dA, dB, dC, dD): dx, dB, dC
-    in x's dtype, contiguous, the others fp32. Seven CUDA launches, no
+    in x's dtype, contiguous, the others fp32. Six CUDA launches, no
     atomics: the same inputs give the same bits."""
     _check(x, dt, A, Bm, Cm, D, chunk)
     Bsz, S, H, P = x.shape
@@ -169,30 +159,37 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
     dy = dy.contiguous()
     dhT = None if dhT is None else dhT.contiguous()
     dev, f32 = x.device, torch.float32
+    # the backward sums dS and the state terms of dB and dC over each of G
+    # groups of heads in one block, then over the groups in order
+    G = min(H, 8)
     dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
     dB = torch.empty((Bsz, S, N), dtype=x.dtype, device=dev)
     dC = torch.empty_like(dB)
     ddt = torch.empty((Bsz, S, H), dtype=f32, device=dev)
     dA = torch.empty((H,), dtype=f32, device=dev)
     dD = torch.empty_like(dA)
-    # scratch: C.B^T and dS per chunk, L and L_Q, the chunks' state
-    # gradients, the per-chunk partial sums of dA and dD
+    # scratch: C.B^T per chunk, the head groups' parts of dS, L and L_Q, the
+    # chunks' state gradients, the head groups' parts of the state terms of
+    # dC and dB, the per-chunk parts of dA and dD
     cb = torch.empty((Bsz, nc, Q, Q), dtype=f32, device=dev)
-    dS = torch.empty_like(cb)
+    dsp = torch.empty((Bsz, nc, G, Q, Q), dtype=f32, device=dev)
     cum = torch.empty((Bsz, nc, H, Q), dtype=f32, device=dev)
     lq = torch.empty((Bsz, nc, H), dtype=f32, device=dev)
     dstates = torch.empty((Bsz, nc, H, P, N), dtype=f32, device=dev)
+    bcp = torch.empty((2, Bsz, nc, G, Q, N), dtype=f32, device=dev)
     dA_part, dD_part = torch.empty_like(lq), torch.empty_like(lq)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()[2](x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+    err = _lib()[1](x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                     D.data_ptr(), h_prev.data_ptr(), dy.data_ptr(),
                     None if dhT is None else dhT.data_ptr(),
                     dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-                    dC.data_ptr(), dD.data_ptr(), cb.data_ptr(), cum.data_ptr(),
-                    lq.data_ptr(), dstates.data_ptr(), dS.data_ptr(), dA_part.data_ptr(),
-                    dD_part.data_ptr(), Bsz, S, H, P, N, Q,
+                    dC.data_ptr(), dD.data_ptr(), cb.data_ptr(), dsp.data_ptr(),
+                    cum.data_ptr(), lq.data_ptr(), dstates.data_ptr(), bcp.data_ptr(),
+                    dA_part.data_ptr(), dD_part.data_ptr(), Bsz, S, H, P, N, Q, G,
                     x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
-                    Cm.stride(0), Cm.stride(1), int(x.dtype == torch.bfloat16), stream)
+                    Cm.stride(0), Cm.stride(1), _copy_width(x, P), _copy_width(Bm, N),
+                    _copy_width(Cm, N), _copy_width(dy, P), int(x.dtype == torch.bfloat16),
+                    stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {err}")
     _count(ssd_scan_bwd, x, Bm, chunk)

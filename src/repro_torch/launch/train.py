@@ -10,18 +10,26 @@ one device, with the fault-tolerant supervisor (`dist/fault.py`).
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 8 \
         --device cpu --ckpt-dir ckpt                          # tiny, on the CPU
 
-Every family trains: on the card the attention layers run K1's forward and
+The dense, MoE, SSM and hybrid families train (smollm-135m, qwen2-0.5b,
+qwen1.5-32b, gemma3-4b, mixtral-8x7b, grok-1-314b, mamba2-370m,
+zamba2-1.2b): on the card the attention layers run K1's forward and
 backward kernels (`FlashAttentionFn`) and the SSM layers K2's
-(`SSDScanFn`); on the CPU their plain versions. Random weights from seed
-0, fp32 compute (`repro`'s choice on one device), `remat` "block" at full
-width (each decoder or SSM layer recomputed in the backward; the hybrid's
-shared block is not) and "none" with `--reduced`, AdamW with
-`repro`'s schedule, `MarkovLMDataset` batches (seed 0). Checkpoints are
-`repro`'s format (`train/checkpoint.py`), so `repro` can restore them and
+(`SSDScanFn`); on the CPU their plain versions. whisper-small (encdec) and
+paligemma-3b (vlm) need frames or patches beside the tokens, which
+`MarkovLMDataset` does not give, so `--arch` with either raises, as in
+`repro`'s launcher. Random weights from seed 0, fp32 compute (`repro`'s
+choice on one device), `remat` "block" at full width (each decoder or SSM
+layer checkpointed under `repro`'s policy: its weight GEMMs keep their
+outputs, the rest is recomputed in the backward; the hybrid's shared block
+is not checkpointed) and "none" with `--reduced`, AdamW with `repro`'s
+schedule, `MarkovLMDataset` batches (seed 0). Checkpoints are `repro`'s
+format (`train/checkpoint.py`), so `repro` can restore them and
 `launch/serve.py --ckpt-dir` serves them. `--fail-at` injects node failures
 before the given steps: the supervisor rolls back to the newest checkpoint
-and the metric log stays contiguous. Float32 products run in full fp32 (no
-TF32). Returns the supervisor's dict ("params" is the model).
+and the metric log stays contiguous. torch's float32 matmuls run in IEEE
+fp32 (TF32 off); K1's and K2's fp32 kernels take each product as three
+TF32 products of split operands (split TF32, as close as IEEE fp32).
+Returns the supervisor's dict ("params" is the model).
 """
 from __future__ import annotations
 
@@ -79,7 +87,8 @@ def main(argv=None):
         raise SystemExit("--data/--model above 1 need the mesh, which is not "
                          "ported yet (ROADMAP item 13): train on one device")
 
-    # float32 products in full fp32 on the card, as in repro (no TF32)
+    # torch's float32 products in IEEE fp32 on the card, as in repro (no TF32);
+    # K1's and K2's fp32 kernels use split TF32 (three TF32 products per fp32 one)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)

@@ -5,7 +5,9 @@ Encoder: a bidirectional self-attention stack over the frames, each layer
 through the flash-attention kernel on the card. Decoder: causal self
 attention + cross attention + MLP, either teacher-forced over a whole
 sequence (`decode_stack`, causal flash attention) or against a cache
-(`decode_stack_cached`, the masked plain version).
+(`decode_stack_cached`, the masked plain version). With `rt.remat ==
+"block"` each layer of `encode` and `decode_stack` runs under
+`remat_block`, as `repro` checkpoints them.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from repro_torch.models.attention import (
     self_attention,
 )
 from repro_torch.models.layers import MLP, mlp, rmsnorm
-from repro_torch.models.runtime import Runtime
+from repro_torch.models.runtime import Runtime, remat_block
 
 
 class EncoderLayer(nn.Module):
@@ -65,32 +67,44 @@ def iota_positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
+def _encoder_layer(x: torch.Tensor, p_l: EncoderLayer, cfg: ModelConfig, rt: Runtime,
+                   positions: torch.Tensor) -> torch.Tensor:
+    h = rmsnorm(x, p_l.ln1, cfg.norm_eps)
+    x = x + self_attention(h, p_l.attn, cfg, rt, positions, causal=False)
+    h = rmsnorm(x, p_l.ln2, cfg.norm_eps)
+    return x + mlp(h, p_l.mlp, cfg, rt)
+
+
+def _decoder_layer(x: torch.Tensor, p_l: DecoderLayer, cfg: ModelConfig, rt: Runtime,
+                   positions: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+    h = rmsnorm(x, p_l.ln1, cfg.norm_eps)
+    x = x + self_attention(h, p_l.attn, cfg, rt, positions)
+    h = rmsnorm(x, p_l.lnx, cfg.norm_eps)
+    ek, ev = encode_cross_kv(enc_out, p_l.xattn, cfg, rt)
+    x = x + cross_attention(h, p_l.xattn, cfg, rt, ek, ev)
+    h = rmsnorm(x, p_l.ln2, cfg.norm_eps)
+    return x + mlp(h, p_l.mlp, cfg, rt)
+
+
 def encode(frames: torch.Tensor, enc_layers: nn.ModuleList, cfg: ModelConfig,
            rt: Runtime) -> torch.Tensor:
-    """frames (B, Senc, D) precomputed embeddings -> encoder output."""
+    """frames (B, Senc, D) precomputed embeddings -> encoder output; each
+    layer under `remat_block`."""
     B, Senc, _ = frames.shape
     positions = iota_positions(B, Senc, frames.device)
     x = frames.to(rt.compute_dtype)
     for p_l in enc_layers:
-        h = rmsnorm(x, p_l.ln1, cfg.norm_eps)
-        x = x + self_attention(h, p_l.attn, cfg, rt, positions, causal=False)
-        h = rmsnorm(x, p_l.ln2, cfg.norm_eps)
-        x = x + mlp(h, p_l.mlp, cfg, rt)
+        x = remat_block(rt, _encoder_layer, x, p_l, cfg, rt, positions, probe=p_l.ln1)
     return x
 
 
 def decode_stack(x: torch.Tensor, dec_layers: nn.ModuleList, cfg: ModelConfig,
                  rt: Runtime, positions: torch.Tensor, enc_out: torch.Tensor
                  ) -> torch.Tensor:
-    """Teacher-forced decoder; cross K/V projected per layer."""
+    """Teacher-forced decoder; cross K/V projected per layer; each layer
+    under `remat_block`."""
     for p_l in dec_layers:
-        h = rmsnorm(x, p_l.ln1, cfg.norm_eps)
-        x = x + self_attention(h, p_l.attn, cfg, rt, positions)
-        h = rmsnorm(x, p_l.lnx, cfg.norm_eps)
-        ek, ev = encode_cross_kv(enc_out, p_l.xattn, cfg, rt)
-        x = x + cross_attention(h, p_l.xattn, cfg, rt, ek, ev)
-        h = rmsnorm(x, p_l.ln2, cfg.norm_eps)
-        x = x + mlp(h, p_l.mlp, cfg, rt)
+        x = remat_block(rt, _decoder_layer, x, p_l, cfg, rt, positions, enc_out, probe=p_l.ln1)
     return x
 
 

@@ -78,8 +78,8 @@ def _application(cfg: ModelConfig, layer: int) -> Optional[int]:
 def hybrid_forward(x: torch.Tensor, layers: HybridLayers, cfg: ModelConfig,
                    rt: Runtime, positions: torch.Tensor) -> torch.Tensor:
     """Full sequence. x (B, S, D) -> (B, S, D). With `rt.remat == "block"`
-    each SSM layer is recomputed in the backward (`remat_block`); the
-    shared block is not, as in `repro`."""
+    each SSM layer is recomputed in the backward but for its weight GEMMs
+    (`remat_block`); the shared block is not, as in `repro`."""
     shared = layers.shared
     for i, block in enumerate(layers.ssm_layers):
         x = remat_block(rt, block, x, rt, probe=block.ln)

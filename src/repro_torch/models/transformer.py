@@ -96,11 +96,10 @@ def decoder_stack(x: torch.Tensor, layers: nn.ModuleList, cfg: ModelConfig,
     `prefix_len > 0` (the VLM) puts a prefix-LM mask on every layer.
 
     With `rt.remat == "block"` each layer runs under `remat_block`: while
-    autograd records a graph, the whole block is recomputed in the
-    backward. `repro`'s policy
-    (`dots_with_no_batch_dims_saveable`) keeps the matrix products instead;
-    the values are the same, the recompute differs (on the card the
-    attention kernel's forward runs twice per layer and step)."""
+    autograd records a graph, the layer's weight GEMMs keep their outputs
+    and the rest of the layer is recomputed in the backward, as `repro`'s
+    `dots_with_no_batch_dims_saveable` does (on the card the attention
+    kernel's forward runs twice per layer and step)."""
     aux = torch.zeros((), device=x.device)
     for p_l, window in zip(layers, layer_windows(cfg, len(layers))):
         x, a = remat_block(rt, decoder_block, x, p_l, cfg, rt, positions, window, prefix_len,
