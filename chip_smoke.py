@@ -163,7 +163,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
      autograd and its backward alone (the difference; timed only), and K1's
      forward + backward through `FlashAttentionFn` beside SDPA's; (c) `repro_torch.launch.train.main` for smollm-135m at full width
      (random weights from seed 0, fp32, remat "block", batch 8 x 256): 40
-     steps, a checkpoint every 10, a failure injected before step 25: one
+     steps, a checkpoint every 20, a failure injected before step 25: one
      restart, a contiguous log, the final checkpoint at step 40, 60 K1
      forward and 30 backward calls per step run, the loss curve, and an
      uninterrupted run with every loss equal bit for bit; (d) the same
@@ -188,7 +188,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
      autograd; (c)
      `repro_torch.launch.train.main` for mamba2-370m at full width (random
      weights from seed 0, fp32, remat "block", batch 8 x 256): 20 steps, a
-     checkpoint every 5, a failure injected before step 12: one restart, a
+     checkpoint every 10, a failure injected before step 12: one restart, a
      contiguous log, the final checkpoint at step 20, 96 K2 forward and 48
      backward calls per step run, falling losses, and an uninterrupted run
      with every loss equal bit for bit; (d) zamba2-1.2b at full width
@@ -200,13 +200,42 @@ Phases, each printed on its own lines; any failure exits non-zero:
      each: idle share, launches, the largest device items, K2's forward and
      backward shares by kernel name, tokens/s (one JSON line,
      {"ssm_training": ...}).
+ 21. every family trains (K1's fp32 forward with its lse and its backward
+     on every self-attention layer): (a) K1 at the five training cases,
+     whisper-small's encoder (8, 1500, 12 heads of 64, non-causal) and
+     decoder (8, 448, causal), gemma3-4b's local (1, 4096, 8/4 heads of
+     256, window 1024) and global layers, mixtral-8x7b's (1, 4096, 32/8
+     heads of 128, window 4096): the backward held by phase 19's long rule,
+     two runs bit for bit, the forward against the plain version, both
+     timed beside both bounds, the plain versions and
+     scaled_dot_product_attention on EFFICIENT_ATTENTION (a boolean mask
+     where the window bites; a case no backend takes is printed so);
+     (b)-(d) whisper-small whole (12 + 12 layers, batch 8, 1500 frames,
+     448 tokens), gemma3-4b cut to 12 of 34 layers (10 local, 2 global) and
+     mixtral-8x7b to 2 of 32 (batch 1 x 4096 each) at full width, random
+     weights from seed 0, fp32, remat "block", 3 steps of make_train_step
+     on synthetic_batch: finite losses and grad norms, K1's calls per step
+     by case equal to the layer pattern's, host ms and peak memory per
+     step, the step's loss and gradients twice from the same weights and
+     batch compared bit for bit (the tensors that differ printed), mixtral's
+     capacity drops, where one step's time goes; (e) whisper at 2 + 2
+     layers (1 x 64 tokens, 1500 frames), gemma3 at 6 (5 local, 1 global;
+     1 x 1100) and mixtral at 1 (1 x 300) from the same numpy weights
+     (params_from_jax): one train step on the card and the CPU, loss within
+     1e-5 and grad norm within 1e-4 relative; (f) int8 compress_grads over
+     two rounds on smollm-135m's full-width gradients, card and CPU bit for
+     bit; 5 full-width smollm steps with and without
+     int8_compress_decompress; pipeline_apply (8 layers of width 768, 2
+     stages x 4 microbatches and 4 x 8) against the sequential layers,
+     outputs and gradients. One JSON line ({"families_training": ...}).
 The line before the last is the kernels' JSON record: the SSD scan once per
 path and shape it ran (mamba2-370m's prefills; zamba2-1.2b's forward,
 prefills and replay) and the flash-attention kernel
 once per path and shape (the whisper encoder, gemma3-4b's local and global
 layers, mixtral-8x7b, zamba2-1.2b, and K1's forward and backward on the
 training path of phase 19), and K2's fp32 forward and backward on the two
-training paths of phase 20, each with the launches of its path's run and
+training paths of phase 20, and K1's forward and backward at the five
+training cases of phase 21, each with the launches of its path's run and
 the error and times at its shape; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repo's
 sources beside it, the script fails before printing any result.
@@ -251,20 +280,23 @@ K2_BWD_PROFILE = ("ssd_bwd_", "chunk_state_tf32_kernel<true", "state_pass_kernel
 
 def ptxas_table(log, name_of):
     """{name_of(mangled name): [registers, spill store bytes, spill load
-    bytes]} from nvcc's -Xptxas -v output, for the kernels name_of names
-    (it returns None for the others)."""
+    bytes, static shared memory bytes]} from nvcc's -Xptxas -v output, for
+    the kernels name_of names (it returns None for the others). The
+    kernels' dynamic shared memory is set at launch, not in the log."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = name_of(m.group(1))
             if name:
-                out[name] = [0, 0, 0]
+                out[name] = [0, 0, 0, 0]
         elif name and "spill stores" in line:
             st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
-            out[name][1:] = [int(st), int(ld)]
+            out[name][1:3] = [int(st), int(ld)]
         elif name and "registers" in line:
             out[name][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name][3] = int(smem.group(1)) if smem else 0
     return out
 
 
@@ -280,8 +312,11 @@ def check(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
+T_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def ssd_inputs(torch, case, dtype, seed=SEED):
@@ -1306,6 +1341,100 @@ def hold_flash_bwd(torch, case, dname, small):
     return worst
 
 
+def time_k1_train(torch, case):
+    """K1 at a training case, fp32: the forward (with lse) held against the
+    plain version (|d| <= 1e-4 max|ref|); device time of the forward with
+    its lse and of the backward beside both bounds (IEEE fp32 operations on
+    the CUDA cores, and the split-TF32 route's own: three TF32 products per
+    fp32 one, or the bytes, whichever is larger: the record's), the plain
+    version's, and scaled_dot_product_attention's on EFFICIENT_ATTENTION
+    (K/V repeated for GQA, BHSD copies made beforehand; a boolean mask where
+    the window bites): forward, forward + backward through autograd and the
+    backward alone (their difference; timed only); then K1's forward +
+    backward through `FlashAttentionFn` beside SDPA's. Returns ({"forward
+    (with lse)": record numbers, "backward": ...}, the forward's max|d|)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+    B, S, Hq, Hkv, hd, causal, window = case
+    kw = {"causal": causal, "window": window}
+    q, k, v, pos = flash_inputs(torch, case, torch.float32)
+    do = flash_inputs(torch, case, torch.float32, seed=SEED + 1)[0]
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    ref = attention_ref(q, k, v, pos, pos, **kw)
+    err_fwd = (o - ref).abs().max().item()
+    check(err_fwd <= 1e-4 * ref.abs().max().item(), f"flash_attention {case} fp32")
+    del ref
+    f_ms = graph_ms(torch, lambda: flash_attention(q, k, v, return_lse=True, **kw))
+    b_ms = graph_ms(torch, lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw))
+    pf_ms = graph_ms(torch, lambda: attention_ref(q, k, v, pos, pos, return_lse=True, **kw),
+                     calls=3, reps=5)
+    pb_ms = graph_ms(torch, lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw),
+                     calls=3, reps=5)
+    rep = Hq // Hkv
+    qt, kt, vt = (t.repeat_interleave(r, 2).transpose(1, 2).contiguous().requires_grad_()
+                  for t, r in ((q, 1), (k, rep), (v, rep)))
+    dot = do.transpose(1, 2).contiguous()
+    mask, is_causal = None, causal
+    if window is not None and window < S:
+        i = torch.arange(S, device="cuda")
+        mask, is_causal = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window), False
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                 is_causal=is_causal)
+    lf_ms = lfb_ms = None
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+            torch.cuda.synchronize()
+            taken = True
+        except RuntimeError as e:             # the library yardstick only: no kernel of the port
+            print(f"    scaled_dot_product_attention: EFFICIENT_ATTENTION does not take {case} "
+                  f"fp32 ({str(e).splitlines()[0][:120]}); no library time")
+            taken = False
+        if taken:
+            # captured in a CUDA graph like the kernels (eager, the host's
+            # autograd dispatch would set the pace)
+            lf_ms = graph_ms(torch, sdpa)
+            lfb_ms = graph_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    kfb_ms = graph_ms(torch, lambda: torch.autograd.grad(
+        fa_ops.mha(qg, kg, vg, pos, pos, **kw), (qg, kg, vg), do))
+    out = {}
+    fwd_work = flash_work(case, "fp32")
+    fwd_work = (fwd_work[0] + B * Hq * S * 4, fwd_work[1])    # and the lse written
+    for name, ms, p_ms, l_ms, (nbytes, flops) in (
+            ("forward (with lse)", f_ms, pf_ms, lf_ms, fwd_work),
+            ("backward", b_ms, pb_ms, lfb_ms, flash_bwd_work(case, "fp32"))):
+        fp32_ms = flops / PEAK_FLOPS["fp32"] * 1e3
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        if l_ms is None:
+            lib = "not timed (no backend)"
+        elif name[0] == "f":
+            lib = f"forward {l_ms:.4f} ms"
+        else:
+            lib = (f"backward alone {lfb_ms - lf_ms:.4f} ms (forward + backward {lfb_ms:.4f} "
+                   f"less forward {lf_ms:.4f})")
+        print(f"    {name}: kernel {ms:.4f} ms; bounds (H100 SXM peaks): fp32 on the CUDA cores "
+              f"{fp32_ms:.5f} ms ({flops / 1e9:.3f} GFLOP at 67 TFLOP/s, {fp32_ms / ms:.1%}), "
+              f"split TF32 {bound:.5f} ms ({by}: 3 x {flops / 1e9:.3f} GFLOP at 495 TFLOP/s, "
+              f"{nbytes / 1e6:.2f} MB at 3.35 TB/s; {bound / ms:.1%}); plain {p_ms:.4f} ms; "
+              f"scaled_dot_product_attention {lib} (EFFICIENT_ATTENTION, K/V repeated for "
+              f"GQA, BHSD{', boolean window mask' if mask is not None else ''})")
+        out[name] = {"ms": ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+                     "library_ms": l_ms}
+    print(f"    forward + backward through autograd: K1 (FlashAttentionFn) {kfb_ms:.4f} ms, SDPA "
+          + (f"{lfb_ms:.4f} ms ({kfb_ms / lfb_ms:.2f}x)" if lfb_ms else "not timed"))
+    del q, k, v, o, lse, do, qt, kt, vt, dot, qg, kg, vg, mask
+    torch.cuda.empty_cache()
+    return out, err_fwd
+
+
 def train_path(torch, np):
     """Phase 19: K1's backward held and timed; the trainer at full width
     through `repro_torch.launch.train.main` with an injected failure; card
@@ -1314,12 +1443,8 @@ def train_path(torch, np):
     import shutil
     import tempfile
 
-    from torch.nn.attention import SDPBackend
-
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
     from repro_torch.launch import train as launch_train
     from repro_torch.models.model import Model
     from repro_torch.models.runtime import Runtime
@@ -1345,57 +1470,7 @@ def train_path(torch, np):
                 err_train = e
 
     print("  (b) K1 at the training shape, fp32 (the trainer's dtype), device time")
-    q, k, v, pos = flash_inputs(torch, train_case, torch.float32)
-    do = flash_inputs(torch, train_case, torch.float32, seed=SEED + 1)[0]
-    o, lse = flash_attention(q, k, v, return_lse=True)
-    ref = attention_ref(q, k, v, pos, pos)
-    err_fwd = (o - ref).abs().max().item()
-    check(err_fwd <= 1e-4 * ref.abs().max().item(), f"flash_attention {train_case} fp32")
-    f_ms = graph_ms(torch, lambda: flash_attention(q, k, v, return_lse=True))
-    b_ms = graph_ms(torch, lambda: flash_attention_bwd(q, k, v, o, lse, do))
-    pf_ms = graph_ms(torch, lambda: attention_ref(q, k, v, pos, pos, return_lse=True),
-                     calls=3, reps=5)
-    pb_ms = graph_ms(torch, lambda: attention_bwd_ref(q, k, v, o, lse, do), calls=3, reps=5)
-    rep = cfg.n_heads // cfg.n_kv
-    qt, kt, vt = (t.repeat_interleave(r, 2).transpose(1, 2).contiguous().requires_grad_()
-                  for t, r in ((q, 1), (k, rep), (v, rep)))
-    dot = do.transpose(1, 2).contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=True)).name
-    # forward + backward through autograd, captured in a CUDA graph like the
-    # kernels (eager, the host's autograd dispatch would set the pace)
-    lf_ms = graph_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
-    lfb_ms = graph_ms(torch, lambda: torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True),
-                                                         (qt, kt, vt), dot))
-    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-    kfb_ms = graph_ms(torch, lambda: torch.autograd.grad(
-        fa_ops.mha(qg, kg, vg, pos, pos), (qg, kg, vg), do))
-    out = {}
-    fwd_work = flash_work(train_case, "fp32")
-    fwd_work = (fwd_work[0] + B * cfg.n_heads * S * 4, fwd_work[1])    # and the lse written
-    for name, ms, p_ms, l_ms, (nbytes, flops) in (
-            ("forward (with lse)", f_ms, pf_ms, lf_ms, fwd_work),
-            ("backward", b_ms, pb_ms, lfb_ms, flash_bwd_work(train_case, "fp32"))):
-        # two bounds: IEEE fp32 operations on the CUDA cores, and the route's
-        # own, three TF32 products per fp32 one or the bytes (the record's)
-        fp32_ms = flops / PEAK_FLOPS["fp32"] * 1e3
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, 3 * flops / PEAK_FLOPS["tf32"] * 1e3
-        bound = max(t_bytes, t_ops)
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        lib = (f"forward {l_ms:.4f} ms" if name[0] == "f" else
-               f"backward alone {lfb_ms - lf_ms:.4f} ms (forward + backward {lfb_ms:.4f} "
-               f"less forward {lf_ms:.4f})")
-        print(f"    {name}: kernel {ms:.4f} ms; bounds (H100 SXM peaks): fp32 on the CUDA cores "
-              f"{fp32_ms:.5f} ms ({flops / 1e9:.3f} GFLOP at 67 TFLOP/s, {fp32_ms / ms:.1%}), "
-              f"split TF32 {bound:.5f} ms ({by}: 3 x {flops / 1e9:.3f} GFLOP at 495 TFLOP/s, "
-              f"{nbytes / 1e6:.2f} MB at 3.35 TB/s; {bound / ms:.1%}); plain {p_ms:.4f} ms; "
-              f"scaled_dot_product_attention {lib} (K/V repeated for GQA, BHSD; "
-              f"backend {backend})")
-        out[name] = {"ms": ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
-                     "library_ms": l_ms}
-    print(f"    forward + backward through autograd: K1 (FlashAttentionFn) {kfb_ms:.4f} ms, "
-          f"SDPA {lfb_ms:.4f} ms ({kfb_ms / lfb_ms:.2f}x)")
-    del q, k, v, o, lse, do, qt, kt, vt, dot, ref, qg, kg, vg
+    out, err_fwd = time_k1_train(torch, train_case)
 
     print("  (c) python -m repro_torch.launch.train --arch smollm-135m at full width, "
           "40 steps, a failure injected before step 25")
@@ -1407,7 +1482,7 @@ def train_path(torch, np):
         flash_attention.launches = flash_attention_bwd.launches = 0
         flash_attention.launches_by_case, flash_attention_bwd.launches_by_case = {}, {}
         t0 = time.perf_counter()
-        res = launch_train.main(base + ["--ckpt-dir", f"{tmp}/a", "--ckpt-every", "10",
+        res = launch_train.main(base + ["--ckpt-dir", f"{tmp}/a", "--ckpt-every", "20",
                                         "--fail-at", "25"])
         torch.cuda.synchronize()
         wall_a = time.perf_counter() - t0
@@ -1746,7 +1821,7 @@ def ssm_train_path(torch, np):
         for c in counters:
             c.launches, c.launches_by_case = 0, {}
 
-    steps, every, fail = 20, 5, 12
+    steps, every, fail = 20, 10, 12
     print(f"  (c) python -m repro_torch.launch.train --arch mamba2-370m at full width, {steps} "
           f"steps, a checkpoint every {every}, a failure injected before step {fail}")
     base = ["--batch", str(B), "--seq", str(S), "--steps", str(steps), "--log-every", "5"]
@@ -1875,6 +1950,423 @@ def ssm_train_path(torch, np):
     return entries
 
 
+def k1_train_cases(cfg, B, S):
+    """{K1 case: (forward, backward) wrapper calls} of one training step of
+    `cfg` at B x S with remat "block", from its layer pattern: every
+    self-attention layer runs K1 forward twice (the forward and its
+    recompute) and backward once; whisper's encoder at its 1500 frames
+    (non-causal), its decoder causal; a decoder layer with its window."""
+    from repro_torch.models.transformer import layer_windows
+    hd, out = cfg.hd(), {}
+
+    def add(case, n):
+        f, b = out.get(case, (0, 0))
+        out[case] = (f + 2 * n, b + n)
+    if cfg.family == "encdec":
+        add((B, cfg.encoder_len, cfg.n_heads, cfg.n_kv, hd, False, None), cfg.encoder_layers)
+        add((B, S, cfg.n_heads, cfg.n_kv, hd, True, None), cfg.num_layers)
+    else:
+        for w in layer_windows(cfg, cfg.num_layers):
+            add((B, S, cfg.n_heads, cfg.n_kv, hd, True, w), 1)
+    return out
+
+
+def synthetic_on(torch, np, cfg, B, S, seed):
+    """`synthetic_batch` of `cfg` at B x S from a numpy generator seeded
+    with `seed` (whisper's frames, token ids as int64), as tensors on the
+    card."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.data import synthetic_batch
+    b = synthetic_batch(np.random.default_rng(seed), cfg,
+                        ShapeConfig(name="train", seq_len=S, global_batch=B, kind="train"))
+    return {k: (torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v))
+            for k, v in b.items()}
+
+
+def numpy_state(torch, np, cfg, seed):
+    """The port's state dict of `cfg` drawn with numpy and carried through
+    `repro`'s param tree (params_to_jax, then params_from_jax): both
+    devices get these bits. The scales are tests/test_torch_train.py's (the
+    fan-in's, 0.02 for the embeddings, 0.1 for the norms, the biases and
+    every 1-D leaf); the draws are uniform of unit variance, each tensor
+    filled in 8 parts by 8 threads with generators spawned from `seed`
+    (1-2 B parameters take seconds, not a minute)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.models.convert import params_from_jax, params_to_jax
+    from repro_torch.models.model import Model
+    from repro_torch.models.runtime import Runtime
+    meta = Model(cfg, Runtime(device="meta", compute_dtype=torch.float32), seed=None)
+    shapes = {k: tuple(v.shape) for k, v in meta.state_dict().items()}
+    seeds = iter(np.random.SeedSequence(seed).spawn(8 * len(shapes)))
+    sd, parts = {}, []
+    for name, shape in shapes.items():
+        leaf = name.split(".")[-1]
+        scale = (0.1 if leaf.startswith(("ln", "b", "final_ln")) or len(shape) == 1
+                 else 0.02 if leaf in ("embed", "unembed") else shape[-2] ** -0.5)
+        sd[name] = np.empty(shape, np.float32)
+        flat = sd[name].reshape(-1)
+        parts += [(flat[i * flat.size // 8:(i + 1) * flat.size // 8], next(seeds), scale)
+                  for i in range(8)]
+
+    def fill(part):
+        x, ss, scale = part
+        np.random.default_rng(ss).random(out=x, dtype=np.float32)
+        x -= np.float32(0.5)
+        x *= np.float32(12 ** 0.5 * scale)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(fill, parts))
+    return params_from_jax(params_to_jax(sd, cfg), cfg)
+
+
+def train_family(torch, np, cfg, B, S, steps=3):
+    """(b)-(d) of phase 21: `cfg` at full width (random weights from
+    SEED), fp32, remat "block", `steps` steps of make_train_step on
+    synthetic_batch batches: loss, grad norm, host ms (ending in the read of
+    the loss), peak memory and K1's calls by case per step, the last held to
+    the layer pattern's (`k1_train_cases`); the step's loss and gradients
+    computed twice from the same weights and batch, compared bit for bit;
+    the MoE capacity drops of one forward; where one step's time goes.
+    Returns (the figures, {case: (forward, backward) calls over the steps})."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, loss_fn
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    rt = Runtime(device="cuda", compute_dtype=torch.float32, remat="block")
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    model = Model(cfg, rt, seed=SEED).requires_grad_(True)
+    st = init_opt_state(dict(model.named_parameters()))
+    step = make_train_step(cfg, rt, AdamWConfig(peak_lr=3e-3, warmup_steps=5, total_steps=40))
+    torch.cuda.synchronize()
+    print(f"    {cfg.param_count():,} parameters ({cfg.num_layers} layers"
+          + (f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers else "")
+          + f"), batch {B} x {S}; weights and AdamW state on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30 - before:.2f} GiB ({before:.2f} GiB "
+          "allocated before them, in the peaks below)")
+    expect = k1_train_cases(cfg, B, S)
+    counters = (flash_attention, flash_attention_bwd)
+    total = {case: (0, 0) for case in expect}
+    res = {"params": cfg.param_count(), "layers": cfg.num_layers, "batch": [B, S],
+           "loss": [], "grad_norm": [], "host_ms": [], "peak_gib": []}
+    for s in range(steps):
+        batch = {k: v.cuda() for k, v in synthetic_on(torch, np, cfg, B, S, SEED + s).items()}
+        for c in counters:
+            c.launches, c.launches_by_case = 0, {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, st, m = step(model, st, batch)
+        loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = {case: (flash_attention.launches_by_case.get(case, 0),
+                      flash_attention_bwd.launches_by_case.get(case, 0))
+               for case in set(expect) | set(flash_attention.launches_by_case)
+               | set(flash_attention_bwd.launches_by_case)}
+        for case, (f, b) in got.items():
+            total[case] = (total.get(case, (0, 0))[0] + f, total.get(case, (0, 0))[1] + b)
+        print(f"    step {s}: loss {loss:.6f}, grad norm {gnorm:.6f}; host {host_ms:.1f} ms; "
+              f"peak {peak:.2f} GiB; K1 forward, backward calls by case "
+              + ", ".join(f"{case}: {f}, {b}" for case, (f, b) in sorted(got.items(), key=str)))
+        check(np.isfinite(loss) and np.isfinite(gnorm), f"{cfg.name} step {s}: finite")
+        check(got == expect, f"{cfg.name} step {s}: K1 calls by case {got}, the layer "
+              f"pattern gives {expect}")
+        for k, x in (("loss", loss), ("grad_norm", gnorm), ("host_ms", host_ms), ("peak_gib", peak)):
+            res[k].append(x)
+    batch = {k: v.cuda() for k, v in synthetic_on(torch, np, cfg, B, S, SEED + steps).items()}
+    names, leaves = zip(*model.named_parameters())
+
+    def loss_and_grads():
+        loss, _ = loss_fn(model, batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+    l1, g1 = loss_and_grads()
+    g1 = [g.cpu() for g in g1]
+    l2, g2 = loss_and_grads()
+    differ = []
+    for name, a, b in zip(names, g1, g2):
+        b = b.cpu()
+        if not torch.equal(a, b):
+            differ.append((name, (a - b).abs().max().item()))
+    del g1, g2
+    res["repeat_bitwise"] = torch.equal(l1, l2) and not differ
+    print(f"    the step's loss and gradients twice from the same weights and batch: loss "
+          f"bitwise {torch.equal(l1, l2)} ({l1.item()!r}, {l2.item()!r}); "
+          f"{len(names) - len(differ)} of {len(names)} gradients bitwise equal"
+          + (f"; differ (largest |d|): {differ[:12]}" if differ else ""))
+    if cfg.moe:
+        moe.moe_mlp.dropped = 0
+        with torch.no_grad():
+            model(batch["tokens"])
+        dropped, pairs = int(moe.moe_mlp.dropped), B * S * cfg.moe.top_k * cfg.num_layers
+        res["moe_dropped"] = dropped
+        print(f"    MoE capacity (factor {cfg.moe.capacity_factor}) drops {dropped} of {pairs} "
+              f"(token, choice) pairs in one forward ({dropped / pairs:.2%})")
+
+    def one_step():
+        step(model, st, batch)
+    wall_ms, by_name, counts = device_breakdown(torch, one_step, reps=1)
+    dev_ms = sum(by_name.values())
+    res["step_host_ms"] = wall_ms
+    if not by_name:
+        print(f"    one step: host {wall_ms:.2f} ms; the profiler recorded no device time")
+    else:
+        parts = kernel_share(by_name, counts, (K1_FP32, "flash_tf32_bwd_"))
+        res.update(device_ms=dev_ms, idle=1 - dev_ms / wall_ms, launches=sum(counts.values()),
+                   k1_forward_ms=parts[K1_FP32][0], k1_backward_ms=parts["flash_tf32_bwd_"][0])
+        print(f"    one step: host {wall_ms:.2f} ms ({B * S / wall_ms * 1e3:.0f} tokens/s), device "
+              f"busy {dev_ms:.2f} ms (idle {1 - dev_ms / wall_ms:.1%}), {len(by_name)} kernel "
+              f"names, {res['launches']} launches")
+        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"      {ms:8.3f} ms x{counts[kname]:<5d} {kname[:90]}")
+        for part, label in ((K1_FP32, "K1 forward"), ("flash_tf32_bwd_", "K1 backward")):
+            ms, n = parts[part]
+            print(f"    {label} ({part}*) {ms:.3f} ms x{n}, {ms / dev_ms:.1%} of device time")
+    del model, st, batch
+    torch.cuda.empty_cache()
+    return res, total
+
+
+def card_against_cpu_step(torch, np, cfg, B, S):
+    """(e) of phase 21: one train step of `cfg` (fp32, remat "block") from
+    the same numpy weights and synthetic batch on the card and on the CPU:
+    the loss within 1e-5 and the grad norm within 1e-4 relative (phase
+    19's rule); the largest gradient difference per leaf printed; K1 on the
+    card only, as the layer pattern gives."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.models.model import Model
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    t0 = time.perf_counter()
+    sd = numpy_state(torch, np, cfg, SEED + 5)
+    batch = synthetic_on(torch, np, cfg, B, S, SEED + 7)
+    opt = AdamWConfig(peak_lr=3e-3, warmup_steps=5, total_steps=40)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        rt = Runtime(device=dev, compute_dtype=torch.float32, remat="block")
+        model = Model(cfg, rt, seed=None)
+        model.load_state_dict(sd)
+        st = init_opt_state(dict(model.requires_grad_(True).named_parameters()))
+        kept = {}
+
+        def keep(grads):
+            kept.update({k: g.cpu() for k, g in grads.items()})
+            return grads
+        for c in (flash_attention, flash_attention_bwd):
+            c.launches, c.launches_by_case = 0, {}
+        t1 = time.perf_counter()
+        _, _, m = make_train_step(cfg, rt, opt, grad_transform=keep)(
+            model, st, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (m["loss"].item(), m["grad_norm"].item(), kept,
+                    {case: (flash_attention.launches_by_case.get(case, 0),
+                            flash_attention_bwd.launches_by_case.get(case, 0))
+                     for case in set(flash_attention.launches_by_case)
+                     | set(flash_attention_bwd.launches_by_case)},
+                    time.perf_counter() - t1)
+        del model, st
+    torch.cuda.empty_cache()
+    (lg, ng, gg, kg, tg), (lc, nc, gc, kc, tc) = out["cuda"], out["cpu"]
+    dl, dn = abs(lg - lc) / abs(lc), abs(ng - nc) / abs(nc)
+    # relative to the largest gradient entry of the model: some leaves'
+    # gradients are rounding noise around 0 (whisper's cross-attention key
+    # bias shifts every score of a query alike, which softmax ignores)
+    top = max(g.abs().max().item() for g in gc.values())
+    worst = max(((gg[k] - gc[k]).abs().max().item() / top, k) for k in gc)
+    print(f"    {cfg.name}, {cfg.num_layers} layers"
+          + (f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers else "")
+          + f", {B} x {S}: loss cuda {lg:.7f} cpu {lc:.7f} (relative {dl:.3g} <= 1e-5), grad "
+          f"norm {ng:.6f} / {nc:.6f} ({dn:.3g} <= 1e-4); largest gradient difference "
+          f"{worst[0]:.3g} of the largest |g| ({worst[1]}); K1 calls cuda {kg}, cpu {kc}; "
+          f"step {tg:.1f} s on the card, {tc:.1f} s on the CPU ({time.perf_counter() - t0:.1f} s "
+          "with the draws)")
+    check(dl <= 1e-5 and dn <= 1e-4, f"{cfg.name}: card against CPU")
+    check(kc == {} and kg == k1_train_cases(cfg, B, S), f"{cfg.name}: K1 on the card only")
+    return {"loss_rel": dl, "grad_norm_rel": dn, "worst_grad_rel": worst[0]}
+
+
+def int8_and_gpipe(torch, np):
+    """(f) of phase 21: `compress_grads` over two rounds on smollm-135m's
+    full-width gradients, card against CPU bit for bit; 5 full-width steps
+    with and without `int8_compress_decompress`; `pipeline_apply` on the
+    card against the sequential application, outputs and gradients."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.collectives import (
+        compress_grads,
+        compressed_bytes,
+        int8_compress_decompress,
+    )
+    from repro_torch.models.model import Model, loss_fn
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.train.data import MarkovLMDataset
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.pipeline import pipeline_apply
+    from repro_torch.train.train_step import make_train_step
+    cfg = get_config("smollm-135m")
+    B, S = 8, 256
+    rt = Runtime(device="cuda", compute_dtype=torch.float32, remat="block")
+    ds = MarkovLMDataset(vocab=cfg.vocab, seq_len=S, batch=B, seed=0)
+
+    def batch_at(s):
+        return {k: torch.as_tensor(v).long().cuda() for k, v in ds.batch_at(s).items()}
+    model = Model(cfg, rt, seed=SEED).requires_grad_(True)
+    names, leaves = zip(*model.named_parameters())
+    grads = []
+    for s in range(2):
+        loss, _ = loss_fn(model, batch_at(s))
+        grads.append(dict(zip(names, torch.autograd.grad(loss, leaves))))
+    t0 = time.perf_counter()
+    err, rounds = None, []
+    for g in grads:
+        sent, err = compress_grads(g, err)
+        rounds.append((sent, err))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    err_c, differ, n = None, [], 0
+    for r, (g, (sent, err)) in enumerate(zip(grads, rounds)):
+        sent_c, err_c = compress_grads({k: v.cpu() for k, v in g.items()}, err_c)
+        for k in g:
+            for what, a, b in (("sent", sent[k].cpu(), sent_c[k]), ("residual", err[k].cpu(),
+                                                                     err_c[k])):
+                n += 1
+                if not torch.equal(a, b):
+                    differ.append((r, k, what, (a.float() - b.float()).abs().max().item()))
+    same = n - len(differ)
+    wire, full = compressed_bytes(grads[0]), sum(4 * v.numel() for v in grads[0].values())
+    print(f"    compress_grads, two rounds of error feedback over smollm-135m's {len(names)} "
+          f"full-width gradients ({full / 1e6:.1f} MB fp32, {wire / 1e6:.1f} MB on the wire): "
+          f"{ms:.1f} ms on the card (host clock); sent values and residuals bitwise equal to "
+          f"the CPU's: {same} of {n}" + (f"; differ (round, leaf, what, max|d|): {differ[:6]}"
+                                           if differ else ""))
+    check(not differ, "compress_grads: card and CPU bit for bit")
+    del grads, rounds, err, err_c, model
+    curves = {}
+    for label, transform in (("uncompressed", None), ("int8", int8_compress_decompress)):
+        model = Model(cfg, rt, seed=SEED).requires_grad_(True)
+        st = init_opt_state(dict(model.named_parameters()))
+        step = make_train_step(cfg, rt, AdamWConfig(peak_lr=3e-3, warmup_steps=5, total_steps=40),
+                               grad_transform=transform)
+        curve = []
+        for s in range(5):
+            model, st, m = step(model, st, batch_at(s))
+            curve.append((m["loss"].item(), m["grad_norm"].item()))
+        curves[label] = curve
+        del model, st
+    for label, curve in curves.items():
+        print(f"    5 full-width smollm-135m steps, {label}: "
+              + ", ".join(f"loss {a:.6f} gnorm {g:.6f}" for a, g in curve))
+    check(all(np.isfinite(x) for c in curves.values() for p in c for x in p),
+          "finite int8 and uncompressed steps")
+    torch.cuda.empty_cache()
+    L, d, Bp = 8, 768, 64
+    g = torch.Generator("cuda").manual_seed(SEED)
+    base = {"w": torch.randn(L, d, d, generator=g, device="cuda") * d ** -0.5,
+            "b": torch.randn(L, d, generator=g, device="cuda") * 0.1}
+    x = torch.randn(Bp, d, generator=g, device="cuda")
+    tgt = torch.randn(Bp, d, generator=g, device="cuda")
+
+    def block(p_l, h):
+        return torch.tanh(h @ p_l["w"] + p_l["b"])
+
+    def sequential(p, h):
+        for layer in range(L):
+            h = block({k: v[layer] for k, v in p.items()}, h)
+        return h
+
+    def run(fn):
+        p = {k: v.clone().requires_grad_() for k, v in base.items()}
+        out = fn(p, x)
+        grads = torch.autograd.grad(((out - tgt) ** 2).mean(), list(p.values()))
+        return out.detach(), dict(zip(p, grads))
+    seq_out, seq_g = run(sequential)
+    for stages, mbs in ((2, 4), (4, 8)):
+        out, grads = run(lambda p, h: pipeline_apply(p, h, block, L, stages, mbs))
+        d_out = (out - seq_out).abs().max().item()
+        d_g = {k: (grads[k] - seq_g[k]).abs().max().item() for k in grads}
+        ok = (torch.allclose(out, seq_out, rtol=1e-5, atol=1e-5)
+              and all(torch.allclose(grads[k], seq_g[k], rtol=1e-4, atol=1e-5) for k in grads))
+        print(f"    pipeline_apply, {L} layers of width {d}, batch {Bp}, {stages} stages x {mbs} "
+              f"microbatches ({mbs + stages - 1} ticks) against the sequential layers: max|d| "
+              f"output {d_out:.3g}, gradients " + ", ".join(f"{k} {v:.3g}" for k, v in d_g.items())
+              + f" [tests/test_pipeline.py's tolerances] {'ok' if ok else 'FAIL'}")
+        check(ok, f"pipeline_apply ({stages}, {mbs}) on the card")
+    return {"int8_curves": curves}
+
+
+FAMILIES = (("whisper-small", None, 8, 448), ("gemma3-4b", 12, 1, 4096),
+            ("mixtral-8x7b", 2, 1, 4096))
+
+
+def families_train_path(torch, np):
+    """Phase 21: K1's fp32 forward and backward at the five training cases
+    of whisper-small, gemma3-4b and mixtral-8x7b, held and timed; the three
+    trained at full width through make_train_step; card against CPU; int8
+    compression and GPipe on the card. Returns the kernels record's K1
+    entries of the three training paths."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    cfgs = {}
+    for arch, n_layers, B, S in FAMILIES:
+        full = get_config(arch)
+        cfgs[arch] = (full if n_layers is None else dc.replace(full, num_layers=n_layers), B, S)
+    full_g, full_m = get_config("gemma3-4b"), get_config("mixtral-8x7b")
+    print(f"  depth cuts (fp32 AdamW holds 16 bytes a parameter, 80 GB on the card): gemma3-4b "
+          f"{full_g.param_count():,} parameters at 34 layers -> {cfgs['gemma3-4b'][0].param_count():,} "
+          f"at 12 (10 local, 2 global: its 5:1 pattern), its fp32 logits over 262144 rows "
+          f"at 4096 tokens 4.3 GB; mixtral-8x7b {full_m.param_count():,} at 32 -> "
+          f"{cfgs['mixtral-8x7b'][0].param_count():,} at 2; whisper-small whole")
+    cases = {}
+    for arch, (cfg, B, S) in cfgs.items():
+        for case in k1_train_cases(cfg, B, S):
+            label = (arch + (" encoder" if not case[5] else " decoder") if cfg.family == "encdec"
+                     else arch + ("" if arch.startswith("mixtral") else
+                                  " local" if case[6] else " global"))
+            cases[case] = (label, arch)
+    check(len(cases) == 5, f"five K1 training cases: {sorted(cases, key=str)}")
+    print(f"  (a) K1 fp32 forward and backward at the five training cases {sorted(cases, key=str)}")
+    err_bwd, timed = {}, {}
+    for case, (label, _) in cases.items():
+        print(f"   {label} {case}:")
+        err_bwd[case] = hold_flash_bwd(torch, case, "fp32", small=False)
+        timed[case] = time_k1_train(torch, case)
+    figures, launches = {}, {}
+    for tag, (arch, (cfg, B, S)) in zip("bcd", cfgs.items()):
+        print(f"  ({tag}) {arch} at full width, make_train_step on synthetic_batch, fp32, remat "
+              f"\"block\", 3 steps")
+        figures[arch], by_case = train_family(torch, np, cfg, B, S)
+        for case, n in by_case.items():
+            launches[case] = (n, f"{arch} training, make_train_step on synthetic_batch "
+                                 f"(phase 21 ({tag}))")
+    print("  (e) card against CPU on the same numpy weights: one train step each, fp32")
+    cut = {"whisper-small": (dc.replace(cfgs["whisper-small"][0], num_layers=2,
+                                        encoder_layers=2), 1, 64),
+           "gemma3-4b": (dc.replace(full_g, num_layers=6), 1, 1100),
+           "mixtral-8x7b": (dc.replace(full_m, num_layers=1), 1, 300)}
+    figures["card_against_cpu"] = {arch: card_against_cpu_step(torch, np, *c)
+                                   for arch, c in cut.items()}
+    print("  (f) int8 gradient compression and the GPipe schedule on the card")
+    figures["int8_gpipe"] = int8_and_gpipe(torch, np)
+    print(json.dumps({"families_training": figures}, default=float))
+    entries = []
+    for case, (label, arch) in cases.items():
+        (n_f, n_b), path = launches[case]
+        entry = {"route": "cuda",
+                 "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention/kernel.py:87", "path": path,
+                 "shape": "(B, S, Hq, Hkv, hd, causal, window) = " + str(case) + ", fp32"}
+        out, err_fwd = timed[case]
+        entries += [{"name": f"flash_attention/{label} training", **entry, "launches": n_f,
+                     "max_abs_err": err_fwd, **out["forward (with lse)"]},
+                    {"name": f"flash_attention_bwd/{label} training", **entry, "launches": n_b,
+                     "max_abs_err": err_bwd[case], **out["backward"]}]
+    return entries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1916,22 +2408,24 @@ def main() -> int:
     logs = _build.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
     report = {k: v for log in logs.values() for k, v in ptxas_table(log, fwd_name).items()}
-    for k, (regs, st, ld) in sorted(report.items()):
-        print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+    for k, (regs, st, ld, smem) in sorted(report.items()):
+        print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, "
+              f"{smem} bytes static shared memory")
     if report:                      # nvcc ran (no library was built before)
         for k in ("flash_mma_kernel<64>", "flash_mma_kernel<128>", "flash_mma_kernel<256>",
                   f"{K1_FP32}<64>") + MMA_KERNELS[1:]:
-            check(k in report and report[k][1:] == [0, 0], f"{k} has no spills")
+            check(k in report and report[k][1:3] == [0, 0], f"{k} has no spills")
     bwd = {k: v for log in logs.values() for k, v in ptxas_table(log, bwd_name).items()}
     # the training path's instantiations (fp32, hd 64) and bf16's at hd 64
     k1_train = [f"{K1_FP32}<64>"] + [f"flash_tf32_bwd_{part}_kernel<{dt}, 64>"
                                     for dt in ("float", "bf16") for part in ("dq", "dkdv")]
     if bwd:
         print(f"  K1 backward: {len(bwd)} instantiations")
-        for k, (regs, st, ld) in sorted(bwd.items()):
-            print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+        for k, (regs, st, ld, smem) in sorted(bwd.items()):
+            print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, "
+                  f"{smem} bytes static shared memory (the tiles' is dynamic, set at launch)")
         for k in k1_train[1:]:
-            check(k in bwd and bwd[k][1:] == [0, 0], f"{k} has no spills")
+            check(k in bwd and bwd[k][1:3] == [0, 0], f"{k} has no spills")
     hmma = sass_hmma_counts()
     if hmma is None:
         print("  cuobjdump not in the toolkit: SASS HMMA counts not read")
@@ -1950,9 +2444,9 @@ def main() -> int:
     if k2:
         print("  K2's split-TF32 kernels and state passes (the fp32 forward's, the "
               "backward's): " + ", ".join(f"{k} {r} registers ({st}/{ld} bytes spilled)"
-                                         for k, (r, st, ld) in sorted(k2.items())))
+                                         for k, (r, st, ld, _) in sorted(k2.items())))
         for k in K2_TRAIN + ("state_pass_kernel<false>", "state_pass_kernel<true>"):
-            check(k in k2 and k2[k][1:] == [0, 0], f"{k} has no spills")
+            check(k in k2 and k2[k][1:3] == [0, 0], f"{k} has no spills")
 
     phase("3. SSD-scan kernel against its plain version")
     small = [(1, 32, 2, 8, 8, 8), (2, 64, 4, 16, 16, 16),
@@ -2677,6 +3171,13 @@ def main() -> int:
     k2_train_record = ssm_train_path(torch, np)
     print(f"  phase 20: {time.perf_counter() - t20:.1f} s")
 
+    phase("21. every family trains on the card: K1's fp32 forward and backward at the five "
+          "training cases of whisper-small, gemma3-4b and mixtral-8x7b; the three at full width "
+          "through make_train_step; card against CPU; int8 compression and GPipe")
+    t21 = time.perf_counter()
+    k1_families_record = families_train_path(torch, np)
+    print(f"  phase 21: {time.perf_counter() - t21:.1f} s")
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # K2 once per path and shape (phases 5 and 14): launches from that
     # path's run (wrapper calls, three CUDA launches each in bf16), the other
@@ -2709,6 +3210,8 @@ def main() -> int:
     record["kernels"] += k1_train_record
     # K2 forward and backward on the two training paths (phase 20)
     record["kernels"] += k2_train_record
+    # K1 forward and backward at the five training cases of phase 21
+    record["kernels"] += k1_families_record
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

@@ -36,10 +36,17 @@
 // such product misses the fp32 rules (|d| <= 1e-4 max|ref| at long rows) by
 // ~5x. Each fp32 operand is split in registers into hi = tf32(x) and lo =
 // tf32(x - hi), rounded to nearest as cvt.rna.tf32.f32 rounds, and a
-// product takes lo_a hi_b + hi_a lo_b + hi_a hi_b into one fp32 accumulator
-// (the lo_a lo_b term, ~2^-22 of the product, is dropped): ~22 bits per
-// operand, as close to the function as IEEE fp32 itself, for three
-// tensor-core products. A bf16 value is exact in TF32 (lo = 0), so the
+// product takes lo_a hi_b + hi_a lo_b + hi_a hi_b (the lo_a lo_b term,
+// ~2^-22 of the product, is dropped): ~22 bits per operand, as close to the
+// function as IEEE fp32 itself, for three tensor-core products. In the
+// backward's sums over the query rows (dK, dV) each k-step's products go
+// into a zeroed accumulator that is added to the running sum in IEEE fp32
+// (`mma3_sum`): the tensor cores' own accumulation rounds toward zero, a
+// bias that grows along the rep x 4096-long sums. The products over the
+// head dim (S, dP), dQ and the forward's O += P V accumulate on the tensor
+// cores: at the training cases (1500-4096 keys) o keeps within 1e-5 of
+// max|o| of float64 and dQ within 6e-6 of max|dQ|, and IEEE adds in the
+// forward cost 8-32 % of its time. A bf16 value is exact in TF32 (lo = 0), so the
 // backward skips the products of a bf16 operand's lo term (`if constexpr`);
 // P and dS are fp32 and keep both terms. The forward's P V splits V in
 // three terms (hi + mid + lo is exactly v): four products, so a row whose
@@ -473,12 +480,29 @@ __device__ __forceinline__ void set_frag(Frag<N>& f, int i, float x) {
 }
 
 // d += A B in split TF32: lo_a hi_b + hi_a lo_b + hi_a hi_b, small terms
-// first; the terms of an exact operand's lo are skipped
+// first; the terms of an exact operand's lo are skipped. For the products
+// over the head dim (S = Q K^T, dP = dO V^T: hd / 8 k-steps).
 template <bool AX, bool BX>
 __device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
   if constexpr (!AX) mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
   if constexpr (!BX) mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
   mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+}
+
+// mma3 for dK and dV, sums over rep x the query rows: the k-step's products
+// go into a zeroed accumulator that is added to d in IEEE fp32. The tensor
+// cores' own fp32 accumulation rounds toward zero; along 4 x 4096 query
+// rows that bias reached 3.8e-5 of max|dK| at mixtral-8x7b's training case
+// (1, 4096, 32/8 heads of 128), 8x the fp32 plain version's own error; one
+// rounded add per k-step brings it back to IEEE fp32's, as in ssd_scan.cu's
+// mma3. dQ (over the keys) keeps within the fp32 plain version's error
+// without it (3e-6 of max|dQ|), and its kernel has no registers to spare
+// at hd 64 (two blocks per SM) and 128.
+template <bool AX, bool BX>
+__device__ __forceinline__ void mma3_sum(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3<AX, BX>(p, a, b);
+  d[0] += p[0]; d[1] += p[1]; d[2] += p[2]; d[3] += p[3];
 }
 
 // Fragment loads from a shared tile of pitch P (g = lane / 4, t = lane % 4).
@@ -1095,8 +1119,8 @@ flash_tf32_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         Frag<2> bd, bq;
         load_b_kn<X, P>(bd, dt + 8 * j * P + d0 + 8 * n, g, t);
         load_b_kn<X, P>(bq, qt + 8 * j * P + d0 + 8 * n, g, t);
-        mma3<false, X>(adv[n], ap, bd);
-        mma3<false, X>(adk[n], as, bq);
+        mma3_sum<false, X>(adv[n], ap, bd);
+        mma3_sum<false, X>(adk[n], as, bq);
       }
     }
     __syncthreads();                // item it's buffer may be refilled next

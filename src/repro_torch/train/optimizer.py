@@ -95,38 +95,63 @@ def init_opt_state(params: Tree) -> Dict:
             "v": zeros()}
 
 
+def _groups(names: List[str], tree: Tree, cap: int) -> List[List[str]]:
+    """`names` in order, cut into runs of at most `cap` entries (a larger
+    leaf is a run of its own)."""
+    out, size = [[]], 0
+    for n in names:
+        if out[-1] and size + tree[n].numel() > cap:
+            out.append([])
+            size = 0
+        out[-1].append(n)
+        size += tree[n].numel()
+    return out
+
+
+# entries per run of adamw_update's foreach ops: each run's temporaries
+# (four fp32 copies at most) stay near 4 GB, so a model whose parameters,
+# gradients and moments fill most of the card still steps
+GROUP_ENTRIES = 1 << 28
+
+
 @torch.no_grad()
 def adamw_update(params: Tree, grads: Tree, opt_state: Dict, c: AdamWConfig
                  ) -> Tuple[Tree, Dict, Dict]:
     """One AdamW step, in place on `params` and the moments. Returns
     (params, opt_state, {"lr", "grad_norm"}) with the metrics as 0-d device
-    tensors."""
-    grads, gnorm = clip_by_global_norm(grads, c.clip_norm)
+    tensors. The clipped gradients and the update are formed over runs of
+    at most GROUP_ENTRIES entries: the same arithmetic per entry, with
+    temporaries bounded by a run instead of the whole model."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(c.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = opt_state["step"] + 1
     lr = lr_schedule(c)(step)
     b1, b2 = c.b1, c.b2
     bc1 = 1 - torch.pow(b1, step.to(torch.float32))
     bc2 = 1 - torch.pow(b2, step.to(torch.float32))
 
-    names = list(params)
-    p = [params[n] for n in names]
-    g = [grads[n].float() for n in names]
-    m = [opt_state["m"][n] for n in names]
-    v = [opt_state["v"][n] for n in names]
-    pf = [x.float() for x in p]
-    # m = b1 m + (1 - b1) g;  v = b2 v + ((1 - b2) g) g
-    torch._foreach_mul_(m, b1)
-    torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
-    torch._foreach_mul_(v, b2)
-    torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, 1 - b2), g))
-    # p - lr (mhat / (sqrt(vhat) + eps) + wd p)
-    upd = torch._foreach_div(torch._foreach_div(m, bc1),
-                             torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(v, bc2)),
-                                                c.eps))
-    torch._foreach_add_(upd, torch._foreach_mul(pf, c.weight_decay))
-    torch._foreach_mul_(upd, lr)
-    new = torch._foreach_sub(pf, upd)
-    for x, y in zip(p, new):
-        x.copy_(y)
+    for names in _groups(list(params), params, GROUP_ENTRIES):
+        p = [params[n] for n in names]
+        # clip_by_global_norm's scaling, in the gradient's dtype, then fp32
+        g = [x.to(grads[n].dtype).float() for n, x in zip(
+            names, torch._foreach_mul([grads[n].float() for n in names], scale))]
+        m = [opt_state["m"][n] for n in names]
+        v = [opt_state["v"][n] for n in names]
+        pf = [x.float() for x in p]
+        # m = b1 m + (1 - b1) g;  v = b2 v + ((1 - b2) g) g
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
+        torch._foreach_mul_(v, b2)
+        torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, 1 - b2), g))
+        del g
+        # p - lr (mhat / (sqrt(vhat) + eps) + wd p)
+        upd = torch._foreach_div(torch._foreach_div(m, bc1),
+                                 torch._foreach_add(torch._foreach_sqrt(
+                                     torch._foreach_div(v, bc2)), c.eps))
+        torch._foreach_add_(upd, torch._foreach_mul(pf, c.weight_decay))
+        torch._foreach_mul_(upd, lr)
+        new = torch._foreach_sub(pf, upd)
+        for x, y in zip(p, new):
+            x.copy_(y)
     opt_state["step"] = step
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}

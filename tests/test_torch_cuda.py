@@ -745,11 +745,13 @@ def test_calibrated_gnn_campaign_on_the_card(cuda, tmp_path):
 
 
 FLASH_TRAIN = (8, 256, 9, 3, 64, True, None)      # smollm-135m's training shape
+# gemma3-4b's global layers at its training length: hd 256, 4096 keys per query
+FLASH_TRAIN_HD256 = (1, 4096, 8, 4, 256, True, None)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dname", list(FLASH_DTYPES))
-@pytest.mark.parametrize("case", FLASH_CASES + [FLASH_TRAIN])
+@pytest.mark.parametrize("case", FLASH_CASES + [FLASH_TRAIN, FLASH_TRAIN_HD256])
 def test_flash_backward_matches_plain_version(cuda, case, dname):
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref

@@ -51,7 +51,7 @@ SLICE_MODULES = (
     "explore/__main__.py", "explore/campaign.py", "explore/objectives.py", "explore/runner.py",
     "core/serving.py", "core/heterogeneity.py", "core/noc_gnn.py", "core/calibration.py",
     "train/data.py", "train/optimizer.py", "train/train_step.py", "train/checkpoint.py",
-    "dist/fault.py", "launch/train.py",
+    "dist/fault.py", "launch/train.py", "dist/collectives.py", "train/pipeline.py",
 )
 
 
