@@ -228,6 +228,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
      int8_compress_decompress; pipeline_apply (8 layers of width 768, 2
      stages x 4 microbatches and 4 x 8) against the sequential layers,
      outputs and gradients. One JSON line ({"families_training": ...}).
+ 22. the rest of the DSE (no hand-written kernel runs on it; K1 and K2
+     launches over the phase must be 0): (a) gpt175b_joint_dse through
+     `python -m repro_torch.explore` on the card and the CPU: exactly 28
+     evaluations, ROADMAP's hypervolume 79.826, the CPU run's joint points
+     (f1 then f0, encoded architecture and strategy) all equal; resumed from
+     its step-2 checkpoint on the card, the uninterrupted trace bit for
+     bit; (b) the pinned (joint) evaluator on 512 valid joint points of
+     GPT-175B (`_valid_candidates_joint`, the shardability oracle
+     included), and the same designs under random ep up to 8 on an
+     8-expert variant, on the card against the port's NumPy pinned path:
+     float64 fields not hex-equal counted (must be 0); the fused pinned
+     dispatch on device indices, under set_sync_debug_mode("error"), and
+     `evaluate_pool_fused_joint` equal to the batch path; host and device
+     time, launches and idle share of one 512-point batch; (c)
+     fleet_quick_grid as a fleet of 2 spawned workers sharing the card:
+     6/6 campaigns, 52 evaluations, 0 crashes, every front equal to a
+     serial run of the same campaign on the card; then the same with the
+     first campaign's worker killed through the crash hook: 1 crash, that
+     campaign requeued and resumed from its checkpoint, the same fronts;
+     wall seconds of both runs and the shared cache's hits; (d) the §IX
+     baselines: WSE2_LIKE and DOJO_LIKE on the 16 GPT benchmarks through
+     the card's batch evaluator against the CPU program (hex-equal) and
+     against `wsc_baseline_eval` (the scalar NumPy path, 8 benchmarks,
+     within 1e-12), their throughput over `gpu_cluster_eval`'s (host
+     NumPy). One JSON line ({"dse_rest": ...}).
 The line before the last is the kernels' JSON record: the SSD scan once per
 path and shape it ran (mamba2-370m's prefills; zamba2-1.2b's forward,
 prefills and replay) and the flash-attention kernel
@@ -2367,6 +2392,259 @@ def families_train_path(torch, np):
     return entries
 
 
+def _front(res):
+    """A campaign result dict's front, hypervolume curve (hex) and budget."""
+    return ([(p["throughput"], p["power_per_wafer"]) for p in res["front"]],
+            [float(h).hex() for h in res["hv"]], res["n_evals"])
+
+
+def _eval_fields(r):
+    """An EvalResult's float64 fields, in a fixed order."""
+    if not r.feasible:
+        return []
+    s = r.step
+    return [r.throughput, r.power_w, s.step_time_s, s.pipeline_eff, s.energy_j,
+            *(s.breakdown[k] for k in sorted(s.breakdown))]
+
+
+def _hex_diff(got, want):
+    """(float64 fields compared, fields not hex-equal, max rel diff), after
+    checking that both hold the same number of rows, at least one, and that
+    feasibility, reason and strategy agree row by row."""
+    check(len(got) == len(want) > 0, f"{len(got)} rows against {len(want)}, want equal and > 0")
+    n = n_hex = 0
+    rel = 0.0
+    for g, w in zip(got, want):
+        check(g.feasible == w.feasible and g.reason == w.reason
+              and g.strategy == w.strategy and g.n_wafers == w.n_wafers,
+              "same feasibility, reason, strategy and system size")
+        for x, y in zip(_eval_fields(g), _eval_fields(w)):
+            n += 1
+            n_hex += float(x).hex() != float(y).hex()
+            rel = max(rel, abs(x - y) / max(abs(y), 1e-300))
+    return n, n_hex, rel
+
+
+def dse_rest_path(torch, np):
+    """Phase 22: the rest of the DSE on the card (see the module docstring).
+    Returns the figures it prints, as a dict."""
+    import os
+    import tempfile
+
+    from repro_torch.core import baselines, eval_compiled
+    from repro_torch.core.compiler import pinned_resource_ok
+    from repro_torch.core.design_space import DesignBatch
+    from repro_torch.core.evaluator import (
+        _wafers_for_budget_batch, clear_eval_cache, evaluate_design_batch,
+        evaluate_pool_fused_joint)
+    from repro_torch.core.fidelity import AnalyticalBackend
+    from repro_torch.core.mfmobo import _valid_candidates_joint
+    from repro_torch.core.validator import validate
+    from repro_torch.core.workload import GPT_BENCHMARKS
+    from repro_torch.explore import (Campaign, CampaignSpec, ExplorationLoop, FleetSpec,
+                                     resolve_workload, run_fleet)
+    from repro_torch.explore import fleet as fleet_mod
+    from repro_torch.explore.__main__ import main as explore_main
+    from repro_torch.explore.campaign import resolve_strategy_space
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+
+    t_phase = time.perf_counter()
+    out = {}
+    flash_attention.launches = ssd_scan.launches = 0
+    joint = ROOT / "examples" / "campaigns" / "gpt175b_joint_dse.json"
+    grid = ROOT / "examples" / "campaigns" / "fleet_quick_grid.json"
+    hv_base = 79.826
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the joint campaign through the CLI on the card and the CPU
+        res = {}
+        for dev in ("cuda", "cpu"):
+            clear_eval_cache()
+            ck, js_out = f"{tmp}/joint.{dev}.ckpt", f"{tmp}/joint.{dev}.json"
+            check(explore_main([str(joint), "--device", dev, "--checkpoint", ck,
+                                "--out", js_out]) == 0, f"gpt175b_joint_dse on {dev} exits 0")
+            with open(js_out) as f:
+                r = json.load(f)
+            st = ExplorationLoop.load_state(ck)[1]
+            res[dev] = (r, [x.tobytes() for x in st.X1 + st.X0], st.trace)
+        r, xs, tr_full = res["cuda"]
+        same = [a == b for a, b in zip(xs, res["cpu"][1])]
+        print(f"  (a) gpt175b_joint_dse: {r['n_evals']} evaluations (want 28), hypervolume "
+              f"{r['hv_final']:.3f} (ROADMAP baseline {hv_base:.3f}; CPU run "
+              f"{res['cpu'][0]['hv_final']:.3f}), wall {r['wall_s']:.2f} s, "
+              f"{r['candidates_per_sec']:.2f} candidates/s (CPU run "
+              f"{res['cpu'][0]['wall_s']:.2f} s); evaluated joint points (f1 then f0) equal "
+              f"to the CPU run's: {sum(same)}/{len(same)}; front strategies: "
+              + "; ".join(p["describe"].split(" | ")[-1] for p in r["front"][:3]))
+        check(r["finished"] and r["n_evals"] == 28, "gpt175b_joint_dse: exact budget")
+        check(round(r["hv_final"], 3) == hv_base, "gpt175b_joint_dse: ROADMAP's hypervolume")
+        check(all(same) and len(same) == 28, "the CPU run's joint points")
+        ck = f"{tmp}/resume.ckpt"
+        clear_eval_cache()
+        check(explore_main([str(joint), "--device", "cuda", "--max-steps", "2",
+                            "--checkpoint", ck, "--out", f"{tmp}/r.json"]) == 0, "step 2")
+        check(ExplorationLoop.load_state(ck)[1].steps == 2, "checkpoint at step 2")
+        clear_eval_cache()
+        check(explore_main(["--resume", ck, "--device", "cuda", "--out", f"{tmp}/r.json"])
+              == 0, "resume")
+        tr_r = ExplorationLoop.load_state(ck)[1].trace
+
+        def hexed(t):
+            return ([[float(v).hex() for v in x] for x in t.xs],
+                    [[float(a).hex(), float(b).hex()] for a, b in t.ys],
+                    [float(h).hex() for h in t.hv], [str(p) for p in t.designs])
+        print(f"  (a) resumed on the card from its step-2 checkpoint: {tr_r.n_evals} "
+              f"evaluations, trace bit-identical to the uninterrupted run: "
+              f"{hexed(tr_r) == hexed(tr_full)}")
+        check(hexed(tr_r) == hexed(tr_full), "joint resume is bit-identical on the card")
+        out["joint"] = {"n_evals": r["n_evals"], "hv": r["hv_final"], "wall_s": r["wall_s"],
+                        "cand_per_s": r["candidates_per_sec"],
+                        "cpu_wall_s": res["cpu"][0]["wall_s"], "points_equal_cpu": sum(same)}
+
+        # (b) the pinned evaluator on 512 valid joint points against NumPy
+        spec = CampaignSpec.from_json(str(joint))
+        wl = resolve_workload(spec)
+        space = resolve_strategy_space(spec, wl)
+        _, pts = _valid_candidates_joint(np.random.default_rng(SEED + 22), 512, space, wl)
+        geom = DesignBatch.from_designs([p.design for p in pts])
+        nw = _wafers_for_budget_batch(geom, wl)
+        strategies = [p.strategy for p in pts]
+        # the same designs under random strategies, ep up to 8, on a MoE
+        # variant of the workload (8 experts, top-2): the expert terms
+        rng = np.random.default_rng(SEED + 23)
+        wl_moe = dataclasses.replace(wl, moe_experts=8, moe_topk=2)
+        moe_strat = [dataclasses.replace(s, ep=int(2 ** rng.integers(0, 4))) for s in strategies]
+        be_ref = AnalyticalBackend(device="cpu")
+        eval_compiled.warm_evaluator_kernels(wl, 24, device="cuda")
+        pinned = {}
+        for name, w, st in (("GPT-175B", wl, strategies), ("GPT-175B x 8 experts", wl_moe,
+                                                            moe_strat)):
+            nw_w = _wafers_for_budget_batch(geom, w)
+            t0 = time.perf_counter()
+            got = eval_compiled.evaluate_pinned_compiled(geom, w, nw_w, st, 24, device="cuda")
+            t_cuda = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = be_ref.evaluate_batch_ref(geom, w, nw_w, 24, strategies=st)
+            t_ref = time.perf_counter() - t0
+            n, n_hex, rel = _hex_diff(got, want)
+            reasons = sorted({x.reason or "ok" for x in want})
+            print(f"  (b) {name}: 512 joint points ({sum(x.feasible for x in want)} feasible; "
+                  f"{', '.join(reasons)}), rows equal; {n_hex} of {n} float64 fields not "
+                  f"hex-equal (want 0), max rel diff {rel:.3g}; cuda {1e3 * t_cuda:.1f} ms "
+                  f"host, NumPy {1e3 * t_ref:.1f} ms")
+            check(n_hex == 0, "pinned evaluation hex-equal to the NumPy pinned path")
+            pinned[name] = (n_hex, n, 1e3 * t_cuda, 1e3 * t_ref)
+        out["pinned"] = pinned
+        # the fused dispatch on device indices equals the batch path
+        picks = [5, 300, 17, 5]
+        js = torch.tensor(picks, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pend = eval_compiled.dispatch_fused_eval_pinned(geom, wl, nw, strategies, js, 24)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        cols = eval_compiled.strategy_arrays(strategies)
+        res_ok = pinned_resource_ok(wl, geom, nw, *cols[:4])[picks]
+        fused = pend.finish(nw[picks], [strategies[j] for j in picks], 4, res_ok=res_ok)
+        direct = eval_compiled.evaluate_pinned_compiled(
+            DesignBatch.from_designs([pts[j].design for j in picks]), wl, nw[picks],
+            [strategies[j] for j in picks], 24, device="cuda")
+        check(len(direct) == len(picks) and _hex_diff(fused, direct)[1] == 0,
+              "fused pinned dispatch equals the batch path")
+        clear_eval_cache()
+        js2, via = evaluate_pool_fused_joint(pts, wl, js, 3, max_strategies=24)
+        check(js2 == picks[:3] and _hex_diff(via, direct[:3])[1] == 0,
+              "evaluate_pool_fused_joint equals the batch path")
+        print("  (b) fused pinned dispatch on device indices [5, 300, 17, 5] equals the batch "
+              "path, no host sync before finish")
+        out["pinned_batch_512"] = dse_breakdown(
+            torch, "pinned evaluation, 512 joint points of GPT-175B",
+            lambda: eval_compiled.evaluate_pinned_compiled(geom, wl, nw, strategies, 24,
+                                                           device="cuda"))
+
+        # (c) the quick grid as a fleet of 2 workers on the card
+        fs = FleetSpec.from_json(str(grid))
+        serial = {}
+        t0 = time.perf_counter()
+        for c in fs.campaigns:
+            clear_eval_cache()
+            serial[c.name] = _front(Campaign(c, device="cuda").run().to_dict())
+        t_serial = time.perf_counter() - t0
+        fleets = {}
+        for run in ("plain", "killed"):
+            f = dataclasses.replace(fs, cache_dir=f"{tmp}/{run}/ec",
+                                    checkpoint_dir=f"{tmp}/{run}/ck", compile_cache_dir=None)
+            crash = fs.campaigns[0].name
+            if run == "killed":
+                os.environ[fleet_mod._CRASH_ENV] = f"{crash}:{tmp}/crashed.marker"
+            try:
+                fr = run_fleet(f, device="cuda")
+            finally:
+                os.environ.pop(fleet_mod._CRASH_ENV, None)
+            done = [c for c in fr.campaigns if c]
+            equal = sum(_front(c) == serial[c["spec"]["name"]] for c in done)
+            hits = sum(sc["hits"] for c in done for sc in c["stage_cache"].values())
+            looks = sum(sc["hits"] + sc["misses"] for c in done for sc in c["stage_cache"].values())
+            resumed = [c["spec"]["name"] for c in done if c["resumed"]]
+            print(f"  (c) fleet {fs.name!r} ({run}): {len(done)}/{len(fr.campaigns)} campaigns on "
+                  f"{fs.workers} workers sharing cuda:0, {fr.n_evals} evaluations (want 52), "
+                  f"{fr.crashes} crashes, errors {fr.errors}; fronts equal to serial card runs: "
+                  f"{equal}/{len(done)}; wall {fr.wall_s:.2f} s ({fr.fleet_candidates_per_sec:.2f} "
+                  f"candidates/s); shared cache {hits}/{looks} hits; resumed {resumed}")
+            check(len(done) == 6 and fr.n_evals == 52 and not fr.errors, "fleet: 6/6, 52 evals")
+            check(equal == 6, "fleet fronts equal to the serial runs")
+            if run == "plain":
+                check(fr.crashes == 0, "no crash")
+            else:
+                check(fr.crashes == 1 and resumed == [crash], "one crash, requeued and resumed")
+            fleets[run] = {"wall_s": fr.wall_s, "n_evals": fr.n_evals, "crashes": fr.crashes,
+                           "cache_hits": hits, "cache_lookups": looks}
+        print(f"  (c) the same six campaigns one after another in this process on the card: "
+              f"{t_serial:.2f} s")
+        fleets["serial_s"] = t_serial
+        out["fleet"] = fleets
+
+    # (d) the §IX baselines
+    gpu = [baselines.gpu_cluster_eval(w) for w in GPT_BENCHMARKS]
+    card, cpu_b = AnalyticalBackend(device="cuda"), AnalyticalBackend(device="cpu")
+    base = {}
+    for name in ("WSE2_LIKE", "DOJO_LIKE"):
+        v = validate(getattr(baselines, name))
+        check(v.ok, f"{name} validates")
+        clear_eval_cache()
+        on_card = [evaluate_design_batch([v.design], w, fidelity=card)[0] for w in GPT_BENCHMARKS]
+        clear_eval_cache()
+        on_cpu = [evaluate_design_batch([v.design], w, fidelity=cpu_b)[0] for w in GPT_BENCHMARKS]
+        n, n_hex, _ = _hex_diff(on_card, on_cpu)
+        clear_eval_cache()          # the scalar path shares the batch path's cache keys
+        t0 = time.perf_counter()
+        scalar = [baselines.wsc_baseline_eval(v.design, w) for w in GPT_BENCHMARKS[:8]]
+        t_scalar = time.perf_counter() - t0
+        n_s, n_hex_s, rel_s = _hex_diff(on_card[:8], scalar)
+        ratio = [x.throughput / g[0] for x, g in zip(on_card, gpu)]
+        print(f"  (d) {name}: the card's batch evaluator on the 16 GPT benchmarks against the "
+              f"CPU program: {n_hex} of {n} float64 fields not hex-equal (want 0); against "
+              f"wsc_baseline_eval (the scalar NumPy path, 8 benchmarks, {t_scalar:.1f} s): same "
+              f"strategies, {n_hex_s} of {n_s} not hex-equal, max rel diff {rel_s:.3g}; "
+              f"throughput over the H100-like cluster's (gpu_cluster_eval): "
+              + ", ".join(f"{w.name} {x:.3f}" for w, x in zip(GPT_BENCHMARKS[:8], ratio)))
+        check(n_hex == 0, f"{name}: card against CPU hex-equal")
+        check(rel_s <= 1e-12, f"{name}: the batch path equals the scalar one")
+        base[name] = {"hex": n_hex, "fields": n, "scalar_hex": n_hex_s, "ratio": ratio}
+    print("  (d) gpu_cluster_eval (host NumPy, no device work): "
+          + ", ".join(f"{w.name} {t:.4g} tok/s {p:.4g} W" for w, (t, p) in
+                      zip(GPT_BENCHMARKS[:4], gpu)) + ", ...")
+    out["baselines"] = base
+    print(f"  kernel launches during phase 22: K1 {flash_attention.launches}, K2 "
+          f"{ssd_scan.launches} (no hand-written kernel lies on the DSE path)")
+    check(flash_attention.launches == 0 and ssd_scan.launches == 0, "phase 22 launches no kernel")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 22: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3177,6 +3455,11 @@ def main() -> int:
     t21 = time.perf_counter()
     k1_families_record = families_train_path(torch, np)
     print(f"  phase 21: {time.perf_counter() - t21:.1f} s")
+
+    phase("22. the rest of the DSE on the card: gpt175b_joint_dse through python -m "
+          "repro_torch.explore, the pinned evaluator, fleet_quick_grid on 2 workers, the §IX "
+          "baselines")
+    print(json.dumps({"dse_rest": dse_rest_path(torch, np)}, default=float))
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # K2 once per path and shape (phases 5 and 14): launches from that

@@ -1,4 +1,5 @@
 from repro_torch.configs.base import (  # noqa: F401
+    ARCH_IDS,
     ModelConfig,
     MoEConfig,
     SSMConfig,

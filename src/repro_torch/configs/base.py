@@ -134,6 +134,7 @@ _ARCH_MODULES = {
     "zamba2-1.2b": "zamba2_12b",
     "paligemma-3b": "paligemma_3b",
 }
+ARCH_IDS = tuple(_ARCH_MODULES)
 
 
 def _module(arch_id: str):

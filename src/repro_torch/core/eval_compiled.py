@@ -38,15 +38,21 @@ of two with never-feasible rows; each design's first `max_strategies`
 feasible rows are picked in the program by a cumsum and a searchsorted,
 with the same Strategy(1,1,1,1) fallback as `feasible_strategy_arrays`.
 
-Left out of this port: the `pmap` host lanes and their `lane_stats` (fleets,
-ROADMAP item 8) and the pinned-strategy variants of joint mode (ROADMAP item
-13). There is no switch back to NumPy: the analytical backend always runs
-this program, and the NumPy pipeline is the reference the tests use.
+Joint mode (one pinned Strategy per design, no grid argmin) runs the same
+`_eval_core` through `_body_pinned`, with the expert-parallel and recompute
+terms of `chunk_eval.evaluate_step_batch` (`extras`); a pinned strategy
+with ep = 1 and no recompute reproduces its grid row bit for bit.
+
+Left out of this port: `repro`'s `pmap` host lanes. The program runs on one
+device; `lane_stats` reports one lane, with `repro`'s keys, for the fleet's
+per-campaign report. There is no switch back to NumPy: the analytical
+backend always runs this program, and the NumPy pipeline is the reference
+the tests use.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,6 +121,26 @@ _GEOM_FIELDS = (
 _OUT_FIELDS = ("any_feasible", "sel_g", "throughput", "power_w",
                "step_time_s", "pipeline_eff", "energy_j", "compute_s",
                "tp_s", "pp_s", "dram_s", "dp_s", "mb_count")
+# the pinned (joint) program's per-point fields, packed the same way
+_PIN_FIELDS = ("feasible", "throughput", "power_w", "step_time_s",
+               "pipeline_eff", "energy_j", "compute_s", "tp_s", "pp_s",
+               "dram_s", "dp_s", "ep_s", "mb_count")
+
+# dispatch accounting with `repro`'s keys: the program runs on one device,
+# so every dispatch is one unsharded call
+_LANE_STATS = {"n_lanes": 1, "sharded_calls": 0, "rows_sharded": 0,
+               "jit_calls": 0, "rows_jit": 0}
+
+
+def lane_stats():
+    """Dispatch counters with `repro`'s keys: one lane, every call
+    unsharded (`jit_calls` counts them, `rows_jit` their rows)."""
+    return dict(_LANE_STATS)
+
+
+def _count(rows: int) -> None:
+    _LANE_STATS["jit_calls"] += 1
+    _LANE_STATS["rows_jit"] += int(rows)
 
 _PROGRAMS: Dict[Tuple, "_EvalProgram"] = {}
 _PROGRAMS_MAX = 16
@@ -181,6 +207,7 @@ class _EvalProgram:
         self._bwd = 3.0 if self._train else 1.0
         self._tokens = wl.tokens_per_step()
         self._p_bytes = wl.params_bytes()
+        self._p_exp = wl.expert_params_bytes()
         self._kvtot_num = wl.kv_bytes_per_layer() * wl.n_layers
         self._e_mac = wl.flops_per_step() / 2.0 * C.ENERGY.mac * 1e-12
         self._consts: Dict[float, torch.Tensor] = {}
@@ -242,9 +269,21 @@ class _EvalProgram:
             out[k] = torch.gather(cand[k], 1, jw)[:, 0]
         return torch.stack([out[k].to(F64) for k in _OUT_FIELDS])
 
-    def _eval_core(self, arrs, nw, tp, pp, dp, mb):
+    def _body_pinned(self, arrs: Dict[str, torch.Tensor], nw: torch.Tensor,
+                     strat: Tuple[torch.Tensor, ...]):
+        """Joint-mode body: one pinned strategy per design, no grid argmin.
+        `strat` = (tp, pp, dp, mb, ep, recompute) as (N,) tensors. Packed
+        as (len(_PIN_FIELDS), N) float64."""
+        tp, pp, dp, mb, ep, rc = (s[:, None] for s in strat)
+        cand = self._eval_core(arrs, nw, tp, pp, dp, mb, (ep, rc))
+        return torch.stack([cand[k][:, 0].to(F64) for k in _PIN_FIELDS])
+
+    def _eval_core(self, arrs, nw, tp, pp, dp, mb, extras=None):
         """Candidate axis + tile/NoC/chunk-step model for (N, K) strategy
-        columns, in the NumPy reference's operation order."""
+        columns, in the NumPy reference's operation order. `extras` is None
+        (grid mode) or the (ep, recompute) columns of the pinned mode, whose
+        terms follow `evaluate_step_batch`'s `ep=` / `recompute=` branches
+        operation for operation."""
         wl = self.wl
         c = self._c
 
@@ -352,6 +391,12 @@ class _EvalProgram:
         # --- chunk-level step model (evaluate_step_batch mirror) ---------
         nw2 = nw[:, None]
         bwd = self._bwd
+        ep2 = None
+        if extras is not None:
+            ep2 = torch.clamp_min(extras[0], 1)
+            if self._train:
+                # recompute re-runs the forward in the backward: 3x -> 4x
+                bwd = torch.where(extras[1], c(4.0), c(3.0))
         layers_per_stage = torch.clamp_min((zi + wl.n_layers) // pp, 1)
         act_bytes = (mb_tokens * wl.d_model).to(F64) * BYTES
         p_bytes = self._p_bytes
@@ -374,6 +419,12 @@ class _EvalProgram:
         sram_per_chunk = (buffer_kb[:, None].to(F64) * 1024.0
                           * total_cores[:, None] * nw2 / chunks1)
         w_bytes = c(p_bytes) / pp1
+        if ep2 is not None:
+            # expert weights shard over the ep group (dense slice replicated)
+            p_exp = self._p_exp
+            w_bytes = torch.where(
+                ep2 > 1, (c(p_bytes - p_exp) + c(p_exp) / ep2.to(F64)) / pp1,
+                w_bytes)
         kv_total = c(self._kvtot_num) / pp1
         zero = c(0.0)
         if wl.phase == "decode":
@@ -401,6 +452,17 @@ class _EvalProgram:
                              dram_traffic / torch.clamp_min(dram_bw, 1.0))
 
         stage_s = compute_s + tp_s + pp_s + dram_s
+        a2a_vol = ep_s = None
+        if ep2 is not None:
+            # MoE dispatch+combine all-to-all per layer over the
+            # inter-reticle fabric (zero where ep = 1: x + 0.0 == x)
+            topk = max(wl.moe_topk, 1)
+            a2a_vol = torch.where(
+                ep2 > 1, (ep2 - 1).to(F64) * 4.0 / ep2.to(F64) * act_bytes
+                * topk, 0.0)
+            ep_s = (a2a_vol / torch.clamp_min(ir_bw, 1.0) * layers_per_stage
+                    * bwd)
+            stage_s = stage_s + ep_s
         eff = mb_count.to(F64) / ((mb_count + pp).to(F64) - 1.0)
         iter_s = stage_s * mb_count / eff
         grad_vol = (dp - 1).to(F64) * 2.0 / dp * w_bytes
@@ -422,6 +484,8 @@ class _EvalProgram:
                     * mb_tokens * wl.d_model * BYTES * 2 * wl.n_layers
                     * mb_count * dp * bwd)
         ir_bytes = ir_bytes + (dp > 1).to(F64) * (p_bytes * 2)
+        if a2a_vol is not None:
+            ir_bytes = ir_bytes + a2a_vol * wl.n_layers * mb_count * dp
         e_ir = ir_bytes * 8 * arrs["ir_energy_pj_per_bit"][:, None] * 1e-12
         dram_bytes = dram_traffic * mb_count * dp
         e_dram = dram_bytes * 8 * torch.where(
@@ -436,7 +500,7 @@ class _EvalProgram:
         limit = C.WAFER_POWER_W * nw2.to(F64)
         feasible = ~bad & (power <= limit) & torch.isfinite(power)
 
-        return {
+        cand = {
             "feasible": feasible,
             "throughput": torch.where(bad, 0.0, throughput),
             "power_w": power,
@@ -450,6 +514,9 @@ class _EvalProgram:
             "dp_s": dp_s,
             "mb_count": mb_count,
         }
+        if ep_s is not None:
+            cand["ep_s"] = ep_s
+        return cand
 
     # -- host-side entry points --------------------------------------------
 
@@ -462,6 +529,7 @@ class _EvalProgram:
         """Evaluate N designs; returns the winner arrays on the host."""
         with torch.no_grad():
             packed = self._body(*self._upload(arrs, nw))
+        _count(len(nw))
         return _unpack(packed.cpu().numpy())
 
     def dispatch_fused(self, arrs: Dict[str, np.ndarray], nw: np.ndarray,
@@ -475,6 +543,7 @@ class _EvalProgram:
             packed = self._body({k: v.index_select(0, js_dev)
                                  for k, v in ja.items()},
                                 jn.index_select(0, js_dev))
+        _count(js_dev.shape[0])
         return _PendingEval(self, packed)
 
     def results_from(self, out: Dict[str, np.ndarray], nw: np.ndarray
@@ -490,21 +559,7 @@ class _EvalProgram:
                                       "no_feasible_strategy"))
                 continue
             g = int(out["sel_g"][i])
-            eff = float(out["pipeline_eff"][i])
-            mbc = float(out["mb_count"][i])
-            sr = StepResult(
-                step_time_s=float(out["step_time_s"][i]),
-                throughput=float(out["throughput"][i]),
-                power_w=float(out["power_w"][i]),
-                pipeline_eff=eff,
-                breakdown={
-                    "compute": float(out["compute_s"][i]) * mbc / eff,
-                    "tp": float(out["tp_s"][i]) * mbc / eff,
-                    "pp": float(out["pp_s"][i]) * mbc / eff,
-                    "dram": float(out["dram_s"][i]) * mbc / eff,
-                    "dp": float(out["dp_s"][i])},
-                energy_j=float(out["energy_j"][i]),
-                feasible=True, reason="")
+            sr = _step_at(out, i)
             res.append(EvalResult(
                 sr.throughput, sr.power_w,
                 Strategy(int(self._tp_o[g]), int(self._pp_o[g]),
@@ -512,11 +567,95 @@ class _EvalProgram:
                 sr, int(nw[i]), True))
         return res
 
+    # -- pinned-strategy (joint mode) entry points -------------------------
+
+    def _upload_strat(self, strat) -> Tuple[torch.Tensor, ...]:
+        return tuple(_to_dev(s, self.device) for s in strat)
+
+    def run_batch_pinned(self, arrs: Dict[str, np.ndarray], nw: np.ndarray,
+                         strat) -> Dict[str, np.ndarray]:
+        """Evaluate N (design, strategy) pairs; `strat` is the
+        (tp, pp, dp, mb, ep, recompute) array tuple (`strategy_arrays`)."""
+        with torch.no_grad():
+            packed = self._body_pinned(*self._upload(arrs, nw),
+                                       self._upload_strat(strat))
+        _count(len(nw))
+        return _unpack_pinned(packed.cpu().numpy())
+
+    def dispatch_fused_pinned(self, arrs: Dict[str, np.ndarray],
+                              nw: np.ndarray, strat, js_dev: torch.Tensor
+                              ) -> "_PendingPinnedEval":
+        """Gather and evaluate the joint-pool rows, geometry and pinned
+        strategy columns alike, that the device index tensor `js_dev`
+        names, without reading the indices back (the joint counterpart of
+        `dispatch_fused`)."""
+        ja, jn = self._upload(arrs, nw)
+        st = self._upload_strat(strat)
+        with torch.no_grad():
+            packed = self._body_pinned(
+                {k: v.index_select(0, js_dev) for k, v in ja.items()},
+                jn.index_select(0, js_dev),
+                tuple(s.index_select(0, js_dev) for s in st))
+        _count(js_dev.shape[0])
+        return _PendingPinnedEval(self, packed)
+
+    def results_from_pinned(self, out: Dict[str, np.ndarray],
+                            nw: np.ndarray, strategies,
+                            res_ok: Optional[np.ndarray] = None
+                            ) -> List["EvalResult"]:
+        """Materialize pinned-mode EvalResults: the construction the NumPy
+        `_finish` does in pinned mode ("strategy_resources" when the
+        host-computed grid resource-fit mask `res_ok` rejects the point,
+        "strategy_infeasible" on a power/finiteness failure)."""
+        from repro_torch.core.fidelity import EvalResult
+        res: List[EvalResult] = []
+        for i, s in enumerate(strategies):
+            fit = res_ok is None or bool(res_ok[i])
+            if not (fit and bool(out["feasible"][i])):
+                res.append(EvalResult(0.0, float("inf"), s, None,
+                                      int(nw[i]), False,
+                                      "strategy_resources" if not fit
+                                      else "strategy_infeasible"))
+                continue
+            sr = _step_at(out, i)
+            res.append(EvalResult(sr.throughput, sr.power_w, s, sr,
+                                  int(nw[i]), True))
+        return res
+
+
+def _step_at(out: Dict[str, np.ndarray], i: int) -> StepResult:
+    """Row i of a program's host arrays as the feasible StepResult that
+    `chunk_eval.step_result_at` builds: per-microbatch stage seconds scaled
+    to the step, and an "ep" entry only where the all-to-all term (pinned
+    mode's `ep_s`) is nonzero."""
+    eff = float(out["pipeline_eff"][i])
+    mbc = float(out["mb_count"][i])
+    bd = {"compute": float(out["compute_s"][i]) * mbc / eff,
+          "tp": float(out["tp_s"][i]) * mbc / eff,
+          "pp": float(out["pp_s"][i]) * mbc / eff,
+          "dram": float(out["dram_s"][i]) * mbc / eff,
+          "dp": float(out["dp_s"][i])}
+    if "ep_s" in out and float(out["ep_s"][i]):
+        bd["ep"] = float(out["ep_s"][i]) * mbc / eff
+    return StepResult(
+        step_time_s=float(out["step_time_s"][i]),
+        throughput=float(out["throughput"][i]),
+        power_w=float(out["power_w"][i]),
+        pipeline_eff=eff, breakdown=bd,
+        energy_j=float(out["energy_j"][i]),
+        feasible=True, reason="")
+
 
 def _unpack(packed: np.ndarray) -> Dict[str, np.ndarray]:
     out = dict(zip(_OUT_FIELDS, packed))
     out["any_feasible"] = out["any_feasible"].astype(bool)
     out["sel_g"] = out["sel_g"].astype(np.int64)
+    return out
+
+
+def _unpack_pinned(packed: np.ndarray) -> Dict[str, np.ndarray]:
+    out = dict(zip(_PIN_FIELDS, packed))
+    out["feasible"] = out["feasible"].astype(bool)
     return out
 
 
@@ -531,6 +670,21 @@ class _PendingEval:
     def finish(self, nw_picks: np.ndarray, q: int) -> List["EvalResult"]:
         host = {k: v[:q] for k, v in _unpack(self.packed.cpu().numpy()).items()}
         return self.prog.results_from(host, nw_picks[:q])
+
+
+@dataclasses.dataclass
+class _PendingPinnedEval:
+    """In-flight fused pinned-strategy evaluation (joint mode)."""
+    prog: _EvalProgram
+    packed: torch.Tensor
+
+    def finish(self, nw_picks: np.ndarray, strategies, q: int,
+               res_ok: Optional[np.ndarray] = None) -> List["EvalResult"]:
+        host = {k: v[:q] for k, v in
+                _unpack_pinned(self.packed.cpu().numpy()).items()}
+        return self.prog.results_from_pinned(
+            host, nw_picks[:q], strategies[:q],
+            res_ok if res_ok is None else res_ok[:q])
 
 
 # ---------------------------------------------------------------------------
@@ -550,6 +704,49 @@ def evaluate_batch_compiled(geom: DesignBatch, wl: LLMWorkload,
     prog = _program_for(wl, max_strategies, device)
     nw = np.asarray(n_wafers, np.int64)
     return prog.results_from(prog.run_batch(geom_arrays(geom), nw), nw)
+
+
+def strategy_arrays(strategies) -> Tuple[np.ndarray, ...]:
+    """Columnize a list of Strategy into the (tp, pp, dp, mb, ep, recompute)
+    array tuple the pinned program consumes."""
+    return (np.array([s.tp for s in strategies], np.int64),
+            np.array([s.pp for s in strategies], np.int64),
+            np.array([s.dp for s in strategies], np.int64),
+            np.array([s.microbatches for s in strategies], np.int64),
+            np.array([s.ep for s in strategies], np.int64),
+            np.array([s.recompute for s in strategies], np.bool_))
+
+
+def evaluate_pinned_compiled(geom: DesignBatch, wl: LLMWorkload,
+                             n_wafers: np.ndarray, strategies,
+                             max_strategies: int = 24,
+                             device="cuda") -> List["EvalResult"]:
+    """Joint-mode `evaluate_batch` on `device`: each design under its
+    pinned Strategy (no grid argmin), hex-equal on the CPU to the NumPy
+    pinned path of `AnalyticalBackend.evaluate_batch_ref`, with the same
+    host-side grid resource-fit gate (`compiler.pinned_resource_ok`)."""
+    from repro_torch.core.compiler import pinned_resource_ok
+
+    prog = _program_for(wl, max_strategies, device)
+    nw = np.asarray(n_wafers, np.int64)
+    cols = strategy_arrays(strategies)
+    out = prog.run_batch_pinned(geom_arrays(geom), nw, cols)
+    res_ok = pinned_resource_ok(wl, geom, nw, *cols[:4])
+    return prog.results_from_pinned(out, nw, strategies, res_ok)
+
+
+def dispatch_fused_eval_pinned(pool_geom: DesignBatch, wl: LLMWorkload,
+                               nw_pool: np.ndarray, strategies,
+                               js_dev: torch.Tensor,
+                               max_strategies: int = 24
+                               ) -> _PendingPinnedEval:
+    """Joint-mode fused propose -> evaluate: gather the pool rows that the
+    device indices `js_dev` name, with their pinned strategy columns, and
+    evaluate them on that device without a host round-trip."""
+    prog = _program_for(wl, max_strategies, js_dev.device)
+    return prog.dispatch_fused_pinned(geom_arrays(pool_geom),
+                                      np.asarray(nw_pool, np.int64),
+                                      strategy_arrays(strategies), js_dev)
 
 
 def dispatch_fused_eval(pool_geom: DesignBatch, wl: LLMWorkload,
@@ -587,6 +784,7 @@ def warm_evaluator_kernels(wl: LLMWorkload, max_strategies: int = 24,
 
 
 __all__ = [
-    "dispatch_fused_eval",
-    "evaluate_batch_compiled", "geom_arrays", "warm_evaluator_kernels",
+    "dispatch_fused_eval", "dispatch_fused_eval_pinned",
+    "evaluate_batch_compiled", "evaluate_pinned_compiled", "geom_arrays",
+    "lane_stats", "strategy_arrays", "warm_evaluator_kernels",
 ]

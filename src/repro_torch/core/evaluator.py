@@ -31,8 +31,8 @@ The port's copy of `repro.core.evaluator`. What differs:
   * `evaluate_pool_fused` hands the acquire's device index tensor straight
     to `eval_compiled.dispatch_fused_eval`, with no host sync between
     proposal and evaluation; reading the indices back comes after.
-  * The joint (pinned strategy) entry points raise: they wait for ROADMAP
-    item 13.
+  * `evaluate_pool_fused_joint` does the same with the joint pool's
+    pinned strategy columns (`eval_compiled.dispatch_fused_eval_pinned`).
 """
 from __future__ import annotations
 
@@ -56,6 +56,8 @@ from repro_torch.core.compiler import (
     enumerate_strategies,
     strategy_sort_key,
 )
+from repro_torch.core.compiler import pinned_resource_ok as \
+    compiler_pinned_resource_ok
 from repro_torch.core.design_space import DesignBatch, WSCDesign
 from repro_torch.core.fidelity import (
     EvalResult,
@@ -66,9 +68,6 @@ from repro_torch.core.fidelity import (
 from repro_torch.core.workload import LLMWorkload
 
 H100_AREA_MM2 = 814.0
-
-JOINT_UNPORTED = ("joint (pinned-strategy) evaluation is not ported yet: it "
-                  "waits for ROADMAP item 13")
 
 _strategy_order = strategy_sort_key        # kept name: search-order heuristic
 
@@ -395,9 +394,38 @@ def evaluate_joint_batch(points, wl: LLMWorkload,
                          gnn_params: Optional[Dict] = None,
                          n_wafers: Optional[Union[int, np.ndarray]] = None,
                          max_strategies: int = 24) -> List[EvalResult]:
-    """Evaluate N (design, strategy) joint points, each under its pinned
-    Strategy. Waits for ROADMAP item 13 (joint DSE)."""
-    raise NotImplementedError(JOINT_UNPORTED)
+    """Evaluate N (design, strategy) joint points at once: each design is
+    scored under its pinned Strategy (`JointDesign.strategy`), skipping the
+    per-design strategy-grid argmin. Same cache protocol as
+    `evaluate_design_batch`; keys carry the pinned Strategy so a design
+    evaluated under two strategies occupies two entries."""
+    backend = get_backend(fidelity)
+    points = list(points)
+    if not points:
+        return []
+    designs = [p.design for p in points]
+    strategies = [p.strategy for p in points]
+
+    geom0 = DesignBatch.from_designs(designs)
+    if n_wafers is None:
+        nw = _wafers_for_budget_batch(geom0, wl)
+    else:
+        nw = np.broadcast_to(np.asarray(n_wafers, np.int64),
+                             (len(points),)).copy()
+
+    keys = [_cache_key(d, wl, backend.name, int(nw[i]), max_strategies,
+                       gnn_params, strategy=strategies[i])
+            for i, d in enumerate(designs)]
+    results: List[Optional[EvalResult]] = [_BACKEND.get(k) for k in keys]
+    todo = [i for i, r in enumerate(results) if r is None]
+    if todo:
+        fresh = backend.evaluate_batch(
+            geom0.take(np.asarray(todo)), wl, nw[todo], max_strategies,
+            gnn_params, strategies=[strategies[i] for i in todo])
+        for i, r in zip(todo, fresh):
+            results[i] = r
+        _BACKEND.set_many([(keys[i], results[i]) for i in todo])
+    return results            # type: ignore[return-value]
 
 
 def evaluate_pool_fused_joint(pool_points, wl: LLMWorkload,
@@ -406,8 +434,47 @@ def evaluate_pool_fused_joint(pool_points, wl: LLMWorkload,
                               n_wafers: Optional[int] = None,
                               max_strategies: int = 24
                               ) -> Tuple[List[int], List[EvalResult]]:
-    """Joint-mode `evaluate_pool_fused`. Waits for ROADMAP item 13."""
-    raise NotImplementedError(JOINT_UNPORTED)
+    """Joint-mode counterpart of `evaluate_pool_fused`: the candidate pool
+    is (design, strategy) points, and the fused program gathers both the
+    geometry rows and the pinned strategy columns by the device pick
+    indices. Same get-per-pick / batched set_many cache protocol."""
+    from repro_torch.core import eval_compiled
+
+    points = list(pool_points)
+    designs = [p.design for p in points]
+    strategies = [p.strategy for p in points]
+    geom = DesignBatch.from_designs(designs)
+    if n_wafers is None:
+        nw = _wafers_for_budget_batch(geom, wl)
+    else:
+        nw = np.broadcast_to(np.asarray(n_wafers, np.int64),
+                             (len(points),)).copy()
+    pending = eval_compiled.dispatch_fused_eval_pinned(
+        geom, wl, nw, strategies, js_dev, max_strategies=max_strategies)
+    js_all = js_dev.cpu().numpy()
+    js = [int(j) for j in js_all[:q_eff]]
+    # grid resource-fit gate over the pool, gathered to the pick order —
+    # the same host-computed mask the batch pinned path applies
+    cols = eval_compiled.strategy_arrays(strategies)
+    res_ok = compiler_pinned_resource_ok(wl, geom, nw, cols[0], cols[1],
+                                         cols[2], cols[3])[js_all]
+    fresh = pending.finish(nw[js_all], [strategies[j] for j in js_all],
+                           q_eff, res_ok=res_ok)
+    keys = [_cache_key(designs[j], wl, "analytical", int(nw[j]),
+                       max_strategies, gnn_params,
+                       strategy=strategies[j]) for j in js]
+    results: List[EvalResult] = []
+    new = []
+    for k, r in zip(keys, fresh):
+        hit = _BACKEND.get(k)
+        if hit is None:
+            results.append(r)
+            new.append((k, r))
+        else:
+            results.append(hit)
+    if new:
+        _BACKEND.set_many(new)
+    return js, results
 
 
 def evaluate_objectives(design: WSCDesign, wl: LLMWorkload,

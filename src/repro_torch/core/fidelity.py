@@ -23,9 +23,9 @@ The port's copy of `repro.core.fidelity`. What differs:
 
   * `AnalyticalBackend.evaluate_batch` runs the torch program
     (`repro_torch.core.eval_compiled`) on the backend's device, the card
-    unless it is built with `device="cpu"`; `evaluate_batch_ref` is the
-    NumPy reference, copied verbatim. Its pinned-strategy (joint) mode
-    raises: it waits for ROADMAP item 13.
+    unless it is built with `device="cpu"`, in grid and pinned-strategy
+    (joint) mode alike; `evaluate_batch_ref` is the NumPy reference,
+    copied verbatim.
   * `GNNBackend` runs the port's torch `noc_gnn` on the backend's device,
     the card unless it is built with `device="cpu"`; params on another
     device (or `repro`'s tree with numpy leaves) are carried there first.
@@ -473,9 +473,9 @@ class AnalyticalBackend:
                        ) -> List[EvalResult]:
         from repro_torch.core import eval_compiled
         if strategies is not None:
-            raise NotImplementedError(
-                "pinned-strategy (joint) evaluation waits for ROADMAP "
-                "item 13")
+            return eval_compiled.evaluate_pinned_compiled(
+                geom, wl, np.asarray(n_wafers, np.int64), strategies,
+                max_strategies, device=self.device)
         return eval_compiled.evaluate_batch_compiled(
             geom, wl, np.asarray(n_wafers, np.int64), max_strategies,
             device=self.device)

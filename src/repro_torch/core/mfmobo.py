@@ -31,8 +31,8 @@ Baselines for Fig. 8: random search and single-fidelity MOBO.
 The port of `repro.core.mfmobo`: the GP fit and the greedy q-EHVI acquire
 run in torch on the device the caller names (`_fit_models(device=...)`;
 the acquire runs where the models live) and read nothing back until the
-picks are needed. The rest is NumPy, copied. Joint-mode sampling
-(`_valid_candidates_joint`) waits for ROADMAP item 13.
+picks are needed. The rest is NumPy, copied, joint-mode sampling
+(`_valid_candidates_joint`, with the port's shardability oracle) included.
 """
 from __future__ import annotations
 
@@ -166,12 +166,44 @@ def _grid_seed_strategies(designs, wl, space):
 def _valid_candidates_joint(rng: np.random.Generator, n: int, space, wl,
                             max_tries: int = 8
                             ) -> Tuple[np.ndarray, List]:
-    """Joint-mode `_valid_candidates` (sample (13 + 7)-dim joint points,
-    seed strategy columns from the grid, validate with the shardability
-    oracle). Not ported yet: joint DSE waits for ROADMAP item 13."""
-    raise NotImplementedError(
-        "joint-mode candidate sampling needs the shardability oracle: "
-        "joint DSE waits for ROADMAP item 13")
+    """Joint-mode `_valid_candidates`: sample (13 + 7)-dim joint points,
+    seed every other draw's strategy columns from the grid heuristic
+    (`enumerate_strategies` demoted to seeding — the sorted grid's first
+    feasible row), validate architecture + strategy together
+    (`validate_joint_batch`, `repro_torch.dist` oracle included), and return
+    (encoded points, JointDesigns with spares resolved)."""
+    from repro_torch.core.design_space import (DIMS, JointDesign,
+                                               decode_joint_batch,
+                                               sample_joint)
+    from repro_torch.core.validator import validate_joint_batch
+
+    nd = len(DIMS)
+    xs, pts = [], []
+    n_drawn = 0
+    for _ in range(max_tries):
+        us = sample_joint(rng, n, space)
+        n_drawn += len(us)
+        batch = decode_joint_batch(us, space)
+        seeded = list(range(0, len(batch), 2))
+        enc, found = _grid_seed_strategies(
+            [batch[i].design for i in seeded], wl, space)
+        for j, i in enumerate(seeded):
+            if found[j]:
+                us[i, nd:] = enc[j]
+                batch[i] = JointDesign(
+                    batch[i].design, space.decode_strategy(us[i, nd:]))
+        for u, p, r in zip(us, batch, validate_joint_batch(batch, wl)):
+            if r.ok:
+                xs.append(u)
+                pts.append(JointDesign(r.design, p.strategy))
+            if len(xs) >= n:
+                return np.array(xs), pts
+    rate = len(xs) / max(n_drawn, 1)
+    raise RuntimeError(
+        f"joint-space sampling produced only {len(xs)}/{n} valid "
+        f"candidates after {max_tries} rounds of {n} draws (acceptance "
+        f"rate {rate:.1%}) — loosen the strategy-space bounds or raise "
+        "max_tries")
 
 
 def _fit_models(X: np.ndarray, Y: np.ndarray, device="cuda"

@@ -174,10 +174,9 @@ def validate_joint_batch(points, wl, peak_power_w: float = C.WAFER_POWER_W,
     half goes through `validate_batch` unchanged (same constraint order and
     reasons), then surviving points get their pinned Strategy checked —
     static legality and resource fit first (vectorized), then the
-    shardability oracle (`param_specs`/`batch_specs` instantiable on a
-    (dp, tp) mesh). The oracle is not ported yet: with `use_oracle` (the
-    default) a point that passes the vectorized checks raises
-    NotImplementedError until ROADMAP item 13 brings it. Strategy failure
+    `repro_torch.dist` shardability oracle (`param_specs`/`batch_specs`
+    instantiable on a (dp, tp) mesh; memoized per unique (tp, dp, ep), so
+    N points cost a handful of spec-tree builds). Strategy failure
     reasons, in precedence order:
 
         "strategy_pp"           pp exceeds the workload's layer count
@@ -258,9 +257,10 @@ def validate_joint_batch(points, wl, peak_power_w: float = C.WAFER_POWER_W,
             continue
         why = str(reason[i])
         if not why and use_oracle:
-            raise NotImplementedError(
-                "the shardability oracle (repro's dist/oracle.py) is not "
-                "ported yet: joint-mode validation waits for ROADMAP item 13")
+            from repro_torch.dist import oracle
+            ok, o_why = oracle.strategy_shardable(wl, p.strategy)
+            if not ok:
+                why = f"strategy_{o_why}"
         if why:
             out.append(ValidationResult(False, why))
         else:

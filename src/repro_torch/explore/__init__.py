@@ -6,9 +6,15 @@ on the PyTorch port (the port's copy of `repro.explore`):
     result = Campaign(spec).run(checkpoint_path="run.ckpt")      # on the card
     result = Campaign.resume("run.ckpt", device="cpu").run()     # continue
 
+Fleets fan a grid of campaigns across worker processes sharing a
+persistent eval cache, one device per worker:
+
+    from repro_torch.explore import FleetSpec, run_fleet
+    result = run_fleet(FleetSpec.from_json("grid.json"), device="cpu")
+
 CLI: ``python -m repro_torch.explore <spec>.json [--resume CKPT]
-[--device cpu]``. Campaign fleets (`repro.explore.fleet`) wait for ROADMAP
-item 8.
+[--device cpu]`` or ``python -m repro_torch.explore fleet grid.json
+[--device cpu]``.
 """
 from repro_torch.explore.campaign import (  # noqa: F401
     Campaign,
@@ -22,7 +28,6 @@ from repro_torch.explore.campaign import (  # noqa: F401
     TraceSpec,
     resolve_workload,
     run_campaign,
-    unported,
 )
 from repro_torch.explore.objectives import (  # noqa: F401
     ConstraintSpec,
@@ -33,6 +38,12 @@ from repro_torch.explore.objectives import (  # noqa: F401
     ServingObjective,
     TraceServingObjective,
     as_objective,
+)
+from repro_torch.explore.fleet import (  # noqa: F401
+    FleetResult,
+    FleetSpec,
+    expand_grid,
+    run_fleet,
 )
 from repro_torch.explore.runner import (  # noqa: F401
     ExplorationLoop,

@@ -14,9 +14,11 @@ campaigns on the card (or, with --device cpu, on the CPU).
     # parse + validate shipped specs without running anything
     python -m repro_torch.explore --validate examples/campaigns/*.json
 
-The port's copy of `repro.explore.__main__`. Campaign fleets
-(`python -m repro.explore fleet ...`) wait for ROADMAP item 8; a spec the
-port cannot run yet fails at start, naming its ROADMAP item.
+    # run a campaign FLEET (grid of specs across worker processes)
+    python -m repro_torch.explore fleet examples/campaigns/fleet_quick_grid.json
+
+The port's copy of `repro.explore.__main__`, with `--device` (default
+cuda) for campaigns and fleets alike.
 """
 from __future__ import annotations
 
@@ -60,12 +62,54 @@ def _summarize(result) -> None:
               f"{p['describe']}")
 
 
+def _fleet_main(argv: List[str]) -> int:
+    """`python -m repro_torch.explore fleet grid.json [...]` — run a
+    FleetSpec across worker processes (repro_torch.explore.fleet)."""
+    from repro_torch.explore.fleet import FleetSpec, run_fleet
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.explore fleet",
+        description="Fan a grid of campaign specs across worker "
+                    "processes sharing a persistent eval cache.")
+    ap.add_argument("spec", help="fleet spec JSON path")
+    ap.add_argument("--workers", type=int, default=None,
+                    help="override the spec's worker count")
+    ap.add_argument("--validate", action="store_true",
+                    help="parse + validate the fleet spec, run nothing")
+    ap.add_argument("--out", help="result JSON path "
+                                  "(default fleet_<name>.result.json)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the workers: cuda gives worker i "
+                         "cuda:{i %% device_count} (default; raises when "
+                         "there is no card), cpu runs them on the CPU")
+    args = ap.parse_args(argv)
+    import dataclasses as _dc
+    fspec = FleetSpec.from_json(args.spec)
+    if args.workers is not None:
+        fspec = _dc.replace(fspec, workers=args.workers)
+    if args.validate:
+        fspec.validate()
+        print(f"OK {args.spec}: fleet {fspec.name!r} — "
+              f"{len(fspec.campaigns)} campaigns x {fspec.workers} workers")
+        return 0
+    res = run_fleet(fspec, device=args.device, verbose=True)
+    out = args.out or f"fleet_{fspec.name.replace(' ', '-')}.result.json"
+    res.save(out)
+    done = sum(1 for c in res.campaigns if c)
+    print(f"\n=== fleet {fspec.name!r}: {done}/{len(res.campaigns)} "
+          f"campaigns on {fspec.workers} workers ===")
+    print(f"evaluations: {res.n_evals}  wall: {res.wall_s:.1f}s  "
+          f"({res.fleet_candidates_per_sec:.2f} candidates/sec)  "
+          f"crashes: {res.crashes}")
+    for err in res.errors:
+        print(f"ERROR {err}")
+    print(f"result -> {out}")
+    return 1 if res.errors else 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "fleet":
-        print("campaign fleets are not ported yet: ROADMAP item 8",
-              file=sys.stderr)
-        return 2
+        return _fleet_main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.explore",
         description="Run, resume, or validate DSE campaign specs "
@@ -102,8 +146,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             with open(path) as f:
                 raw = json.load(f)
             if "campaigns" in raw or "grid" in raw:  # fleet-shaped spec
-                print(f"SKIP {path}: campaign fleets are not ported yet "
-                      "(ROADMAP item 8)")
+                from repro_torch.explore.fleet import FleetSpec
+                fspec = FleetSpec.from_json(path)
+                fspec.validate()
+                print(f"OK {path}: fleet {fspec.name!r} — "
+                      f"{len(fspec.campaigns)} campaigns x "
+                      f"{fspec.workers} workers")
                 continue
             spec = CampaignSpec.from_json(path).validate()
             cfg = spec.loop_config()

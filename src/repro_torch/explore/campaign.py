@@ -33,9 +33,9 @@ The port's copy of `repro.explore.campaign`. A campaign runs on a device
 the GP, the acquire, the analytical evaluator and the GNN fidelity with its
 calibration all run there; the device is not a field of the spec.
 `params_path` pickles hold `repro`'s params tree with numpy leaves
-(`noc_gnn.load_gnn_params`), and so do checkpoints. What the port cannot
-run yet fails at start, naming the ROADMAP item that brings it
-(`unported`): joint strategy mode (item 13).
+(`noc_gnn.load_gnn_params`), and so do checkpoints. Every shipped spec
+runs, joint strategy mode included (the pinned evaluator, the
+shardability oracle).
 """
 from __future__ import annotations
 
@@ -518,14 +518,6 @@ def resolve_strategy_space(spec: CampaignSpec, wl: LLMWorkload):
     return StrategySpace.for_workload(wl, DEFAULT_JOINT_CORES)
 
 
-def unported(spec: CampaignSpec) -> Optional[str]:
-    """Why the port cannot run `spec` yet, naming the ROADMAP item that
-    brings it; None when it can."""
-    if spec.strategy_mode == "joint":
-        return "joint strategy mode is not ported yet: ROADMAP item 13"
-    return None
-
-
 # ---------------------------------------------------------------------------
 # campaign runner
 # ---------------------------------------------------------------------------
@@ -596,9 +588,6 @@ class Campaign:
                  _state=None, _calibration_records=None,
                  _objective_stats=None):
         self.spec = spec.validate()
-        why = unported(spec)
-        if why is not None:
-            raise NotImplementedError(f"campaign {spec.name!r}: {why}")
         self.device = resolve_device(device)
         self.wl = resolve_workload(spec)
         self.gnn_params = self._load_params(gnn_params)
@@ -795,5 +784,5 @@ __all__ = [
     "Campaign", "CampaignResult", "CampaignSpec", "FidelitySchedule",
     "HeteroSpec", "SCENARIOS", "ServingSpec", "TRACE_POLICIES",
     "TraceSpec", "resolve_strategy_space", "resolve_workload",
-    "run_campaign", "unported",
+    "run_campaign",
 ]

@@ -84,8 +84,9 @@ def main(argv=None):
         ap.error(f"--fail-at steps {sorted(bad)} outside [0, {args.steps}): "
                  "the injected failure would never fire")
     if args.data * args.model > 1:
-        raise SystemExit("--data/--model above 1 need the mesh, which is not "
-                         "ported yet (ROADMAP item 13): train on one device")
+        raise SystemExit("--data/--model above 1 need the device mesh, which "
+                         "is not ported yet (ROADMAP item 15): train on one "
+                         "device")
 
     # torch's float32 products in IEEE fp32 on the card, as in repro (no TF32);
     # K1's and K2's fp32 kernels use split TF32 (three TF32 products per fp32 one)

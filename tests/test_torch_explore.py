@@ -6,8 +6,9 @@ budgets and evaluate the same designs in the same order with the same
 objective values and hypervolume curve as `repro`, bit for bit. (The GP is
 float32 in both frameworks; the specs' EHVI margins are wide enough that no
 pick flips.) A run resumed from a mid-run checkpoint equals the
-uninterrupted one bit for bit. Specs the port cannot run yet (joint mode)
-fail at start with the ROADMAP item that brings them."""
+uninterrupted one bit for bit. Every shipped spec starts, the joint one
+and the fleet grid included (tests/test_torch_joint.py and
+tests/test_torch_fleet.py run them against `repro`)."""
 import json
 import os
 import pickle
@@ -21,7 +22,7 @@ from repro.core.evaluator import clear_eval_cache as j_clear  # noqa: E402
 from repro.explore import Campaign as JCampaign  # noqa: E402
 from repro.explore import CampaignSpec as JSpec  # noqa: E402
 from repro_torch.core.evaluator import clear_eval_cache  # noqa: E402
-from repro_torch.explore import Campaign, CampaignSpec, ExplorationLoop, unported  # noqa: E402
+from repro_torch.explore import Campaign, CampaignSpec, ExplorationLoop  # noqa: E402
 from repro_torch.explore.__main__ import main  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -96,11 +97,15 @@ def test_cli_runs_resumes_and_writes_results(tmp_path, monkeypatch, capsys):
     with open("q.json") as f:
         res = json.load(f)
     assert res["finished"] and res["n_evals"] == 14
-    assert main(["--validate", spec, os.path.join(
-        SPECS, "fleet_quick_grid.json")]) == 0
-    assert "SKIP" in capsys.readouterr().out
-    assert main(["fleet", os.path.join(SPECS, "fleet_quick_grid.json")]) == 2
-    assert "ROADMAP item 8" in capsys.readouterr().err
+    fleet = os.path.join(SPECS, "fleet_quick_grid.json")
+    assert main(["--validate", spec, fleet]) == 0
+    out = capsys.readouterr().out
+    assert "OK" in out and "fleet 'quick-grid'" in out and "6 campaigns x 2 workers" in out
+    assert main(["fleet", fleet, "--validate", "--workers", "3", "--device", "cpu"]) == 0
+    assert "6 campaigns x 3 workers" in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        main(["fleet", fleet])
 
 
 def test_cli_and_campaign_default_to_the_card(monkeypatch, tmp_path):
@@ -116,19 +121,20 @@ def test_cli_and_campaign_default_to_the_card(monkeypatch, tmp_path):
     ("gpt175b_serving_slo", "item 6"), ("gpt175b_hetero_serving", "item 6"),
     ("gpt175b_trace_serving", "item 6"), ("gpt175b_joint_dse", "item 13")])
 def test_unported_shipped_specs_fail_at_start(name, item):
-    """Only joint mode (ROADMAP item 13) still fails at start; the serving,
-    hetero and trace specs (item 6, now ported) start, with their budgets.
-    tests/test_torch_serving.py runs them against `repro`."""
+    """The specs that once waited for ROADMAP items 6 (serving, hetero,
+    trace) and 13 (joint) start, with their budgets and the analytical
+    backend on the campaign's device; the joint one samples its own joint
+    candidates. tests/test_torch_serving.py and tests/test_torch_joint.py
+    run them against `repro`. The name and the ids keep the ROADMAP items
+    from when this test checked that these specs were refused."""
     spec = CampaignSpec.from_json(_spec_path(name))
-    if item == "item 13":
-        assert "item 13" in unported(spec)
-        with pytest.raises(NotImplementedError, match=item):
-            Campaign(spec, device="cpu")
-        return
-    assert unported(spec) is None
     c = Campaign(spec, device="cpu")
     assert c.loop.cfg.total_evals() == spec.loop_config().total_evals()
     assert str(c.f0.backend.device) == "cpu" and c.f0.backend.name == "analytical"
+    if item == "item 13":
+        assert c.loop._candidate_fn is not None
+        assert spec.strategy_mode == "joint" and c.f0.strategy_mode == "joint"
+        assert c.loop.cfg.total_evals() == 28
 
 
 @pytest.mark.parametrize("fidelity", [
@@ -140,14 +146,14 @@ def test_gnn_specs_fail_at_start(fidelity, tmp_path, monkeypatch):
     """GNN specs (ROADMAP item 7, now ported) start when `params_path`
     holds `repro`'s params tree with numpy leaves, with the GNN on the
     campaign's device; they fail at start on a missing or non-numpy
-    pickle. tests/test_torch_gnn.py runs one against `repro`."""
+    pickle. tests/test_torch_gnn.py runs one against `repro`. The name is
+    kept from when GNN specs were refused at start."""
     from repro_torch.core import noc_gnn
     monkeypatch.chdir(tmp_path)
     with open(_spec_path("quick_train_mfmobo")) as f:
         raw = json.load(f)
     raw["fidelity"].update(fidelity)
     spec = CampaignSpec.from_dict(raw)
-    assert unported(spec) is None
     with pytest.raises(FileNotFoundError):
         Campaign(spec, device="cpu")
     with open("params.pkl", "wb") as f:
@@ -168,8 +174,11 @@ def test_gnn_specs_fail_at_start(fidelity, tmp_path, monkeypatch):
 
 
 def test_gnn_backend_and_serving_entry_points_name_their_items():
-    """The GNN backend and the serving entry points run (ROADMAP items 7
-    and 6); the joint entry points still name item 13."""
+    """The GNN backend, the serving entry points and the joint entry points
+    run (once ROADMAP items 7, 6 and 13): a pinned point through
+    `evaluate_joint_batch` on the CPU gives its grid winner's objectives.
+    The name is kept from when these entry points raised, naming their
+    ROADMAP items."""
     from repro_torch.core import evaluator, fidelity
     from repro_torch.core.design_space import WSCDesign
     from repro_torch.core.validator import validate, validate_joint_batch
@@ -183,6 +192,13 @@ def test_gnn_backend_and_serving_entry_points_name_their_items():
     assert (g[0].feasible, g[0].throughput) == (a[0].feasible, a[0].throughput)
     assert evaluator.evaluate_serving_batch([], None, None, None) == []
     assert evaluator.evaluate_trace_serving_batch([], None, None) == []
-    with pytest.raises(NotImplementedError, match="item 13"):
-        evaluator.evaluate_joint_batch([], None)
+    assert evaluator.evaluate_joint_batch([], None) == []
     assert validate_joint_batch([], None) == []
+    from repro_torch.core.design_space import JointDesign
+    j = evaluator.evaluate_joint_batch(
+        [JointDesign(d, a[0].strategy)], GPT_BENCHMARKS[0], n_wafers=1, max_strategies=6,
+        fidelity=fidelity.AnalyticalBackend(device="cpu"))
+    assert (j[0].feasible, j[0].throughput, j[0].power_w) == (
+        a[0].feasible, a[0].throughput, a[0].power_w)
+    assert validate_joint_batch([JointDesign(d, a[0].strategy)], GPT_BENCHMARKS[0],
+                                n_wafers=1)[0].ok

@@ -52,6 +52,8 @@ SLICE_MODULES = (
     "core/serving.py", "core/heterogeneity.py", "core/noc_gnn.py", "core/calibration.py",
     "train/data.py", "train/optimizer.py", "train/train_step.py", "train/checkpoint.py",
     "dist/fault.py", "launch/train.py", "dist/collectives.py", "train/pipeline.py",
+    "dist/sharding.py", "dist/oracle.py", "explore/export.py", "explore/fleet.py",
+    "core/baselines.py",
 )
 
 

@@ -501,7 +501,7 @@ def test_train_launch_without_checkpoints_restarts_from_step_0(tmp_path):
 
 
 def test_train_launch_needs_a_card_and_one_device(monkeypatch, tmp_path):
-    with pytest.raises(SystemExit, match="item 13"):
+    with pytest.raises(SystemExit, match="device mesh.*ROADMAP item 15"):
         launch_train.main(LAUNCH + ["--data", "2", "--ckpt-dir", str(tmp_path)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA"):
