@@ -18,8 +18,13 @@ In the port the trained state is the model itself (its parameters, updated
 in place by the step) and the optimizer state: checkpoints hold them as
 `repro`'s trees (`train.checkpoint.state_trees`), and a restore copies a
 checkpoint into a fresh `init_fn()` state (`checkpoint.load_state`), after
-placing the trees on `device` (`repro`'s `shardings`). The step's metrics
-are read with `float()`, which waits for the card.
+placing the trees on `device`. Under a device mesh `shardings` is
+`repro`'s pair of `NamedSharding` trees (params, opt state, from
+`dist.sharding.to_shardings`): a restore lays each checkpoint leaf out by
+its spec (`distribute_tree`) before copying it into the live DTensors, and a
+save gathers every leaf (all ranks) while the first rank writes, the others
+waiting at a barrier. The step's metrics are read with `float()`, which
+waits for the card.
 """
 from __future__ import annotations
 
@@ -69,6 +74,18 @@ class StragglerPolicy:
         return False
 
 
+def _barrier():
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def ckpt_mesh(shardings):
+    """The mesh of a (params, opt) `NamedSharding` tree pair."""
+    from repro_torch.dist.sharding import NamedSharding, tree_leaves
+    return next(s for s in tree_leaves(shardings[1]) if isinstance(s, NamedSharding)).mesh
+
+
 class TrainSupervisor:
     """Fault-tolerant outer loop around a pure train step.
 
@@ -86,7 +103,7 @@ class TrainSupervisor:
     def __init__(self, ckpt_dir: str, ckpt_every: int = 50,
                  straggler: Optional[StragglerPolicy] = None,
                  max_restarts: int = 100, max_futile_restarts: int = 3,
-                 run_tag: Optional[str] = None, device=None):
+                 run_tag: Optional[str] = None, device=None, shardings=None):
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = max(int(ckpt_every), 0)     # 0: no checkpoints
         self.straggler = straggler or StragglerPolicy()
@@ -94,6 +111,8 @@ class TrainSupervisor:
         # where restored numpy trees go before they are copied into the
         # live state (None: copied from the host)
         self.device = device
+        # (param shardings, opt shardings) in repro's tree layout, under a mesh
+        self.shardings = shardings
         # consecutive exception-restarts at the SAME step before giving up
         # (a deterministic bug should surface, not retry max_restarts times)
         self.max_futile_restarts = max(int(max_futile_restarts), 1)
@@ -105,7 +124,8 @@ class TrainSupervisor:
     # -- state (re)loading --------------------------------------------------
 
     def _resume_or_init(self, init_fn):
-        restored = ckpt.restore_latest(self.ckpt_dir)
+        _barrier()             # no rank reads while the writer writes
+        restored = ckpt.restore_latest(self.ckpt_dir, quarantine=ckpt.is_writer())
         if restored is None:
             params, opt_state = init_fn()
             return params, opt_state, 0
@@ -118,7 +138,12 @@ class TrainSupervisor:
                 f"checkpoint dir {self.ckpt_dir!r} belongs to run "
                 f"{tag!r}, not {self.run_tag!r}; refusing to resume — "
                 "use a fresh --ckpt-dir")
-        if self.device is not None:
+        if self.shardings is not None:
+            from repro_torch.dist.sharding import distribute_tree
+            mesh = ckpt_mesh(self.shardings)
+            params_np = distribute_tree(mesh, params_np, self.shardings[0])
+            opt_np = distribute_tree(mesh, opt_np, self.shardings[1])
+        elif self.device is not None:
             params_np = ckpt.to_device(params_np, self.device)
             opt_np = ckpt.to_device(opt_np, self.device)
         params, opt_state = init_fn()
@@ -127,8 +152,10 @@ class TrainSupervisor:
 
     def _save(self, step, params, opt_state):
         extra = {"run_tag": self.run_tag} if self.run_tag else None
-        ckpt.save_checkpoint(self.ckpt_dir, step,
-                             *ckpt.state_trees(params, opt_state), extra=extra)
+        trees = ckpt.state_trees(params, opt_state)
+        if trees is not None:
+            ckpt.save_checkpoint(self.ckpt_dir, step, *trees, extra=extra)
+        _barrier()
 
     # -- main loop ----------------------------------------------------------
 

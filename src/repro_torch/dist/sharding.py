@@ -16,9 +16,10 @@ construction. Documented fallbacks:
     (("data", "model") on a single pod) because neither batch nor the
     narrow-GQA head dim can take an axis.
 
-The mesh argument is duck-typed: only `.shape` (a mapping axis -> size) and
-`.axis_names` are read, so callers pass a shim (`oracle.ShimMesh`) instead
-of building devices. Leaves are anything with `.shape` and `.ndim`: meta
+The mesh argument of the rules is duck-typed: only `.shape` (a mapping axis
+-> size) and `.axis_names` are read, so callers pass a shim
+(`oracle.ShimMesh`) instead of building devices; a torch `DeviceMesh` with
+named dims is read through `mesh_axes` as well. Leaves are anything with `.shape` and `.ndim`: meta
 tensors, `ShapeStruct`, or another framework's shape structs. Trees are
 `repro`'s layout: nested dicts (lists and tuples too), with each stacked
 layer group's leaves carrying the layer axis first; the rules index dims
@@ -26,12 +27,20 @@ from the end, so they hold for stacked and unstacked leaves alike.
 
 What differs from `repro`: `PartitionSpec` is the port's own immutable
 tuple of per-dim entries (None, an axis name, or a tuple of names), equal
-to the tuple of its entries; `to_shardings`, which needs a mesh of real
-devices, is not ported (ROADMAP item 15, the device mesh).
+to the tuple of its entries. A spec becomes DTensor placements over a
+`DeviceMesh` (`to_placements`: one placement per mesh dim, `Shard(d)` on
+every mesh dim that an entry of dim d names, else `Replicate()`); an entry
+naming several axes, such as ("pod", "data"), shards its dim over them in
+mesh order, mesh dim 0 outermost, which is `NamedSharding`'s pod-major
+order. `to_shardings` pairs each spec with the mesh (`NamedSharding`) and
+`distribute_tree` lays a tree of tensors out by a spec tree. `repro`'s
+trees stack each layer group on a leading axis that no rule shards; the
+port's model holds one module per layer, so a layer's parameter takes its
+stacked leaf's spec without the leading entry (`model_param_specs`).
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple, Union
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 # data-parallel mesh axes in mesh order (pod-major)
 DP_AXES = ("pod", "data")
@@ -102,6 +111,42 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+class _Axes:
+    """A mesh read by the rules: `.shape` maps axis -> size."""
+
+    def __init__(self, sizes: Dict[str, int]):
+        self.shape = dict(sizes)
+        self.axis_names = tuple(sizes)
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """{axis: size} of a torch `DeviceMesh` (named dims) or of a rule mesh."""
+    if hasattr(mesh, "axis_names"):
+        return {a: int(mesh.shape[a]) for a in mesh.axis_names}
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
+
+
+def data_axes(sizes: Dict[str, int]) -> Tuple[Tuple[str, ...], int]:
+    """The data-parallel axes of {axis: size} in mesh order, and the
+    product of their sizes."""
+    dp = tuple(a for a in DP_AXES if a in sizes)
+    n = 1
+    for a in dp:
+        n *= sizes[a]
+    return dp, n
+
+
+def batch_entry(sizes: Dict[str, int], B: int):
+    """The activation rules' batch entry for a batch of B: the data axes
+    when their product (above 1) divides B, else None (replicated)."""
+    dp, n = data_axes(sizes)
+    return dp if n > 1 and B % n == 0 else None
+
+
+def _rules_mesh(mesh):
+    return mesh if hasattr(mesh, "axis_names") else _Axes(mesh_axes(mesh))
+
+
 def _mesh_dp(mesh) -> Tuple[str, ...]:
     """The mesh's data-parallel axes, in mesh (pod-major) order."""
     return tuple(a for a in DP_AXES if a in mesh.axis_names)
@@ -109,7 +154,7 @@ def _mesh_dp(mesh) -> Tuple[str, ...]:
 
 def dp_axes(mesh) -> Union[str, Tuple[str, ...], None]:
     """The mesh's data-parallel axes ("data", or ("pod", "data"))."""
-    axes = _mesh_dp(mesh)
+    axes = _mesh_dp(_rules_mesh(mesh))
     if not axes:
         return None
     return axes[0] if len(axes) == 1 else axes
@@ -124,7 +169,7 @@ class _SpecBuilder:
     each mesh axis at most once per spec, axis product divides the dim."""
 
     def __init__(self, mesh, shape: Sequence[int]):
-        self.mesh = mesh
+        self.mesh = _rules_mesh(mesh)
         self.shape = tuple(int(s) for s in shape)
         self.entries: list = [None] * len(self.shape)
         self.used: set = set()
@@ -303,6 +348,106 @@ def batch_specs(mesh, batch_sds):
     return _map_with_path(one, batch_sds)
 
 
-__all__ = ["DP_AXES", "PartitionSpec", "ShapeStruct", "batch_specs",
-           "cache_specs", "dp_axes", "opt_state_specs", "param_specs",
-           "tree_leaves"]
+# ---------------------------------------------------------------------------
+# spec tree -> DTensor placements over a DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def to_placements(mesh, spec) -> tuple:
+    """A spec -> the tuple of DTensor placements over `mesh` (a
+    `DeviceMesh` with named dims), one per mesh dim. An entry that names
+    several axes must name them in mesh order: DTensor nests repeated
+    `Shard(d)` with mesh dim 0 outermost, as `NamedSharding` does."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx = [names.index(a) for a in ((entry,) if isinstance(entry, str) else entry)]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec}: axes {entry} are not in the mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+class NamedSharding:
+    """A spec on a mesh (`jax.sharding.NamedSharding`'s pair), with the
+    DTensor placements it stands for."""
+
+    def __init__(self, mesh, spec):
+        self.mesh, self.spec = mesh, spec
+        self.placements = to_placements(mesh, spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.spec}, {self.placements})"
+
+
+def to_shardings(mesh, spec_tree):
+    """PartitionSpec tree (or single spec) -> `NamedSharding` tree."""
+    if _is_spec(spec_tree):
+        return NamedSharding(mesh, spec_tree)
+    return _map_with_path(lambda _p, s: NamedSharding(mesh, s), spec_tree)
+
+
+def _zip_map(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not _is_spec(specs):
+        return type(tree)(_zip_map(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def distribute_tree(mesh, tree, spec_tree):
+    """Each tensor (or numpy array) leaf of `tree` -> a DTensor laid out by
+    its spec in `spec_tree` (specs or `NamedSharding`s); an `nn.Parameter`
+    stays a parameter. Every rank holds the whole leaf (the same seed, the
+    same checkpoint), so each keeps its own shard and nothing is sent."""
+    import numpy as np
+    import torch
+    from torch import nn
+    from torch.distributed.tensor import distribute_tensor
+
+    def one(leaf, spec):
+        pl = spec.placements if isinstance(spec, NamedSharding) else to_placements(mesh, spec)
+        t = torch.as_tensor(np.asarray(leaf)) if not isinstance(leaf, torch.Tensor) else leaf
+        out = distribute_tensor(t.detach(), mesh, pl, src_data_rank=None)
+        if isinstance(leaf, nn.Parameter):
+            return nn.Parameter(out, requires_grad=leaf.requires_grad)
+        return out
+    return _zip_map(one, tree, spec_tree)
+
+
+def layer_path(name: str) -> Tuple[str, ...]:
+    """A port parameter name -> its leaf's path in `repro`'s tree: the layer
+    index of a stacked group dropped ("layers.3.attn.wq" -> ("layers",
+    "attn", "wq"), "layers.ssm_layers.0.in_proj" -> ("layers",
+    "ssm_layers", "in_proj"))."""
+    return tuple(part for part in name.split(".") if not part.isdigit())
+
+
+def model_param_specs(mesh, model) -> Dict[str, PartitionSpec]:
+    """{parameter name: spec} for the port's model (one module per layer):
+    each layer's parameter gets its stacked leaf's spec less the layer
+    axis, which the rules, indexing dims from the end, never shard."""
+    return {name: _param_spec_one(mesh, layer_path(name), p)
+            for name, p in model.named_parameters()}
+
+
+def distribute_model(model, mesh):
+    """Replace every parameter of `model` by a DTensor parameter laid out
+    by `model_param_specs`, in place; returns the model."""
+    specs = model_param_specs(mesh, model)
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        setattr(mod, leaf, distribute_tree(mesh, p, specs[name]))
+    return model
+
+
+__all__ = ["DP_AXES", "NamedSharding", "PartitionSpec", "ShapeStruct",
+           "batch_entry", "batch_specs", "cache_specs", "data_axes", "distribute_model",
+           "distribute_tree", "dp_axes", "layer_path", "mesh_axes",
+           "model_param_specs", "opt_state_specs", "param_specs",
+           "to_placements", "to_shardings", "tree_leaves"]

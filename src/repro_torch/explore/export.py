@@ -17,9 +17,10 @@ be shardable by the `repro_torch.dist` rule engine (`oracle.check_strategy`:
 (dp, tp) shim mesh for the arch's actual parameter shapes), and the
 batch/microbatch arithmetic must divide. A config that validates runs
 under `repro_torch.launch.train.main(train_argv(cfg))` on a matching
-device topology: today one device (dp = tp = 1; `--device cpu` for a CPU
-smoke with `reduced=True`), since the launcher's device mesh is not ported
-(ROADMAP item 15).
+device topology: dp x tp ranks of a ("data", "model") device mesh, one per
+card (NCCL), or dp x tp processes on the CPU with `--device cpu` appended
+(gloo; a CPU smoke with `reduced=True`). The argv is `repro`'s, `--data`
+and `--model` above 1 included.
 """
 from __future__ import annotations
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional
 
 import torch
@@ -94,10 +95,14 @@ def _aligned(t: torch.Tensor) -> bool:
         t.shape[d] > 1 and t.stride(d) % per for d in (0, 1))
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def _count(fn, q, k, causal, window):
-    fn.launches += 1
-    case = (q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3], bool(causal), window)
-    fn.launches_by_case[case] = fn.launches_by_case.get(case, 0) + 1
+    with _COUNT_LOCK:      # the ranks of a threaded mesh count together
+        fn.launches += 1
+        case = (q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3], bool(causal), window)
+        fn.launches_by_case[case] = fn.launches_by_case.get(case, 0) + 1
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional
 
 import torch
@@ -87,10 +88,14 @@ def _check(x, dt, A, Bm, Cm, D, chunk):
                          f"{Cm.stride()}")
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def _count(fn, x, Bm, chunk):
-    fn.launches += 1
-    case = (*x.shape, Bm.shape[-1], chunk)
-    fn.launches_by_case[case] = fn.launches_by_case.get(case, 0) + 1
+    with _COUNT_LOCK:      # the ranks of a threaded mesh count together
+        fn.launches += 1
+        case = (*x.shape, Bm.shape[-1], chunk)
+        fn.launches_by_case[case] = fn.launches_by_case.get(case, 0) + 1
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,

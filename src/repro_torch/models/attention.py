@@ -20,10 +20,19 @@ The VLM family's prefix-LM mask (bidirectional among the first
 `prefix_len` positions, causal after them) has no kernel, in `repro` as here:
 full-sequence attention with `prefix_len > 0` takes the masked plain path.
 
-Not ported (ROADMAP.md): the mesh-only `_constrain_attn` and
-`_long_decode_attention`, and the runtime options that pick another cache
-layout or score arithmetic (ring caches, `_attention_bf16_scores`, `opt_cache_dus=False`): the port runs
-`repro`'s defaults, and nothing in it asks for the others.
+Under a mesh (`rt.mesh`, DTensor activations) q, k and v take `repro`'s
+constraint (`_constrain_attn`: heads over "model" when they divide it,
+else a sequence-parallel q, batch over the data axes), redistributed
+before the (B, S, H*hd) -> (B, S, H, hd) view so that no shard cuts a head;
+K1 then runs on each rank's local shard (`fa_ops.mha`). A one-token decode
+against a sequence-sharded cache (W >= 65536, a batch the data axes cannot
+take) runs `_long_decode_attention`, whose scores stay sharded on the
+cache's sequence.
+
+Not ported (ROADMAP.md): the runtime options that pick another cache
+layout or score arithmetic (ring caches, `_attention_bf16_scores`,
+`opt_cache_dus=False`): the port runs `repro`'s defaults, and nothing in it
+asks for the others.
 """
 from __future__ import annotations
 
@@ -33,10 +42,11 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import PartitionSpec as P, batch_entry, data_axes
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.layers import dense_init_, rope
-from repro_torch.models.runtime import Runtime
+from repro_torch.models.runtime import Runtime, constrain, keep_layout, weight
 
 Pos = Union[int, torch.Tensor]
 
@@ -74,16 +84,46 @@ class Attention(nn.Module):
 def _linear(h: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
             rt: Runtime) -> torch.Tensor:
     # the bias is added in the compute dtype, after the product, as in repro
-    out = h @ w.to(rt.compute_dtype)
-    return out if b is None else out + b.to(rt.compute_dtype)
+    out = h @ weight(w, rt)
+    return out if b is None else out + weight(b, rt)
+
+
+def attn_spec(shape, rt: Runtime, is_query: bool) -> Optional[P]:
+    """`repro`'s `_constrain_attn` rule for (B, S, H, hd) attention
+    activations: heads over "model" when H divides it, else a
+    sequence-parallel q (S divisible by "model"), batch over the data axes
+    when B divides them; k/v that cannot head-shard stay batch-only. None
+    without `mesh_axes`."""
+    if rt.mesh_axes is None:
+        return None
+    B, S, H, _ = shape
+    batch = batch_entry(rt.mesh_axes, B)
+    model = rt.mesh_axes.get("model", 1)
+    if model > 1 and H % model == 0:
+        return P(batch, None, "model", None)
+    if is_query and model > 1 and S % model == 0 and S >= model:
+        return P(batch, "model", None, None)
+    return P(batch, None, None, None)
+
+
+def _constrain_attn(x: torch.Tensor, rt: Runtime, is_query: bool,
+                    heads: Optional[int] = None) -> torch.Tensor:
+    """x (B, S, H, hd), or its flat (B, S, H*hd) projection with `heads`
+    given, under `attn_spec`. The flat projection is redistributed first
+    and viewed after, so each rank's shard holds whole heads."""
+    if heads is None:
+        return constrain(x, rt, attn_spec(x.shape, rt, is_query))
+    B, S, F = x.shape
+    spec = attn_spec((B, S, heads, F // heads), rt, is_query)
+    if spec is not None:
+        x = constrain(x, rt, P(*spec[:3]))
+    return x.view(B, S, heads, F // heads)
 
 
 def _proj_qkv(h: torch.Tensor, p: Attention, cfg: ModelConfig, rt: Runtime):
-    B, S, _ = h.shape
-    hd = cfg.hd()
-    q = _linear(h, p.wq, p.bq, rt).view(B, S, cfg.n_heads, hd)
-    k = _linear(h, p.wk, p.bk, rt).view(B, S, cfg.n_kv, hd)
-    v = _linear(h, p.wv, p.bv, rt).view(B, S, cfg.n_kv, hd)
+    q = _constrain_attn(_linear(h, p.wq, p.bq, rt), rt, True, cfg.n_heads)
+    k = _constrain_attn(_linear(h, p.wk, p.bk, rt), rt, False, cfg.n_kv)
+    v = _constrain_attn(_linear(h, p.wv, p.bv, rt), rt, False, cfg.n_kv)
     return q, k, v
 
 
@@ -106,7 +146,8 @@ def self_attention(h: torch.Tensor, p: Attention, cfg: ModelConfig, rt: Runtime,
     else:
         out = fa_ops.mha(q, k, v, positions, positions, causal=causal, window=window)
     B, S = h.shape[:2]
-    return out.reshape(B, S, cfg.n_heads * cfg.hd()) @ p.wo.to(rt.compute_dtype)
+    out = keep_layout(out.reshape(B, S, cfg.n_heads * cfg.hd()))
+    return out @ weight(p.wo, rt)
 
 
 # q-chunking of long masked attention: bounds the (Sq, Skv) scores per chunk
@@ -200,19 +241,77 @@ def cached_attention(x: torch.Tensor, p: Attention, cfg: ModelConfig, rt: Runtim
     cache_l = update_cache_layer(cache_l, k, v, pos)
     k_c, v_c, pos_c = cache_l["k"], cache_l["v"], cache_l["kv_pos"]
     W = k_c.shape[1]
-    if _is_scalar(pos) and S_new == 1 and window is not None and W >= 4 * window:
+    # under a mesh a one-token decode against a long cache whose batch the
+    # data axes cannot take (so the cache is sequence-sharded) keeps its
+    # scores sharded on the sequence (repro attention.py:290-301)
+    long_decode = S_new == 1 and rt.mesh_axes is not None and W >= 65536
+    if long_decode and batch_entry(rt.mesh_axes, B) is None:
+        out = _long_decode_attention(q, k_c, v_c, positions, pos_c, rt, window=window)
+    elif _is_scalar(pos) and S_new == 1 and window is not None and W >= 4 * window:
         # windowed decode against a long cache: read the `window` slots from
         # `start` instead of masking the whole cache (repro attention.py:303)
         start = min(max(int(pos) - window + 1, 0), W - window)
         k_c, v_c, pos_c = (t[:, start:start + window] for t in (k_c, v_c, pos_c))
         cached_attention.window_slices += 1
-    out = _attend(q, k_c, v_c, positions, pos_c, causal=True, window=window,
-                  prefix_len=prefix_len)
+        out = _attend(q, k_c, v_c, positions, pos_c, causal=True, window=window,
+                      prefix_len=prefix_len)
+    elif long_decode:
+        out = _long_decode_attention(q, k_c, v_c, positions, pos_c, rt, window=window)
+    else:
+        out = _attend(q, k_c, v_c, positions, pos_c, causal=True, window=window,
+                      prefix_len=prefix_len)
     out = out.reshape(B, S_new, cfg.n_heads * cfg.hd())
-    return out @ p.wo.to(rt.compute_dtype), cache_l
+    return out @ weight(p.wo, rt), cache_l
 
 
 cached_attention.window_slices = 0
+
+
+def _long_decode_attention(q, k, v, q_pos, kv_pos, rt: Runtime,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """One-token attention against a sequence-sharded cache without ever
+    gathering K/V (`repro`'s flash-decoding on SPMD): grouped-head einsums
+    with no GQA repeat, K/V laid out with their KV heads over "model" when
+    those divide it and the sequence over the data axes, else the sequence
+    over every axis, and the scores constrained to stay sharded on the
+    sequence; the softmax's max and sums over the sharded dim are
+    reductions across the ranks. q (B, 1, Hq, hd), k/v (B, W, Hkv, hd),
+    q_pos (B, 1), kv_pos (B, W). The products are fp32 on the operands'
+    values (`repro` accumulates its storage-dtype operands in fp32)."""
+    B, _, Hq, hd = q.shape
+    _, W, Hkv, _ = k.shape
+    rep = Hq // Hkv
+    axes = rt.mesh_axes
+    dp, dp_size = data_axes(axes)
+    model = axes.get("model", 1)
+
+    def size(names):
+        n = 1
+        for a in names:
+            n *= axes[a]
+        return n
+    if model > 1 and Hkv % model == 0 and W % max(dp_size, 1) == 0:
+        kspec = P(None, dp if dp_size > 1 else None, "model", None)
+        head_axes, seq_axes = "model", dp
+    else:
+        seq_axes, head_axes = dp + ("model",), None
+        kspec = P(None, seq_axes if W % size(seq_axes) == 0 else None, None, None)
+    qf = (q.float() * hd ** -0.5).to(q.dtype).reshape(B, Hkv, rep, hd)
+    kf, vf = constrain(k, rt, kspec), constrain(v, rt, kspec)
+    scores = torch.einsum("bgrd,bsgd->bgrs", qf.float(), kf.float())   # (B, Hkv, rep, W)
+    seq_ok = bool(seq_axes) and W % size(seq_axes) == 0
+    scores = constrain(scores, rt, P(None, head_axes, None, seq_axes if seq_ok else None))
+    kvp = kv_pos[:, None, None, :]
+    qp = q_pos[:, 0][:, None, None, None]
+    mask = (kvp >= 0) & (kvp <= qp)
+    if window is not None:
+        mask = mask & (kvp > qp - window)
+    scores = torch.where(mask, scores, -1e30)
+    m = scores.amax(-1, keepdim=True)
+    p_ = torch.where(mask, torch.exp(scores - m), 0.0)
+    denom = p_.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bgrs,bsgd->bgrd", (p_ / denom).to(v.dtype).float(), vf.float())
+    return out.reshape(B, 1, Hq, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +330,7 @@ def cross_attention(x: torch.Tensor, p: Attention, cfg: ModelConfig, rt: Runtime
     qpos = torch.zeros((B, Sq), dtype=torch.int32, device=x.device)
     kvpos = torch.arange(Senc, dtype=torch.int32, device=x.device)[None].expand(B, Senc)
     out = _attend(q, enc_k, enc_v, qpos, kvpos, causal=False, window=None)
-    return out.reshape(B, Sq, cfg.n_heads * hd) @ p.wo.to(rt.compute_dtype)
+    return out.reshape(B, Sq, cfg.n_heads * hd) @ weight(p.wo, rt)
 
 
 def encode_cross_kv(enc_out: torch.Tensor, p: Attention, cfg: ModelConfig,

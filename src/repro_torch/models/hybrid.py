@@ -27,7 +27,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import MLP, mlp, rmsnorm
 from repro_torch.models.mamba2 import SSMBlock, init_ssm_cache
-from repro_torch.models.runtime import Runtime, remat_block
+from repro_torch.models.runtime import Runtime, remat_block, residual
 
 
 def n_applications(cfg: ModelConfig) -> int:
@@ -85,9 +85,9 @@ def hybrid_forward(x: torch.Tensor, layers: HybridLayers, cfg: ModelConfig,
         x = remat_block(rt, block, x, rt, probe=block.ln)
         if _application(cfg, i) is not None:
             h = rmsnorm(x, shared.ln1, cfg.norm_eps)
-            x = x + self_attention(h, shared.attn, cfg, rt, positions)
+            x = residual(x + self_attention(h, shared.attn, cfg, rt, positions), rt)
             h = rmsnorm(x, shared.ln2, cfg.norm_eps)
-            x = x + mlp(h, shared.mlp, cfg, rt)
+            x = residual(x + mlp(h, shared.mlp, cfg, rt), rt)
     return x
 
 

@@ -108,12 +108,13 @@ class MLP(nn.Module):
 
 def mlp(h: torch.Tensor, p: MLP, cfg: ModelConfig, rt) -> torch.Tensor:
     """Gated (SwiGLU/GeGLU) or plain MLP. h (B, S, D)."""
+    from repro_torch.models.runtime import weight
     f = act_fn(cfg.act)
     if cfg.glu:
-        u = f(h @ p.wg.to(rt.compute_dtype)) * (h @ p.wi.to(rt.compute_dtype))
+        u = f(h @ weight(p.wg, rt)) * (h @ weight(p.wi, rt))
     else:
-        u = f(h @ p.wi.to(rt.compute_dtype))
-    return u @ p.wo.to(rt.compute_dtype)
+        u = f(h @ weight(p.wi, rt))
+    return u @ weight(p.wo, rt)
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,13 @@ and `reset_parameters` always run under no_grad. The logits are fp32,
 against the tied embedding or the separate `unembed`. prefill and
 decode_step update `cache` in place and return it.
 
+Under a mesh (`rt.mesh`) the parameters are DTensors laid out by
+`repro`'s rules (`dist.sharding.distribute_model`, right after the random
+init, which every rank draws alike from the seed), the inputs are DTensors
+(`batch_specs`), and every op runs on DTensors: the embedding gather
+(vocab over "model"), the fp32 logits and `loss_fn`'s log-softmax, which
+DTensor gathers over the vocab.
+
 The model leaves the process-wide TF32 switches alone. The entry points
 (`launch/serve.py`, `chip_smoke.py`) set `torch.backends.cuda.matmul.allow_tf32`
 and `torch.backends.cudnn.allow_tf32` to False, so that float32 products run
@@ -39,12 +46,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, hybrid, transformer
 from repro_torch.models.layers import embed_init_, rmsnorm
 from repro_torch.models.mamba2 import SSMBlock, init_ssm_cache
-from repro_torch.models.runtime import Runtime, remat_block
+from repro_torch.models.runtime import Runtime, mesh_ops, remat_block, residual, weight
 
 # the families whose layers are the decoder stack of `models.transformer`
 DECODER_FAMILIES = ("dense", "moe", "vlm")
@@ -79,6 +88,9 @@ class Model(nn.Module):
         self.requires_grad_(False)
         if dev.type != "meta" and seed is not None:
             self.reset_parameters(torch.Generator(dev).manual_seed(seed))
+        if rt.mesh is not None:
+            from repro_torch.dist.sharding import distribute_model
+            distribute_model(self, rt.mesh)
 
     @torch.no_grad()
     def reset_parameters(self, g: torch.Generator):
@@ -99,6 +111,9 @@ class Model(nn.Module):
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         # gather then cast: the same values as repro's cast-then-gather
+        # (under a mesh as an embedding op, which DTensor shards over vocab)
+        if self.rt.mesh is not None:
+            return residual(_embed_mesh(tokens, self.embed).to(self.rt.compute_dtype), self.rt)
         return self.embed[tokens].to(self.rt.compute_dtype)
 
     def _embed_vlm(self, tokens: torch.Tensor, patches: Optional[torch.Tensor]
@@ -112,8 +127,8 @@ class Model(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(x, self.final_ln, self.cfg.norm_eps)
         if self.cfg.tied_embeddings:
-            return x.float() @ self.embed.float().T
-        return x.float() @ self.unembed.float()
+            return x.float() @ weight(self.embed, self.rt, torch.float32).T
+        return x.float() @ weight(self.unembed, self.rt, torch.float32)
 
     def _encode(self, frames: Optional[torch.Tensor]) -> torch.Tensor:
         if frames is None:
@@ -132,6 +147,10 @@ class Model(nn.Module):
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(full-sequence logits, aux loss): the MoE layers' summed
         load-balancing loss, a () fp32 tensor, 0 for the other families."""
+        with mesh_ops(self.rt):
+            return self._forward_with_aux(tokens, frames, patches)
+
+    def _forward_with_aux(self, tokens, frames, patches):
         fam = self.cfg.family
         x = self._embed_vlm(tokens, patches) if fam == "vlm" else self._embed(tokens)
         B, S = x.shape[:2]
@@ -202,6 +221,33 @@ class Model(nn.Module):
             x, cache = encdec.decode_stack_cached(x, self.dec_layers, self.cfg, self.rt,
                                                   cache, pos)
         return self._logits(x)[:, 0], cache
+
+
+def _embed_mesh(tokens, w):
+    """Vocab-parallel gather on DTensors: the table's d_model shards are
+    gathered over the data axes, each rank looks its tokens up in its own
+    vocab rows (0 for a token outside them) and the result is a partial sum
+    over the mesh dim that shards the vocab. tokens (B, S) keep their
+    placements; the table's gradient comes back partial over the data axes
+    that shard them, and its redistribution sums it."""
+    mesh = w.device_mesh
+    w_pl = tuple(pl if pl.is_shard(0) else Replicate() for pl in w.placements)
+    w = w.redistribute(mesh, w_pl)
+    vocab_dim = next((i for i, pl in enumerate(w_pl) if pl.is_shard(0)), None)
+    out_pl = tuple(Partial() if i == vocab_dim else pl for i, pl in enumerate(tokens.placements))
+    grad_pl = tuple(Partial() if tp.is_shard() else wp
+                    for tp, wp in zip(tokens.placements, w_pl))
+    coord = mesh.get_coordinate()
+
+    def lookup(t, w_l):
+        if vocab_dim is None:
+            return w_l[t]
+        rows = w_l.shape[0]
+        idx = t - coord[vocab_dim] * rows
+        inside = (idx >= 0) & (idx < rows)
+        return w_l[idx.clamp(0, rows - 1)] * inside[..., None].to(w_l.dtype)
+    return local_map(lookup, out_placements=list(out_pl), in_placements=(tokens.placements, w_pl),
+                     in_grad_placements=(tokens.placements, grad_pl), device_mesh=mesh)(tokens, w)
 
 
 def loss_fn(model: Model, batch: Dict, aux_weight: float = 0.01

@@ -27,7 +27,7 @@ from repro_torch.models.attention import (
     self_attention,
 )
 from repro_torch.models.layers import MLP, mlp, rmsnorm
-from repro_torch.models.runtime import Runtime, remat_block
+from repro_torch.models.runtime import Runtime, remat_block, residual
 
 
 def global_flags(cfg: ModelConfig, n_layers: int) -> Optional[List[bool]]:
@@ -76,7 +76,7 @@ def _ffn(x: torch.Tensor, p_l: DecoderLayer, cfg: ModelConfig, rt: Runtime
         out, aux = moe.moe_mlp(h, p_l.moe, cfg, rt)
     else:
         out, aux = mlp(h, p_l.mlp, cfg, rt), torch.zeros((), device=x.device)
-    return x + out, aux
+    return residual(x + out, rt), aux
 
 
 def decoder_block(x: torch.Tensor, p_l: DecoderLayer, cfg: ModelConfig, rt: Runtime,
@@ -84,8 +84,8 @@ def decoder_block(x: torch.Tensor, p_l: DecoderLayer, cfg: ModelConfig, rt: Runt
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm block. Returns (x, the layer's aux loss)."""
     h = rmsnorm(x, p_l.ln1, cfg.norm_eps)
-    x = x + self_attention(h, p_l.attn, cfg, rt, positions, window=window,
-                           prefix_len=prefix_len)
+    x = residual(x + self_attention(h, p_l.attn, cfg, rt, positions, window=window,
+                                    prefix_len=prefix_len), rt)
     return _ffn(x, p_l, cfg, rt)
 
 

@@ -8,6 +8,12 @@ checkpoints: `state_trees` turns the port's model and optimizer state into
 `repro`'s param tree and opt state (`models.convert.params_to_jax`: layer
 groups stacked on axis 0), and `load_state` copies such trees back into
 them in place (`params_from_jax`).
+
+Under a device mesh the live state is DTensors: `state_trees` gathers
+each leaf (`full_tensor()`, a collective every rank joins in the same
+order) and only the first rank keeps the host copies and writes;
+`load_state` copies trees that `dist.sharding.distribute_tree` laid out by
+`repro`'s specs into the live DTensors shard by shard.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.convert import params_from_jax, params_to_jax
 
@@ -117,14 +125,34 @@ def to_device(tree, device) -> Dict:
     return torch.as_tensor(np.asarray(tree)).to(device)
 
 
-def state_trees(model, opt_state: Dict) -> Tuple[Dict, Dict]:
+def is_writer() -> bool:
+    """True unless this is a rank other than 0 of a process group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _gathered(t: torch.Tensor) -> Optional[torch.Tensor]:
+    """A DTensor leaf gathered whole (every rank takes part), on the host
+    of the writing rank only; a plain leaf as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    full = t.full_tensor()
+    return full.cpu() if is_writer() else None
+
+
+def state_trees(model, opt_state: Dict) -> Optional[Tuple[Dict, Dict]]:
     """(params, opt_state) as `repro`'s trees with numpy leaves: the param
-    tree, and {"step": int32, "m": tree, "v": tree}."""
+    tree, and {"step": int32, "m": tree, "v": tree}. DTensor state is
+    gathered leaf by leaf; ranks other than the writer get None."""
     cfg = model.cfg
-    return params_to_jax(model.state_dict(), cfg), {
-        "step": opt_state["step"].detach().cpu().numpy(),
-        "m": params_to_jax(opt_state["m"], cfg),
-        "v": params_to_jax(opt_state["v"], cfg)}
+    sd = {n: _gathered(t) for n, t in model.state_dict().items()}
+    m, v = ({n: _gathered(t) for n, t in opt_state[k].items()} for k in ("m", "v"))
+    step = _gathered(opt_state["step"])
+    if not is_writer():
+        return None
+    return params_to_jax(sd, cfg), {
+        "step": step.detach().cpu().numpy(),
+        "m": params_to_jax(m, cfg),
+        "v": params_to_jax(v, cfg)}
 
 
 @torch.no_grad()
@@ -136,4 +164,7 @@ def load_state(model, opt_state: Dict, params_tree: Dict, opt_tree: Dict) -> Non
     for key in ("m", "v"):
         for name, t in params_from_jax(opt_tree[key], cfg).items():
             opt_state[key][name].copy_(t)
-    opt_state["step"].copy_(torch.as_tensor(opt_tree["step"]))
+    step = torch.as_tensor(opt_tree["step"])
+    if isinstance(step, DTensor) and not isinstance(opt_state["step"], DTensor):
+        step = step.to_local()          # replicated: every rank's copy is whole
+    opt_state["step"].copy_(step)

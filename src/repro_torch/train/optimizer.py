@@ -9,6 +9,13 @@ leaves' sums of squares in `repro`'s tree-leaf order (sorted keys, a
 stacked layer group as one leaf). Everything stays on the parameters'
 device: no step reads a value back to the host. The moments and the
 parameters are updated in place (`repro` returns new arrays).
+
+Under a device mesh the parameters, gradients and moments are DTensors of
+one layout per leaf: the global norm adds each rank's local sums of
+squares (a replicated shard counted once) and reduces them over the whole
+mesh in one collective; AdamW, elementwise, then acts on the local shards
+(`to_local`). The step counter is the same plain tensor on every rank,
+replicated as `opt_state_specs` says.
 """
 from __future__ import annotations
 
@@ -18,8 +25,21 @@ import re
 from typing import Callable, Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 Tree = Dict[str, torch.Tensor]
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The rank's shard of a DTensor (its storage), or the tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _counted_once(t: DTensor) -> bool:
+    """True on the one rank of each replica group of `t` that counts its
+    shard: coordinate 0 along every mesh dim it is replicated over."""
+    coord = t.device_mesh.get_coordinate()
+    return all(c == 0 for c, pl in zip(coord, t.placements) if isinstance(pl, Replicate))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,10 +88,22 @@ def leaf_order(names) -> List[List[str]]:
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum of squares of every entry, fp32, added leaf by leaf
-    in `repro`'s order."""
-    total = 0
+    in `repro`'s order. DTensor leaves: each rank adds its shards' sums
+    (a replicated shard on one rank of its group only), and one all-reduce
+    over the mesh gives every rank the total, a plain 0-d tensor."""
+    first = next(iter(tree.values()))
+    if not isinstance(first, DTensor):
+        total = 0
+        for leaf in leaf_order(tree):
+            total = total + sum(torch.sum(torch.square(tree[n].float())) for n in leaf)
+        return torch.sqrt(total)
+    total = torch.zeros((), dtype=torch.float32, device=_local(first).device)
     for leaf in leaf_order(tree):
-        total = total + sum(torch.sum(torch.square(tree[n].float())) for n in leaf)
+        for n in leaf:
+            if _counted_once(tree[n]):
+                total = total + torch.sum(torch.square(_local(tree[n]).float()))
+    mesh = first.device_mesh
+    total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim).full_tensor()
     return torch.sqrt(total)
 
 
@@ -86,10 +118,11 @@ def clip_by_global_norm(tree: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor
 
 def init_opt_state(params: Tree) -> Dict:
     """{"step": int32 0, "m": zeros, "v": zeros}, the moments fp32 on each
-    parameter's device."""
+    parameter's device (DTensors of the parameter's layout under a mesh)."""
     dev = next(iter(params.values())).device
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {n: torch.zeros_like(p, dtype=torch.float32,
+                                    memory_format=torch.contiguous_format)
                 for n, p in params.items()}
     return {"step": torch.zeros((), dtype=torch.int32, device=dev), "m": zeros(),
             "v": zeros()}
@@ -100,11 +133,12 @@ def _groups(names: List[str], tree: Tree, cap: int) -> List[List[str]]:
     leaf is a run of its own)."""
     out, size = [[]], 0
     for n in names:
-        if out[-1] and size + tree[n].numel() > cap:
+        numel = _local(tree[n]).numel()
+        if out[-1] and size + numel > cap:
             out.append([])
             size = 0
         out[-1].append(n)
-        size += tree[n].numel()
+        size += numel
     return out
 
 
@@ -121,22 +155,26 @@ def adamw_update(params: Tree, grads: Tree, opt_state: Dict, c: AdamWConfig
     (params, opt_state, {"lr", "grad_norm"}) with the metrics as 0-d device
     tensors. The clipped gradients and the update are formed over runs of
     at most GROUP_ENTRIES entries: the same arithmetic per entry, with
-    temporaries bounded by a run instead of the whole model."""
+    temporaries bounded by a run instead of the whole model. DTensor
+    leaves are updated through their local shards (the gradients must have
+    their parameters' placements)."""
     gnorm = global_norm(grads)
     scale = torch.clamp(c.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    step = opt_state["step"] + 1
+    step = _local(opt_state["step"]) + 1
     lr = lr_schedule(c)(step)
     b1, b2 = c.b1, c.b2
     bc1 = 1 - torch.pow(b1, step.to(torch.float32))
     bc2 = 1 - torch.pow(b2, step.to(torch.float32))
 
     for names in _groups(list(params), params, GROUP_ENTRIES):
-        p = [params[n] for n in names]
+        p = [_local(params[n]) for n in names]
         # clip_by_global_norm's scaling, in the gradient's dtype, then fp32
-        g = [x.to(grads[n].dtype).float() for n, x in zip(
-            names, torch._foreach_mul([grads[n].float() for n in names], scale))]
-        m = [opt_state["m"][n] for n in names]
-        v = [opt_state["v"][n] for n in names]
+        gl = [_local(grads[n]) for n in names]
+        g = [x.to(y.dtype).float() for x, y in zip(
+            torch._foreach_mul([y.float() for y in gl], scale), gl)]
+        del gl
+        m = [_local(opt_state["m"][n]) for n in names]
+        v = [_local(opt_state["v"][n]) for n in names]
         pf = [x.float() for x in p]
         # m = b1 m + (1 - b1) g;  v = b2 v + ((1 - b2) g) g
         torch._foreach_mul_(m, b1)
@@ -153,5 +191,8 @@ def adamw_update(params: Tree, grads: Tree, opt_state: Dict, c: AdamWConfig
         new = torch._foreach_sub(pf, upd)
         for x, y in zip(p, new):
             x.copy_(y)
+    if isinstance(opt_state["step"], DTensor):
+        step = DTensor.from_local(step, opt_state["step"].device_mesh,
+                                  opt_state["step"].placements)
     opt_state["step"] = step
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}

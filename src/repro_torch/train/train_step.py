@@ -8,6 +8,12 @@ autograd, and updates them in place under no_grad (`repro`'s step is a pure
 function of a param tree). `batch` holds "tokens" and "labels" (B, S) on the
 model's device; metrics are 0-d device tensors, so a step does not wait for
 the card.
+
+Under a device mesh (`rt.mesh`) the parameters and the batch are DTensors;
+each gradient is redistributed to its parameter's placements (the data
+axes' all-reduce or reduce-scatter), microbatch gradients are summed as
+such DTensors in `grad_acc_dtype`, and AdamW updates the local shards. The
+metrics come back as plain 0-d tensors, the same on every rank.
 """
 from __future__ import annotations
 
@@ -15,20 +21,33 @@ import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Model, loss_fn
-from repro_torch.models.runtime import Runtime
+from repro_torch.models.runtime import Runtime, mesh_ops
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
 
 def _split_microbatches(batch: Dict, n_mb: int):
-    """Microbatch i holds rows [i B/n, (i+1) B/n) of every entry."""
+    """Microbatch i holds rows [i B/n, (i+1) B/n) of every entry (a DTensor
+    entry keeps its placements)."""
     B = next(iter(batch.values())).shape[0]
     if B % n_mb:
         raise ValueError(f"batch {B} does not split into {n_mb} microbatches")
-    return [{k: x[i * (B // n_mb):(i + 1) * (B // n_mb)] for k, x in batch.items()}
-            for i in range(n_mb)]
+
+    def rows(x, i):
+        mb = x[i * (B // n_mb):(i + 1) * (B // n_mb)]
+        return mb.redistribute(x.device_mesh, x.placements) if isinstance(x, DTensor) else mb
+    return [{k: rows(x, i) for k, x in batch.items()} for i in range(n_mb)]
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _plain_device(t: torch.Tensor) -> torch.device:
+    return t.to_local().device if isinstance(t, DTensor) else t.device
 
 
 def make_train_step(
@@ -51,13 +70,19 @@ def make_train_step(
             model.requires_grad_(True)
 
         def grads_of(mb):
-            loss, _ = loss_fn(model, mb)
-            return loss.detach(), torch.autograd.grad(loss, leaves)
+            with mesh_ops(rt):
+                loss, _ = loss_fn(model, mb)
+                grads = torch.autograd.grad(loss, leaves)
+            if rt.mesh is not None:     # the data axes' gradient reduction
+                grads = [g.redistribute(p.device_mesh, p.placements)
+                         for g, p in zip(grads, leaves)]
+            return _plain(loss.detach()), grads
 
         if microbatches > 1:
-            gsum = [torch.zeros(p.shape, dtype=rt.grad_acc_dtype, device=p.device)
+            gsum = [torch.zeros_like(p, dtype=rt.grad_acc_dtype,
+                                     memory_format=torch.contiguous_format)
                     for p in leaves]
-            lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+            lsum = torch.zeros((), dtype=torch.float32, device=_plain_device(leaves[0]))
             for mb in _split_microbatches(batch, microbatches):
                 loss, grads = grads_of(mb)
                 gsum = [a + g.to(rt.grad_acc_dtype) for a, g in zip(gsum, grads)]
@@ -78,8 +103,9 @@ def make_train_step(
 def make_eval_step(cfg: ModelConfig, rt: Runtime) -> Callable:
     @torch.no_grad()
     def eval_step(model: Model, batch: Dict) -> Dict:
-        loss, metrics = loss_fn(model, batch)
-        return {"loss": loss, **metrics}
+        with mesh_ops(rt):
+            loss, metrics = loss_fn(model, batch)
+        return {k: _plain(v) for k, v in {"loss": loss, **metrics}.items()}
     return eval_step
 
 
