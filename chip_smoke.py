@@ -10,9 +10,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
      at the serving shapes' instantiations: K1's bf16 forward at hd=64, 128
      and 256, the K2 kernels; nor at the training ones: K1's fp32 forward
      `flash_tf32_kernel` at hd 64 and its backward `flash_tf32_bwd_dq_kernel`
-     and `flash_tf32_bwd_dkdv_kernel` at (float, 64) and (bf16, 64); every
-     other instantiation printed), and, where the toolkit has cuobjdump,
-     the count of HMMA TF32 instructions in the split-TF32 kernels' SASS;
+     and `flash_tf32_bwd_dkdv_kernel` at hd 64; nor K1's bf16 backward
+     `flash_bf16_bwd_dq_kernel` and `flash_bf16_bwd_dkdv_kernel` at hd 64,
+     128 and 256, the latter with two and four groups; every other
+     instantiation printed), and, where the toolkit has cuobjdump, the count of
+     HMMA TF32 instructions in the split-TF32 kernels' SASS and of bf16
+     m16n8k16 ones (HMMA.16816.F32.BF16, and no TF32) in the bf16
+     backward's;
      K2's split-TF32 kernels (the fp32 forward's and the backward's, both
      dtypes) printed with their HMMA TF32 counts and held to no spills;
   3. the SSD-scan kernel against its plain PyTorch version on the card, at
@@ -146,9 +150,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
      designs; K1 and K2 launches over the phase (0). One JSON line
      ({"gnn_serving": ...}).
  19. training (K1 forward and backward on every layer): (a) K1's backward
-     (`flash_tf32_bwd_dq_kernel` with delta, then
-     `flash_tf32_bwd_dkdv_kernel`: split-TF32 products on the tensor cores
-     for fp32 and bf16) against its plain version
+     (fp32: `flash_tf32_bwd_dq_kernel` with delta, then
+     `flash_tf32_bwd_dkdv_kernel`, split-TF32 products on the tensor cores;
+     bf16: `flash_bf16_bwd_dq_kernel` with delta, then
+     `flash_bf16_bwd_dkdv_kernel`, bf16 products with P and dS in two bf16
+     terms) against its plain version
      `attention_bwd_ref` on the kernel's own o and lse, at the JAX flash
      tests' cases, ragged S = 200 with GQA 7, causal and window 50 at hd 64,
      128 and 256, a non-causal hd 256 one and the training shape (8, 256,
@@ -162,9 +168,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      scaled_dot_product_attention forward, forward + backward through
      autograd and its backward alone (the difference; timed only), and K1's
      forward + backward through `FlashAttentionFn` beside SDPA's; (c) `repro_torch.launch.train.main` for smollm-135m at full width
-     (random weights from seed 0, fp32, remat "block", batch 8 x 256): 40
-     steps, a checkpoint every 20, a failure injected before step 25: one
-     restart, a contiguous log, the final checkpoint at step 40, 60 K1
+     (random weights from seed 0, fp32, remat "block", batch 8 x 256): 16
+     steps, a checkpoint every 8, a failure injected before step 10: one
+     restart, a contiguous log, the final checkpoint at step 16, 60 K1
      forward and 30 backward calls per step run, the loss curve, and an
      uninterrupted run with every loss equal bit for bit; (d) the same
      weights cut to 2 layers trained 3 steps on the card and the CPU: losses
@@ -187,9 +193,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      and the plain versions, and `SSDScanFn`'s forward + backward through
      autograd; (c)
      `repro_torch.launch.train.main` for mamba2-370m at full width (random
-     weights from seed 0, fp32, remat "block", batch 8 x 256): 20 steps, a
-     checkpoint every 10, a failure injected before step 12: one restart, a
-     contiguous log, the final checkpoint at step 20, 96 K2 forward and 48
+     weights from seed 0, fp32, remat "block", batch 8 x 256): 10 steps, a
+     checkpoint every 5, a failure injected before step 7: one restart, a
+     contiguous log, the final checkpoint at step 10, 96 K2 forward and 48
      backward calls per step run, falling losses, and an uninterrupted run
      with every loss equal bit for bit; (d) zamba2-1.2b at full width
      through the launcher, 4 steps: 76 K2 forward, 38 backward, 6 K1
@@ -256,8 +262,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
  23. the mesh path: `python -m repro_torch.launch.train --data 2 --model 2
      --backend threaded`, a 2x2 ("data", "model") DeviceMesh of four ranks
      that are threads of this process sharing the card (torch's threaded
-     group: NCCL refuses two ranks on one device, and four gloo processes
-     on the card crashed in training), bf16, remat "block": (a)
+     group: NCCL refuses two ranks on one device, and gloo processes on
+     the card die in torch's functional all-gather), bf16, remat "block": (a)
      smollm-135m, (b) mamba2-370m at full width with their depth cut
      (MESH_PATHS says why), 5 steps of 8 x 256, (c) mixtral-8x7b at full
      width, 1 of 32 layers, 5 steps of 1 x 4096. Each run's K1 and K2
@@ -269,9 +275,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
      after); in (a) a `--fail-at` resume bit for bit;
      the collectives of one step on each rank by kind, its host ms,
      tokens/s and peak memory, one step's device time by kernel and idle
-     share. Then K1 and K2 forward and backward held against their plain
-     versions and timed at those local shapes (bf16), beside their bounds,
-     the plain versions and SDPA's (K1). One JSON line ({"mesh": ...}).
+     share (K1's backward by kernel: `flash_bf16_bwd_dq_kernel`,
+     `flash_bf16_bwd_dkdv_kernel`). Then K1 and K2 forward and backward held
+     against their plain versions and timed at those local shapes (bf16),
+     beside their bounds, the plain versions and SDPA's (K1), K1's backward
+     also beside the split-bf16 scheme's own floor; and K1 in bf16, held
+     and timed the same way, at four whole layers (K1_BF16_LAYERS:
+     mixtral-8x7b, gemma3-4b's local and global layers, whisper-small's
+     encoder). One JSON line ({"mesh": ...}).
 The line before the last is the kernels' JSON record: the SSD scan once per
 path and shape it ran (mamba2-370m's prefills; zamba2-1.2b's forward,
 prefills and replay) and the flash-attention kernel
@@ -289,6 +300,7 @@ sources beside it, the script fails before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import gc
 import json
 import os
@@ -1286,26 +1298,32 @@ def gnn_serving_path(torch, np):
     return out
 
 
-BWD_KERNEL = re.compile(r"\d(flash_tf32_bwd_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+BWD_KERNEL = re.compile(r"\d(flash_(?:tf32|bf16)_bwd_\w+?_kernel)ILi(\d+)E(?:Li(\d+)E)?")
 FWD_TF32 = re.compile(r"\d(" + K1_FP32 + r")ILi(\d+)E")
+# K1's bf16 backward (split-bf16 P and dS on bf16 mma.sync)
+K1_BWD_BF16 = ("flash_bf16_bwd_dq_kernel", "flash_bf16_bwd_dkdv_kernel")
 
 
 def bwd_name(mangled):
-    """"flash_tf32_bwd_*_kernel<dtype, hd>" of a mangled backward kernel, or None."""
+    """"flash_tf32_bwd_*_kernel<hd>", "flash_bf16_bwd_dq_kernel<hd>" or
+    "flash_bf16_bwd_dkdv_kernel<hd, groups>" of a mangled backward kernel,
+    or None."""
     k = BWD_KERNEL.search(mangled)
-    return k and f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, {k.group(3)}>"
+    return k and f"{k.group(1)}<{k.group(2)}{f', {k.group(3)}' if k.group(3) else ''}>"
 
 
 def k1_tf32_name(mangled):
-    """"<K1 split-TF32 kernel><template arguments>" of a mangled name, or None."""
+    """"<K1 split-TF32 or bf16-backward kernel><template arguments>" of a
+    mangled name, or None."""
     f = FWD_TF32.search(mangled)
     return f"{f.group(1)}<{f.group(2)}>" if f else bwd_name(mangled)
 
 
 def sass_hmma_counts():
-    """{split-TF32 kernel name: (HMMA instructions, of them TF32)} from
-    cuobjdump -sass of the built flash-attention and SSD-scan libraries
-    (K1's and K2's kernels), or None where the toolkit has no cuobjdump."""
+    """{kernel name: [HMMA instructions, of them TF32, of them bf16
+    m16n8k16 (HMMA.16816.F32.BF16)]} from cuobjdump -sass of the built
+    flash-attention and SSD-scan libraries (K1's split-TF32 and bf16
+    backward kernels, K2's), or None where the toolkit has no cuobjdump."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).parent / "cuobjdump"
     if not tool.exists():
@@ -1321,10 +1339,11 @@ def sass_hmma_counts():
             if m:
                 name = name_of(m.group(1))
                 if name:
-                    out[name] = [0, 0]
+                    out[name] = [0, 0, 0]
             elif name and "HMMA" in line:
                 out[name][0] += 1
                 out[name][1] += "TF32" in line
+                out[name][2] += "HMMA.16816.F32.BF16" in line
     return out
 
 
@@ -1521,24 +1540,24 @@ def train_path(torch, np):
     print("  (b) K1 at the training shape, fp32 (the trainer's dtype), device time")
     out, err_fwd = time_k1_train(torch, train_case)
 
-    print("  (c) python -m repro_torch.launch.train --arch smollm-135m at full width, "
-          "40 steps, a failure injected before step 25")
-    steps = 40
+    steps, every, fail = 16, 8, 10
+    print(f"  (c) python -m repro_torch.launch.train --arch smollm-135m at full width, {steps} "
+          f"steps, a checkpoint every {every}, a failure injected before step {fail}")
     base = ["--arch", cfg.name, "--batch", str(B), "--seq", str(S), "--steps", str(steps),
-            "--log-every", "5"]
+            "--log-every", "4"]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         flash_attention.launches = flash_attention_bwd.launches = 0
         flash_attention.launches_by_case, flash_attention_bwd.launches_by_case = {}, {}
         t0 = time.perf_counter()
-        res = launch_train.main(base + ["--ckpt-dir", f"{tmp}/a", "--ckpt-every", "20",
-                                        "--fail-at", "25"])
+        res = launch_train.main(base + ["--ckpt-dir", f"{tmp}/a", "--ckpt-every", str(every),
+                                        "--fail-at", str(fail)])
         torch.cuda.synchronize()
         wall_a = time.perf_counter() - t0
         n_f, n_b = flash_attention.launches, flash_attention_bwd.launches
         by_f = dict(flash_attention.launches_by_case)
         log = [m["step"] for m in res["metrics"]]
-        ran = steps + (25 - 20)            # steps 20-24 run again after the rollback
+        ran = steps + fail % every              # the steps after the rollback run again
         print(f"    {wall_a:.1f} s; restarts {res['restarts']}; checkpoints "
               f"{ckpt.list_checkpoints(f'{tmp}/a')}; K1 forward {n_f}, backward {n_b} "
               f"calls over {ran} steps ({n_f / ran:g} and {n_b / ran:g} per step)")
@@ -1550,7 +1569,7 @@ def train_path(torch, np):
               "60 K1 forward (remat: twice per layer) and 30 backward calls per step")
         losses = [m["loss"] for m in res["metrics"]]
         check(all(np.isfinite(losses)) and losses[-1] < losses[0], "finite, falling losses")
-        print("    loss curve: " + " ".join(f"{x:.4f}" for x in losses[::5])
+        print("    loss curve: " + " ".join(f"{x:.4f}" for x in losses[::4])
               + f" ... {losses[-1]:.4f}")
         t0 = time.perf_counter()
         clean = launch_train.main(base + ["--ckpt-dir", f"{tmp}/b", "--ckpt-every", "1000"])
@@ -1870,10 +1889,10 @@ def ssm_train_path(torch, np):
         for c in counters:
             c.launches, c.launches_by_case = 0, {}
 
-    steps, every, fail = 20, 10, 12
+    steps, every, fail = 10, 5, 7
     print(f"  (c) python -m repro_torch.launch.train --arch mamba2-370m at full width, {steps} "
           f"steps, a checkpoint every {every}, a failure injected before step {fail}")
-    base = ["--batch", str(B), "--seq", str(S), "--steps", str(steps), "--log-every", "5"]
+    base = ["--batch", str(B), "--seq", str(S), "--steps", str(steps), "--log-every", "2"]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ssm_train_")
     try:
         reset()
@@ -1897,7 +1916,7 @@ def ssm_train_path(torch, np):
               f"{2 * L} K2 forward (remat: twice per layer) and {L} backward calls per step")
         losses = [m["loss"] for m in res["metrics"]]
         check(all(np.isfinite(losses)) and losses[-1] < losses[0], "finite, falling losses")
-        print("    loss curve: " + " ".join(f"{x:.4f}" for x in losses[::5])
+        print("    loss curve: " + " ".join(f"{x:.4f}" for x in losses[::2])
               + f" ... {losses[-1]:.4f}")
         shutil.rmtree(f"{tmp}/a", ignore_errors=True)
         t0 = time.perf_counter()
@@ -2427,6 +2446,12 @@ def families_train_path(torch, np):
 MESH_PATHS = (("smollm-135m", 4, 8, 256, ()), ("mamba2-370m", 6, 8, 256, ()),
               ("mixtral-8x7b", 1, 1, 4096, ("--lr", "3e-4")))
 MESH_STEPS = 5
+# K1's bf16 backward beside SDPA's at whole layers, (B, S, Hq, Hkv, hd,
+# causal, window): the training cases of phase 21 in the mesh's dtype
+K1_BF16_LAYERS = {"mixtral-8x7b": (1, 4096, 32, 8, 128, True, 4096),
+                  "gemma3-4b local": (1, 4096, 8, 4, 256, True, 1024),
+                  "gemma3-4b global": (1, 4096, 8, 4, 256, True, None),
+                  "whisper-small encoder": (8, 1500, 12, 12, 64, False, None)}
 
 
 def cfg_family(arch):
@@ -2468,11 +2493,21 @@ def mesh_step_figures(torch, argv):
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     box = {}
     held = torch.cuda.memory_allocated()        # what earlier phases still hold
-    # the profiler runs in the main thread (as device_breakdown's does) while
-    # the ranks, threads of their own, run the profiled step between events
-    ready, go, done = threading.Event(), threading.Event(), threading.Event()
+    # the profiler starts and stops in the main thread (as device_breakdown's
+    # does) while every rank, a thread of its own, is parked at `gate` with
+    # the device idle: the profiled step runs between the two. A stop while
+    # ranks still launched or tore down killed the process twice (SIGSEGV,
+    # then SIGABRT in torch.profiler's stop_trace; ROADMAP queue 3)
+    gate = threading.Barrier(5, timeout=600)
 
     def rank_fn(rank):
+        try:
+            return rank_steps(rank)
+        except BaseException:
+            gate.abort()                        # wake the main thread and the other ranks
+            raise
+
+    def rank_steps(rank):
         torch.cuda.set_device(0)
         mesh = make_mesh_shape((2, 2), ("data", "model"), "cuda")
         rt = launch_train.mesh_runtime(cfg, args, mesh)
@@ -2495,10 +2530,11 @@ def mesh_step_figures(torch, argv):
         ms = (time.perf_counter() - t0) * 1e3
         with CollectiveCounter() as comm:       # a dispatch mode: not timed
             step(model, st, b)
+        torch.cuda.synchronize()
         if rank == 0:
             box["peak"] = torch.cuda.max_memory_allocated() - held
-            ready.set()
-            check(go.wait(timeout=300), "the profiler started")
+        gate.wait()                             # all parked: the profiler starts
+        gate.wait()                             # it has started
         dist.barrier()
         t0 = time.perf_counter()
         step(model, st, b)
@@ -2506,17 +2542,25 @@ def mesh_step_figures(torch, argv):
         dist.barrier()
         if rank == 0:
             box["wall"] = (time.perf_counter() - t0) * 1e3
-            done.set()
+        gate.wait()                             # all parked: the profiler stops
+        gate.wait()                             # it has stopped
         return comm.counts, ms
+
+    def meet(what):
+        try:
+            gate.wait()
+        except threading.BrokenBarrierError:
+            ranks.join()
+            check(False, f"the ranks {what}")
 
     ranks = threading.Thread(target=lambda: box.update(outs=run_threaded(4, rank_fn)))
     ranks.start()
-    while not ready.wait(timeout=1.0):
-        check(ranks.is_alive(), "the ranks reached the profiled step")
+    meet("reached the profiled step")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        go.set()
-        while not done.wait(timeout=1.0):
-            check(ranks.is_alive(), "the ranks ran the profiled step")
+        meet("saw the profiler start")
+        meet("ran the profiled step")
+        torch.cuda.synchronize()
+    meet("saw the profiler stop")
     ranks.join()
     check("outs" in box, "every rank ran its steps")
     box["prof"] = prof
@@ -2530,7 +2574,7 @@ def mesh_step_figures(torch, argv):
             launches[e.name] = launches.get(e.name, 0) + 1
     dev = sum(by_name.values())
     wall = box["wall"]
-    k1 = kernel_share(by_name, launches, ("flash_mma_kernel", "flash_tf32_bwd"))
+    k1 = kernel_share(by_name, launches, ("flash_mma_kernel",) + K1_BWD_BF16)
     k2 = kernel_share(by_name, launches, ("chunk_state", "state_pass", "chunk_scan", "ssd_bwd"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     fig = {"collectives_per_step_per_rank": counts, "step_ms": ms,
@@ -2540,6 +2584,7 @@ def mesh_step_figures(torch, argv):
                              "idle_share": 1 - dev / wall if wall else None,
                              "launches": sum(launches.values()),
                              "k1_ms": sum(v[0] for v in k1.values()),
+                             "k1_by_kernel": k1,
                              "k2_ms": sum(v[0] for v in k2.values()),
                              "top": [(k[:80], v, launches[k]) for k, v in top]}}
     print(f"    collectives per step and rank: {counts} ({args.layers} layers); step "
@@ -2547,22 +2592,27 @@ def mesh_step_figures(torch, argv):
           f"peak {fig['peak_gib_all_ranks']:.2f} GiB (all four ranks); one profiled step: host "
           f"{wall:.1f} ms, device busy {dev:.1f} ms "
           f"(idle {fig['profiled_step']['idle_share']:.1%}), {fig['profiled_step']['launches']} "
-          f"launches, K1 {fig['profiled_step']['k1_ms']:.2f} ms, K2 "
-          f"{fig['profiled_step']['k2_ms']:.2f} ms")
+          f"launches, K1 {fig['profiled_step']['k1_ms']:.2f} ms ("
+          + ", ".join(f"{k} {v:.3f} ms x{n}" for k, (v, n) in k1.items() if n)
+          + f"), K2 {fig['profiled_step']['k2_ms']:.2f} ms")
     for k, v in top:
         print(f"      {v:8.3f} ms x{launches[k]:<5d} {k[:90]}")
     return fig
 
 
 def time_k1_local(torch, case):
-    """K1 in bf16 at a rank's local shape of the mesh path: the forward held
-    to phase 7's long bf16 rule, the backward by `hold_flash_bwd`; device
-    time of the forward with its lse and of the backward beside the plain
-    versions', the bound (bf16 tensor-core peak or the bytes) and
+    """K1 in bf16 at a rank's local shape of the mesh path (or another bf16
+    case): the forward held to phase 7's long bf16 rule, the backward by
+    `hold_flash_bwd`; device time of the forward with its lse and of the
+    backward beside the plain versions', the bound (bf16 tensor-core peak
+    or the bytes; the backward's five products) and
     scaled_dot_product_attention's (default backend, K/V repeated, BHSD
-    copies made beforehand; the backward alone is forward + backward less
-    the forward). Returns ({"forward (with lse)": numbers, "backward": ...},
-    the forward's max|d|, the backward's)."""
+    copies made beforehand, a boolean mask where the window bites; the
+    backward alone is forward + backward less the forward); the backward
+    also beside the split-bf16 scheme's own tensor-core floor (ten bf16
+    products per kept (query, key) pair: S and dP in both kernels, P^T dO,
+    dS^T Q and dS K in two terms each). Returns ({"forward (with lse)":
+    numbers, "backward": ...}, the forward's max|d|, the backward's)."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
     B, S, Hq, Hkv, hd, causal, window = case
@@ -2589,10 +2639,14 @@ def time_k1_local(torch, case):
     qt, kt, vt = (t.repeat_interleave(r, 2).transpose(1, 2).contiguous().requires_grad_()
                   for t, r in ((q, 1), (k, rep), (v, rep)))
     dot = do.transpose(1, 2).contiguous()
-    check(window is None or window >= S, f"{case}: the window does not bite")
+    mask, is_causal = None, causal
+    if window is not None and window < S:
+        i = torch.arange(S, device="cuda")
+        mask, is_causal = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window), False
 
     def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                 is_causal=is_causal)
     lf_ms = graph_ms(torch, sdpa)
     lfb_ms = graph_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
     fwd_work = flash_work(case, "bf16")
@@ -2603,12 +2657,17 @@ def time_k1_local(torch, case):
             ("backward", b_ms, pb_ms, lfb_ms - lf_ms, flash_bwd_work(case, "bf16"))):
         t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS["bf16"] * 1e3
         bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-        print(f"    {name}: kernel {ms:.4f} ms; bound {bound:.5f} ms ({by}: {flops / 1e9:.3f} "
-              f"GFLOP at 989 TFLOP/s bf16, {nbytes / 1e6:.2f} MB at 3.35 TB/s; {bound / ms:.1%}); "
-              f"plain {p_ms:.4f} ms; scaled_dot_product_attention {l_ms:.4f} ms")
         out[name] = {"ms": ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
                      "library_ms": l_ms}
-    del q, k, v, o, lse, do, qt, kt, vt, dot
+        floor = ""
+        if name == "backward":
+            fl = out[name]["split_bf16_floor_ms"] = 2 * flops / PEAK_FLOPS["bf16"] * 1e3
+            floor = f"; split-bf16 floor {fl:.5f} ms ({fl / ms:.1%})"
+        print(f"    {name}: kernel {ms:.4f} ms; bound {bound:.5f} ms ({by}: {flops / 1e9:.3f} "
+              f"GFLOP at 989 TFLOP/s bf16, {nbytes / 1e6:.2f} MB at 3.35 TB/s; {bound / ms:.1%})"
+              f"{floor}; plain {p_ms:.4f} ms; scaled_dot_product_attention {l_ms:.4f} ms"
+              f"{' (boolean window mask)' if mask is not None else ''}")
+    del q, k, v, o, lse, do, qt, kt, vt, dot, mask
     torch.cuda.empty_cache()
     return out, err_fwd, err_bwd
 
@@ -2655,8 +2714,9 @@ def time_k2_local(torch, case):
 def mesh_path(torch, np):
     """Phase 23: training across a 2x2 ("data", "model") mesh of four ranks
     sharing the card, each a thread of this process on torch's threaded
-    group (fixed: NCCL refuses two ranks on one device, and four gloo
-    processes on the card crashed in training, PERF.md §6), through
+    group (fixed: NCCL refuses two ranks on one device, and gloo processes
+    sharing the card die in torch's functional all-gather, ROADMAP queue
+    3), through
     `python -m repro_torch.launch.train --data 2 --model 2 --backend
     threaded`, bf16 compute: (a) smollm-135m (4 of 30 layers) and (b)
     mamba2-370m (6 of 48) at full width, 5 steps of 8 x 256; (c)
@@ -2668,7 +2728,8 @@ def mesh_path(torch, np):
     resume bit for bit in (a),
     collectives per step by kind, step ms, tokens/s, peak memory and one
     profiled step; then K1 and K2 held against their plain versions and
-    timed at the local shapes. Returns the kernels record's entries."""
+    timed at the local shapes, and K1 at K1_BF16_LAYERS. Returns the
+    kernels record's entries."""
     import shutil
     import tempfile
 
@@ -2770,20 +2831,39 @@ def mesh_path(torch, np):
             shape = "(B, S, Hq, Hkv, hd, causal, window) = " + str(case) + ", bf16, per rank"
             parts = (("flash_attention", "forward (with lse)", e_f),
                      ("flash_attention_bwd", "backward", e_b))
+            cuda_kernels = {"flash_attention": ["flash_mma_kernel"],
+                            "flash_attention_bwd": list(K1_BWD_BF16)}
             src, tpu = ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:87")
         else:
             out, e_f, e_b = time_k2_local(torch, case)
             shape = "(B, S, H, P, N, chunk) = " + str(case) + ", bf16, per rank, strided views"
             parts = (("ssd_scan", "forward (with states)", e_f), ("ssd_scan_bwd", "backward", e_b))
+            cuda_kernels = {"ssd_scan": list(MMA_KERNELS[1:]),
+                            "ssd_scan_bwd": [k for k in K2_BWD_TF32 if k.endswith("bf16>")]
+                            + ["state_pass_kernel<true>"]}
             src, tpu = ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan/kernel.py:72")
         for fn_name, part, err in parts:
             n = by_fn.get(fn_name, (0, arch))[0]
+            nums = dict(out[part])
+            # a computed yardstick beside the bound: the figures carry it,
+            # the kernels record only what this run measured and bound_ms
+            floor = nums.pop("split_bf16_floor_ms", None)
+            if floor is not None:
+                figures.setdefault("k1_split_bf16_floor_ms", {})[f"{arch} shard"] = floor
             entries.append({"name": f"{fn_name}/{arch} mesh 2x2 rank shard", "route": "cuda",
                             "source": src, "replaces": tpu,
                             "path": f"{arch} training on a 2x2 mesh (phase 23)", "shape": shape,
-                            "launches": n, "max_abs_err": err, **out[part]})
+                            "cuda_kernels": cuda_kernels[fn_name], "launches": n,
+                            "max_abs_err": err, **nums})
+    print("  K1 in bf16 at whole layers of mixtral-8x7b, gemma3-4b and whisper-small (held and "
+          "timed; no run of this phase trains them in bf16)")
+    figures["k1_bf16_layers"] = {}
+    for name, case in K1_BF16_LAYERS.items():
+        print(f"  {name} {case}")
+        out, _, e_b = time_k1_local(torch, case)
+        figures["k1_bf16_layers"][name] = {"case": case, "backward_max_abs_err": e_b, **out}
     print(json.dumps({"mesh": figures}, default=float))
     return entries
 
@@ -3049,6 +3129,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
+    faulthandler.enable()           # a crash prints every thread's stack to stderr
     from repro_torch.configs import get_config
     from repro_torch.core import traces
     from repro_torch.kernels import _build
@@ -3090,30 +3171,40 @@ def main() -> int:
                   f"{K1_FP32}<64>") + MMA_KERNELS[1:]:
             check(k in report and report[k][1:3] == [0, 0], f"{k} has no spills")
     bwd = {k: v for log in logs.values() for k, v in ptxas_table(log, bwd_name).items()}
-    # the training path's instantiations (fp32, hd 64) and bf16's at hd 64
-    k1_train = [f"{K1_FP32}<64>"] + [f"flash_tf32_bwd_{part}_kernel<{dt}, 64>"
-                                    for dt in ("float", "bf16") for part in ("dq", "dkdv")]
+    # the training path's instantiations (fp32, hd 64), and the bf16
+    # backward's at hd 64, 128 and 256 (the mesh trains in bf16)
+    k1_train = [f"{K1_FP32}<64>"] + [f"flash_tf32_bwd_{part}_kernel<64>"
+                                    for part in ("dq", "dkdv")]
+    k1_bwd_bf16 = [f"{K1_BWD_BF16[0]}<{hd}>" for hd in (64, 128, 256)] + [
+        f"{K1_BWD_BF16[1]}<{hd}, {ng}>" for hd, ng in ((64, 2), (64, 4), (128, 2), (128, 4),
+                                                       (256, 2))]
     if bwd:
         print(f"  K1 backward: {len(bwd)} instantiations")
         for k, (regs, st, ld, smem) in sorted(bwd.items()):
             print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, "
                   f"{smem} bytes static shared memory (the tiles' is dynamic, set at launch)")
-        for k in k1_train[1:]:
+        for k in k1_train[1:] + k1_bwd_bf16:
             check(k in bwd and bwd[k][1:3] == [0, 0], f"{k} has no spills")
     hmma = sass_hmma_counts()
     if hmma is None:
         print("  cuobjdump not in the toolkit: SASS HMMA counts not read")
     else:
         print(f"  SASS of the split-TF32 kernels ({len(hmma)} instantiations): "
-              + ", ".join(f"{k} {n} HMMA ({n32} TF32)" for k, (n, n32) in hmma.items()
+              + ", ".join(f"{k} {n} HMMA ({n32} TF32)" for k, (n, n32, _) in hmma.items()
                           if k in k1_train))
         for k in k1_train:
-            check(hmma.get(k, [0, 0])[1] > 0, f"{k} runs TF32 mma on the tensor cores")
+            check(hmma.get(k, [0, 0, 0])[1] > 0, f"{k} runs TF32 mma on the tensor cores")
+        print("  SASS of K1's bf16 backward: "
+              + ", ".join(f"{k} {n} HMMA ({nb} HMMA.16816.F32.BF16, {n32} TF32)"
+                          for k, (n, n32, nb) in hmma.items() if k in k1_bwd_bf16))
+        for k in k1_bwd_bf16:
+            n, n32, nb = hmma.get(k, [0, 0, 0])
+            check(nb > 0 and n32 == 0, f"{k} runs bf16 m16n8k16 mma and no TF32 mma")
         print("  SASS of K2's split-TF32 kernels: "
-              + ", ".join(f"{k} {n} HMMA ({n32} TF32)" for k, (n, n32) in sorted(hmma.items())
+              + ", ".join(f"{k} {n} HMMA ({n32} TF32)" for k, (n, n32, _) in sorted(hmma.items())
                           if k in K2_TRAIN))
         for k in K2_TRAIN:
-            check(hmma.get(k, [0, 0])[1] > 0, f"{k} runs TF32 mma on the tensor cores")
+            check(hmma.get(k, [0, 0, 0])[1] > 0, f"{k} runs TF32 mma on the tensor cores")
     k2 = {k: v for log in logs.values() for k, v in ptxas_table(log, k2_name).items()}
     if k2:
         print("  K2's split-TF32 kernels and state passes (the fp32 forward's, the "

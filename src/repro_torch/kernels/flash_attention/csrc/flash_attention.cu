@@ -13,13 +13,15 @@
 // the output is cast to q's dtype. The TPU kernel has no backward; the
 // backward here is the gradient of the same function (see below).
 //
-// One forward kernel per dtype and one backward, chosen by a fixed rule on
-// the dtype (not a fallback; a failed launch is returned):
-//   * bfloat16 forward -> flash_mma_kernel, bf16 mma.sync m16n8k16;
-//   * float32 forward  -> flash_tf32_kernel, split-TF32 mma.sync m16n8k8;
-//   * backward, both dtypes -> flash_tf32_bwd_dq_kernel (dQ and delta), then
-//     flash_tf32_bwd_dkdv_kernel (dK, dV), split-TF32 mma.sync m16n8k8,
-//     templated on the type in memory.
+// One forward kernel and one backward pair per dtype, chosen by a fixed
+// rule on the dtype (not a fallback; a failed launch is returned):
+//   * bfloat16 forward  -> flash_mma_kernel, bf16 mma.sync m16n8k16;
+//   * bfloat16 backward -> flash_bf16_bwd_dq_kernel (dQ and delta), then
+//     flash_bf16_bwd_dkdv_kernel (dK, dV), bf16 mma.sync m16n8k16 with
+//     split-bf16 P and dS;
+//   * float32 forward   -> flash_tf32_kernel, split-TF32 mma.sync m16n8k8;
+//   * float32 backward  -> flash_tf32_bwd_dq_kernel, then
+//     flash_tf32_bwd_dkdv_kernel, split-TF32 mma.sync m16n8k8.
 //
 // What bounds them on this card: at the whisper encoder's shape (B=4,
 // S=1500, 12 heads of 64, bf16) the forward does 2.8e10 FLOP on 37 MB, so
@@ -46,9 +48,7 @@
 // head dim (S, dP), dQ and the forward's O += P V accumulate on the tensor
 // cores: at the training cases (1500-4096 keys) o keeps within 1e-5 of
 // max|o| of float64 and dQ within 6e-6 of max|dQ|, and IEEE adds in the
-// forward cost 8-32 % of its time. A bf16 value is exact in TF32 (lo = 0), so the
-// backward skips the products of a bf16 operand's lo term (`if constexpr`);
-// P and dS are fp32 and keep both terms. The forward's P V splits V in
+// forward cost 8-32 % of its time. The forward's P V splits V in
 // three terms (hi + mid + lo is exactly v): four products, so a row whose
 // only live key has p = 1 returns that key's v bit for bit, as IEEE fp32
 // does.
@@ -118,7 +118,51 @@
 // dS = P * (dP - delta): dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.
 // Deterministic, with no atomics: every gradient element is summed by one
 // lane in a fixed order, then the warps' sums are added in a fixed order,
-// so two runs give the same bits.
+// so two runs give the same bits. Both pairs do seven products where five
+// are needed (the dQ kernel recomputes S and dP): the fused alternative
+// writes dQ partials per key tile to memory for a second pass.
+//
+// bf16 backward (FlashAttention-2's dataflow on mma.sync m16n8k16). bf16
+// operands go from shared memory straight into the fragments: ldmatrix for
+// an operand read as stored, ldmatrix.trans for K in dQ = dS K and for Q
+// and dO in dK = dS^T Q and dV = P^T dO; nothing is widened. S and dP take
+// one product each, fp32 accumulation. P and dS stay fp32 in registers and
+// reach their next product as the A fragment of the accumulator's own
+// register layout (flash_mma_kernel's), split into hi = bf16(x) and lo =
+// bf16(x - hi): two products into one fp32 accumulator, ~16 bits of P and
+// dS, where one bf16 term (8 bits) misses the long bf16 rule at hundreds of
+// entries per gradient (tests/test_torch_flash_bf16_bwd.py). That is ten
+// bf16 product units per kept (query, key) pair against the function's
+// five. The sums stay in the tensor cores' fp32 accumulators (no IEEE adds
+// as mma3_sum): the long bf16 rule holds at every element of mixtral's
+// mesh shard, whose dK and dV sum 4 x 4096 query rows (PERF.md §6). Not
+// the tensor cores bound these kernels but the shared-memory traffic of
+// ldmatrix (each warp reads an item's Q and dO for its own 16 keys) and
+// instruction issue: without the lo products they run 5-11 % faster.
+//   * flash_bf16_bwd_dq_kernel: grid (B*Hq, ceil(Sq/64)), 4 warps of 16
+//     query rows, three blocks per SM up to hd = 64, two above. Q and dO
+//     are staged once and delta computed for the block's rows; the live
+//     K/V tiles (64 keys up to hd = 128, 16 above) are double-buffered by
+//     cp.async, S and dP recomputed, dQ += dS K.
+//   * flash_bf16_bwd_dkdv_kernel: grid (B*Hkv*NZ, ceil(Skv/BKV)), 8 warps
+//     in NG groups, one block per SM. A block owns BKV keys of one KV head
+//     (16 per warp of each group) and DN of its dK/dV columns (all up to
+//     hd = 128; above it two column blocks, NZ = 2, so the two fp32
+//     accumulators fit in registers). It walks the items (query head, query
+//     tile of 64 rows, 32 above hd = 64) over its rep query heads, so GQA's
+//     sum stays in the block: group g takes items g, g + NG, ..., each with
+//     its Q, dO, lse and delta double-buffered by cp.async, and the other
+//     groups hand their sums to group 0 in group order. S^T = K Q^T and
+//     dP^T = V dO^T come out in accumulator layout, so P^T and dS^T feed
+//     dV += P^T dO and dK += dS^T Q directly (K and V as A fragments in
+//     registers up to hd = 64). Key blocks are ordered longest causal walk
+//     first on grid y, each with a whole SM. Two groups of 4 warps (64
+//     keys) where the blocks fill the card; else four groups of 2 warps
+//     (32 keys), which halves the longest block's walk (smollm-135m's
+//     mesh shard: 48 blocks of 64 keys on 132 SMs).
+//   Both skip the tiles that the causal and window masks leave dead and
+//   mask element by element only in a tile that crosses a mask's edge.
+//
 //   * flash_tf32_bwd_dq_kernel: grid (B*Hq, ceil(Sq/64)), the forward's two
 //     groups over 64 query rows. It stages Q and dO once, computes delta
 //     for its rows (fp32; 8 rows per warp, written out for the next
@@ -137,9 +181,6 @@
 //     feed dV += P^T dO and dK += dS^T Q; warps 1-3 hand their sums to warp
 //     0, which adds them in warp order. At the training shape that is
 //     16 x 24 = 384 blocks on 132 SMs.
-//   The backward does seven products where five are needed (the dQ kernel
-//   recomputes S and dP): the fused alternative writes dQ partials per key
-//   tile to memory for a second pass.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -453,8 +494,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
@@ -463,29 +502,18 @@ __device__ __forceinline__ void store2(bf16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-// An operand fragment in two TF32 terms. EXACT: the values are TF32 already
-// (widened bf16), lo stays unset and its products are skipped.
+// An operand fragment in two TF32 terms.
 template <int N>
 struct Frag {
   uint32_t hi[N], lo[N];
 };
 
-template <bool EXACT, int N>
-__device__ __forceinline__ void set_frag(Frag<N>& f, int i, float x) {
-  if constexpr (EXACT) {
-    f.hi[i] = __float_as_uint(x);
-  } else {
-    split_tf32(x, f.hi[i], f.lo[i]);
-  }
-}
-
 // d += A B in split TF32: lo_a hi_b + hi_a lo_b + hi_a hi_b, small terms
-// first; the terms of an exact operand's lo are skipped. For the products
-// over the head dim (S = Q K^T, dP = dO V^T: hd / 8 k-steps).
-template <bool AX, bool BX>
+// first. For the products over the head dim (S = Q K^T, dP = dO V^T: hd / 8
+// k-steps).
 __device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
-  if constexpr (!AX) mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
-  if constexpr (!BX) mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
   mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
 }
 
@@ -498,10 +526,9 @@ __device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag
 // mma3. dQ (over the keys) keeps within the fp32 plain version's error
 // without it (3e-6 of max|dQ|), and its kernel has no registers to spare
 // at hd 64 (two blocks per SM) and 128.
-template <bool AX, bool BX>
 __device__ __forceinline__ void mma3_sum(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
   float p[4] = {0.f, 0.f, 0.f, 0.f};
-  mma3<AX, BX>(p, a, b);
+  mma3(p, a, b);
   d[0] += p[0]; d[1] += p[1]; d[2] += p[2]; d[3] += p[3];
 }
 
@@ -509,28 +536,28 @@ __device__ __forceinline__ void mma3_sum(float (&d)[4], const Frag<4>& a, const 
 // A, from a [row][k] tile at its (row 0, k 0): a0 (g, t), a1 (g+8, t),
 // a2 (g, t+4), a3 (g+8, t+4). With P = 4 mod 8 words (fp32: HD + 4; bf16:
 // HD + 8 halves) the 32 lanes' words g P + t fall on 32 banks.
-template <bool EXACT, int P, typename T>
-__device__ __forceinline__ void load_a(Frag<4>& f, const T* base, int g, int t) {
-  const T* p = base + g * P + t;
-  set_frag<EXACT>(f, 0, to_f(p[0]));
-  set_frag<EXACT>(f, 1, to_f(p[8 * P]));
-  set_frag<EXACT>(f, 2, to_f(p[4]));
-  set_frag<EXACT>(f, 3, to_f(p[8 * P + 4]));
+template <int P>
+__device__ __forceinline__ void load_a(Frag<4>& f, const float* base, int g, int t) {
+  const float* p = base + g * P + t;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[8 * P], f.hi[1], f.lo[1]);
+  split_tf32(p[4], f.hi[2], f.lo[2]);
+  split_tf32(p[8 * P + 4], f.hi[3], f.lo[3]);
 }
 // B, from an [n][k] tile (K for Q K^T): b0 (k t, n g), b1 (k t+4, n g)
-template <bool EXACT, int P, typename T>
-__device__ __forceinline__ void load_b_nk(Frag<2>& f, const T* base, int g, int t) {
-  const T* p = base + g * P + t;
-  set_frag<EXACT>(f, 0, to_f(p[0]));
-  set_frag<EXACT>(f, 1, to_f(p[4]));
+template <int P>
+__device__ __forceinline__ void load_b_nk(Frag<2>& f, const float* base, int g, int t) {
+  const float* p = base + g * P + t;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[4], f.hi[1], f.lo[1]);
 }
 // B, from a [k][n] tile (V for P V) whose k rows are permuted in pairs:
 // k-index t is row 2t, k-index t+4 is row 2t+1 (words 2t P + g: 32 banks)
-template <bool EXACT, int P, typename T>
-__device__ __forceinline__ void load_b_kn(Frag<2>& f, const T* base, int g, int t) {
-  const T* p = base + 2 * t * P + g;
-  set_frag<EXACT>(f, 0, to_f(p[0]));
-  set_frag<EXACT>(f, 1, to_f(p[P]));
+template <int P>
+__device__ __forceinline__ void load_b_kn(Frag<2>& f, const float* base, int g, int t) {
+  const float* p = base + 2 * t * P + g;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[P], f.hi[1], f.lo[1]);
 }
 // A, from an accumulator n-tile c (rows g, g+8; columns 2t, 2t+1) under the
 // same permutation: column 2t is k-index t, column 2t+1 is k-index t+4
@@ -659,12 +686,12 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int kd = 0; kd < HD / 8; ++kd) {
       Frag<4> a;
-      load_a<false, P>(a, qw + 8 * kd, g, t);
+      load_a<P>(a, qw + 8 * kd, g, t);
 #pragma unroll
       for (int j = 0; j < C::NS; ++j) {
         Frag<2> bk;
-        load_b_nk<false, P>(bk, kt + 8 * j * P + 8 * kd, g, t);
-        mma3<false, false>(s[j], a, bk);
+        load_b_nk<P>(bk, kt + 8 * j * P + 8 * kd, g, t);
+        mma3(s[j], a, bk);
       }
     }
 
@@ -787,49 +814,46 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // backward
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <int HD>
 struct BwdQCfg {
   static constexpr int BK = HD <= 128 ? 32 : 8;      // keys per tile
-  static constexpr int P = kPitch<T, HD>;
+  static constexpr int P = kPitch<float, HD>;
   static constexpr int NS = BK / 8, NO = HD / 8;
   static constexpr int TILE = BK * P;                // elements of a K or V tile
   // Q, dO; per group K and V double-buffered; the rows' delta
-  static constexpr size_t SMEM =
-      sizeof(T) * ((size_t)2 * kBQ * P + 8 * (size_t)TILE) + sizeof(float) * kBQ;
+  static constexpr size_t SMEM = sizeof(float) * ((size_t)2 * kBQ * P + 8 * (size_t)TILE + kBQ);
   // group 1's hand-over (dQ of 4 warps) over the Q, dO and K/V tiles
-  static_assert(sizeof(float) * 4 * 4 * NO * 32 <= sizeof(T) * (2 * kBQ * P + 8 * TILE),
-                "hand-over");
+  static_assert(4 * 4 * NO * 32 <= 2 * kBQ * P + 8 * TILE, "hand-over");
 };
 
 // dQ and delta of 64 query rows of one head. o, dout, dq contiguous
 // (B, Sq, Hq, HD); lse, delta (B, Hq, Sq).
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kPairThreads, HD <= 64 ? 2 : 1)
-flash_tf32_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ o,
-                         const T* __restrict__ dout, const float* __restrict__ lse,
-                         float* __restrict__ delta, T* __restrict__ dq, int Sq, int Skv, int Hq,
-                         int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss,
+flash_tf32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ o,
+                         const float* __restrict__ dout, const float* __restrict__ lse,
+                         float* __restrict__ delta, float* __restrict__ dq, int Sq, int Skv,
+                         int Hq, int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss,
                          int64_t vsb, int64_t vss, float scale, float scale_log2, int causal,
                          int window) {
-  using C = BwdQCfg<T, HD>;
-  constexpr bool X = sizeof(T) == 2;                 // bf16: exact in TF32
+  using C = BwdQCfg<HD>;
   constexpr int BK = C::BK, P = C::P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);            // [kBQ][P]
-  T* dos = qs + kBQ * P;                             // [kBQ][P]
+  float* qs = reinterpret_cast<float*>(smem_raw);   // [kBQ][P]
+  float* dos = qs + kBQ * P;                        // [kBQ][P]
   const int grp = threadIdx.x / kGroupThreads, gtid = threadIdx.x % kGroupThreads;
-  T* kv0 = dos + kBQ * P;                            // both groups' K/V region
-  T* ks = kv0 + grp * 4 * C::TILE;                   // this group's [2][BK][P]
-  T* vs = ks + 2 * C::TILE;                          // [2][BK][P]
+  float* kv0 = dos + kBQ * P;                       // both groups' K/V region
+  float* ks = kv0 + grp * 4 * C::TILE;              // this group's [2][BK][P]
+  float* vs = ks + 2 * C::TILE;                     // [2][BK][P]
   float* dl_s = reinterpret_cast<float*>(kv0 + 8 * C::TILE);   // [kBQ]
 
   const int warp = gtid / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // the most causal work first
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
   const int64_t oss = (int64_t)Hq * HD, osb = (int64_t)Sq * oss;
-  const T* kb = k + b * ksb + (int64_t)(h / rep) * HD;
-  const T* vb = v + b * vsb + (int64_t)(h / rep) * HD;
+  const float* kb = k + b * ksb + (int64_t)(h / rep) * HD;
+  const float* vb = v + b * vsb + (int64_t)(h / rep) * HD;
 
   int k_end = Skv;
   if (causal) k_end = min(k_end, min(q0 + kBQ, Sq));
@@ -837,13 +861,13 @@ flash_tf32_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_end = (k_end + BK - 1) / BK;
   const int t_first = k_begin / BK + grp;            // this group's tiles: t_first + 2 i
 
-  stage_tile<T, HD, kBQ, kPairThreads>(qs, q + b * qsb + (int64_t)h * HD, qss, q0, Sq,
+  stage_tile<float, HD, kBQ, kPairThreads>(qs, q + b * qsb + (int64_t)h * HD, qss, q0, Sq,
                                        threadIdx.x);
-  stage_tile<T, HD, kBQ, kPairThreads>(dos, dout + b * osb + (int64_t)h * HD, oss, q0, Sq,
+  stage_tile<float, HD, kBQ, kPairThreads>(dos, dout + b * osb + (int64_t)h * HD, oss, q0, Sq,
                                        threadIdx.x);
   if (t_first < t_end) {
-    stage_tile<T, HD, BK, kGroupThreads>(ks, kb, kss, t_first * BK, Skv, gtid);
-    stage_tile<T, HD, BK, kGroupThreads>(vs, vb, vss, t_first * BK, Skv, gtid);
+    stage_tile<float, HD, BK, kGroupThreads>(ks, kb, kss, t_first * BK, Skv, gtid);
+    stage_tile<float, HD, BK, kGroupThreads>(vs, vb, vss, t_first * BK, Skv, gtid);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -857,8 +881,8 @@ flash_tf32_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + r;
     float sum = 0.f;
     if (row < Sq) {
-      const T* orow = o + b * osb + (int64_t)row * oss + (int64_t)h * HD;
-      for (int d = lane; d < HD; d += 32) sum = fmaf(to_f(orow[d]), to_f(dos[r * P + d]), sum);
+      const float* orow = o + b * osb + (int64_t)row * oss + (int64_t)h * HD;
+      for (int d = lane; d < HD; d += 32) sum = fmaf(orow[d], dos[r * P + d], sum);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -877,8 +901,8 @@ flash_tf32_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l2[i] = row < Sq ? lse[((int64_t)b * Hq + h) * Sq + row] * kLog2e : 0.f;
   }
 
-  const T* qw = qs + 16 * warp * P;
-  const T* dw = dos + 16 * warp * P;
+  const float* qw = qs + 16 * warp * P;
+  const float* dw = dos + 16 * warp * P;
   float acc[C::NO][4];
 #pragma unroll
   for (int n = 0; n < C::NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -886,16 +910,16 @@ flash_tf32_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int tt = t_first, it = 0; tt < t_end; tt += 2, ++it) {
     const int buf = it & 1;
     if (tt + 2 < t_end) {
-      stage_tile<T, HD, BK, kGroupThreads>(ks + (buf ^ 1) * C::TILE, kb, kss, (tt + 2) * BK,
+      stage_tile<float, HD, BK, kGroupThreads>(ks + (buf ^ 1) * C::TILE, kb, kss, (tt + 2) * BK,
                                            Skv, gtid);
-      stage_tile<T, HD, BK, kGroupThreads>(vs + (buf ^ 1) * C::TILE, vb, vss, (tt + 2) * BK,
+      stage_tile<float, HD, BK, kGroupThreads>(vs + (buf ^ 1) * C::TILE, vb, vss, (tt + 2) * BK,
                                            Skv, gtid);
     }
     cp_async_commit();
     cp_async_wait<1>();             // tile tt has landed
     group_sync(grp);
-    const T* kt = ks + buf * C::TILE;
-    const T* vt = vs + buf * C::TILE;
+    const float* kt = ks + buf * C::TILE;
+    const float* vt = vs + buf * C::TILE;
 
     // S = Q K^T and dP = dO V^T
     float s[C::NS][4], dp[C::NS][4];
@@ -906,15 +930,15 @@ flash_tf32_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int kd = 0; kd < HD / 8; ++kd) {
       Frag<4> aq, ad;
-      load_a<X, P>(aq, qw + 8 * kd, g, t);
-      load_a<X, P>(ad, dw + 8 * kd, g, t);
+      load_a<P>(aq, qw + 8 * kd, g, t);
+      load_a<P>(ad, dw + 8 * kd, g, t);
 #pragma unroll
       for (int j = 0; j < C::NS; ++j) {
         Frag<2> bk, bv;
-        load_b_nk<X, P>(bk, kt + 8 * j * P + 8 * kd, g, t);
-        load_b_nk<X, P>(bv, vt + 8 * j * P + 8 * kd, g, t);
-        mma3<X, X>(s[j], aq, bk);
-        mma3<X, X>(dp[j], ad, bv);
+        load_b_nk<P>(bk, kt + 8 * j * P + 8 * kd, g, t);
+        load_b_nk<P>(bv, vt + 8 * j * P + 8 * kd, g, t);
+        mma3(s[j], aq, bk);
+        mma3(dp[j], ad, bv);
       }
     }
 
@@ -940,8 +964,8 @@ flash_tf32_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < C::NO; ++n) {
         Frag<2> bk;
-        load_b_kn<X, P>(bk, kt + 8 * j * P + 8 * n, g, t);
-        mma3<false, X>(acc[n], a, bk);
+        load_b_kn<P>(bk, kt + 8 * j * P + 8 * n, g, t);
+        mma3(acc[n], a, bk);
       }
     }
     group_sync(grp);                // tile tt's buffer may be refilled next
@@ -963,7 +987,7 @@ flash_tf32_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int row = i == 0 ? row_lo : row_hi;
     if (row >= Sq) continue;        // ragged q tail: not written
-    T* drow = dq + b * osb + (int64_t)row * oss + (int64_t)h * HD + 2 * t;
+    float* drow = dq + b * osb + (int64_t)row * oss + (int64_t)h * HD + 2 * t;
 #pragma unroll
     for (int n = 0; n < C::NO; ++n)
       store2(drow + 8 * n, (acc[n][2 * i] + red[(4 * n + 2 * i) * 32]) * scale,
@@ -973,41 +997,40 @@ flash_tf32_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int kKVThreads = 128;     // 4 warps: the 4 quarters of a query tile
 
-template <typename T, int HD>
+template <int HD>
 struct BwdKVCfg {
   static constexpr int BKV = 16;                     // keys per block
   static constexpr int BQ = HD <= 128 ? 64 : 32;     // query rows per tile: 4 quarters
   static constexpr int NQ = BQ / 32;                 // score n-tiles per warp
   static constexpr int DN = HD <= 64 ? HD : HD / 2;  // dK/dV columns per block
   static constexpr int NO = DN / 8;
-  static constexpr int P = kPitch<T, HD>;
+  static constexpr int P = kPitch<float, HD>;
   // K, V; Q, dO double-buffered
-  static constexpr size_t SMEM = sizeof(T) * (size_t)(2 * BKV + 4 * BQ) * P;
+  static constexpr size_t SMEM = sizeof(float) * (size_t)(2 * BKV + 4 * BQ) * P;
   // warps 1-3's hand-over (dK, dV) in the Q and dO buffers
-  static_assert(sizeof(float) * 3 * 2 * NO * 4 * 32 <= sizeof(T) * 4 * BQ * P, "hand-over");
+  static_assert(3 * 2 * NO * 4 * 32 <= 4 * BQ * P, "hand-over");
 };
 
 // dK and dV of 16 keys of one KV head, columns [d0, d0 + DN), summed over
 // the rep query heads of that KV head; warp w takes quarter w of each query
 // tile. dout contiguous (B, Sq, Hq, HD); dk, dv contiguous (B, Skv, Hkv,
 // HD); lse, delta (B, Hq, Sq).
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kKVThreads)
-flash_tf32_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const T* __restrict__ dout,
+flash_tf32_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
-                           T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int Hq,
-                           int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss,
+                           float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
+                           int Hq, int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss,
                            int64_t vsb, int64_t vss, float scale, float scale_log2, int causal,
                            int window) {
-  using C = BwdKVCfg<T, HD>;
-  constexpr bool X = sizeof(T) == 2;
+  using C = BwdKVCfg<HD>;
   constexpr int BKV = C::BKV, BQ = C::BQ, NQ = C::NQ, NO = C::NO, P = C::P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);            // [BKV][P]
-  T* vs = ks + BKV * P;                              // [BKV][P]
-  T* qs = vs + BKV * P;                              // [2][BQ][P]
-  T* dos = qs + 2 * BQ * P;                          // [2][BQ][P]
+  float* ks = reinterpret_cast<float*>(smem_raw);   // [BKV][P]
+  float* vs = ks + BKV * P;                         // [BKV][P]
+  float* qs = vs + BKV * P;                         // [2][BQ][P]
+  float* dos = qs + 2 * BQ * P;                     // [2][BQ][P]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int k0 = blockIdx.y * BKV;                   // the most causal work first
@@ -1016,9 +1039,9 @@ flash_tf32_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int d0 = blockIdx.z * C::DN;
   const int64_t oss = (int64_t)Hq * HD, osb = (int64_t)Sq * oss;
 
-  stage_tile<T, HD, BKV, kKVThreads>(ks, k + b * ksb + (int64_t)hk * HD, kss, k0, Skv,
+  stage_tile<float, HD, BKV, kKVThreads>(ks, k + b * ksb + (int64_t)hk * HD, kss, k0, Skv,
                                      threadIdx.x);
-  stage_tile<T, HD, BKV, kKVThreads>(vs, v + b * vsb + (int64_t)hk * HD, vss, k0, Skv,
+  stage_tile<float, HD, BKV, kKVThreads>(vs, v + b * vsb + (int64_t)hk * HD, vss, k0, Skv,
                                      threadIdx.x);
 
   // query rows that may attend to a key of this tile: [q_begin, q_end);
@@ -1034,9 +1057,9 @@ flash_tf32_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int items = rep * n_qt;
   auto stage_item = [&](int it, int buf) {
     const int h = hk * rep + it / n_qt, i0 = (qt_begin + it % n_qt) * BQ;
-    stage_tile<T, HD, BQ, kKVThreads>(qs + buf * BQ * P, q + b * qsb + (int64_t)h * HD, qss,
+    stage_tile<float, HD, BQ, kKVThreads>(qs + buf * BQ * P, q + b * qsb + (int64_t)h * HD, qss,
                                       i0, Sq, threadIdx.x);
-    stage_tile<T, HD, BQ, kKVThreads>(dos + buf * BQ * P, dout + b * osb + (int64_t)h * HD,
+    stage_tile<float, HD, BQ, kKVThreads>(dos + buf * BQ * P, dout + b * osb + (int64_t)h * HD,
                                       oss, i0, Sq, threadIdx.x);
   };
   if (items > 0) stage_item(0, 0);
@@ -1057,8 +1080,8 @@ flash_tf32_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const int h = hk * rep + it / n_qt;
     const int qb = (qt_begin + it % n_qt) * BQ + warp * (BQ / 4);   // the warp's first query
-    const T* qt = qs + buf * BQ * P + warp * (BQ / 4) * P;
-    const T* dt = dos + buf * BQ * P + warp * (BQ / 4) * P;
+    const float* qt = qs + buf * BQ * P + warp * (BQ / 4) * P;
+    const float* dt = dos + buf * BQ * P + warp * (BQ / 4) * P;
 
     // lse (log2 units) and delta of this lane's queries qb + 8 j + 2 t + c
     float l2[NQ][2], dl[NQ][2];
@@ -1082,15 +1105,15 @@ flash_tf32_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int kd = 0; kd < HD / 8; ++kd) {
       Frag<4> ak, av;
-      load_a<X, P>(ak, ks + 8 * kd, g, t);
-      load_a<X, P>(av, vs + 8 * kd, g, t);
+      load_a<P>(ak, ks + 8 * kd, g, t);
+      load_a<P>(av, vs + 8 * kd, g, t);
 #pragma unroll
       for (int j = 0; j < NQ; ++j) {
         Frag<2> bq, bd;
-        load_b_nk<X, P>(bq, qt + 8 * j * P + 8 * kd, g, t);
-        load_b_nk<X, P>(bd, dt + 8 * j * P + 8 * kd, g, t);
-        mma3<X, X>(st[j], ak, bq);
-        mma3<X, X>(dpt[j], av, bd);
+        load_b_nk<P>(bq, qt + 8 * j * P + 8 * kd, g, t);
+        load_b_nk<P>(bd, dt + 8 * j * P + 8 * kd, g, t);
+        mma3(st[j], ak, bq);
+        mma3(dpt[j], av, bd);
       }
     }
 
@@ -1117,10 +1140,10 @@ flash_tf32_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
         Frag<2> bd, bq;
-        load_b_kn<X, P>(bd, dt + 8 * j * P + d0 + 8 * n, g, t);
-        load_b_kn<X, P>(bq, qt + 8 * j * P + d0 + 8 * n, g, t);
-        mma3_sum<false, X>(adv[n], ap, bd);
-        mma3_sum<false, X>(adk[n], as, bq);
+        load_b_kn<P>(bd, dt + 8 * j * P + d0 + 8 * n, g, t);
+        load_b_kn<P>(bq, qt + 8 * j * P + d0 + 8 * n, g, t);
+        mma3_sum(adv[n], ap, bd);
+        mma3_sum(adk[n], as, bq);
       }
     }
     __syncthreads();                // item it's buffer may be refilled next
@@ -1160,6 +1183,492 @@ flash_tf32_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t off = ((int64_t)b * Skv + key) * Hkv * HD + (int64_t)hk * HD + d0 + 2 * t;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
+      store2(dk + off + 8 * n, adk[n][2 * i] * scale, adk[n][2 * i + 1] * scale);
+      store2(dv + off + 8 * n, adv[n][2 * i], adv[n][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 backward: bf16 products on the tensor cores, split-bf16 P and dS
+// ---------------------------------------------------------------------------
+
+// 4-byte global -> shared copy; src_bytes = 0 writes a zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
+// An m16n8k16 A fragment of 16 rows x 16 k from two adjacent accumulator
+// n-tiles (16 columns: the FlashAttention-2 register layout), each fp32
+// value split into hi + lo bf16 terms
+__device__ __forceinline__ void acc_to_a2(const float (&c0)[4], const float (&c1)[4],
+                                          uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split2(c0[0], c0[1], hi[0], lo[0]);
+  split2(c0[2], c0[3], hi[1], lo[1]);
+  split2(c1[0], c1[1], hi[2], lo[2]);
+  split2(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// d (two 8-wide n-tiles) += (hi + lo) b: the B fragments b[0..1] and b[2..3]
+// of an ldmatrix.x4, two products per n-tile into one fp32 accumulator
+__device__ __forceinline__ void mma_split(float (&d0)[4], float (&d1)[4], const uint32_t (&hi)[4],
+                                          const uint32_t (&lo)[4], const uint32_t (&b)[4]) {
+  mma_bf16(d0, hi, b[0], b[1]);
+  mma_bf16(d0, lo, b[0], b[1]);
+  mma_bf16(d1, hi, b[2], b[3]);
+  mma_bf16(d1, lo, b[2], b[3]);
+}
+
+// sum + the dot product of 8 bf16 pairs (16 bytes each), fp32
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float sum) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fx = __bfloat1622float2(x[i]), fy = __bfloat1622float2(y[i]);
+    sum = fmaf(fx.x, fy.x, sum);
+    sum = fmaf(fx.y, fy.y, sum);
+  }
+  return sum;
+}
+
+template <int HD>
+struct Bf16BwdQCfg {
+  static constexpr int NW = 4;                       // warps of 16 query rows
+  static constexpr int BQ = 16 * NW, THREADS = 32 * NW;
+  static constexpr int MIN_BLOCKS = HD <= 64 ? 3 : 2;   // blocks per SM
+  static constexpr int BK = HD <= 128 ? 64 : 16;     // keys per tile
+  static constexpr int P = kPitch<bf16, HD>;
+  static constexpr int KD = HD / 16, NS = BK / 8, NO = HD / 8;
+  static constexpr int TILE = BK * P;                // bf16 of a K or V tile
+  // Q, dO; K and V double-buffered; the rows' delta
+  static constexpr size_t SMEM =
+      sizeof(bf16) * ((size_t)2 * BQ * P + 4 * (size_t)TILE) + sizeof(float) * BQ;
+};
+
+// dQ and delta of BQ query rows of one head, a warp per 16 rows. o, dout,
+// dq contiguous (B, Sq, Hq, HD); lse, delta (B, Hq, Sq).
+template <int HD>
+__global__ void __launch_bounds__(Bf16BwdQCfg<HD>::THREADS, Bf16BwdQCfg<HD>::MIN_BLOCKS)
+flash_bf16_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ o,
+                         const bf16* __restrict__ dout, const float* __restrict__ lse,
+                         float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Skv,
+                         int Hq, int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss,
+                         int64_t vsb, int64_t vss, float scale, float scale_log2, int causal,
+                         int window) {
+  using C = Bf16BwdQCfg<HD>;
+  constexpr int BK = C::BK, P = C::P, BQ = C::BQ, NT = C::THREADS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);      // [BQ][P]
+  bf16* dos = qs + BQ * P;                           // [BQ][P]
+  bf16* ks = dos + BQ * P;                           // [2][BK][P]
+  bf16* vs = ks + 2 * C::TILE;                       // [2][BK][P]
+  float* dl_s = reinterpret_cast<float*>(vs + 2 * C::TILE);   // [BQ]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // the most causal work first
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
+  const int64_t oss = (int64_t)Hq * HD, osb = (int64_t)Sq * oss;
+  const bf16* kb = k + b * ksb + (int64_t)(h / rep) * HD;
+  const bf16* vb = v + b * vsb + (int64_t)(h / rep) * HD;
+
+  int k_end = Skv;
+  if (causal) k_end = min(k_end, min(q0 + BQ, Sq));
+  const int k_begin = window >= 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
+
+  stage_tile<bf16, HD, BQ, NT>(qs, q + b * qsb + (int64_t)h * HD, qss, q0, Sq, threadIdx.x);
+  stage_tile<bf16, HD, BQ, NT>(dos, dout + b * osb + (int64_t)h * HD, oss, q0, Sq,
+                               threadIdx.x);
+  if (t_begin < t_end) {
+    stage_tile<bf16, HD, BK, NT>(ks, kb, kss, t_begin * BK, Skv, threadIdx.x);
+    stage_tile<bf16, HD, BK, NT>(vs, vb, vss, t_begin * BK, Skv, threadIdx.x);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();                  // Q, dO and the first tiles have landed
+
+  // delta = rowsum(dO * O) of the warp's 16 rows, fp32: two lanes per row,
+  // each over half of the row's 16-byte chunks (all loads in flight at once)
+  {
+    constexpr int HALF = HD / 16;                    // chunks per lane
+    const int r = 16 * warp + lane / 2, row = q0 + r, c0 = (lane & 1) * HALF;
+    float sum = 0.f;
+    if (row < Sq) {
+      const bf16* orow = o + b * osb + (int64_t)row * oss + (int64_t)h * HD;
+#pragma unroll
+      for (int c = c0; c < c0 + HALF; ++c)
+        sum = dot8(*reinterpret_cast<const uint4*>(orow + 8 * c),
+                   *reinterpret_cast<const uint4*>(dos + r * P + 8 * c), sum);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((lane & 1) == 0) {
+      dl_s[r] = sum;
+      if (row < Sq) delta[((int64_t)b * Hq + h) * Sq + row] = sum;
+    }
+  }
+  __syncwarp();
+  const int wr0 = q0 + 16 * warp;                    // first row of the warp
+  const int row_lo = wr0 + lane / 4, row_hi = row_lo + 8;
+  const float dl[2] = {dl_s[16 * warp + lane / 4], dl_s[16 * warp + lane / 4 + 8]};
+  float l2[2];                      // the rows' lse in log2 units
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i == 0 ? row_lo : row_hi;
+    l2[i] = row < Sq ? lse[((int64_t)b * Hq + h) * Sq + row] * kLog2e : 0.f;
+  }
+
+  // per-lane offsets of the ldmatrix addresses (flash_mma_kernel's)
+  const int a_row = lane % 16, a_col = (lane / 16) * 8;                    // A, plain
+  const int b_row = (lane % 8) + (lane / 16) * 8, b_col = ((lane / 8) % 2) * 8;   // B, plain
+  const int t_row = (lane % 8) + ((lane / 8) % 2) * 8, t_col = (lane / 16) * 8;  // B, trans
+  const bf16* qw = qs + (16 * warp + a_row) * P + a_col;
+  const bf16* dw = dos + (16 * warp + a_row) * P + a_col;
+
+  float acc[C::NO][4];
+#pragma unroll
+  for (int n = 0; n < C::NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int tt = t_begin; tt < t_end; ++tt) {
+    const int buf = (tt - t_begin) & 1;
+    if (tt + 1 < t_end) {
+      stage_tile<bf16, HD, BK, NT>(ks + (buf ^ 1) * C::TILE, kb, kss, (tt + 1) * BK, Skv,
+                                   threadIdx.x);
+      stage_tile<bf16, HD, BK, NT>(vs + (buf ^ 1) * C::TILE, vb, vss, (tt + 1) * BK, Skv,
+                                   threadIdx.x);
+    }
+    cp_async_commit();              // possibly empty: keeps the group count uniform
+    cp_async_wait<1>();             // tile tt has landed
+    __syncthreads();
+    const bf16* kt = ks + buf * C::TILE;
+    const bf16* vt = vs + buf * C::TILE;
+
+    // S = Q K^T and dP = dO V^T, one bf16 product each (K and V are
+    // [key][d]: B fragments by plain ldmatrix)
+    float s[C::NS][4], dp[C::NS][4];
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < C::KD; ++kd) {
+      uint32_t aq[4], ad[4];
+      ldmatrix_x4(aq, qw + 16 * kd);
+      ldmatrix_x4(ad, dw + 16 * kd);
+#pragma unroll
+      for (int jj = 0; jj < C::NS / 2; ++jj) {
+        uint32_t bk[4], bv[4];
+        ldmatrix_x4(bk, kt + (16 * jj + b_row) * P + 16 * kd + b_col);
+        ldmatrix_x4(bv, vt + (16 * jj + b_row) * P + 16 * kd + b_col);
+        mma_bf16(s[2 * jj], aq, bk[0], bk[1]);
+        mma_bf16(s[2 * jj + 1], aq, bk[2], bk[3]);
+        mma_bf16(dp[2 * jj], ad, bv[0], bv[1]);
+        mma_bf16(dp[2 * jj + 1], ad, bv[2], bv[3]);
+      }
+    }
+
+    // dS = P (dP - delta), P = 2^(scale log2e s - lse log2e), masked 0, in
+    // fp32; element e of n-tile j: row (e < 2 ? row_lo : row_hi), key
+    // k0 + 8 j + 2 t + (e & 1). A tile inside every row's live range
+    // skips the mask.
+    const int k0 = tt * BK;
+    const bool need_mask = k0 + BK > Skv || wr0 + 16 > Sq || (causal && k0 + BK - 1 > wr0) ||
+                           (window >= 0 && k0 <= wr0 + 15 - window);
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + 8 * j + 2 * t + (e & 1), qp = e < 2 ? row_lo : row_hi;
+        float p = 0.f;
+        if (!need_mask || live(qp, kp, Sq, Skv, causal, window))
+          p = exp2_ftz(fmaf(s[j][e], scale_log2, -l2[e / 2]));
+        s[j][e] = p * (dp[j][e] - dl[e / 2]);
+      }
+
+    // dQ += (dS_hi + dS_lo) K: score n-tiles 2 kk and 2 kk + 1 are the A
+    // fragment of keys 16 kk .. 16 kk + 15; K [key][d] is read transposed
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t sh[4], sl[4];
+      acc_to_a2(s[2 * kk], s[2 * kk + 1], sh, sl);
+#pragma unroll
+      for (int dd = 0; dd < HD / 16; ++dd) {
+        uint32_t bk[4];
+        ldmatrix_x4_trans(bk, kt + (16 * kk + t_row) * P + 16 * dd + t_col);
+        mma_split(acc[2 * dd], acc[2 * dd + 1], sh, sl, bk);
+      }
+    }
+    __syncthreads();                // tile tt's buffer may be refilled next
+  }
+  cp_async_wait<0>();
+
+  // epilogue: one cast, ragged rows unwritten
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i == 0 ? row_lo : row_hi;
+    if (row >= Sq) continue;
+    bf16* drow = dq + b * osb + (int64_t)row * oss + (int64_t)h * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < C::NO; ++n)
+      store2(drow + 8 * n, acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+  }
+}
+
+constexpr size_t kSmemMax = 232448;                // shared memory a block can have
+
+// barrier over `threads` threads (a multiple of 32) under barrier id `id`
+// (0 is __syncthreads)
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads));
+}
+
+template <int HD, int NG>
+struct Bf16BwdKVCfg {
+  static constexpr int NW = 8 / NG;                  // warps per group
+  static constexpr int GT = 32 * NW;                 // threads per group
+  static constexpr int BKV = 16 * NW;                // keys per block: 16 per warp of a group
+  static constexpr int BQ = HD <= 64 ? 64 : 32;      // query rows per item
+  static constexpr bool KV_IN_REGS = HD <= 64;       // K and V as A fragments
+  static constexpr int NQ = BQ / 8;                  // S^T n-tiles per warp
+  // dK/dV columns per block: all up to hd = 128, above that the first of
+  // two column blocks takes 16 * ceil(hd / 32) (the other the rest), so the
+  // two fp32 accumulators fit in registers
+  static constexpr int DN = HD <= 128 ? HD : 16 * ((HD + 31) / 32);
+  static constexpr int NZ = (HD + DN - 1) / DN;      // column blocks
+  static constexpr int NO = DN / 8;
+  static constexpr int KD = HD / 16;
+  static constexpr int P = kPitch<bf16, HD>;
+  static constexpr int ITEM = BQ * P;                // bf16 of a Q or dO tile
+  // K, V; per group Q and dO double-buffered; per group lse and delta
+  // double-buffered
+  static constexpr size_t SMEM = sizeof(bf16) * ((size_t)2 * BKV * P + NG * 4 * (size_t)ITEM) +
+                                 sizeof(float) * NG * 4 * BQ;
+  // groups 1..NG-1 hand their dK, dV over the Q and dO buffers
+  static_assert(sizeof(float) * (NG - 1) * NW * 2 * NO * 4 * 32 <= sizeof(bf16) * NG * 4 * ITEM,
+                "hand-over");
+};
+
+// dK and dV of BKV keys of one KV head, columns [d0, d0 + DN), summed over
+// the rep query heads of that KV head. NG groups of NW = 8 / NG warps: warp
+// w of a group owns keys 16 w .. 16 w + 15 of the block; group g walks the
+// (query head, query tile) items g, g + NG, ..., each group with its own
+// double buffer and barrier, and groups 1..NG-1 hand their sums to group 0,
+// which adds them in group order. dout contiguous (B, Sq, Hq, HD); dk, dv
+// contiguous (B, Skv, Hkv, HD); lse, delta (B, Hq, Sq).
+template <int HD, int NG>
+__global__ void __launch_bounds__(kPairThreads, 1)
+flash_bf16_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv,
+                           int Hq, int rep, int64_t qsb, int64_t qss, int64_t ksb, int64_t kss,
+                           int64_t vsb, int64_t vss, float scale, float scale_log2, int causal,
+                           int window) {
+  using C = Bf16BwdKVCfg<HD, NG>;
+  constexpr int BKV = C::BKV, BQ = C::BQ, NQ = C::NQ, NO = C::NO, P = C::P, ITEM = C::ITEM;
+  constexpr int GT = C::GT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);      // [BKV][P]
+  bf16* vs = ks + BKV * P;                           // [BKV][P]
+  bf16* qd = vs + BKV * P;                           // the groups' Q and dO buffers
+  const int grp = threadIdx.x / GT, gtid = threadIdx.x % GT;
+  bf16* qs = qd + grp * 4 * ITEM;                    // this group's [2][BQ][P]
+  bf16* dos = qs + 2 * ITEM;                         // [2][BQ][P]
+  float* ld = reinterpret_cast<float*>(qd + NG * 4 * ITEM) + grp * 4 * BQ;   // [2][lse, delta][BQ]
+
+  const int warp = gtid / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int Hkv = Hq / rep;
+  const int z = blockIdx.x % C::NZ, bh = blockIdx.x / C::NZ;   // column blocks side by side
+  const int b = bh / Hkv, hk = bh % Hkv;
+  const int k0 = blockIdx.y * BKV;                   // the most causal work first
+  const int d0 = z * C::DN;
+  const int64_t oss = (int64_t)Hq * HD, osb = (int64_t)Sq * oss;
+
+  stage_tile<bf16, HD, BKV, kPairThreads>(ks, k + b * ksb + (int64_t)hk * HD, kss, k0, Skv,
+                                          threadIdx.x);
+  stage_tile<bf16, HD, BKV, kPairThreads>(vs, v + b * vsb + (int64_t)hk * HD, vss, k0, Skv,
+                                          threadIdx.x);
+
+  // query rows that may attend to a key of this block: [q_begin, q_end);
+  // the items are (query head, query tile), heads outermost
+  const int q_begin = causal ? k0 : 0;
+  long long q_end = Sq;
+  if (window >= 0) {
+    const long long last = (long long)min(k0 + BKV, Skv) - 1 + window;
+    q_end = last < q_end ? last : q_end;
+  }
+  const int qt_begin = q_begin / BQ;
+  const int n_qt = q_end > q_begin ? (int)((q_end + BQ - 1) / BQ) - qt_begin : 0;
+  const int items = rep * n_qt;
+  // Q, dO, lse and delta of item `it` into buffer `buf`, by this group's
+  // threads; rows at or past Sq are zero-filled
+  auto stage_item = [&](int it, int buf) {
+    const int h = hk * rep + it / n_qt, i0 = (qt_begin + it % n_qt) * BQ;
+    stage_tile<bf16, HD, BQ, GT>(qs + buf * ITEM, q + b * qsb + (int64_t)h * HD, qss, i0, Sq,
+                                 gtid);
+    stage_tile<bf16, HD, BQ, GT>(dos + buf * ITEM, dout + b * osb + (int64_t)h * HD, oss, i0,
+                                 Sq, gtid);
+    for (int j = gtid; j < 2 * BQ; j += GT) {
+      const int r = j % BQ;
+      const float* src = j < BQ ? lse : delta;
+      const bool ok = i0 + r < Sq;
+      cp_async4(ld + buf * 2 * BQ + j, ok ? src + ((int64_t)b * Hq + h) * Sq + i0 + r : src,
+                ok ? 4 : 0);
+    }
+  };
+  if (grp < items) stage_item(grp, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();                  // K, V (all groups' copies) and each group's first item
+
+  const int kw = 16 * warp;                          // the warp's first key in the block
+  const int key_lo = k0 + kw + g, key_hi = key_lo + 8;
+  const int a_row = lane % 16, a_col = (lane / 16) * 8;                    // A, plain
+  const int b_row = (lane % 8) + (lane / 16) * 8, b_col = ((lane / 8) % 2) * 8;   // B, plain
+  const int t_row = (lane % 8) + ((lane / 8) % 2) * 8, t_col = (lane / 16) * 8;  // B, trans
+  const bf16* kw_s = ks + (kw + a_row) * P + a_col;
+  const bf16* vw_s = vs + (kw + a_row) * P + a_col;
+  uint32_t kf[C::KV_IN_REGS ? C::KD : 1][4], vf[C::KV_IN_REGS ? C::KD : 1][4];
+  if constexpr (C::KV_IN_REGS) {
+#pragma unroll
+    for (int kd = 0; kd < C::KD; ++kd) {
+      ldmatrix_x4(kf[kd], kw_s + 16 * kd);
+      ldmatrix_x4(vf[kd], vw_s + 16 * kd);
+    }
+  }
+
+  float adk[NO][4], adv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+
+  for (int it = grp, i = 0; it < items; it += NG, ++i) {
+    const int buf = i & 1;
+    if (it + NG < items) stage_item(it + NG, buf ^ 1);
+    cp_async_commit();              // possibly empty: keeps the group count uniform
+    cp_async_wait<1>();             // item it has landed
+    bar_sync(grp + 1, GT);
+    const int qb = (qt_begin + it % n_qt) * BQ;      // the item's first query
+    const bf16* qt = qs + buf * ITEM;
+    const bf16* dt = dos + buf * ITEM;
+    const float* lt = ld + buf * 2 * BQ;             // lse, then delta
+    const float* dlt = lt + BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T, one bf16 product each: rows the
+    // warp's 16 keys, columns the item's BQ queries (Q and dO are
+    // [query][d]: B fragments by plain ldmatrix)
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < C::KD; ++kd) {
+      uint32_t ak[4], av[4];
+      if constexpr (C::KV_IN_REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ak[i] = kf[kd][i];
+          av[i] = vf[kd][i];
+        }
+      } else {
+        ldmatrix_x4(ak, kw_s + 16 * kd);
+        ldmatrix_x4(av, vw_s + 16 * kd);
+      }
+#pragma unroll
+      for (int jj = 0; jj < NQ / 2; ++jj) {
+        uint32_t bq[4], bd[4];
+        ldmatrix_x4(bq, qt + (16 * jj + b_row) * P + 16 * kd + b_col);
+        ldmatrix_x4(bd, dt + (16 * jj + b_row) * P + 16 * kd + b_col);
+        mma_bf16(st[2 * jj], ak, bq[0], bq[1]);
+        mma_bf16(st[2 * jj + 1], ak, bq[2], bq[3]);
+        mma_bf16(dpt[2 * jj], av, bd[0], bd[1]);
+        mma_bf16(dpt[2 * jj + 1], av, bd[2], bd[3]);
+      }
+    }
+
+    // P^T and dS^T in fp32; element e of n-tile j: key (e < 2 ? key_lo :
+    // key_hi), query qb + 8 j + 2 t + (e & 1). A tile inside every key's
+    // live range skips the mask.
+    const int kw0 = k0 + kw;
+    const bool need_mask = kw0 + 16 > Skv || qb + BQ > Sq || (causal && kw0 + 15 > qb) ||
+                           (window >= 0 && qb + BQ - 1 - window >= kw0);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float2 lv = *reinterpret_cast<const float2*>(lt + 8 * j + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(dlt + 8 * j + 2 * t);
+      const float l2[2] = {lv.x * kLog2e, lv.y * kLog2e}, dlc[2] = {dl.x, dl.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = e & 1, kp = e < 2 ? key_lo : key_hi, qp = qb + 8 * j + 2 * t + c;
+        float p = 0.f;
+        if (!need_mask || live(qp, kp, Sq, Skv, causal, window))
+          p = exp2_ftz(fmaf(st[j][e], scale_log2, -l2[c]));
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - dlc[c]);
+      }
+    }
+
+    // dV += (P^T_hi + P^T_lo) dO and dK += (dS^T_hi + dS^T_lo) Q over the
+    // item's queries, 16 per k-step (dO and Q read transposed)
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      acc_to_a2(st[2 * kk], st[2 * kk + 1], ph, pl);
+      acc_to_a2(dpt[2 * kk], dpt[2 * kk + 1], sh, sl);
+#pragma unroll
+      for (int dd = 0; dd < NO / 2; ++dd) {
+        if (d0 + 16 * dd >= HD) continue;            // the narrower column block
+        uint32_t bd[4], bq[4];
+        ldmatrix_x4_trans(bd, dt + (16 * kk + t_row) * P + d0 + 16 * dd + t_col);
+        mma_split(adv[2 * dd], adv[2 * dd + 1], ph, pl, bd);
+        ldmatrix_x4_trans(bq, qt + (16 * kk + t_row) * P + d0 + 16 * dd + t_col);
+        mma_split(adk[2 * dd], adk[2 * dd + 1], sh, sl, bq);
+      }
+    }
+    bar_sync(grp + 1, GT);          // item it's buffer may be refilled next
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // groups 1..NG-1 hand their sums to group 0, which adds them in group
+  // order (a fixed order)
+  constexpr int SLOT = 2 * NO * 4 * 32;              // floats of one warp's dK and dV
+  float* red = reinterpret_cast<float*>(qd) + lane;
+  if (grp > 0) {
+    float* mine = red + ((grp - 1) * C::NW + warp) * SLOT;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        mine[(n * 4 + e) * 32] = adk[n][e];
+        mine[((NO + n) * 4 + e) * 32] = adv[n][e];
+      }
+  }
+  __syncthreads();
+  if (grp > 0) return;
+#pragma unroll
+  for (int o = 1; o < NG; ++o) {
+    const float* other = red + ((o - 1) * C::NW + warp) * SLOT;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        adk[n][e] += other[(n * 4 + e) * 32];
+        adv[n][e] += other[((NO + n) * 4 + e) * 32];
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = i == 0 ? key_lo : key_hi;
+    if (key >= Skv) continue;
+    const int64_t off = ((int64_t)b * Skv + key) * Hkv * HD + (int64_t)hk * HD + d0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      if (d0 + 8 * n >= HD) continue;
       store2(dk + off + 8 * n, adk[n][2 * i] * scale, adk[n][2 * i + 1] * scale);
       store2(dv + off + 8 * n, adv[n][2 * i], adv[n][2 * i + 1]);
     }
@@ -1245,40 +1754,89 @@ struct BwdArgs {
   cudaStream_t st;
 };
 
-template <typename T, int HD>
+template <int HD>
 int launch_bwd(const BwdArgs& a) {
-  using CQ = BwdQCfg<T, HD>;
-  using CKV = BwdKVCfg<T, HD>;
+  using CQ = BwdQCfg<HD>;
+  using CKV = BwdKVCfg<HD>;
   static int attr_q = -1, attr_kv = -1;
-  cudaError_t e = raise_smem_limit(flash_tf32_bwd_dq_kernel<T, HD>, CQ::SMEM, attr_q);
+  cudaError_t e = raise_smem_limit(flash_tf32_bwd_dq_kernel<HD>, CQ::SMEM, attr_q);
   if (e != cudaSuccess) return (int)e;
-  e = raise_smem_limit(flash_tf32_bwd_dkdv_kernel<T, HD>, CKV::SMEM, attr_kv);
+  e = raise_smem_limit(flash_tf32_bwd_dkdv_kernel<HD>, CKV::SMEM, attr_kv);
   if (e != cudaSuccess) return (int)e;
-  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
-          *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
+  const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k),
+          *v = static_cast<const float*>(a.v), *dout = static_cast<const float*>(a.dout);
   const float scale_log2 = log2_scale(a.scale);
   // query (key) tiles on y: the blocks with the most causal work start first
-  flash_tf32_bwd_dq_kernel<T, HD><<<dim3(a.B * a.Hq, (a.Sq + kBQ - 1) / kBQ), kPairThreads,
-                                    CQ::SMEM, a.st>>>(
-      q, k, v, static_cast<const T*>(a.o), dout, a.lse, a.delta, static_cast<T*>(a.dq), a.Sq,
-      a.Skv, a.Hq, a.rep, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, scale_log2,
+  flash_tf32_bwd_dq_kernel<HD><<<dim3(a.B * a.Hq, (a.Sq + kBQ - 1) / kBQ), kPairThreads,
+                                 CQ::SMEM, a.st>>>(
+      q, k, v, static_cast<const float*>(a.o), dout, a.lse, a.delta, static_cast<float*>(a.dq),
+      a.Sq, a.Skv, a.Hq, a.rep, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, scale_log2,
       a.causal, a.window);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_tf32_bwd_dkdv_kernel<T, HD><<<dim3(a.B * (a.Hq / a.rep),
-                                           (a.Skv + CKV::BKV - 1) / CKV::BKV, HD / CKV::DN),
-                                      kKVThreads, CKV::SMEM, a.st>>>(
-      q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Skv,
+  flash_tf32_bwd_dkdv_kernel<HD><<<dim3(a.B * (a.Hq / a.rep),
+                                        (a.Skv + CKV::BKV - 1) / CKV::BKV, HD / CKV::DN),
+                                   kKVThreads, CKV::SMEM, a.st>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.Sq,
+      a.Skv, a.Hq, a.rep, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, scale_log2,
+      a.causal, a.window);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 dK/dV kernel with NG groups: the smem attribute once per device
+template <int HD, int NG>
+cudaError_t launch_dkdv_bf16(const BwdArgs& a, float scale_log2) {
+  using C = Bf16BwdKVCfg<HD, NG>;
+  static int attr_dev = -1;
+  const cudaError_t e = raise_smem_limit(flash_bf16_bwd_dkdv_kernel<HD, NG>, C::SMEM, attr_dev);
+  if (e != cudaSuccess) return e;
+  flash_bf16_bwd_dkdv_kernel<HD, NG><<<dim3(a.B * (a.Hq / a.rep) * C::NZ,
+                                            (a.Skv + C::BKV - 1) / C::BKV),
+                                       kPairThreads, C::SMEM, a.st>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Sq, a.Skv, a.Hq, a.rep, a.qsb,
+      a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, scale_log2, a.causal, a.window);
+  return cudaGetLastError();
+}
+
+template <int HD>
+int launch_bwd_bf16(const BwdArgs& a) {
+  using CQ = Bf16BwdQCfg<HD>;
+  static int attr_q = -1;
+  cudaError_t e = raise_smem_limit(flash_bf16_bwd_dq_kernel<HD>, CQ::SMEM, attr_q);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const float scale_log2 = log2_scale(a.scale);
+  // query tiles on y: the blocks with the most causal work start first
+  flash_bf16_bwd_dq_kernel<HD><<<dim3(a.B * a.Hq, (a.Sq + CQ::BQ - 1) / CQ::BQ), CQ::THREADS,
+                                 CQ::SMEM, a.st>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
+      static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dq), a.Sq, a.Skv,
       a.Hq, a.rep, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, scale_log2, a.causal,
       a.window);
-  return (int)cudaGetLastError();
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // key blocks of 64 keys (two groups of 4 warps) when they fill the card,
+  // else of 32 (four groups of 2 warps, where their buffers fit in shared
+  // memory): twice the blocks, each group walking a quarter of the items
+  using C2 = Bf16BwdKVCfg<HD, 2>;
+  const long long blocks = (long long)a.B * (a.Hq / a.rep) * C2::NZ * ((a.Skv + 63) / 64);
+  if constexpr (Bf16BwdKVCfg<HD, 4>::SMEM <= kSmemMax) {
+    if (blocks < sms) return (int)launch_dkdv_bf16<HD, 4>(a, scale_log2);
+  }
+  return (int)launch_dkdv_bf16<HD, 2>(a, scale_log2);
 }
 
 template <int HD>
 struct Bwd {
   static int run(int dtype, const BwdArgs& a) {
-    if (dtype == 0) return launch_bwd<float, HD>(a);
-    if (dtype == 1) return launch_bwd<bf16, HD>(a);
+    if (dtype == 0) return launch_bwd<HD>(a);
+    if (dtype == 1) return launch_bwd_bf16<HD>(a);
     return (int)cudaErrorInvalidValue;
   }
 };
@@ -1335,8 +1893,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 // causal, window and dtype): q, k, v with the forward's strides; o, dout and
 // dq (B, Sq, Hq, hd), dk and dv (B, Skv, Hkv, hd) contiguous in the dtype,
 // dout 16-byte aligned; lse (the forward's) and delta (scratch) fp32
-// contiguous (B, Hq, Sq). Two launches on `stream`: flash_tf32_bwd_dq_kernel
-// (dq, and delta for the next), then flash_tf32_bwd_dkdv_kernel. Requires
+// contiguous (B, Hq, Sq). Two launches on `stream`: float32
+// flash_tf32_bwd_dq_kernel (dq, and delta for the next), then
+// flash_tf32_bwd_dkdv_kernel; bfloat16 flash_bf16_bwd_dq_kernel, then
+// flash_bf16_bwd_dkdv_kernel. Requires
 // Sq, Skv >= 1, Skv <= 16 * 65535 and the forward's limits. Returns the
 // first CUDA error, else cudaGetLastError().
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,

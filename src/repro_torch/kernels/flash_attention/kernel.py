@@ -10,19 +10,21 @@ contiguous, as they are after a reshape of a projection).
 `flash_attention.launches_by_case` counts them by call, keyed
 (B, Sq, Hq, Hkv, hd, causal, window).
 
-`flash_attention_bwd` is the backward (`flash_tf32_bwd_dq_kernel`, which
-also computes delta, then `flash_tf32_bwd_dkdv_kernel`, split-TF32 products
-on the tensor cores for both dtypes); its `launches` and `launches_by_case`
-count wrapper calls, two CUDA launches each. `ops.FlashAttentionFn` joins
-the two for autograd.
+`flash_attention_bwd` is the backward, two CUDA launches per wrapper call
+(a dQ kernel, which also computes delta, then a dK/dV kernel); its
+`launches` and `launches_by_case` count wrapper calls. `ops.FlashAttentionFn`
+joins the two for autograd.
 
-The dtype picks the forward kernel, by a fixed rule and not as a fallback:
-bfloat16 goes to `flash_mma_kernel` (bf16 products on the tensor cores),
-float32 to `flash_tf32_kernel` (each fp32 operand split into two TF32
-terms, three tensor-core products per fp32 one: as close to the function
-as IEEE fp32). Every kernel stages its tiles by 16-byte cp.async, so q, k,
-v need 16-byte aligned pointers and batch and row strides in both dtypes,
-or the wrapper raises.
+The dtype picks the kernels, by a fixed rule and not as a fallback:
+bfloat16 goes to `flash_mma_kernel` forward and `flash_bf16_bwd_dq_kernel`
++ `flash_bf16_bwd_dkdv_kernel` backward (bf16 products on the tensor cores,
+P and dS fed to their products as two bf16 terms each), float32 to
+`flash_tf32_kernel` forward and `flash_tf32_bwd_dq_kernel` +
+`flash_tf32_bwd_dkdv_kernel` backward (each fp32 operand split into two
+TF32 terms, three tensor-core products per fp32 one: as close to the
+function as IEEE fp32). Every kernel stages its tiles by 16-byte cp.async,
+so q, k, v need 16-byte aligned pointers and batch and row strides in both
+dtypes, or the wrapper raises.
 """
 from __future__ import annotations
 
@@ -156,11 +158,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                          f"{tuple(lse.shape)} {lse.dtype}")
     if o.device != q.device or do.device != q.device or lse.device != q.device:
         raise ValueError("flash_attention_bwd: all inputs must be on one device")
-    # the kernels read o, do and lse as contiguous, do by cp.async; autograd's
-    # do may be a view (a copy makes it contiguous and aligned)
+    # the kernels read o, do and lse as contiguous, do by cp.async and the
+    # bf16 o by 16-byte loads; autograd's do may be a view (a copy makes it
+    # contiguous and aligned)
     o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
     if not _aligned(do):
         do = do.clone()
+    if not _aligned(o):
+        o = o.clone()
     dq = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Skv, Hkv, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)

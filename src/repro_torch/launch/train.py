@@ -40,7 +40,8 @@ Returns the supervisor's dict ("params" is the model).
 the CPU with `--device cpu`), or one thread each with `--backend threaded`
 (torch's in-process group: ranks that share one card). The backend is NCCL
 on the card and gloo on the CPU unless `--backend` says otherwise; NCCL
-with more ranks than cards is refused. As in `repro`'s launcher the mesh
+with more ranks than cards is refused, and so is gloo on the card (its
+functional all-gather on CUDA tensors crashes torch 2.11's gloo ranks). As in `repro`'s launcher the mesh
 computes in bf16 and sets `mesh_axes` (and, as `repro`'s dry-run runtime,
 the MoE dispatch buffer's capacity over the data axes); parameters, AdamW
 state and batches
@@ -136,8 +137,16 @@ def main(argv=None):
         if world > cards:
             raise SystemExit(f"--backend nccl needs a card per rank: the mesh has "
                              f"{world} ranks and this host {cards} card(s); NCCL refuses "
-                             "two ranks on one device. Use --backend gloo (processes) "
-                             "or --backend threaded (threads) to share a card")
+                             "two ranks on one device. Use --backend threaded (threads) "
+                             "to share a card")
+    if backend == "gloo" and on_card:
+        raise SystemExit("--backend gloo is refused on the card: gloo processes sharing "
+                         "cuda:0 die with SIGSEGV in torch's functional all-gather "
+                         "(torch.distributed._functional_collectives.all_gather_tensor, "
+                         "then wait_tensor, the call DTensor makes; reproduced with no "
+                         "code of this package by `python3 scripts/mesh_backend_probe.py "
+                         "--functional` under torch 2.11.0+cu128). Use --backend threaded "
+                         "(threads sharing a card) or nccl (a card per rank)")
     if backend == "threaded":
         threads = torch.get_num_threads()
         if not on_card:     # the host's cores shared out among the ranks

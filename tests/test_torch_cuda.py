@@ -390,30 +390,62 @@ def test_fp32_kernel_raises_on_misaligned_input(cuda, where):
 @pytest.mark.parametrize("dname", ["fp32", "bf16"])
 @pytest.mark.parametrize("hd", MMA_HDS)
 def test_flash_backward_at_every_head_dim(cuda, hd, dname):
-    """The split-TF32 backward at every head-dim class (dK/dV columns split
-    in two blocks above hd = 64, 16-key dQ tiles above 128), ragged S, GQA 7,
-    causal plus window, against attention_bwd_ref on the kernel's own o and
-    lse under chip_smoke.py's long rules (fp32 |d| <= 1e-4 max|ref|; bf16
-    |d| <= 1e-2 |ref| + 1e-4 max|ref|), two runs bit for bit."""
+    """The backward at every head-dim class (fp32: the split-TF32 kernels,
+    dK/dV columns split in two blocks above hd = 64, 16-key dQ tiles above
+    128; bf16: the split-bf16 kernels, dK/dV columns split in two blocks
+    above hd = 128), ragged S, GQA 7, causal plus window, against
+    attention_bwd_ref on the kernel's own o and lse under chip_smoke.py's
+    long rules (fp32 |d| <= 1e-4 max|ref|; bf16 |d| <= 1e-2 |ref| + 1e-4
+    max|ref|), two runs bit for bit. Two batch sizes: the bf16 dK/dV kernel
+    runs four groups over 32 keys where its 64-key blocks are fewer than
+    the SMs (B = 2: 8 or 16 blocks) and two groups over 64 keys where they
+    fill the card (B = 34: 136 or 272 blocks)."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     dtype = torch.float32 if dname == "fp32" else torch.bfloat16
-    B, S, Hq, Hkv = 2, 200, 7, 1
-    q, k, v = _qkv(B, S, S, Hq, Hkv, hd, dtype, cuda)
-    do = _qkv(B, S, S, Hq, Hkv, hd, dtype, cuda, seed=1)[0]
-    o, lse = flash_attention(q, k, v, causal=True, window=50, return_lse=True)
-    grads = flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=50)
-    again = flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=50)
+    S, Hq, Hkv = 200, 7, 1
+    for B in (2, 34):
+        q, k, v = _qkv(B, S, S, Hq, Hkv, hd, dtype, cuda)
+        do = _qkv(B, S, S, Hq, Hkv, hd, dtype, cuda, seed=1)[0]
+        o, lse = flash_attention(q, k, v, causal=True, window=50, return_lse=True)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=50)
+        again = flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=50)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+        want = attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=50)
+        for g, w in zip(grads, want):
+            w, err = w.float(), (g.float() - w.float()).abs()
+            assert g.dtype == dtype and torch.isfinite(g).all()
+            if dname == "fp32":
+                assert err.max() <= 1e-4 * w.abs().max()
+            else:
+                assert bool((err <= 1e-2 * w.abs() + 1e-4 * w.abs().max()).all())
+
+
+@pytest.mark.gpu
+def test_bf16_backward_at_the_mixtral_mesh_shard(cuda):
+    """The bf16 backward (`flash_bf16_bwd_dq_kernel`, then
+    `flash_bf16_bwd_dkdv_kernel`) at mixtral-8x7b's shard of the 2x2 mesh
+    (1, 4096, 16/4 heads of 128, causal): 4096-long sums over the keys and,
+    for dK and dV, over 4 x 4096 query rows, against attention_bwd_ref on
+    the kernel's own o and lse under the long bf16 rule, two runs bit for
+    bit."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    q, k, v = _qkv(1, 4096, 4096, 16, 4, 128, torch.bfloat16, cuda)
+    do = _qkv(1, 4096, 4096, 16, 4, 128, torch.bfloat16, cuda, seed=1)[0]
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    b0 = flash_attention_bwd.launches
+    grads = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == b0 + 2
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
-    want = attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=50)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=True)
     for g, w in zip(grads, want):
         w, err = w.float(), (g.float() - w.float()).abs()
-        assert g.dtype == dtype and torch.isfinite(g).all()
-        if dname == "fp32":
-            assert err.max() <= 1e-4 * w.abs().max()
-        else:
-            assert bool((err <= 1e-2 * w.abs() + 1e-4 * w.abs().max()).all())
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        assert bool((err <= 1e-2 * w.abs() + 1e-4 * w.abs().max()).all())
 
 
 @pytest.mark.gpu

@@ -66,3 +66,13 @@ def test_mesh_launcher_refuses_what_it_cannot_run(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "8")
     with pytest.raises(SystemExit, match="multi-host launch is not supported"):
         launch_train.main(["--reduced", "--device", "cpu", "--data", "2", "--model", "2"])
+
+
+def test_mesh_launcher_refuses_gloo_on_the_card():
+    """Gloo processes sharing a card die with SIGSEGV in torch's functional
+    all-gather (scripts/mesh_backend_probe.py --functional): the launcher
+    refuses the pair before it starts a process or touches a card, and
+    names the backend that works."""
+    with pytest.raises(SystemExit, match=r"functional all-gather.*--backend threaded"):
+        launch_train.main(["--reduced", "--device", "cuda", "--data", "2", "--model", "2",
+                           "--backend", "gloo", "--steps", "1"])
