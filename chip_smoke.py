@@ -8,7 +8,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
   2. build: every CUDA source of the port, compiled with nvcc, timed, with
      the registers and spills of every tensor-core kernel (none may spill
      at the serving shapes' instantiations: K1's bf16 forward at hd=64, 128
-     and 256, the K2 kernels; nor at the training ones: K1's fp32 forward
+     and 256, `flash_wgmma_kernel` with one, two and three consumer
+     warpgroups, whose wgmma products ptxas must not serialize, the K2
+     kernels; nor at the training ones: K1's fp32 forward
      `flash_tf32_kernel` at hd 64 and its backward `flash_tf32_bwd_dq_kernel`
      and `flash_tf32_bwd_dkdv_kernel` at hd 64; nor K1's bf16 backward
      `flash_bf16_bwd_dq_kernel` and `flash_bf16_bwd_dkdv_kernel` at hd 64,
@@ -16,7 +18,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      instantiation printed), and, where the toolkit has cuobjdump, the count of
      HMMA TF32 instructions in the split-TF32 kernels' SASS and of bf16
      m16n8k16 ones (HMMA.16816.F32.BF16, and no TF32) in the bf16
-     backward's;
+     backward's, and HGMMA (wgmma) and UTMALDG (TMA) instructions, and no
+     HMMA, in `flash_wgmma_kernel`'s;
      K2's split-TF32 kernels (the fp32 forward's and the backward's, both
      dtypes) printed with their HMMA TF32 counts and held to no spills;
   3. the SSD-scan kernel against its plain PyTorch version on the card, at
@@ -46,14 +49,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
      card, at the JAX kernel tests' shapes and at long shapes (the whisper
      encoder's, its decoder's teacher-forced one, a GQA and an hd=256
      windowed one), fp32 (split-TF32 `flash_tf32_kernel`) and bf16
-     (`flash_mma_kernel`), and the bf16 tensor-core kernel at
-     every head-dim class (16, 48, 80, 128, 144, 256) with ragged S, GQA 7,
-     causal plus window; window=1 gives each row its own value bit for bit
-     in both dtypes; bf16 at the
+     (`flash_wgmma_kernel` at hd 64, 128, 256, `flash_mma_kernel` at the
+     others: `kernel.forward_kernel`'s rule), and the bf16 tensor-core
+     kernels at every head-dim class (16, 48, 64, 80, 128, 144, 256) with
+     ragged S = 200, GQA 7, causal plus window and non-causal; window=1
+     gives each row its own value bit for bit in both dtypes; bf16 at the
      four full-sequence forward shapes of the decoder paths (gemma3-4b's
      local and global layers, mixtral-8x7b's, zamba2-1.2b's shared block:
-     MHA, 32 heads of 64, causal, 4096 tokens);
-  8. the kernel's time (bf16, measured as in 4) at the whisper encoder's
+     MHA, 32 heads of 64, causal, 4096 tokens), with the log-sum-exp
+     against the plain logsumexp there and at the encoder's shape, and
+     mixtral's run twice bit for bit;
+  8. the kernel's time (bf16, measured as in 4; the kernel named by the
+     rule) at the whisper encoder's
      shape, the three other long shapes and the four decoder forward
      shapes, each beside its bound; at the encoder's shape, the causal 448
      one and the decoder shapes also beside PyTorch's
@@ -325,6 +332,7 @@ PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 MMA_KERNELS = ("flash_mma_kernel", "chunk_state_kernel", "state_pass_kernel",
                "chunk_scan_kernel")
 K1_FP32 = "flash_tf32_kernel"       # K1's fp32 forward (split TF32)
+K1_WGMMA = "flash_wgmma_kernel"     # K1's bf16 forward at hd 64, 128, 256 (wgmma fed by TMA)
 # K2's split-TF32 kernels: the fp32 forward's (with state_pass_kernel<false>)
 # and the backward's for both dtypes (with state_pass_kernel<true>)
 K2_FWD_TF32 = ("chunk_state_tf32_kernel<false, float>", "chunk_scan_tf32_kernel")
@@ -362,10 +370,26 @@ def ptxas_table(log, name_of):
 
 
 def fwd_name(mangled):
-    """"<tensor-core forward kernel><hd>" of a mangled name, or None:
-    <length><name>, then I Li<hd> E for a head-dim template."""
-    k = re.search(r"\d(" + "|".join(MMA_KERNELS + (K1_FP32,)) + r")(ILi(\d+)E)?", mangled)
-    return k and k.group(1) + (f"<{k.group(3)}>" if k.group(3) else "")
+    """"<tensor-core forward kernel><hd>" (K1_WGMMA: "<hd, warpgroups>") of
+    a mangled name, or None: <length><name>, then I Li<hd> E for a head-dim
+    template (Li<n> E after it for a second argument)."""
+    k = re.search(r"\d(" + "|".join(MMA_KERNELS + (K1_FP32, K1_WGMMA))
+                  + r")(ILi(\d+)E(?:Li(\d+)E)?)?", mangled)
+    args = k and k.group(3) and k.group(3) + (f", {k.group(4)}" if k.group(4) else "")
+    return k and k.group(1) + (f"<{args}>" if args else "")
+
+
+def k1_fwd_name(cfg):
+    """The CUDA kernel of K1's bf16 forward at `cfg`'s attention head dim
+    (the rule of `kernel.forward_kernel`)."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import forward_kernel
+    return forward_kernel(cfg.hd(), torch.bfloat16)
+
+
+# K1's bf16 forward instantiations on the Hopper path: (hd, consumer warpgroups)
+K1_WGMMA_INST = tuple(f"{K1_WGMMA}<{hd}, {n}>" for hd, n in (
+    (64, 1), (64, 2), (64, 3), (128, 1), (128, 2), (256, 1), (256, 2)))
 
 
 def check(cond, msg):
@@ -626,9 +650,10 @@ def kernel_share(by_name, counts, parts):
                    sum(n for k, n in counts.items() if part in k)) for part in parts}
 
 
-def print_breakdown(torch, name, fn, k1_name="flash_mma_kernel"):
+def print_breakdown(torch, name, fn, k1_name):
     """Host ms of `fn`, its device time by kernel and its idle share (as in
-    phase 5b), with K1's share. Returns (host ms, device ms)."""
+    phase 5b), with the share of K1's forward kernel `k1_name`. Returns
+    (host ms, device ms)."""
     wall_ms, by_name, counts = device_breakdown(torch, fn)
     dev_ms = sum(by_name.values())
     if not by_name:
@@ -791,11 +816,12 @@ def decoder_breakdown(model, cfg, rt):
     cache4 = init_cache(cfg, rt, 4, 4096)
     last4 = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 1)), device="cuda")
     pos4 = torch.tensor([700, 1500, 2300, 3100], dtype=torch.int32, device="cuda")
+    k1 = k1_fwd_name(cfg)
     print_breakdown(torch, "prefill, 2048 tokens", lambda: model.prefill(
-        prompt, init_cache(cfg, rt, 1, 4096)))
+        prompt, init_cache(cfg, rt, 1, 4096)), k1)
     print_breakdown(torch, "8 decode steps, 4 slots", lambda: [
-        model.decode_step(last4, cache4, pos=pos4 + i) for i in range(8)])
-    print_breakdown(torch, "forward, (1, 4096)", lambda: model(seq))
+        model.decode_step(last4, cache4, pos=pos4 + i) for i in range(8)], k1)
+    print_breakdown(torch, "forward, (1, 4096)", lambda: model(seq), k1)
 
 
 def dse_breakdown(torch, name, fn):
@@ -1321,15 +1347,22 @@ def k1_tf32_name(mangled):
 
 def sass_hmma_counts():
     """{kernel name: [HMMA instructions, of them TF32, of them bf16
-    m16n8k16 (HMMA.16816.F32.BF16)]} from cuobjdump -sass of the built
-    flash-attention and SSD-scan libraries (K1's split-TF32 and bf16
-    backward kernels, K2's), or None where the toolkit has no cuobjdump."""
+    m16n8k16 (HMMA.16816.F32.BF16), HGMMA (wgmma) instructions, UTMALDG
+    (TMA load) instructions]} from cuobjdump -sass of the built
+    flash-attention and SSD-scan libraries (K1's split-TF32, bf16 backward
+    and Hopper forward kernels, K2's), or None where the toolkit has no
+    cuobjdump."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).parent / "cuobjdump"
     if not tool.exists():
         return None
     out = {}
-    for stem, name_of in (("flash_attention", k1_tf32_name), ("ssd_scan", k2_name)):
+
+    def k1_name(mangled):
+        n = fwd_name(mangled)
+        return n if n and n.startswith(K1_WGMMA) else k1_tf32_name(mangled)
+
+    for stem, name_of in (("flash_attention", k1_name), ("ssd_scan", k2_name)):
         lib = _build._lib_path(next(s for s in _build.sources() if s.stem == stem))
         sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                               timeout=300).stdout
@@ -1339,11 +1372,14 @@ def sass_hmma_counts():
             if m:
                 name = name_of(m.group(1))
                 if name:
-                    out[name] = [0, 0, 0]
+                    out[name] = [0, 0, 0, 0, 0]
             elif name and "HMMA" in line:
                 out[name][0] += 1
                 out[name][1] += "TF32" in line
                 out[name][2] += "HMMA.16816.F32.BF16" in line
+            elif name:
+                out[name][3] += " HGMMA." in line
+                out[name][4] += " UTMALDG." in line
     return out
 
 
@@ -2574,7 +2610,7 @@ def mesh_step_figures(torch, argv):
             launches[e.name] = launches.get(e.name, 0) + 1
     dev = sum(by_name.values())
     wall = box["wall"]
-    k1 = kernel_share(by_name, launches, ("flash_mma_kernel",) + K1_BWD_BF16)
+    k1 = kernel_share(by_name, launches, (k1_fwd_name(cfg),) + K1_BWD_BF16)
     k2 = kernel_share(by_name, launches, ("chunk_state", "state_pass", "chunk_scan", "ssd_bwd"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     fig = {"collectives_per_step_per_rank": counts, "step_ms": ms,
@@ -2733,7 +2769,8 @@ def mesh_path(torch, np):
     import shutil
     import tempfile
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+                                                            flash_attention_bwd, forward_kernel)
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_bwd
     from repro_torch.launch import train as launch_train
     from repro_torch.models.runtime import Runtime
@@ -2831,7 +2868,7 @@ def mesh_path(torch, np):
             shape = "(B, S, Hq, Hkv, hd, causal, window) = " + str(case) + ", bf16, per rank"
             parts = (("flash_attention", "forward (with lse)", e_f),
                      ("flash_attention_bwd", "backward", e_b))
-            cuda_kernels = {"flash_attention": ["flash_mma_kernel"],
+            cuda_kernels = {"flash_attention": [forward_kernel(case[4], torch.bfloat16)],
                             "flash_attention_bwd": list(K1_BWD_BF16)}
             src, tpu = ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:87")
@@ -3133,7 +3170,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import traces
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, forward_kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan
@@ -3167,8 +3204,11 @@ def main() -> int:
         print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, "
               f"{smem} bytes static shared memory")
     if report:                      # nvcc ran (no library was built before)
-        for k in ("flash_mma_kernel<64>", "flash_mma_kernel<128>", "flash_mma_kernel<256>",
-                  f"{K1_FP32}<64>") + MMA_KERNELS[1:]:
+        serial = [line for log in logs.values() for line in log.splitlines()
+                  if "wgmma.mma_async instructions are serialized" in line]
+        print(f"  ptxas: {len(serial)} wgmma serialization warnings")
+        check(not serial, "ptxas keeps the wgmma products asynchronous (no serialization)")
+        for k in K1_WGMMA_INST + (f"{K1_FP32}<64>",) + MMA_KERNELS[1:]:
             check(k in report and report[k][1:3] == [0, 0], f"{k} has no spills")
     bwd = {k: v for log in logs.values() for k, v in ptxas_table(log, bwd_name).items()}
     # the training path's instantiations (fp32, hd 64), and the bf16
@@ -3190,21 +3230,28 @@ def main() -> int:
         print("  cuobjdump not in the toolkit: SASS HMMA counts not read")
     else:
         print(f"  SASS of the split-TF32 kernels ({len(hmma)} instantiations): "
-              + ", ".join(f"{k} {n} HMMA ({n32} TF32)" for k, (n, n32, _) in hmma.items()
+              + ", ".join(f"{k} {n} HMMA ({n32} TF32)" for k, (n, n32, *_) in hmma.items()
                           if k in k1_train))
         for k in k1_train:
-            check(hmma.get(k, [0, 0, 0])[1] > 0, f"{k} runs TF32 mma on the tensor cores")
+            check(hmma.get(k, [0] * 5)[1] > 0, f"{k} runs TF32 mma on the tensor cores")
         print("  SASS of K1's bf16 backward: "
               + ", ".join(f"{k} {n} HMMA ({nb} HMMA.16816.F32.BF16, {n32} TF32)"
-                          for k, (n, n32, nb) in hmma.items() if k in k1_bwd_bf16))
+                          for k, (n, n32, nb, *_) in hmma.items() if k in k1_bwd_bf16))
         for k in k1_bwd_bf16:
-            n, n32, nb = hmma.get(k, [0, 0, 0])
+            n, n32, nb, *_ = hmma.get(k, [0] * 5)
             check(nb > 0 and n32 == 0, f"{k} runs bf16 m16n8k16 mma and no TF32 mma")
         print("  SASS of K2's split-TF32 kernels: "
-              + ", ".join(f"{k} {n} HMMA ({n32} TF32)" for k, (n, n32, _) in sorted(hmma.items())
+              + ", ".join(f"{k} {n} HMMA ({n32} TF32)" for k, (n, n32, *_) in sorted(hmma.items())
                           if k in K2_TRAIN))
         for k in K2_TRAIN:
-            check(hmma.get(k, [0, 0, 0])[1] > 0, f"{k} runs TF32 mma on the tensor cores")
+            check(hmma.get(k, [0] * 5)[1] > 0, f"{k} runs TF32 mma on the tensor cores")
+        print("  SASS of K1's bf16 forward on Hopper: "
+              + ", ".join(f"{k} {hg} HGMMA, {tma} UTMALDG, {n} HMMA"
+                          for k, (n, _, _, hg, tma) in sorted(hmma.items()) if k in K1_WGMMA_INST))
+        for k in K1_WGMMA_INST:
+            n, _, _, hg, tma = hmma.get(k, [0] * 5)
+            check(hg > 0 and tma > 0 and n == 0,
+                  f"{k} runs wgmma (HGMMA) on tiles TMA loads (UTMALDG), no mma.sync (HMMA)")
     k2 = {k: v for log in logs.values() for k, v in ptxas_table(log, k2_name).items()}
     if k2:
         print("  K2's split-TF32 kernels and state passes (the fp32 forward's, the "
@@ -3407,10 +3454,18 @@ def main() -> int:
             check(torch.isfinite(out).all().item(), f"flash_attention {case} {dname} finite")
             if case == encoder and dname == "bf16":
                 err_by_case[case] = err.max().item()
-    # the bf16 tensor-core kernel at every head-dim class (BK = 64 keys up to
-    # hd = 128, 32 above; q in registers up to 128), S = 200 ragged against
-    # the 64-row tiles, under the long shapes' bf16 rule
-    mma_hds = (16, 48, 80, 128, 144, 256)
+                _, lse = flash_attention(q, k, v, causal=False, return_lse=True)
+                _, lse_ref = attention_ref(q, k, v, pos, pos, causal=False, return_lse=True)
+                dlse = (lse - lse_ref).abs().max().item()
+                print(f"  {case} bf16 lse ({forward_kernel(case[4], torch.bfloat16)}): |dlse| "
+                      f"{dlse:.3g}")
+                check(dlse <= 1e-5 * max(1.0, lse_ref.abs().max().item()), f"lse {case} bf16")
+    # the bf16 tensor-core kernels at every head-dim class: flash_wgmma_kernel
+    # at 64, 128, 256 (BK = 128 keys up to hd = 128, 64 above; 64 to 192 query
+    # rows), flash_mma_kernel at the others (BK = 64 keys up to hd = 128, 32
+    # above; q in registers up to 128), S = 200 ragged against the tiles,
+    # under the long shapes' bf16 rule
+    mma_hds = (16, 48, 64, 80, 128, 144, 256)
     for case in ([(2, 200, 7, 1, hd, True, 50) for hd in mma_hds]
                  + [(1, 200, 2, 2, hd, False, None) for hd in mma_hds]):
         q, k, v, pos = flash_inputs(torch, case, torch.bfloat16)
@@ -3425,17 +3480,28 @@ def main() -> int:
         check(ok and torch.isfinite(out).all().item(), f"flash_attention {case} bf16")
     for case in flash_decoder:
         q, k, v, pos = flash_inputs(torch, case, torch.bfloat16)
-        out = flash_attention(q, k, v, causal=case[5], window=case[6])
+        out, lse = flash_attention(q, k, v, causal=case[5], window=case[6], return_lse=True)
         torch.cuda.synchronize()
-        ref = attention_ref(q, k, v, pos, pos, causal=case[5], window=case[6]).float()
+        ref, lse_ref = attention_ref(q, k, v, pos, pos, causal=case[5], window=case[6],
+                                     return_lse=True)
+        ref = ref.float()
         err = (out.float() - ref).abs()
         mref = ref.abs().max().item()
         ok = bool((err <= 1e-2 * ref.abs() + 1e-4 * mref).all())
-        print(f"  {case} bf16: max|d| {err.max().item():.3g} (max|ref| {mref:.3g}) "
-              f"[|d|<=1e-2|ref|+{1e-4 * mref:.3g}] {'ok' if ok else 'FAIL'}")
+        dlse = (lse - lse_ref).abs().max().item()
+        line = (f"  {case} bf16 ({forward_kernel(case[4], torch.bfloat16)}): max|d| "
+                f"{err.max().item():.3g} (max|ref| {mref:.3g}) [|d|<=1e-2|ref|+{1e-4 * mref:.3g}] "
+                f"{'ok' if ok else 'FAIL'}; |dlse| {dlse:.3g}")
+        if case == mixtral:
+            again = flash_attention(q, k, v, causal=case[5], window=case[6])
+            line += f"; a second run bit for bit {torch.equal(again, out)}"
+            check(torch.equal(again, out), f"flash_attention {case} bf16: two runs bit for bit")
+            del again
+        print(line)
         check(ok and torch.isfinite(out).all().item(), f"flash_attention {case} bf16")
+        check(dlse <= 1e-5 * max(1.0, lse_ref.abs().max().item()), f"lse {case} bf16")
         err_by_case[case] = err.max().item()
-        del q, k, v, out, ref, err
+        del q, k, v, out, ref, err, lse, lse_ref
     for dname, dtype in dtypes.items():
         q, k, v, _ = flash_inputs(torch, (1, 64, 2, 2, 16, True, 1), dtype)
         out = flash_attention(q, k, v, causal=True, window=1)
@@ -3455,7 +3521,8 @@ def main() -> int:
         t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS["bf16"] * 1e3
         b_ms = max(t_bytes, t_ops)
         b_by = "bytes" if t_bytes >= t_ops else "operations"
-        line = (f"  {case}: kernel {t_ms:.4f} ms (eager back-to-back {te_ms:.4f} ms), "
+        line = (f"  {case}: {forward_kernel(case[4], torch.bfloat16)} {t_ms:.4f} ms "
+                f"(eager back-to-back {te_ms:.4f} ms), "
                 f"bound {b_ms:.5f} ms ({b_by}: "
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; H100 SXM peaks), "
                 f"{b_ms / t_ms:.1%} of the bound")
@@ -3577,13 +3644,14 @@ def main() -> int:
             print(f"  {name}: host {wall_ms:.2f} ms; the profiler recorded no device time "
                   "(device share not measured)")
             continue
-        k1, k1_n = kernel_share(by_name, counts, ("flash_mma_kernel",))["flash_mma_kernel"]
+        k1_name = k1_fwd_name(cfg_w)
+        k1, k1_n = kernel_share(by_name, counts, (k1_name,))[k1_name]
         print(f"  {name} (B={n_req}): host {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
               f"({dev_ms / wall_ms:.1%}; idle {1 - dev_ms / wall_ms:.1%}), "
               f"{len(by_name)} kernel names")
         for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             print(f"    {ms:8.3f} ms  {k[:90]}")
-        print(f"    K1 flash_mma_kernel {k1:.3f} ms x{k1_n}, {k1 / dev_ms:.1%} of device time")
+        print(f"    K1 {k1_name} {k1:.3f} ms x{k1_n}, {k1 / dev_ms:.1%} of device time")
     del model_w
 
     phase("10. card against CPU on the same weights (whisper, 2 + 2 layers, fp32)")
@@ -3850,12 +3918,13 @@ def main() -> int:
     check(flash_attention.launches == 0 and ssd_scan.launches == 0,
           "the prefix-LM path launches no kernel (the mask stays on the plain path)")
     last_p = toks[:, -1:].to("cuda")
+    k1 = k1_fwd_name(cfg_p)
     print_breakdown(torch, f"prefill, B={n_req} x {P + n_prompt}", lambda: prefill_p(
-        model_p, batch_s))
+        model_p, batch_s), k1)
     print_breakdown(torch, f"8 decode steps, B={n_req}", lambda: [
-        decode_p(model_p, last_p, P + n_prompt + n_steps - 8 + i, cache_p) for i in range(8)])
+        decode_p(model_p, last_p, P + n_prompt + n_steps - 8 + i, cache_p) for i in range(8)], k1)
     print_breakdown(torch, "forward, 256 + 3840", lambda: model_p(
-        batch["tokens"], patches=batch["patches"]))
+        batch["tokens"], patches=batch["patches"]), k1)
     del model_p, cache_p, batch, batch_s
     torch.cuda.empty_cache()
 
@@ -3979,6 +4048,7 @@ def main() -> int:
             "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
             "path": path,
             "shape": "(B, S, Hq, Hkv, hd, causal, window) = " + str(case),
+            "cuda_kernels": [forward_kernel(case[4], torch.bfloat16)],
             "launches": n,
             "max_abs_err": err_by_case[case],
             **timed[case],

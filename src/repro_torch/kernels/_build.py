@@ -3,9 +3,10 @@
 Each `csrc/*.cu` under `repro_torch/kernels/` is compiled by `nvcc` for
 `sm_90a` into a shared library with a plain C interface (no PyTorch headers,
 so a build takes seconds and needs no `ninja`). Libraries go to
-`repro_torch/kernels/_build/` (listed in .gitignore), named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-reused. `build_all()` starts one `nvcc` per source, all at once.
+`repro_torch/kernels/_build/` (listed in .gitignore), named by a hash of
+every file in the source's `csrc/` directory (the headers it includes too)
+and the flags, so an edited source or header is rebuilt and an unchanged one
+is reused. `build_all()` starts one `nvcc` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -45,8 +46,11 @@ def nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{src.stem}-{h}.so"
+    h = hashlib.sha1(src.name.encode())
+    for f in sorted(p for p in src.parent.iterdir() if p.is_file()):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def _start(src: Path):

@@ -13,9 +13,13 @@
 // the output is cast to q's dtype. The TPU kernel has no backward; the
 // backward here is the gradient of the same function (see below).
 //
-// One forward kernel and one backward pair per dtype, chosen by a fixed
-// rule on the dtype (not a fallback; a failed launch is returned):
-//   * bfloat16 forward  -> flash_mma_kernel, bf16 mma.sync m16n8k16;
+// One forward kernel and one backward pair per dtype and head dim, chosen by
+// a fixed rule (not a fallback; a failed launch is returned; the wrapper's
+// kernel.forward_kernel names the forward's):
+//   * bfloat16 forward at hd 64, 128 and 256 (every full-width config's head
+//     dim) -> flash_wgmma_kernel, Hopper's wgmma fed by TMA;
+//   * bfloat16 forward at the other head dims -> flash_mma_kernel, bf16
+//     mma.sync m16n8k16;
 //   * bfloat16 backward -> flash_bf16_bwd_dq_kernel (dQ and delta), then
 //     flash_bf16_bwd_dkdv_kernel (dK, dV), bf16 mma.sync m16n8k16 with
 //     split-bf16 P and dS;
@@ -61,6 +65,42 @@
 // plays t+4, and the B fragment (V, K, dO or Q) reads its rows 2t and 2t+1
 // in that same order. A sum over keys does not depend on their order, so
 // no value is shuffled.
+//
+// flash_wgmma_kernel (bf16, hd 64, 128, 256). It computes what
+// flash_mma_kernel does (below), with Hopper's own machinery. At mixtral's
+// layer (1, 4096, 32/8 heads of 128, causal) the function is 137 GFLOP on
+// 84 MB: operations bound it (0.139 ms at 989 TFLOP/s), and the split P
+// below makes the tensor cores' own floor 1.5x that. Design:
+//   * Grid (ceil(Sq/BQ), B*Hq), the longest causal walks first; a block has
+//     NWG consumer warpgroups of 64 query rows (BQ = 64 NWG) and a producer.
+//     NWG is a rule on the grid: the most whose blocks still fill the 132
+//     SMs (3 only at hd 64, where 160 registers a thread suffice; 2; else
+//     1). Beside 2 or 3 consumers the producer is a whole warpgroup that
+//     gives its registers to them (setmaxnreg: 24 / 240, 24 / 160); beside 1
+//     it is one warp.
+//   * The producer's one thread loads Q once and the live K and V tiles
+//     (BK = 128 keys up to hd = 128, 64 at hd 256) into a 2-stage ring by
+//     TMA (cp.async.bulk.tensor), on full/empty mbarriers, K and V with
+//     their own, so K runs a tile ahead. Tensor maps over the (hd, H, S, B)
+//     views of q, k, v, encoded on the host per call from the caller's
+//     pointers and strides, 64-column boxes with the 128-byte swizzle; TMA
+//     fills rows past S with zeros.
+//   * Consumers: S = Q K^T by wgmma m64nBKk16 from shared memory (both
+//     operands K-major as stored). The online softmax in the accumulator's
+//     registers: row maxima over raw scores, p = 2^(s * scale * log2 e - m)
+//     by one FFMA and ex2.approx.ftz; masks only in tiles that cross an
+//     edge, where masked keys get p = 0 and no part in the maximum. O is
+//     rescaled only when some row's maximum moved. A negative scale is taken
+//     by negating Q in shared memory once.
+//   * O += (P_hi + P_lo) V by two register-A wgmma per 16 keys (P split as in
+//     flash_mma_kernel: the accumulator's registers are the A fragment), V
+//     the B operand read MN-major (wgmma's transpose bit).
+//   * Each warpgroup runs S, softmax, P V in turn; the two or three
+//     warpgroups of a block interleave on the tensor cores. Issuing tile
+//     t + 1's S before tile t's P V (FlashAttention-3's in-warpgroup overlap)
+//     and strict ping-pong between warpgroups by named barriers were both
+//     slower on the H100 (PERF.md).
+//   * Epilogue as flash_mma_kernel's.
 //
 // flash_mma_kernel (bf16). Grid (ceil(Sq/64), B*Hq), tiles with the most
 // causal work first; 4 warps, each owning 16 of the block's 64 query rows.
@@ -181,10 +221,13 @@
 //     feed dV += P^T dO and dK += dS^T Q; warps 1-3 hand their sums to warp
 //     0, which adds them in warp order. At the training shape that is
 //     16 x 24 = 384 blocks on 132 SMs.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -454,6 +497,282 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < C::NO; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at hd 64, 128 and 256: flash_wgmma_kernel, wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+template <int HD>
+struct WgCfg {
+  static constexpr int BK = HD <= 128 ? 128 : 64;        // keys per tile
+  static constexpr int STAGES = 2;                       // K/V ring depth
+  static constexpr int CB = HD / 64;                     // 128-byte column blocks per row
+  static constexpr uint32_t TILE_BYTES = BK * HD * 2;    // one K or V tile
+  // the producer: a whole warpgroup beside two or three consumer
+  // warpgroups, so that registers can move to the consumers (setmaxnreg),
+  // else one warp
+  static constexpr int threads(int nwg) { return nwg * 128 + (nwg >= 2 ? 128 : 32); }
+  // Q, the K and V rings, the barriers, and slack to align the tiles to 1024
+  static constexpr size_t smem(int nwg) {
+    return 1024 + (size_t)64 * nwg * HD * 2 + 2 * STAGES * (size_t)TILE_BYTES +
+           8 * (1 + 4 * STAGES);
+  }
+};
+
+// the masks, the scale and the online softmax of one warp's 16 rows over a
+// tile of BK keys in the accumulator layout (flash_mma_kernel's): register
+// 4 j + e of sc sits at row (e < 2 ? row_lo : row_hi), key k0 + 8 j +
+// 2 (lane % 4) + e % 2. The scale (times log2 e, here >= 0) is applied to
+// the fp32 scores: to the row maximum, which rounding keeps the largest,
+// and in p = 2^(s scale - m) as one fused multiply-add. Masked keys take no
+// part in the maximum and get p = 0 (the -1e30 and p = 0 of the TPU
+// kernel); only a tile that crosses a mask's edge tests them. Turns sc into
+// P (fp32), updates m (kNegInf while a row has seen no key) and this lane's
+// part of l, and gives the factor O is rescaled by and whether any row of
+// the warp needs it.
+struct RowMask {
+  int wr0, row_lo, row_hi, lane, Skv, causal, window;
+  float scale_log2;
+
+  __device__ __forceinline__ bool keep(int k0, int j, int e) const {
+    const int kp = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+    const int qp = e < 2 ? row_lo : row_hi;
+    return kp < Skv && (!causal || kp <= qp) && (window < 0 || kp > qp - window);
+  }
+
+  // this lane's raw row maxima over the kept keys
+  template <int BK, bool MASKED>
+  __device__ __forceinline__ void row_max(const float (&sc)[BK / 2], int k0,
+                                          float (&mx)[2]) const {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!MASKED || keep(k0, j, e)) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
+  }
+
+  // sc becomes P, its row sums go to rs
+  template <int BK, bool MASKED>
+  __device__ __forceinline__ void exp_rows(float (&sc)[BK / 2], int k0, const float (&m)[2],
+                                           float (&rs)[2]) const {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2_ftz(fmaf(sc[4 * j + e], scale_log2, -m[e / 2]));
+        if (MASKED && !keep(k0, j, e)) p = 0.f;
+        sc[4 * j + e] = p;
+        rs[e / 2] += p;
+      }
+  }
+
+  template <int BK>
+  __device__ __forceinline__ bool softmax(float (&sc)[BK / 2], int k0, float (&m)[2],
+                                          float (&l)[2], float (&alpha)[2]) const {
+    const bool need_mask = k0 + BK > Skv || (causal && k0 + BK - 1 > wr0) ||
+                           (window >= 0 && k0 <= wr0 + 15 - window);
+    float mx[2] = {kNegInf, kNegInf}, rs[2] = {0.f, 0.f};
+    if (need_mask)
+      row_max<BK, true>(sc, k0, mx);
+    else
+      row_max<BK, false>(sc, k0, mx);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] == kNegInf ? kNegInf : mx[r] * scale_log2);
+      alpha[r] = exp2_ftz(m[r] - m_new);
+      m[r] = m_new;
+    }
+    if (need_mask)
+      exp_rows<BK, true>(sc, k0, m, rs);
+    else
+      exp_rows<BK, false>(sc, k0, m, rs);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+    // O needs rescaling unless every row of the warp kept its maximum
+    // (alpha = 1 exactly, and O * 1 is O)
+    return __any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f);
+  }
+};
+
+// P (fp32, accumulator layout) as the A operands of keys 16 kk .. 16 kk + 15
+// in two bf16 terms: registers 8 kk .. 8 kk + 7 are exactly the m16n8k16 A
+// fragment's rows and keys, so nothing moves between lanes
+template <int BK>
+__device__ __forceinline__ void split_p(const float (&sc)[BK / 2], uint32_t (&ph)[BK / 16][4],
+                                        uint32_t (&pl)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r], pl[kk][r]);
+}
+
+// one block: NWG consumer warpgroups of 64 query rows each (warps 0 .. 4 NWG
+// - 1) and the producer (the warps after them, of which one thread issues
+// the loads); tq/tk/tv map the (hd, H, S, B) views of q, k and v in boxes of
+// 64 columns x (64 NWG query or BK key) rows
+template <int HD, int NWG>
+__global__ void __launch_bounds__(WgCfg<HD>::threads(NWG), 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                   float* __restrict__ lse, int Sq, int Skv, int Hq, int rep, int64_t osb,
+                   int64_t oss, float scale_log2, int causal, int window) {
+  using namespace hopper;
+  using C = WgCfg<HD>;
+  constexpr int BQ = 64 * NWG, BK = C::BK, CB = C::CB, ST = C::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(base);            // [CB][BQ][64]
+  bf16* ks = qs + CB * BQ * 64;                         // [ST][CB][BK][64]
+  bf16* vs = ks + ST * CB * BK * 64;                    // [ST][CB][BK][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + ST * CB * BK * 64);
+  uint64_t* k_full = q_full + 1;                        // [ST] K tile landed
+  uint64_t* v_full = k_full + ST;                       // [ST] V tile landed
+  uint64_t* k_empty = v_full + ST;                      // [ST] K tile read by every consumer
+  uint64_t* v_empty = k_empty + ST;                     // [ST] V tile read by every consumer
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;     // the longest causal walks first
+  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq;
+  int k_end = Skv;
+  if (causal) k_end = min(k_end, min(q0 + BQ, Sq));
+  const int k_begin = window >= 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, 4 * NWG);                  // lane 0 of each consumer warp
+      mbar_init(v_empty + s, 4 * NWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {
+    // producer: Q once, then the live K/V tiles through the ring; rows past
+    // S arrive as zeros. Beside two or three consumer warpgroups its
+    // registers go to them: 24 here, 240 (160) there, of the 168 (128) a
+    // thread that 384 (512) threads share
+    if constexpr (NWG >= 2) setmaxnreg_dec<24>();
+    if (warp == 4 * NWG && lane == 0) {
+      tma_prefetch(&tq);
+      tma_prefetch(&tk);
+      tma_prefetch(&tv);
+      mbar_expect_tx(q_full, BQ * HD * 2);
+      for (int cb = 0; cb < CB; ++cb)
+        tma_load_4d(qs + cb * BQ * 64, &tq, q_full, 64 * cb, h, q0, b);
+      // tile t of K or V into its stage once the consumers have released it
+      const int hk = h / rep;
+      auto load = [&](const CUtensorMap* map, bf16* ring, uint64_t* full, uint64_t* empty,
+                      int t) {
+        const int i = t - t_begin, s = i % ST;
+        mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
+        mbar_expect_tx(full + s, C::TILE_BYTES);
+        for (int cb = 0; cb < CB; ++cb)
+          tma_load_4d(ring + (s * CB + cb) * BK * 64, map, full + s, 64 * cb, hk, t * BK, b);
+      };
+      // K runs a tile ahead of V, as the consumers use them
+      for (int t = t_begin; t < t_end; ++t) {
+        load(&tk, ks, k_full, k_empty, t);
+        if (t > t_begin) load(&tv, vs, v_full, v_empty, t - 1);
+      }
+      if (t_begin < t_end) load(&tv, vs, v_full, v_empty, t_end - 1);
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63, its warp w%4 16 of them
+  if constexpr (NWG == 2) setmaxnreg_inc<240>();
+  if constexpr (NWG == 3) setmaxnreg_inc<160>();
+  const int wg = warp / 4;
+  const int wr0 = q0 + 64 * wg + 16 * (warp % 4);       // first row of the warp
+  const int row_lo = wr0 + lane / 4, row_hi = row_lo + 8;
+  const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128;
+  // S is taken with the scale's sign (Q negated below), so the softmax
+  // scales by |scale| and a row's largest score is its largest scaled one
+  const RowMask mask{wr0, row_lo, row_hi, lane, Skv, causal, window, fabsf(scale_log2)};
+  float acc[HD / 2];                                    // O, accumulator layout
+#pragma unroll
+  for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  float sc[BK / 2];                                     // S, then P (fp32)
+  uint32_t ph[BK / 16][4], pl[BK / 16][4];              // P as two bf16 A operands
+  mbar_wait(q_full, 0);
+  if (scale_log2 < 0.f) {
+    // a negative scale: the warpgroup negates its 64 rows of Q (a bf16 sign
+    // flip is exact), then makes the writes visible to wgmma
+    for (int cb = 0; cb < CB; ++cb) {
+      uint4* rows = reinterpret_cast<uint4*>(qs + (cb * BQ + 64 * wg) * 64);
+      for (int x = threadIdx.x % 128; x < 64 * 8; x += 128) {
+        uint4 u = rows[x];
+        u.x ^= 0x80008000u, u.y ^= 0x80008000u, u.z ^= 0x80008000u, u.w ^= 0x80008000u;
+        rows[x] = u;
+      }
+    }
+    fence_proxy_async();
+    named_barrier_sync(1 + wg, 128);
+  }
+  for (int t = t_begin; t < t_end; ++t) {
+    const int i = t - t_begin, s = i % ST;
+    // S = Q K^T (fp32): HD / 16 k-steps, the first one overwriting
+    mbar_wait(k_full + s, (i / ST) & 1);
+    const uint32_t k_addr = smem_u32(ks + s * CB * BK * 64);
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < HD / 16; ++kd)
+      wgmma_ss<BK>(sc, desc_sw128(q_addr + (kd / 4) * BQ * 128 + (kd % 4) * 32, 16, 1024),
+                   desc_sw128(k_addr + (kd / 4) * BK * 128 + (kd % 4) * 32, 16, 1024), kd > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (lane == 0) mbar_arrive(k_empty + s);           // K's stage may be refilled
+    const bool rescale = mask.softmax<BK>(sc, t * BK, m, l, alpha);
+    split_p<BK>(sc, ph, pl);
+    if (rescale) {
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j) acc[j] *= alpha[(j / 2) % 2];
+    }
+
+    // O += (P_hi + P_lo) V, V read transposed from its [key][d] tile
+    mbar_wait(v_full + s, (i / ST) & 1);
+    const uint32_t v_addr = smem_u32(vs + s * CB * BK * 64);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dv = desc_sw128(v_addr + kk * 16 * 128, BK * 128, 1024);
+      wgmma_rs_t<HD>(acc, ph[kk], dv);
+      wgmma_rs_t<HD>(acc, pl[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(v_empty + s);           // V's stage may be refilled
+  }
+
+  // epilogue: the quad's row sums, one cast, ragged rows unwritten
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float li = l[r];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int row = r == 0 ? row_lo : row_hi;
+    if (row >= Sq) continue;
+    const float inv = 1.f / fmaxf(li, 1e-30f);
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((int64_t)b * Hq + h) * Sq + row] = m[r] * kLn2 + logf(fmaxf(li, 1e-30f));
+    bf16* orow = o + b * osb + (int64_t)row * oss + (int64_t)h * HD + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
   }
 }
 
@@ -1733,11 +2052,99 @@ int launch_bf16(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime's entry-point
+// query, so that the library needs no -lcuda; null where the driver lacks it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the TMA map of the (hd, H, S, B) view of a bf16 (B, S, H, hd) tensor with
+// batch and row strides sb and ss (elements): boxes of 64 columns x `rows`
+// rows of one head, 128-byte swizzle, zeros outside the tensor. A dimension
+// of extent 1 gets the stride a contiguous tensor would have (torch leaves
+// its stride free, TMA wants a multiple of 16 bytes).
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd, int64_t sb,
+                int64_t ss, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t row = S > 1 ? (cuuint64_t)ss * 2 : (cuuint64_t)H * hd * 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, row,
+                                 B > 1 ? (cuuint64_t)sb * 2 : row * (cuuint64_t)S};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, int NWG>
+int launch_wgmma_n(const Args& a) {
+  using C = WgCfg<HD>;
+  constexpr int BQ = 64 * NWG;
+  static int attr_dev = -1;
+  const cudaError_t e = raise_smem_limit(flash_wgmma_kernel<HD, NWG>, C::smem(NWG), attr_dev);
+  if (e != cudaSuccess) return (int)e;
+  // with no keys nothing is loaded but Q: k and v's maps then describe q
+  const bool keys = a.Skv > 0;
+  const int Hkv = a.Hq / a.rep;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, a.q, a.B, a.Sq, a.Hq, HD, a.qsb, a.qss, BQ) ||
+      !tensor_map(&tk, keys ? a.k : a.q, a.B, keys ? a.Skv : 1, Hkv, HD,
+                  keys ? a.ksb : a.qsb, keys ? a.kss : a.qss, C::BK) ||
+      !tensor_map(&tv, keys ? a.v : a.q, a.B, keys ? a.Skv : 1, Hkv, HD,
+                  keys ? a.vsb : a.qsb, keys ? a.vss : a.qss, C::BK))
+    return (int)cudaErrorInvalidValue;
+  flash_wgmma_kernel<HD, NWG><<<dim3((a.Sq + BQ - 1) / BQ, a.B * a.Hq), C::threads(NWG),
+                                C::smem(NWG), a.st>>>(
+      tq, tk, tv, static_cast<bf16*>(a.o), a.lse, a.Sq, a.Skv, a.Hq, a.rep, a.osb, a.oss,
+      log2_scale(a.scale), a.causal, a.window);
+  return (int)cudaGetLastError();
+}
+
+// consumer warpgroups per block, by a rule on the grid: the most whose
+// blocks still fill the card (three, 192 query rows, only at hd 64, where
+// 160 registers a thread hold a warpgroup's state; two, 128 rows; else one,
+// 64 rows)
+template <int HD>
+int launch_wgmma(const Args& a) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const auto blocks = [&](int rows) {
+    return (long long)((a.Sq + rows - 1) / rows) * a.B * a.Hq;
+  };
+  if constexpr (HD == 64) {
+    if (blocks(192) >= sms) return launch_wgmma_n<HD, 3>(a);
+  }
+  return blocks(128) >= sms ? launch_wgmma_n<HD, 2>(a) : launch_wgmma_n<HD, 1>(a);
+}
+
+// the forward by dtype and head dim: a fixed rule, not a fallback
 template <int HD>
 struct Fwd {
   static int run(int dtype, const Args& a) {
     if (dtype == 0) return launch_fp32<HD>(a);
-    if (dtype == 1) return launch_bf16<HD>(a);
+    if (dtype == 1) {
+      if constexpr (HD == 64 || HD == 128 || HD == 256) return launch_wgmma<HD>(a);
+      else return launch_bf16<HD>(a);
+    }
     return (int)cudaErrorInvalidValue;
   }
 };
@@ -1867,10 +2274,11 @@ int dispatch(int hd, int dtype, const A& a) {
 }  // namespace
 
 // q, o (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd); dtype 0 = float32
-// (flash_tf32_kernel), 1 = bfloat16 (flash_mma_kernel) for all four.
-// Strides in elements: *sb between batches, *ss between rows; the head
-// stride must be hd and the element stride 1; the pointers and the batch
-// and row strides must be 16-byte aligned (cp.async). window < 0 = none.
+// (flash_tf32_kernel), 1 = bfloat16 (flash_wgmma_kernel at hd 64, 128 and
+// 256, flash_mma_kernel at the others) for all four. Strides in elements:
+// *sb between batches, *ss between rows; the head stride must be hd and the
+// element stride 1; the pointers and the batch and row strides must be
+// 16-byte aligned (cp.async, TMA). window < 0 = none.
 // lse, when not null, receives each row's log-sum-exp of scale * q . k over
 // its unmasked keys, fp32, contiguous (B, Hq, Sq) (the backward's input); o
 // does not depend on it. Requires hd in 16..256 a multiple of 16,

@@ -15,16 +15,23 @@ contiguous, as they are after a reshape of a projection).
 `launches` and `launches_by_case` count wrapper calls. `ops.FlashAttentionFn`
 joins the two for autograd.
 
-The dtype picks the kernels, by a fixed rule and not as a fallback:
-bfloat16 goes to `flash_mma_kernel` forward and `flash_bf16_bwd_dq_kernel`
-+ `flash_bf16_bwd_dkdv_kernel` backward (bf16 products on the tensor cores,
-P and dS fed to their products as two bf16 terms each), float32 to
-`flash_tf32_kernel` forward and `flash_tf32_bwd_dq_kernel` +
-`flash_tf32_bwd_dkdv_kernel` backward (each fp32 operand split into two
-TF32 terms, three tensor-core products per fp32 one: as close to the
-function as IEEE fp32). Every kernel stages its tiles by 16-byte cp.async,
-so q, k, v need 16-byte aligned pointers and batch and row strides in both
-dtypes, or the wrapper raises.
+The dtype and the head dim pick the kernels, by a fixed rule and not as a
+fallback (`forward_kernel` names the forward's; a failed build or launch
+raises):
+  * bfloat16 forward at hd 64, 128 and 256 (every full-width config's head
+    dim) -> `flash_wgmma_kernel`: Hopper's warpgroup products (wgmma) fed by
+    TMA loads from a producer warp;
+  * bfloat16 forward at the other head dims -> `flash_mma_kernel` (mma.sync);
+  * bfloat16 backward -> `flash_bf16_bwd_dq_kernel` +
+    `flash_bf16_bwd_dkdv_kernel`;
+  * float32 -> `flash_tf32_kernel` forward and `flash_tf32_bwd_dq_kernel` +
+    `flash_tf32_bwd_dkdv_kernel` backward (each fp32 operand split into two
+    TF32 terms, three tensor-core products per fp32 one: as close to the
+    function as IEEE fp32).
+The bf16 kernels feed P (and dS) to their products as two bf16 terms each.
+Every kernel reads its tiles by 16-byte cp.async or by TMA, so q, k, v need
+16-byte aligned pointers and batch and row strides in both dtypes, or the
+wrapper raises.
 """
 from __future__ import annotations
 
@@ -39,6 +46,17 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HD_MAX = 256
+WGMMA_HDS = (64, 128, 256)       # the bf16 forward's head dims on flash_wgmma_kernel
+
+
+def forward_kernel(hd: int, dtype: torch.dtype) -> str:
+    """The name of the CUDA kernel that `flash_attention` launches at head
+    dim `hd` and `dtype`: the rule of `Fwd` in csrc/flash_attention.cu."""
+    if dtype == torch.float32:
+        return "flash_tf32_kernel"
+    if dtype == torch.bfloat16:
+        return "flash_wgmma_kernel" if hd in WGMMA_HDS else "flash_mma_kernel"
+    raise TypeError(f"flash_attention takes fp32 or bf16, got {dtype}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,8 +108,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[i
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """cp.async moves 16 bytes: the pointer and the batch and row strides
-    must be multiples of 16 bytes."""
+    """cp.async moves 16 bytes and TMA takes strides in multiples of 16
+    bytes: the pointer and the batch and row strides must be multiples of
+    16 bytes."""
     per = 16 // t.element_size()
     return t.data_ptr() % 16 == 0 and not any(
         t.shape[d] > 1 and t.stride(d) % per for d in (0, 1))

@@ -19,7 +19,12 @@ class (16 .. 256) with ragged Sq and Skv, GQA 7, causal plus window and
 window=1, under the same per-element bf16 rule; K2 through strided views of
 one packed (B, S, H*P + 2N) tensor at four alignments, equal bit for bit to
 the contiguous call and within the JAX tests' tolerance of the plain
-version; a misaligned bf16 K1 input raises before any launch.
+version; a misaligned bf16 K1 input raises before any launch. K1's bf16
+forward at hd 64, 128 and 256 (`flash_wgmma_kernel`) is held at ragged,
+GQA, windowed and one-row cases and at grids of one, two and three
+consumer warpgroups a block, with its lse, two runs and strided views bit
+for bit, at negative, zero and small softmax scales; the profiler names the
+kernel `kernel.forward_kernel` names.
 
 K1's fp32 kernels (split TF32 on the tensor cores): the forward at every
 head-dim class under the long fp32 rule (|d| <= 1e-4 max|ref|), the
@@ -293,6 +298,9 @@ MMA_CASES = [
 ]
 
 
+WGMMA_HDS = [64, 128, 256]
+
+
 def _qkv(B, Sq, Skv, Hq, Hkv, hd, dtype, device, seed=0):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal((B, s, h, hd), dtype=np.float32))
@@ -337,6 +345,99 @@ def test_bf16_kernel_raises_on_misaligned_input(cuda, where):
     else:
         q = torch.randn(B, S, H * hd + 4, device=cuda).to(torch.bfloat16)[..., :H * hd]
         q = q.unflatten(-1, (H, hd))
+    k, v = (torch.randn(B, S, H, hd, device=cuda).to(torch.bfloat16) for _ in range(2))
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before
+
+
+# K1's bf16 forward at hd 64, 128 and 256 (flash_wgmma_kernel, wgmma fed by
+# TMA): ragged Sq/Skv, GQA, causal plus window, and cases whose grids take
+# one, two and three consumer warpgroups a block (132 SMs)
+WGMMA_CASES = MMA_CASES + [
+    (1, 1, 1, 2, 1, True, None),          # one query row
+    (2, 1024, 1024, 70, 10, True, None),  # 8 x 140 blocks of 128 rows (of 192 at hd 64: 6 x 140)
+]
+
+
+def _profiled_kernels(fn):
+    """The CUDA kernels `fn` launches, by name without arguments."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+             for e in prof.events() if e.device_type.name == "CUDA"}
+    return {n.split("(")[0] for n in names}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGMMA_CASES)
+@pytest.mark.parametrize("hd", WGMMA_HDS)
+def test_wgmma_kernel_matches_plain_version(cuda, hd, case):
+    """flash_wgmma_kernel against attention_ref under the long bf16 rule,
+    its lse against the plain logsumexp, two runs and a call on strided
+    views of one packed (B, S, Hq + 2 Hkv, hd) tensor bit for bit."""
+    B, Sq, Skv, Hq, Hkv, causal, window = case
+    q, k, v = _qkv(B, Sq, Skv, Hq, Hkv, hd, torch.bfloat16, cuda)
+    out, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    qp = torch.arange(Sq, device=cuda)[None].expand(B, Sq)
+    kp = torch.arange(Skv, device=cuda)[None].expand(B, Skv)
+    ref, lse_ref = attention_ref(q, k, v, qp, kp, causal=causal, window=window,
+                                 return_lse=True)
+    err = (out.float() - ref.float()).abs()
+    assert torch.isfinite(out).all()
+    assert bool((err <= 1e-2 * ref.float().abs() + 1e-4 * ref.float().abs().max()).all())
+    assert (lse - lse_ref).abs().max().item() <= 1e-5 * max(1.0, lse_ref.abs().max().item())
+    assert torch.equal(out, again)
+    if Sq == Skv:
+        qs, ks, vs = torch.cat([q, k, v], 2).split([Hq, Hkv, Hkv], 2)
+        assert torch.equal(flash_attention(qs, ks, vs, causal=causal, window=window), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", WGMMA_HDS + [80])
+@pytest.mark.parametrize("case", [(1, 200, 2, 1), (2, 1024, 70, 10)], ids=["small", "wide"])
+def test_bf16_forward_runs_the_kernel_its_rule_names(cuda, case, hd):
+    """The profiler names the CUDA kernel `forward_kernel(hd, bf16)` names:
+    flash_wgmma_kernel at hd 64, 128 and 256 (one, two or three consumer
+    warpgroups by the grid), flash_mma_kernel at other head dims."""
+    from repro_torch.kernels.flash_attention.kernel import forward_kernel
+    B, S, Hq, Hkv = case
+    q, k, v = _qkv(B, S, S, Hq, Hkv, hd, torch.bfloat16, cuda)
+    ran = _profiled_kernels(lambda: flash_attention(q, k, v, causal=True))
+    assert len(ran) == 1 and next(iter(ran)).startswith(forward_kernel(hd, torch.bfloat16))
+    if hd in WGMMA_HDS:
+        groups = 1 if case[0] == 1 else (3 if hd == 64 else 2)
+        assert next(iter(ran)).endswith(f"<{hd}, {groups}>"), ran
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", WGMMA_HDS)
+@pytest.mark.parametrize("scale", [-0.3, 0.0, 1e-3])
+def test_wgmma_kernel_at_any_softmax_scale(cuda, scale, hd):
+    """A negative scale (S taken with wgmma's negated A), a zero scale
+    (every kept key weighs the same, masked ones still 0) and a small one,
+    under a causal window, against attention_ref under the long bf16 rule."""
+    q, k, v = _qkv(1, 200, 200, 4, 2, hd, torch.bfloat16, cuda, seed=2)
+    out = flash_attention(q, k, v, causal=True, window=50, softmax_scale=scale)
+    pos = torch.arange(200, device=cuda)[None]
+    ref = attention_ref(q, k, v, pos, pos, causal=True, window=50, softmax_scale=scale).float()
+    err = (out.float() - ref).abs()
+    assert torch.isfinite(out).all()
+    assert bool((err <= 1e-2 * ref.abs() + 1e-4 * ref.abs().max()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", WGMMA_HDS)
+def test_wgmma_kernel_raises_on_misaligned_input(cuda, hd):
+    """TMA takes 16-byte aligned pointers and strides: a bf16 q whose row
+    stride is not 16-byte aligned is refused before anything launches."""
+    B, S, H = 1, 64, 2
+    q = torch.randn(B, S, H * hd + 4, device=cuda).to(torch.bfloat16)[..., :H * hd]
+    q = q.unflatten(-1, (H, hd))
     k, v = (torch.randn(B, S, H, hd, device=cuda).to(torch.bfloat16) for _ in range(2))
     before = flash_attention.launches
     with pytest.raises(ValueError, match="16-byte aligned"):

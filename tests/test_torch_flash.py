@@ -156,3 +156,32 @@ def test_kernel_rounding_design_meets_the_bf16_rule(split):
     out = _emulate_mma_kernel(q, k, v, split=split).float()
     bad = int(((out - ref).abs() > 1e-2 * ref.abs() + 1e-4 * ref.abs().max()).sum())
     assert (bad == 0) == split, f"{bad} of {ref.numel()} elements outside the rule"
+
+
+@pytest.mark.parametrize("shape,block_k", [((1, 1500, 2, 64), 128), ((1, 1024, 1, 128), 128),
+                                           ((1, 1024, 1, 256), 64)],
+                         ids=["hd64-bk128", "hd128-bk128", "hd256-bk64"])
+def test_wgmma_tile_widths_meet_the_bf16_rule(shape, block_k):
+    """flash_wgmma_kernel's key tiles (128 keys at hd 64 and 128, 64 at hd
+    256) move the online softmax's rescale points; with P split into two
+    bf16 terms the emulated rounding still meets the long bf16 rule against
+    `attention_ref` at every element."""
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).bfloat16()
+               for _ in range(3))
+    pos = torch.arange(shape[1])[None]
+    ref = attention_ref(q, k, v, pos, pos, causal=False).float()
+    out = _emulate_mma_kernel(q, k, v, split=True, block_k=block_k).float()
+    assert bool(((out - ref).abs() <= 1e-2 * ref.abs() + 1e-4 * ref.abs().max()).all())
+
+
+def test_forward_kernel_rule():
+    """bf16 at hd 64, 128 and 256 goes to flash_wgmma_kernel, bf16 at the
+    other head dims to flash_mma_kernel, fp32 to flash_tf32_kernel."""
+    from repro_torch.kernels.flash_attention.kernel import HD_MAX, forward_kernel
+    for hd in range(16, HD_MAX + 1, 16):
+        want = "flash_wgmma_kernel" if hd in (64, 128, 256) else "flash_mma_kernel"
+        assert forward_kernel(hd, torch.bfloat16) == want
+        assert forward_kernel(hd, torch.float32) == "flash_tf32_kernel"
+    with pytest.raises(TypeError):
+        forward_kernel(64, torch.float16)
