@@ -12,14 +12,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
      warpgroups, whose wgmma products ptxas must not serialize, the K2
      kernels; nor at the training ones: K1's fp32 forward
      `flash_tf32_kernel` at hd 64 and its backward `flash_tf32_bwd_dq_kernel`
-     and `flash_tf32_bwd_dkdv_kernel` at hd 64; nor K1's bf16 backward
-     `flash_bf16_bwd_dq_kernel` and `flash_bf16_bwd_dkdv_kernel` at hd 64,
-     128 and 256, the latter with two and four groups; every other
-     instantiation printed), and, where the toolkit has cuobjdump, the count of
-     HMMA TF32 instructions in the split-TF32 kernels' SASS and of bf16
-     m16n8k16 ones (HMMA.16816.F32.BF16, and no TF32) in the bf16
-     backward's, and HGMMA (wgmma) and UTMALDG (TMA) instructions, and no
-     HMMA, in `flash_wgmma_kernel`'s;
+     and `flash_tf32_bwd_dkdv_kernel` at hd 64; nor K1's bf16 backward at
+     hd 64, 128 and 256, `flash_wgmma_bwd_dq_kernel` and
+     `flash_wgmma_bwd_dkdv_kernel` with every number of consumer warpgroups
+     their grid rule takes; every other instantiation printed), and, where
+     the toolkit has cuobjdump, the count of HMMA TF32 instructions in the
+     split-TF32 kernels' SASS and of bf16 m16n8k16 ones
+     (HMMA.16816.F32.BF16, and no TF32) in the mma.sync bf16 backward's
+     (`flash_bf16_bwd_*`, the other head dims), and HGMMA (wgmma) and
+     UTMALDG (TMA) instructions, and no HMMA, in `flash_wgmma_kernel`'s and
+     the Hopper backward's;
      K2's split-TF32 kernels (the fp32 forward's and the backward's, both
      dtypes) printed with their HMMA TF32 counts and held to no spills;
   3. the SSD-scan kernel against its plain PyTorch version on the card, at
@@ -159,9 +161,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
  19. training (K1 forward and backward on every layer): (a) K1's backward
      (fp32: `flash_tf32_bwd_dq_kernel` with delta, then
      `flash_tf32_bwd_dkdv_kernel`, split-TF32 products on the tensor cores;
-     bf16: `flash_bf16_bwd_dq_kernel` with delta, then
-     `flash_bf16_bwd_dkdv_kernel`, bf16 products with P and dS in two bf16
-     terms) against its plain version
+     bf16 at hd 64, 128 and 256: `flash_wgmma_bwd_dq_kernel` with delta,
+     then `flash_wgmma_bwd_dkdv_kernel`, wgmma fed by TMA with P and dS in
+     two bf16 terms; `kernel.backward_kernels`'s rule) against its plain
+     version
      `attention_bwd_ref` on the kernel's own o and lse, at the JAX flash
      tests' cases, ragged S = 200 with GQA 7, causal and window 50 at hd 64,
      128 and 256, a non-causal hd 256 one and the training shape (8, 256,
@@ -282,8 +285,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      after); in (a) a `--fail-at` resume bit for bit;
      the collectives of one step on each rank by kind, its host ms,
      tokens/s and peak memory, one step's device time by kernel and idle
-     share (K1's backward by kernel: `flash_bf16_bwd_dq_kernel`,
-     `flash_bf16_bwd_dkdv_kernel`). Then K1 and K2 forward and backward held
+     share (K1's backward by kernel: `flash_wgmma_bwd_dq_kernel`,
+     `flash_wgmma_bwd_dkdv_kernel`). Then K1 and K2 forward and backward held
      against their plain versions and timed at those local shapes (bf16),
      beside their bounds, the plain versions and SDPA's (K1), K1's backward
      also beside the split-bf16 scheme's own floor; and K1 in bf16, held
@@ -1324,15 +1327,33 @@ def gnn_serving_path(torch, np):
     return out
 
 
-BWD_KERNEL = re.compile(r"\d(flash_(?:tf32|bf16)_bwd_\w+?_kernel)ILi(\d+)E(?:Li(\d+)E)?")
+BWD_KERNEL = re.compile(r"\d(flash_(?:tf32|bf16|wgmma)_bwd_\w+?_kernel)ILi(\d+)E(?:Li(\d+)E)?")
 FWD_TF32 = re.compile(r"\d(" + K1_FP32 + r")ILi(\d+)E")
-# K1's bf16 backward (split-bf16 P and dS on bf16 mma.sync)
-K1_BWD_BF16 = ("flash_bf16_bwd_dq_kernel", "flash_bf16_bwd_dkdv_kernel")
+# K1's bf16 backward on Hopper (hd 64, 128, 256): (hd, consumer warpgroups)
+# of the dQ kernel's and of the dK/dV kernel's instantiations, every one
+# that the grid rule can take
+K1_BWD_WGMMA_NWG = (((64, 1), (64, 2), (64, 3), (128, 1), (128, 2), (256, 1)),
+                    ((64, 1), (64, 2), (128, 1), (128, 2), (256, 1)))
+
+
+def k1_bwd_names(hd):
+    """The CUDA kernels of K1's bf16 backward at head dim `hd`, the dQ
+    kernel first (the rule of `kernel.backward_kernels`)."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import backward_kernels
+    return backward_kernels(hd, torch.bfloat16)
+
+
+def k1_bwd_wgmma_inst():
+    """The names of K1_BWD_WGMMA_NWG's instantiations."""
+    return tuple(f"{name}<{hd}, {n}>" for name, inst in zip(k1_bwd_names(64), K1_BWD_WGMMA_NWG)
+                 for hd, n in inst)
 
 
 def bwd_name(mangled):
-    """"flash_tf32_bwd_*_kernel<hd>", "flash_bf16_bwd_dq_kernel<hd>" or
-    "flash_bf16_bwd_dkdv_kernel<hd, groups>" of a mangled backward kernel,
+    """"flash_tf32_bwd_*_kernel<hd>", "flash_bf16_bwd_dq_kernel<hd>",
+    "flash_bf16_bwd_dkdv_kernel<hd, groups>" or
+    "flash_wgmma_bwd_*_kernel<hd, warpgroups>" of a mangled backward kernel,
     or None."""
     k = BWD_KERNEL.search(mangled)
     return k and f"{k.group(1)}<{k.group(2)}{f', {k.group(3)}' if k.group(3) else ''}>"
@@ -2610,7 +2631,7 @@ def mesh_step_figures(torch, argv):
             launches[e.name] = launches.get(e.name, 0) + 1
     dev = sum(by_name.values())
     wall = box["wall"]
-    k1 = kernel_share(by_name, launches, (k1_fwd_name(cfg),) + K1_BWD_BF16)
+    k1 = kernel_share(by_name, launches, (k1_fwd_name(cfg),) + k1_bwd_names(cfg.hd()))
     k2 = kernel_share(by_name, launches, ("chunk_state", "state_pass", "chunk_scan", "ssd_bwd"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     fig = {"collectives_per_step_per_rank": counts, "step_ms": ms,
@@ -2869,7 +2890,7 @@ def mesh_path(torch, np):
             parts = (("flash_attention", "forward (with lse)", e_f),
                      ("flash_attention_bwd", "backward", e_b))
             cuda_kernels = {"flash_attention": [forward_kernel(case[4], torch.bfloat16)],
-                            "flash_attention_bwd": list(K1_BWD_BF16)}
+                            "flash_attention_bwd": list(k1_bwd_names(case[4]))}
             src, tpu = ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:87")
         else:
@@ -3212,18 +3233,16 @@ def main() -> int:
             check(k in report and report[k][1:3] == [0, 0], f"{k} has no spills")
     bwd = {k: v for log in logs.values() for k, v in ptxas_table(log, bwd_name).items()}
     # the training path's instantiations (fp32, hd 64), and the bf16
-    # backward's at hd 64, 128 and 256 (the mesh trains in bf16)
+    # backward's on Hopper at hd 64, 128 and 256 (the mesh trains in bf16)
     k1_train = [f"{K1_FP32}<64>"] + [f"flash_tf32_bwd_{part}_kernel<64>"
                                     for part in ("dq", "dkdv")]
-    k1_bwd_bf16 = [f"{K1_BWD_BF16[0]}<{hd}>" for hd in (64, 128, 256)] + [
-        f"{K1_BWD_BF16[1]}<{hd}, {ng}>" for hd, ng in ((64, 2), (64, 4), (128, 2), (128, 4),
-                                                       (256, 2))]
+    k1_bwd_bf16 = k1_bwd_wgmma_inst()
     if bwd:
         print(f"  K1 backward: {len(bwd)} instantiations")
         for k, (regs, st, ld, smem) in sorted(bwd.items()):
             print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, "
                   f"{smem} bytes static shared memory (the tiles' is dynamic, set at launch)")
-        for k in k1_train[1:] + k1_bwd_bf16:
+        for k in k1_train[1:] + list(k1_bwd_bf16):
             check(k in bwd and bwd[k][1:3] == [0, 0], f"{k} has no spills")
     hmma = sass_hmma_counts()
     if hmma is None:
@@ -3234,21 +3253,25 @@ def main() -> int:
                           if k in k1_train))
         for k in k1_train:
             check(hmma.get(k, [0] * 5)[1] > 0, f"{k} runs TF32 mma on the tensor cores")
-        print("  SASS of K1's bf16 backward: "
+        # the mma.sync bf16 backward, at the other head dims
+        k1_bwd_mma = [k for k in hmma if k.startswith(k1_bwd_names(80))]
+        print("  SASS of K1's bf16 backward on mma.sync: "
               + ", ".join(f"{k} {n} HMMA ({nb} HMMA.16816.F32.BF16, {n32} TF32)"
-                          for k, (n, n32, nb, *_) in hmma.items() if k in k1_bwd_bf16))
-        for k in k1_bwd_bf16:
-            n, n32, nb, *_ = hmma.get(k, [0] * 5)
+                          for k, (n, n32, nb, *_) in hmma.items() if k in k1_bwd_mma))
+        check(len(k1_bwd_mma) > 0, "the mma.sync bf16 backward is built")
+        for k in k1_bwd_mma:
+            n, n32, nb, *_ = hmma[k]
             check(nb > 0 and n32 == 0, f"{k} runs bf16 m16n8k16 mma and no TF32 mma")
         print("  SASS of K2's split-TF32 kernels: "
               + ", ".join(f"{k} {n} HMMA ({n32} TF32)" for k, (n, n32, *_) in sorted(hmma.items())
                           if k in K2_TRAIN))
         for k in K2_TRAIN:
             check(hmma.get(k, [0] * 5)[1] > 0, f"{k} runs TF32 mma on the tensor cores")
-        print("  SASS of K1's bf16 forward on Hopper: "
+        print("  SASS of K1's bf16 forward and backward on Hopper: "
               + ", ".join(f"{k} {hg} HGMMA, {tma} UTMALDG, {n} HMMA"
-                          for k, (n, _, _, hg, tma) in sorted(hmma.items()) if k in K1_WGMMA_INST))
-        for k in K1_WGMMA_INST:
+                          for k, (n, _, _, hg, tma) in sorted(hmma.items())
+                          if k in K1_WGMMA_INST + k1_bwd_bf16))
+        for k in K1_WGMMA_INST + k1_bwd_bf16:
             n, _, _, hg, tma = hmma.get(k, [0] * 5)
             check(hg > 0 and tma > 0 and n == 0,
                   f"{k} runs wgmma (HGMMA) on tiles TMA loads (UTMALDG), no mma.sync (HMMA)")

@@ -11,7 +11,9 @@ sources, then runs `chip_smoke.time_k1_local` at each case: the forward and
 the backward held against the plain version (the backward by
 `hold_flash_bwd`'s long bf16 rule, two runs bit for bit), their device
 times beside the bound, the split-bf16 scheme's own floor, the plain
-version's and scaled_dot_product_attention's. The measuring code is this
+version's and scaled_dot_product_attention's, and the backward's device
+time split by CUDA kernel (one call under torch.profiler; a kernel the
+profiler misses is left out). The measuring code is this
 script's own checkout's `chip_smoke.py`; only the kernels come from the
 tree it is run from. Run from two checkouts one after the other on one
 card (A, B, B, A) to compare two versions of K1.
@@ -47,9 +49,20 @@ def main() -> int:
     print(f"tree {label}: built in {time.time() - t0:.1f} s")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
     for name, case in {**SHARDS, **c.K1_BF16_LAYERS}.items():
         print(f"  {label} {name} {case}", flush=True)
         c.time_k1_local(torch, case)
+        kw = {"causal": case[5], "window": case[6]}
+        q, k, v, _ = c.flash_inputs(torch, case, torch.bfloat16)
+        do = c.flash_inputs(torch, case, torch.bfloat16, seed=c.SEED + 1)[0]
+        o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        _, split, _ = c.device_breakdown(
+            torch, lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), reps=1)
+        print("    backward by kernel: " + ", ".join(
+            f"{n.replace('(anonymous namespace)::', '').removeprefix('void ').split('(')[0]} "
+            f"{ms:.4f} ms" for n, ms in sorted(split.items())), flush=True)
+        del q, k, v, do, o, lse
     return 0
 
 

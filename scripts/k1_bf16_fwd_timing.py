@@ -11,6 +11,8 @@ sources, then at each shape holds the forward to chip_smoke.py's long bf16
 rule (each element within 1e-2 |ref| + 1e-4 max|ref| of the plain version)
 and prints the CUDA kernel that ran (by the profiler), its device time
 (CUDA graph, `chip_smoke.graph_ms`) without and with the log-sum-exp, the
+first 16 hex digits of the SHA-256 of the output's and the log-sum-exp's
+bytes (two trees that print the same digests gave the same bits), the
 eager back-to-back time, the bound (bf16 tensor-core peak or the bytes),
 the split-bf16 scheme's own floor (P V in two bf16 products: 1.5x the
 function's tensor-core work) and scaled_dot_product_attention's time (K/V
@@ -24,6 +26,7 @@ script's own checkout's `chip_smoke.py`; only the kernels come from the tree
 it is run from. Run from two checkouts one after the other on one card
 (A, B, B, A) to compare two versions of K1.
 """
+import hashlib
 import subprocess
 import sys
 import time
@@ -105,6 +108,9 @@ def timing(torch, c, label, name, case):
     _, by_name, _ = c.device_breakdown(torch, lambda: flash_attention(q, k, v, **kw), reps=1)
     ran = sorted({n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
                   for n in by_name})
+    _, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    digest = hashlib.sha256(o.view(torch.int16).cpu().numpy().tobytes()
+                            + lse.cpu().numpy().tobytes()).hexdigest()[:16]
     ms = c.graph_ms(torch, lambda: flash_attention(q, k, v, **kw))
     ms_lse = c.graph_ms(torch, lambda: flash_attention(q, k, v, return_lse=True, **kw))
     eager = c.time_ms(torch, lambda: flash_attention(q, k, v, **kw), iters=20)
@@ -125,7 +131,7 @@ def timing(torch, c, label, name, case):
           f"eager {eager:.4f}); bound {bound:.5f} ms ({by}, {bound / ms:.1%}); split-bf16 floor "
           f"{floor:.5f} ms ({floor / ms:.1%}); scaled_dot_product_attention {sdpa:.4f} ms "
           f"({ms / sdpa:.2f}x){' (boolean window mask)' if mask is not None else ''}; "
-          f"max|d| {err:.3g} (max|ref| {mref:.3g})", flush=True)
+          f"max|d| {err:.3g} (max|ref| {mref:.3g}); sha256 of o and lse {digest}", flush=True)
     del q, k, v, o, qt, kt, vt, mask
     torch.cuda.empty_cache()
 

@@ -2,7 +2,7 @@
 """Variants of K1's CUDA source built side by side and timed in one process
 on one NVIDIA card, to choose between designs of a kernel.
 
-    python3 scripts/k1_variants.py VARIANTS.json
+    python3 scripts/k1_variants.py VARIANTS.json [--backward]
 
 VARIANTS.json maps a variant's name to [tree, [[old, new], ...]]: the
 variant is `csrc/` of K1 in `tree` (a checkout's root; "" for this one)
@@ -15,7 +15,12 @@ to chip_smoke.py's long bf16 rule at six small cases (a miss is printed,
 not fatal: a knock-out variant computes another function) and times it
 (CUDA graph, `chip_smoke.graph_ms`) at the seven shapes of
 `scripts/k1_bf16_fwd_timing.py`, and last each variant's best time per
-shape. Variants are bound with ctypes and swapped into `kernel._lib`.
+shape. With --backward it holds and times K1's bf16 backward instead: the
+held cases run `chip_smoke.hold_flash_bwd` (its long bf16 rule, two runs bit
+for bit; a miss is printed), the timed ones are the six cases of
+`scripts/k1_bf16_bwd_timing.py`, the backward timed on each variant's own
+forward's o and lse. Variants are bound with ctypes and swapped into
+`kernel._lib`.
 Builds go to `.archive/var/` (gitignored).
 """
 import ctypes
@@ -56,12 +61,47 @@ def write_variant(name, tree, subs):
 
 
 def bind(path):
-    fwd = ctypes.CDLL(str(path)).flash_attention_launch
-    fwd.restype = ctypes.c_int
+    lib = ctypes.CDLL(str(path))
+    fwd, bwd = lib.flash_attention_launch, lib.flash_attention_bwd_launch
+    fwd.restype = bwd.restype = ctypes.c_int
     fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p])
-    return fwd, None
+    bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p])
+    return fwd, bwd
+
+
+def backward_rounds(torch, c, kernel, libs):
+    """--backward: every variant held at HOLD's cases by hold_flash_bwd and
+    timed at the backward timing script's six cases, A B .. B A."""
+    from k1_bf16_bwd_timing import SHARDS
+    shapes = {**SHARDS, **c.K1_BF16_LAYERS}
+    times = {name: {} for name in libs}
+    for rnd, name in enumerate(list(libs) + list(reversed(list(libs)))):
+        fns = bind(libs[name])
+        kernel._lib = lambda fns=fns: fns
+        held = True
+        for case in HOLD if rnd < len(libs) else ():
+            try:
+                c.hold_flash_bwd(torch, case, "bf16", small=False)
+            except RuntimeError as e:
+                print(f"  {name} {case}: {e}")
+                held = False
+        for sname, case in shapes.items():
+            q, k, v, _ = c.flash_inputs(torch, case, torch.bfloat16)
+            do = c.flash_inputs(torch, case, torch.bfloat16, seed=c.SEED + 1)[0]
+            kw = {"causal": case[5], "window": case[6]}
+            o, lse = kernel.flash_attention(q, k, v, return_lse=True, **kw)
+            times[name].setdefault(sname, []).append(c.graph_ms(
+                torch, lambda: kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)))
+            del q, k, v, do, o, lse
+        print(f"round {rnd} {name}: held {held}; "
+              + ", ".join(f"{s} {times[name][s][-1]:.4f}" for s in shapes), flush=True)
+    for name in libs:
+        print(f"{name} (best of 2): "
+              + ", ".join(f"{s} {min(times[name][s]):.4f}" for s in shapes))
 
 
 def main() -> int:
@@ -95,10 +135,16 @@ def main() -> int:
         for k, (regs, st, ld, _) in sorted(c.ptxas_table(log, c.fwd_name).items()):
             if k.startswith(("flash_wgmma_kernel", "flash_mma_kernel")):
                 print(f"  {name} {k}: {regs} registers, {st}/{ld} bytes spilled")
+        for k, (regs, st, ld, _) in sorted(c.ptxas_table(log, c.bwd_name).items()):
+            if "--backward" in sys.argv and k.startswith("flash_wgmma_bwd"):
+                print(f"  {name} {k}: {regs} registers, {st}/{ld} bytes spilled")
         libs[name] = OUT / name / "flash_attention.so"
     print(f"built {len(libs)} variants in {time.time() - t0:.1f} s")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
+    if "--backward" in sys.argv:
+        backward_rounds(torch, c, kernel, libs)
+        return 0
 
     cases = HOLD + list(SHAPES.values())
     inputs = {case: c.flash_inputs(torch, case, torch.bfloat16) for case in cases}

@@ -14,14 +14,18 @@
 // backward here is the gradient of the same function (see below).
 //
 // One forward kernel and one backward pair per dtype and head dim, chosen by
-// a fixed rule (not a fallback; a failed launch is returned; the wrapper's
-// kernel.forward_kernel names the forward's):
+// a fixed rule (not a fallback; a failed tensor-map encode or launch is
+// returned; the wrapper's kernel.forward_kernel and kernel.backward_kernels
+// name them):
 //   * bfloat16 forward at hd 64, 128 and 256 (every full-width config's head
 //     dim) -> flash_wgmma_kernel, Hopper's wgmma fed by TMA;
 //   * bfloat16 forward at the other head dims -> flash_mma_kernel, bf16
 //     mma.sync m16n8k16;
-//   * bfloat16 backward -> flash_bf16_bwd_dq_kernel (dQ and delta), then
-//     flash_bf16_bwd_dkdv_kernel (dK, dV), bf16 mma.sync m16n8k16 with
+//   * bfloat16 backward at hd 64, 128 and 256 -> flash_wgmma_bwd_dq_kernel
+//     (dQ and delta), then flash_wgmma_bwd_dkdv_kernel (dK, dV), wgmma fed
+//     by TMA with split-bf16 P and dS;
+//   * bfloat16 backward at the other head dims -> flash_bf16_bwd_dq_kernel,
+//     then flash_bf16_bwd_dkdv_kernel, bf16 mma.sync m16n8k16 with
 //     split-bf16 P and dS;
 //   * float32 forward   -> flash_tf32_kernel, split-TF32 mma.sync m16n8k8;
 //   * float32 backward  -> flash_tf32_bwd_dq_kernel, then
@@ -90,8 +94,8 @@
 //     registers: row maxima over raw scores, p = 2^(s * scale * log2 e - m)
 //     by one FFMA and ex2.approx.ftz; masks only in tiles that cross an
 //     edge, where masked keys get p = 0 and no part in the maximum. O is
-//     rescaled only when some row's maximum moved. A negative scale is taken
-//     by negating Q in shared memory once.
+//     rescaled on every tile (by exactly 1 where a row's maximum did not
+//     move). A negative scale is taken by negating Q in shared memory once.
 //   * O += (P_hi + P_lo) V by two register-A wgmma per 16 keys (P split as in
 //     flash_mma_kernel: the accumulator's registers are the A fragment), V
 //     the B operand read MN-major (wgmma's transpose bit).
@@ -202,6 +206,48 @@
 //     mesh shard: 48 blocks of 64 keys on 132 SMs).
 //   Both skip the tiles that the causal and window masks leave dead and
 //   mask element by element only in a tile that crosses a mask's edge.
+//
+// flash_wgmma_bwd_dq_kernel and flash_wgmma_bwd_dkdv_kernel (bf16, hd 64,
+// 128, 256): the same function as the mma.sync pair, with Hopper's own
+// machinery and flash_wgmma_kernel's layout (64-column boxes with the
+// 128-byte swizzle, tensor maps encoded per call, a producer beside 64-row
+// consumer warpgroups, setmaxnreg). At mixtral's layer (1, 4096, 32/8 heads
+// of 128, causal) the function is 344 GFLOP on 168 MB: operations bound it
+// (0.348 ms at 989 TFLOP/s), and the split P and dS make the tensor cores'
+// own floor twice that. The mma.sync pair ran at 10-15 % of the bound, held
+// by shared-memory traffic (each 16-key warp re-read an item's Q and dO by
+// ldmatrix) and issue; here every operand reaches the tensor cores from
+// shared memory by descriptor or from the accumulator's registers.
+//   * flash_wgmma_bwd_dq_kernel: grid (ceil(Sq/BQ), B*Hq), the longest
+//     causal walks first; NWG consumer warpgroups of 64 query rows (BQ =
+//     64 NWG: up to 3 at hd 64, 2 at 128, 1 at 256) by the grid rule of
+//     flash_wgmma_kernel. The producer's thread loads Q and dO once and the
+//     live K/V tiles (64 keys) through a 2-stage ring by TMA. Consumers
+//     compute delta = rowsum(dO O) for their rows (O from device memory, dO
+//     from its swizzled tile), write it out, then per tile: S = Q K^T and
+//     dP = dO V^T by wgmma from shared memory (K-major as stored), P and
+//     dS = P (dP - delta) in the accumulator's registers, masks only in a
+//     tile that crosses an edge, and dQ += (dS_hi + dS_lo) K by register-A
+//     wgmma with K read MN-major (the transpose bit), as the forward's P V.
+//   * flash_wgmma_bwd_dkdv_kernel: grid (B*Hkv*NZ, ceil(Skv/BKV)), the
+//     longest causal walk first; NWG consumer warpgroups of 64 keys each
+//     (BKV = 64 NWG: up to 2 at hd 64 and 128, 1 at 256). The producer
+//     warp loads K and V once, then streams every live item (query head of
+//     the rep, tile of 64 query rows) through a 2-stage ring: its lanes
+//     write the item's lse (log2 units; 1e30 past Sq, so P is 0 there with
+//     no mask) and delta into the stage, one lane issues Q's and dO's TMA
+//     loads. Every warpgroup reads the same Q and dO tile once: S^T = K
+//     Q^T and dP^T = V dO^T by wgmma (both K-major as stored) leave P^T and
+//     dS^T in registers with rows = keys, and dV += (P^T_hi + P^T_lo) dO,
+//     dK += (dS^T_hi + dS^T_lo) Q run register-A with dO and Q MN-major.
+//     The warpgroups own disjoint keys, so GQA's sum over the rep heads
+//     stays in each warpgroup's accumulators and nothing is handed over.
+//     At hd 256 the two fp32 accumulators of 64 x 256 would take 256
+//     registers a thread: two column blocks (NZ = 2, DN = 128), each
+//     recomputing S^T and dP^T.
+//   The sums stay in wgmma's fp32 accumulators, as in the mma.sync pair;
+//   the long bf16 rule holds at every element of the six timed cases
+//   (PERF.md). Deterministic: no atomics, every sum in a fixed order.
 //
 //   * flash_tf32_bwd_dq_kernel: grid (B*Hq, ceil(Sq/64)), the forward's two
 //     groups over 64 query rows. It stages Q and dO once, computes delta
@@ -504,16 +550,17 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // bf16 at hd 64, 128 and 256: flash_wgmma_kernel, wgmma fed by TMA
 // ---------------------------------------------------------------------------
 
+// threads of a block of the wgmma kernels with nwg consumer warpgroups: the
+// producer is a whole warpgroup beside two or three of them, so that
+// registers can move to the consumers (setmaxnreg), else one warp
+constexpr int wg_threads(int nwg) { return nwg * 128 + (nwg >= 2 ? 128 : 32); }
+
 template <int HD>
 struct WgCfg {
   static constexpr int BK = HD <= 128 ? 128 : 64;        // keys per tile
   static constexpr int STAGES = 2;                       // K/V ring depth
   static constexpr int CB = HD / 64;                     // 128-byte column blocks per row
   static constexpr uint32_t TILE_BYTES = BK * HD * 2;    // one K or V tile
-  // the producer: a whole warpgroup beside two or three consumer
-  // warpgroups, so that registers can move to the consumers (setmaxnreg),
-  // else one warp
-  static constexpr int threads(int nwg) { return nwg * 128 + (nwg >= 2 ? 128 : 32); }
   // Q, the K and V rings, the barriers, and slack to align the tiles to 1024
   static constexpr size_t smem(int nwg) {
     return 1024 + (size_t)64 * nwg * HD * 2 + 2 * STAGES * (size_t)TILE_BYTES +
@@ -530,8 +577,8 @@ struct WgCfg {
 // part in the maximum and get p = 0 (the -1e30 and p = 0 of the TPU
 // kernel); only a tile that crosses a mask's edge tests them. Turns sc into
 // P (fp32), updates m (kNegInf while a row has seen no key) and this lane's
-// part of l, and gives the factor O is rescaled by and whether any row of
-// the warp needs it.
+// part of l, and gives the factor O is rescaled by (1 exactly where a row's
+// maximum did not move).
 struct RowMask {
   int wr0, row_lo, row_hi, lane, Skv, causal, window;
   float scale_log2;
@@ -569,7 +616,7 @@ struct RowMask {
   }
 
   template <int BK>
-  __device__ __forceinline__ bool softmax(float (&sc)[BK / 2], int k0, float (&m)[2],
+  __device__ __forceinline__ void softmax(float (&sc)[BK / 2], int k0, float (&m)[2],
                                           float (&l)[2], float (&alpha)[2]) const {
     const bool need_mask = k0 + BK > Skv || (causal && k0 + BK - 1 > wr0) ||
                            (window >= 0 && k0 <= wr0 + 15 - window);
@@ -592,9 +639,6 @@ struct RowMask {
       exp_rows<BK, false>(sc, k0, m, rs);
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
-    // O needs rescaling unless every row of the warp kept its maximum
-    // (alpha = 1 exactly, and O * 1 is O)
-    return __any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f);
   }
 };
 
@@ -616,7 +660,7 @@ __device__ __forceinline__ void split_p(const float (&sc)[BK / 2], uint32_t (&ph
 // the loads); tq/tk/tv map the (hd, H, S, B) views of q, k and v in boxes of
 // 64 columns x (64 NWG query or BK key) rows
 template <int HD, int NWG>
-__global__ void __launch_bounds__(WgCfg<HD>::threads(NWG), 1)
+__global__ void __launch_bounds__(wg_threads(NWG), 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
                    float* __restrict__ lse, int Sq, int Skv, int Hq, int rep, int64_t osb,
@@ -733,12 +777,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     wgmma_wait<0>();
     fence_regs(sc);
     if (lane == 0) mbar_arrive(k_empty + s);           // K's stage may be refilled
-    const bool rescale = mask.softmax<BK>(sc, t * BK, m, l, alpha);
+    mask.softmax<BK>(sc, t * BK, m, l, alpha);
     split_p<BK>(sc, ph, pl);
-    if (rescale) {
+    // O rescaled on every tile: alpha = 1 exactly where a row's maximum
+    // did not move, and O * 1 is O
 #pragma unroll
-      for (int j = 0; j < HD / 2; ++j) acc[j] *= alpha[(j / 2) % 2];
-    }
+    for (int j = 0; j < HD / 2; ++j) acc[j] *= alpha[(j / 2) % 2];
 
     // O += (P_hi + P_lo) V, V read transposed from its [key][d] tile
     mbar_wait(v_full + s, (i / ST) & 1);
@@ -1995,6 +2039,459 @@ flash_bf16_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
+// bf16 backward at hd 64, 128 and 256: flash_wgmma_bwd_dq_kernel and
+// flash_wgmma_bwd_dkdv_kernel, wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+template <int HD>
+struct WgBwdCfg {
+  static constexpr int CB = HD / 64;                     // 128-byte column blocks per row
+  static constexpr int BK = 64;                          // dQ: keys per K/V tile
+  static constexpr int BQ = 64;                          // dK/dV: query rows per item
+  static constexpr int STAGES = 2;                       // ring depth, both kernels
+  static constexpr int DN = HD <= 128 ? HD : 128;        // dK/dV columns per block
+  static constexpr int NZ = HD / DN;                     // dK/dV column blocks
+  // consumer warpgroups a block may have: the registers of a warpgroup's
+  // state (dQ: 64 x hd fp32; dK/dV: two 64 x DN) and the shared memory
+  static constexpr int DQ_NWG = HD == 64 ? 3 : HD == 128 ? 2 : 1;
+  static constexpr int KV_NWG = HD <= 128 ? 2 : 1;
+  // dQ: Q and dO of the block's rows, the K/V ring, delta, the barriers,
+  // and slack to align the tiles to 1024 bytes
+  static constexpr size_t dq_smem(int nwg) {
+    return 1024 + (size_t)2 * 64 * nwg * HD * 2 + (size_t)2 * STAGES * BK * HD * 2 +
+           4 * 64 * nwg + 8 * (1 + 2 * STAGES);
+  }
+  // dK/dV: K and V of the block's keys, the Q/dO ring, lse and delta per
+  // stage, the barriers, the slack
+  static constexpr size_t dkdv_smem(int nwg) {
+    return 1024 + (size_t)2 * 64 * nwg * HD * 2 + (size_t)2 * STAGES * BQ * HD * 2 +
+           STAGES * 2 * BQ * 4 + 8 * (1 + 2 * STAGES);
+  }
+};
+
+// dS = P (dP - delta) of one warp's 16 query rows over a tile of BK keys in
+// the accumulator layout (register 4 j + e: row e < 2 ? row_lo : row_hi, key
+// k0 + 8 j + 2 (lane % 4) + e % 2), P = 2^(s scale log2 e - lse log2 e) with
+// masked entries 0 (keys past Skv too: their K rows are TMA's zeros, and P
+// there could overflow). dS replaces dP.
+template <int BK, bool MASKED>
+__device__ __forceinline__ void rows_ds(const float (&s)[BK / 2], float (&dp)[BK / 2],
+                                        const float (&l2)[2], const float (&dl)[2],
+                                        float scale_log2, int k0, int row_lo, int row_hi, int lane,
+                                        int Skv, int causal, int window) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2_ftz(fmaf(s[4 * j + e], scale_log2, -l2[e / 2]));
+      if (MASKED) {
+        const int kp = k0 + 8 * j + 2 * (lane % 4) + (e & 1), qp = e < 2 ? row_lo : row_hi;
+        if (!(kp < Skv && (!causal || kp <= qp) && (window < 0 || kp > qp - window))) p = 0.f;
+      }
+      dp[4 * j + e] = p * (dp[4 * j + e] - dl[e / 2]);
+    }
+}
+
+// P^T and dS^T of one warp's 16 keys over an item of BQ query rows in the
+// accumulator layout (register 4 j + e: key e < 2 ? key_lo : key_hi, query
+// qb + 8 j + 2 (lane % 4) + e % 2); l holds the item's lse (log2 units) and
+// then its delta. Query rows past Sq have lse 1e30 there, so their P is 0
+// with no mask; keys past Skv are rows that are never stored.
+template <int BQ, bool MASKED>
+__device__ __forceinline__ void keys_p_ds(float (&st)[BQ / 2], float (&dpt)[BQ / 2],
+                                          const float* l, float scale_log2, int qb, int key_lo,
+                                          int key_hi, int lane, int causal, int window) {
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j) {
+    const float2 lv = *reinterpret_cast<const float2*>(l + 8 * j + 2 * (lane % 4));
+    const float2 dv = *reinterpret_cast<const float2*>(l + BQ + 8 * j + 2 * (lane % 4));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = e & 1;
+      float p = exp2_ftz(fmaf(st[4 * j + e], scale_log2, -(c ? lv.y : lv.x)));
+      if (MASKED) {
+        const int kp = e < 2 ? key_lo : key_hi, qp = qb + 8 * j + 2 * (lane % 4) + c;
+        if (!((!causal || kp <= qp) && (window < 0 || kp > qp - window))) p = 0.f;
+      }
+      st[4 * j + e] = p;
+      dpt[4 * j + e] = p * (dpt[4 * j + e] - (c ? dv.y : dv.x));
+    }
+  }
+}
+
+// dQ and delta of 64 NWG query rows of one head: NWG consumer warpgroups of
+// 64 rows (warps 0 .. 4 NWG - 1) and the producer (the warps after them, of
+// which one thread issues the loads). tq/tdo map the (hd, H, S, B) views of
+// q and dout in boxes of 64 columns x 64 NWG rows, tk/tv those of k and v
+// in boxes of 64 columns x BK rows. o, dout, dq contiguous (B, Sq, Hq, HD);
+// lse, delta (B, Hq, Sq).
+template <int HD, int NWG>
+__global__ void __launch_bounds__(wg_threads(NWG), 1)
+flash_wgmma_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo, const bf16* __restrict__ o,
+                          const float* __restrict__ lse, float* __restrict__ delta,
+                          bf16* __restrict__ dq, int Sq, int Skv, int Hq, int rep, float scale,
+                          float scale_log2, int causal, int window) {
+  using namespace hopper;
+  using C = WgBwdCfg<HD>;
+  constexpr int BQ = 64 * NWG, BK = C::BK, CB = C::CB, ST = C::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(base);            // [CB][BQ][64]
+  bf16* dos = qs + CB * BQ * 64;                        // [CB][BQ][64]
+  bf16* ks = dos + CB * BQ * 64;                        // [ST][CB][BK][64]
+  bf16* vs = ks + ST * CB * BK * 64;                    // [ST][CB][BK][64]
+  float* dl_s = reinterpret_cast<float*>(vs + ST * CB * BK * 64);   // [BQ] the rows' delta
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(dl_s + BQ);
+  uint64_t* full = qd_full + 1;                         // [ST] K and V tiles landed
+  uint64_t* empty = full + ST;                          // [ST] read by every consumer warp
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;     // the longest causal walks first
+  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq;
+  int k_end = Skv;
+  if (causal) k_end = min(k_end, min(q0 + BQ, Sq));
+  const int k_begin = window >= 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * NWG);                    // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {
+    // producer: Q and dO once, then the live K/V tiles through the ring;
+    // rows past S arrive as zeros (registers as in flash_wgmma_kernel)
+    if constexpr (NWG >= 2) setmaxnreg_dec<24>();
+    if (warp == 4 * NWG && lane == 0) {
+      tma_prefetch(&tq);
+      tma_prefetch(&tk);
+      tma_prefetch(&tv);
+      tma_prefetch(&tdo);
+      mbar_expect_tx(qd_full, 2 * BQ * HD * 2);
+      for (int cb = 0; cb < CB; ++cb) {
+        tma_load_4d(qs + cb * BQ * 64, &tq, qd_full, 64 * cb, h, q0, b);
+        tma_load_4d(dos + cb * BQ * 64, &tdo, qd_full, 64 * cb, h, q0, b);
+      }
+      const int hk = h / rep;
+      for (int t = t_begin; t < t_end; ++t) {
+        const int i = t - t_begin, s = i % ST;
+        mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
+        mbar_expect_tx(full + s, 2 * BK * HD * 2);
+        for (int cb = 0; cb < CB; ++cb) {
+          tma_load_4d(ks + (s * CB + cb) * BK * 64, &tk, full + s, 64 * cb, hk, t * BK, b);
+          tma_load_4d(vs + (s * CB + cb) * BK * 64, &tv, full + s, 64 * cb, hk, t * BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63, its warp w % 4 16 of them
+  if constexpr (NWG == 2) setmaxnreg_inc<240>();
+  if constexpr (NWG == 3) setmaxnreg_inc<160>();
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  const int r0 = q0 + 64 * wg;                          // the warpgroup's first row
+  const int wr0 = r0 + 16 * (warp % 4);                 // the warp's first row
+  const int row_lo = wr0 + lane / 4, row_hi = row_lo + 8;
+  mbar_wait(qd_full, 0);
+  // delta = rowsum(dO * O) of the warpgroup's 64 rows, fp32: two threads
+  // per row, each over half of its 16-byte chunks (o from device memory, dO
+  // from its swizzled tile: chunk c of row r at chunk c ^ (r % 8))
+  {
+    const int r = 64 * wg + tid / 2, row = q0 + r, c0 = (tid & 1) * (HD / 16);
+    float sum = 0.f;
+    if (row < Sq) {
+      const bf16* orow = o + (((int64_t)b * Sq + row) * Hq + h) * HD;
+#pragma unroll
+      for (int c = c0; c < c0 + HD / 16; ++c)
+        sum = dot8(*reinterpret_cast<const uint4*>(orow + 8 * c),
+                   *reinterpret_cast<const uint4*>(dos + ((c / 8) * BQ + r) * 64 +
+                                                   ((c % 8) ^ (r % 8)) * 8),
+                   sum);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((tid & 1) == 0) {
+      dl_s[r] = sum;
+      if (row < Sq) delta[((int64_t)b * Hq + h) * Sq + row] = sum;
+    }
+  }
+  named_barrier_sync(1 + wg, 128);
+  const float dl[2] = {dl_s[row_lo - q0], dl_s[row_hi - q0]};
+  float l2[2];                                          // the rows' lse in log2 units
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i == 0 ? row_lo : row_hi;
+    l2[i] = row < Sq ? lse[((int64_t)b * Hq + h) * Sq + row] * kLog2e : 0.f;
+  }
+  // keys that some row of the warpgroup may attend to
+  int wk_end = Skv;
+  if (causal) wk_end = min(wk_end, min(r0 + 64, Sq));
+  const int wk_begin = window >= 0 ? max(0, r0 - window + 1) : 0;
+  const bool rows_live = r0 < Sq;
+
+  const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128, do_addr = smem_u32(dos) + wg * 64 * 128;
+  float acc[HD / 2];                                    // dQ, accumulator layout
+#pragma unroll
+  for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
+  float sc[BK / 2], dp[BK / 2];                         // S; dP, then dS (fp32)
+  uint32_t dh[BK / 16][4], dlo[BK / 16][4];             // dS as two bf16 A operands
+  for (int t = t_begin; t < t_end; ++t) {
+    const int i = t - t_begin, s = i % ST, k0 = t * BK;
+    mbar_wait(full + s, (i / ST) & 1);
+    if (rows_live && k0 < wk_end && k0 + BK > wk_begin) {
+      // S = Q K^T and dP = dO V^T (fp32), HD / 16 k-steps each
+      const uint32_t k_addr = smem_u32(ks + s * CB * BK * 64);
+      const uint32_t v_addr = smem_u32(vs + s * CB * BK * 64);
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < HD / 16; ++kd)
+        wgmma_ss<BK>(sc, desc_sw128(q_addr + (kd / 4) * BQ * 128 + (kd % 4) * 32, 16, 1024),
+                     desc_sw128(k_addr + (kd / 4) * BK * 128 + (kd % 4) * 32, 16, 1024), kd > 0);
+#pragma unroll
+      for (int kd = 0; kd < HD / 16; ++kd)
+        wgmma_ss<BK>(dp, desc_sw128(do_addr + (kd / 4) * BQ * 128 + (kd % 4) * 32, 16, 1024),
+                     desc_sw128(v_addr + (kd / 4) * BK * 128 + (kd % 4) * 32, 16, 1024), kd > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      const bool need_mask = k0 + BK > Skv || (causal && k0 + BK - 1 > wr0) ||
+                             (window >= 0 && k0 <= wr0 + 15 - window);
+      if (need_mask)
+        rows_ds<BK, true>(sc, dp, l2, dl, scale_log2, k0, row_lo, row_hi, lane, Skv, causal,
+                          window);
+      else
+        rows_ds<BK, false>(sc, dp, l2, dl, scale_log2, k0, row_lo, row_hi, lane, Skv, causal,
+                           window);
+      split_p<BK>(dp, dh, dlo);
+
+      // dQ += (dS_hi + dS_lo) K, K read transposed from its [key][d] tile
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t dk = desc_sw128(k_addr + kk * 16 * 128, BK * 128, 1024);
+        wgmma_rs_t<HD>(acc, dh[kk], dk);
+        wgmma_rs_t<HD>(acc, dlo[kk], dk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    if (lane == 0) mbar_arrive(empty + s);             // the stage may be refilled
+  }
+
+  // epilogue: one cast, ragged rows unwritten
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r == 0 ? row_lo : row_hi;
+    if (row >= Sq) continue;
+    bf16* drow = dq + (((int64_t)b * Sq + row) * Hq + h) * HD + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      store2(drow + 8 * j, acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+// dK and dV of 64 NWG keys of one KV head, columns [d0, d0 + DN), summed
+// over the rep query heads of that KV head: NWG consumer warpgroups of 64
+// keys and the producer warp, which loads K and V once, then streams the
+// items (query head, tile of BQ query rows) with their lse and delta through
+// the ring. tk/tv map k and v in boxes of 64 columns x 64 NWG rows, tq/tdo
+// q and dout in boxes of 64 columns x BQ rows. dk, dv contiguous (B, Skv,
+// Hkv, HD); lse, delta (B, Hq, Sq).
+template <int HD, int NWG>
+__global__ void __launch_bounds__(wg_threads(NWG), 1)
+flash_wgmma_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int Hq,
+                            int rep, float scale, float scale_log2, int causal, int window) {
+  using namespace hopper;
+  using C = WgBwdCfg<HD>;
+  constexpr int BKV = 64 * NWG, BQ = C::BQ, CB = C::CB, ST = C::STAGES, DN = C::DN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* ks = reinterpret_cast<bf16*>(base);            // [CB][BKV][64]
+  bf16* vs = ks + CB * BKV * 64;                        // [CB][BKV][64]
+  bf16* qs = vs + CB * BKV * 64;                        // [ST][CB][BQ][64]
+  bf16* dos = qs + ST * CB * BQ * 64;                   // [ST][CB][BQ][64]
+  float* ld = reinterpret_cast<float*>(dos + ST * CB * BQ * 64);   // [ST][lse, delta][BQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(ld + ST * 2 * BQ);
+  uint64_t* full = kv_full + 1;                         // [ST] the item landed
+  uint64_t* empty = full + ST;                          // [ST] read by every consumer warp
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int Hkv = Hq / rep;
+  const int z = blockIdx.x % C::NZ, bh = blockIdx.x / C::NZ;   // column blocks side by side
+  const int b = bh / Hkv, hk = bh % Hkv;
+  const int k0 = blockIdx.y * BKV;                      // the longest causal walks first
+  // query rows that may attend to a key of this block: [q_begin, q_end);
+  // the items are (query head, query tile), heads outermost
+  const int q_begin = causal ? k0 : 0;
+  long long q_end = Sq;
+  if (window >= 0) {
+    const long long last = (long long)min(k0 + BKV, Skv) - 1 + window;
+    q_end = last < q_end ? last : q_end;
+  }
+  const int qt_begin = q_begin / BQ;
+  const int n_qt = q_end > q_begin ? (int)((q_end + BQ - 1) / BQ) - qt_begin : 0;
+  const int items = rep * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 32);                          // the producer warp's lanes
+      mbar_init(empty + s, 4 * NWG);                    // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {
+    // producer: K and V once, then each item's Q and dO tiles by TMA (rows
+    // past Sq arrive as zeros) and its lse and delta, written by the warp's
+    // lanes, into the ring (registers as in flash_wgmma_kernel)
+    if constexpr (NWG >= 2) setmaxnreg_dec<24>();
+    if (warp == 4 * NWG) {
+      if (lane == 0) {
+        tma_prefetch(&tq);
+        tma_prefetch(&tk);
+        tma_prefetch(&tv);
+        tma_prefetch(&tdo);
+        mbar_expect_tx(kv_full, 2 * BKV * HD * 2);
+        for (int cb = 0; cb < CB; ++cb) {
+          tma_load_4d(ks + cb * BKV * 64, &tk, kv_full, 64 * cb, hk, k0, b);
+          tma_load_4d(vs + cb * BKV * 64, &tv, kv_full, 64 * cb, hk, k0, b);
+        }
+      }
+      for (int it = 0; it < items; ++it) {
+        const int s = it % ST, h = hk * rep + it / n_qt, i0 = (qt_begin + it % n_qt) * BQ;
+        mbar_wait(empty + s, ((it / ST) & 1) ^ 1);
+        float* l = ld + s * 2 * BQ;
+        const int64_t rows = ((int64_t)b * Hq + h) * Sq;
+        for (int r = lane; r < BQ; r += 32) {
+          const bool ok = i0 + r < Sq;
+          l[r] = ok ? lse[rows + i0 + r] * kLog2e : 1e30f;
+          l[BQ + r] = ok ? delta[rows + i0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full + s, 2 * BQ * HD * 2);
+          for (int cb = 0; cb < CB; ++cb) {
+            tma_load_4d(qs + (s * CB + cb) * BQ * 64, &tq, full + s, 64 * cb, h, i0, b);
+            tma_load_4d(dos + (s * CB + cb) * BQ * 64, &tdo, full + s, 64 * cb, h, i0, b);
+          }
+        } else {
+          mbar_arrive(full + s);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63, its warp w % 4 16 of them
+  if constexpr (NWG == 2) setmaxnreg_inc<240>();
+  const int wg = warp / 4;
+  const int key0 = k0 + 64 * wg;                        // the warpgroup's first key
+  const int kw0 = key0 + 16 * (warp % 4);               // the warp's first key
+  const int key_lo = kw0 + lane / 4, key_hi = key_lo + 8;
+  const int last_key = min(key0 + 64, Skv) - 1;
+  const int z0 = z * (DN / 64);                         // the block's first column block
+  const uint32_t k_addr = smem_u32(ks) + wg * 64 * 128, v_addr = smem_u32(vs) + wg * 64 * 128;
+  float adk[DN / 2], adv[DN / 2];                       // dK, dV, accumulator layout
+#pragma unroll
+  for (int j = 0; j < DN / 2; ++j) adk[j] = adv[j] = 0.f;
+  float st[BQ / 2], dpt[BQ / 2];                        // S^T, then P^T; dP^T, then dS^T
+  uint32_t ph[BQ / 16][4], pl[BQ / 16][4], sh[BQ / 16][4], sl[BQ / 16][4];
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < items; ++it) {
+    const int s = it % ST, qb = (qt_begin + it % n_qt) * BQ;
+    mbar_wait(full + s, (it / ST) & 1);
+    // does some query of the item attend to some key of the warpgroup?
+    if (key0 < Skv && (!causal || qb + BQ - 1 >= key0) &&
+        (window < 0 || qb < last_key + window)) {
+      // S^T = K Q^T and dP^T = V dO^T (fp32): rows the warpgroup's keys,
+      // columns the item's queries, both operands K-major as stored
+      const uint32_t q_addr = smem_u32(qs + s * CB * BQ * 64);
+      const uint32_t do_addr = smem_u32(dos + s * CB * BQ * 64);
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < HD / 16; ++kd)
+        wgmma_ss<BQ>(st, desc_sw128(k_addr + (kd / 4) * BKV * 128 + (kd % 4) * 32, 16, 1024),
+                     desc_sw128(q_addr + (kd / 4) * BQ * 128 + (kd % 4) * 32, 16, 1024), kd > 0);
+#pragma unroll
+      for (int kd = 0; kd < HD / 16; ++kd)
+        wgmma_ss<BQ>(dpt, desc_sw128(v_addr + (kd / 4) * BKV * 128 + (kd % 4) * 32, 16, 1024),
+                     desc_sw128(do_addr + (kd / 4) * BQ * 128 + (kd % 4) * 32, 16, 1024),
+                     kd > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      const float* l = ld + s * 2 * BQ;
+      const bool need_mask = (causal && kw0 + 15 > qb) || (window >= 0 && qb + BQ - 1 - window >= kw0);
+      if (need_mask)
+        keys_p_ds<BQ, true>(st, dpt, l, scale_log2, qb, key_lo, key_hi, lane, causal, window);
+      else
+        keys_p_ds<BQ, false>(st, dpt, l, scale_log2, qb, key_lo, key_hi, lane, causal, window);
+      split_p<BQ>(st, ph, pl);
+
+      // dV += (P^T_hi + P^T_lo) dO, then dK += (dS^T_hi + dS^T_lo) Q over
+      // the item's queries, 16 per k-step, dO and Q read transposed (columns
+      // [d0, d0 + DN): column blocks z0 ..); dS^T is split while dV's
+      // products run, and only P^T's terms are split before them, which
+      // keeps two consumer warpgroups at hd 128 within 240 registers
+      fence_regs(adk);
+      fence_regs(adv);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint64_t ddo = desc_sw128(do_addr + z0 * BQ * 128 + kk * 16 * 128, BQ * 128, 1024);
+        wgmma_rs_t<DN>(adv, ph[kk], ddo);
+        wgmma_rs_t<DN>(adv, pl[kk], ddo);
+      }
+      wgmma_commit();
+      split_p<BQ>(dpt, sh, sl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint64_t dqd = desc_sw128(q_addr + z0 * BQ * 128 + kk * 16 * 128, BQ * 128, 1024);
+        wgmma_rs_t<DN>(adk, sh[kk], dqd);
+        wgmma_rs_t<DN>(adk, sl[kk], dqd);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(adk);
+      fence_regs(adv);
+    }
+    if (lane == 0) mbar_arrive(empty + s);             // the stage may be refilled
+  }
+
+  // epilogue: one cast each, keys past Skv unwritten
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r == 0 ? key_lo : key_hi;
+    if (key >= Skv) continue;
+    const int64_t off = (((int64_t)b * Skv + key) * Hkv + hk) * HD + 64 * z0 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < DN / 8; ++j) {
+      store2(dk + off + 8 * j, adk[4 * j + 2 * r] * scale, adk[4 * j + 2 * r + 1] * scale);
+      store2(dv + off + 8 * j, adv[4 * j + 2 * r], adv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -2110,7 +2607,7 @@ int launch_wgmma_n(const Args& a) {
       !tensor_map(&tv, keys ? a.v : a.q, a.B, keys ? a.Skv : 1, Hkv, HD,
                   keys ? a.vsb : a.qsb, keys ? a.vss : a.qss, C::BK))
     return (int)cudaErrorInvalidValue;
-  flash_wgmma_kernel<HD, NWG><<<dim3((a.Sq + BQ - 1) / BQ, a.B * a.Hq), C::threads(NWG),
+  flash_wgmma_kernel<HD, NWG><<<dim3((a.Sq + BQ - 1) / BQ, a.B * a.Hq), wg_threads(NWG),
                                 C::smem(NWG), a.st>>>(
       tq, tk, tv, static_cast<bf16*>(a.o), a.lse, a.Sq, a.Skv, a.Hq, a.rep, a.osb, a.oss,
       log2_scale(a.scale), a.causal, a.window);
@@ -2239,11 +2736,90 @@ int launch_bwd_bf16(const BwdArgs& a) {
   return (int)launch_dkdv_bf16<HD, 2>(a, scale_log2);
 }
 
+// the TMA maps of q, k, v and dout for the Hopper backward: q and dout in
+// boxes of `q_rows` rows, k and v in boxes of `kv_rows`
+template <int HD>
+bool bwd_maps(const BwdArgs& a, int q_rows, int kv_rows, CUtensorMap* tq, CUtensorMap* tk,
+              CUtensorMap* tv, CUtensorMap* tdo) {
+  const int Hkv = a.Hq / a.rep;
+  const int64_t oss = (int64_t)a.Hq * HD, osb = (int64_t)a.Sq * oss;
+  return tensor_map(tq, a.q, a.B, a.Sq, a.Hq, HD, a.qsb, a.qss, q_rows) &&
+         tensor_map(tdo, a.dout, a.B, a.Sq, a.Hq, HD, osb, oss, q_rows) &&
+         tensor_map(tk, a.k, a.B, a.Skv, Hkv, HD, a.ksb, a.kss, kv_rows) &&
+         tensor_map(tv, a.v, a.B, a.Skv, Hkv, HD, a.vsb, a.vss, kv_rows);
+}
+
+// the dQ kernel with the most consumer warpgroups, up to NWG, whose blocks
+// still fill the card's `sms` SMs, else one
+template <int HD, int NWG>
+cudaError_t launch_wgmma_bwd_dq(const BwdArgs& a, float scale_log2, int sms) {
+  using C = WgBwdCfg<HD>;
+  constexpr int BQ = 64 * NWG;
+  if constexpr (NWG > 1) {
+    if ((long long)((a.Sq + BQ - 1) / BQ) * a.B * a.Hq < sms)
+      return launch_wgmma_bwd_dq<HD, NWG - 1>(a, scale_log2, sms);
+  }
+  static int attr_dev = -1;
+  const cudaError_t e =
+      raise_smem_limit(flash_wgmma_bwd_dq_kernel<HD, NWG>, C::dq_smem(NWG), attr_dev);
+  if (e != cudaSuccess) return e;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!bwd_maps<HD>(a, BQ, C::BK, &tq, &tk, &tv, &tdo)) return cudaErrorInvalidValue;
+  flash_wgmma_bwd_dq_kernel<HD, NWG><<<dim3((a.Sq + BQ - 1) / BQ, a.B * a.Hq), wg_threads(NWG),
+                                       C::dq_smem(NWG), a.st>>>(
+      tq, tk, tv, tdo, static_cast<const bf16*>(a.o), a.lse, a.delta, static_cast<bf16*>(a.dq),
+      a.Sq, a.Skv, a.Hq, a.rep, a.scale, scale_log2, a.causal, a.window);
+  return cudaGetLastError();
+}
+
+// the dK/dV kernel, chosen the same way
+template <int HD, int NWG>
+cudaError_t launch_wgmma_bwd_dkdv(const BwdArgs& a, float scale_log2, int sms) {
+  using C = WgBwdCfg<HD>;
+  constexpr int BKV = 64 * NWG;
+  if constexpr (NWG > 1) {
+    if ((long long)a.B * (a.Hq / a.rep) * C::NZ * ((a.Skv + BKV - 1) / BKV) < sms)
+      return launch_wgmma_bwd_dkdv<HD, NWG - 1>(a, scale_log2, sms);
+  }
+  static int attr_dev = -1;
+  const cudaError_t e =
+      raise_smem_limit(flash_wgmma_bwd_dkdv_kernel<HD, NWG>, C::dkdv_smem(NWG), attr_dev);
+  if (e != cudaSuccess) return e;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!bwd_maps<HD>(a, C::BQ, BKV, &tq, &tk, &tv, &tdo)) return cudaErrorInvalidValue;
+  flash_wgmma_bwd_dkdv_kernel<HD, NWG><<<dim3(a.B * (a.Hq / a.rep) * C::NZ,
+                                              (a.Skv + BKV - 1) / BKV),
+                                         wg_threads(NWG), C::dkdv_smem(NWG), a.st>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Sq,
+      a.Skv, a.Hq, a.rep, a.scale, scale_log2, a.causal, a.window);
+  return cudaGetLastError();
+}
+
+// the Hopper backward: the dQ kernel (which writes delta), then the dK/dV
+// kernel, each with the most consumer warpgroups (up to its DQ_NWG or
+// KV_NWG) whose blocks still fill the card
+template <int HD>
+int launch_wgmma_bwd(const BwdArgs& a) {
+  using C = WgBwdCfg<HD>;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const float scale_log2 = log2_scale(a.scale);
+  e = launch_wgmma_bwd_dq<HD, C::DQ_NWG>(a, scale_log2, sms);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_wgmma_bwd_dkdv<HD, C::KV_NWG>(a, scale_log2, sms);
+}
+
+// the backward by dtype and head dim: a fixed rule, not a fallback
 template <int HD>
 struct Bwd {
   static int run(int dtype, const BwdArgs& a) {
     if (dtype == 0) return launch_bwd<HD>(a);
-    if (dtype == 1) return launch_bwd_bf16<HD>(a);
+    if (dtype == 1) {
+      if constexpr (HD == 64 || HD == 128 || HD == 256) return launch_wgmma_bwd<HD>(a);
+      else return launch_bwd_bf16<HD>(a);
+    }
     return (int)cudaErrorInvalidValue;
   }
 };

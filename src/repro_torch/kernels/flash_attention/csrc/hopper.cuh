@@ -1,7 +1,8 @@
 // Building blocks for Hopper (sm_90a) kernels in inline PTX: mbarriers, TMA
 // tile loads, warpgroup matrix products (wgmma) and their shared-memory
-// descriptors. K1's bf16 forward (flash_wgmma_kernel in flash_attention.cu)
-// is built from them.
+// descriptors. K1's bf16 forward and backward on Hopper (flash_wgmma_kernel,
+// flash_wgmma_bwd_dq_kernel, flash_wgmma_bwd_dkdv_kernel in
+// flash_attention.cu) are built from them.
 //
 // Shared-memory layout. Every operand tile is stored as TMA writes it with
 // CU_TENSOR_MAP_SWIZZLE_128B: blocks of 64 bf16 columns (128 bytes per row),
@@ -12,8 +13,9 @@
 //     groups 1024 bytes apart (SBO); a k-step of 16 columns advances the
 //     start address by 32 bytes inside the 128-byte row; LBO is unused.
 //   * MN-major (the output dimension contiguous: V as the B operand of
-//     P V, read with the transpose bit): 8-row groups along the reduction
-//     1024 bytes apart (SBO), 64-column blocks along the output LBO apart.
+//     P V, K of dS K, dO and Q of P^T dO and dS^T Q, read with the
+//     transpose bit): 8-row groups along the reduction 1024 bytes apart
+//     (SBO), 64-column blocks along the output LBO apart.
 #pragma once
 
 #include <cuda.h>

@@ -16,14 +16,16 @@ contiguous, as they are after a reshape of a projection).
 joins the two for autograd.
 
 The dtype and the head dim pick the kernels, by a fixed rule and not as a
-fallback (`forward_kernel` names the forward's; a failed build or launch
-raises):
+fallback (`forward_kernel` names the forward's, `backward_kernels` the
+backward's; a failed build, tensor-map encode or launch raises):
   * bfloat16 forward at hd 64, 128 and 256 (every full-width config's head
     dim) -> `flash_wgmma_kernel`: Hopper's warpgroup products (wgmma) fed by
     TMA loads from a producer warp;
   * bfloat16 forward at the other head dims -> `flash_mma_kernel` (mma.sync);
-  * bfloat16 backward -> `flash_bf16_bwd_dq_kernel` +
-    `flash_bf16_bwd_dkdv_kernel`;
+  * bfloat16 backward at hd 64, 128 and 256 -> `flash_wgmma_bwd_dq_kernel` +
+    `flash_wgmma_bwd_dkdv_kernel` (wgmma fed by TMA, as the forward);
+  * bfloat16 backward at the other head dims -> `flash_bf16_bwd_dq_kernel` +
+    `flash_bf16_bwd_dkdv_kernel` (mma.sync);
   * float32 -> `flash_tf32_kernel` forward and `flash_tf32_bwd_dq_kernel` +
     `flash_tf32_bwd_dkdv_kernel` backward (each fp32 operand split into two
     TF32 terms, three tensor-core products per fp32 one: as close to the
@@ -46,7 +48,7 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HD_MAX = 256
-WGMMA_HDS = (64, 128, 256)       # the bf16 forward's head dims on flash_wgmma_kernel
+WGMMA_HDS = (64, 128, 256)       # bf16 head dims on the wgmma kernels, both directions
 
 
 def forward_kernel(hd: int, dtype: torch.dtype) -> str:
@@ -57,6 +59,19 @@ def forward_kernel(hd: int, dtype: torch.dtype) -> str:
     if dtype == torch.bfloat16:
         return "flash_wgmma_kernel" if hd in WGMMA_HDS else "flash_mma_kernel"
     raise TypeError(f"flash_attention takes fp32 or bf16, got {dtype}")
+
+
+def backward_kernels(hd: int, dtype: torch.dtype) -> tuple[str, str]:
+    """The names of the two CUDA kernels that `flash_attention_bwd` launches
+    at head dim `hd` and `dtype`, the dQ kernel (which writes delta) first:
+    the rule of `Bwd` in csrc/flash_attention.cu."""
+    if dtype == torch.float32:
+        route = "tf32"
+    elif dtype == torch.bfloat16:
+        route = "wgmma" if hd in WGMMA_HDS else "bf16"
+    else:
+        raise TypeError(f"flash_attention_bwd takes fp32 or bf16, got {dtype}")
+    return f"flash_{route}_bwd_dq_kernel", f"flash_{route}_bwd_dkdv_kernel"
 
 
 @functools.lru_cache(maxsize=None)

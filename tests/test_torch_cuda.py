@@ -30,7 +30,11 @@ K1's fp32 kernels (split TF32 on the tensor cores): the forward at every
 head-dim class under the long fp32 rule (|d| <= 1e-4 max|ref|), the
 backward at every head-dim class in fp32 and bf16 (GQA 7, causal plus
 window, two runs bit for bit), and a misaligned fp32 input raises before
-any launch, forward and backward.
+any launch, forward and backward. K1's bf16 backward at hd 64, 128 and 256
+(`flash_wgmma_bwd_*`) is held under the long bf16 rule at grids of one and
+of the most consumer warpgroups a block, causal with a window, GQA, ragged
+and non-causal Skv != Sq cases, two runs and strided views bit for bit,
+and the profiler names the kernels `kernel.backward_kernels` names.
 
 The decoder slice: K1 in bf16 at the full-sequence forward shapes of
 gemma3-4b (S=4096, 8/4 heads of 256, window 1024) and mixtral-8x7b (S=4096,
@@ -493,14 +497,15 @@ def test_fp32_kernel_raises_on_misaligned_input(cuda, where):
 def test_flash_backward_at_every_head_dim(cuda, hd, dname):
     """The backward at every head-dim class (fp32: the split-TF32 kernels,
     dK/dV columns split in two blocks above hd = 64, 16-key dQ tiles above
-    128; bf16: the split-bf16 kernels, dK/dV columns split in two blocks
-    above hd = 128), ragged S, GQA 7, causal plus window, against
-    attention_bwd_ref on the kernel's own o and lse under chip_smoke.py's
-    long rules (fp32 |d| <= 1e-4 max|ref|; bf16 |d| <= 1e-2 |ref| + 1e-4
-    max|ref|), two runs bit for bit. Two batch sizes: the bf16 dK/dV kernel
-    runs four groups over 32 keys where its 64-key blocks are fewer than
-    the SMs (B = 2: 8 or 16 blocks) and two groups over 64 keys where they
-    fill the card (B = 34: 136 or 272 blocks)."""
+    128; bf16: the split-bf16 kernels, on mma.sync with dK/dV columns split
+    in two blocks above hd = 128, on wgmma at hd 128 and 256), ragged S, GQA
+    7, causal plus window, against attention_bwd_ref on the kernel's own o
+    and lse under chip_smoke.py's long rules (fp32 |d| <= 1e-4 max|ref|;
+    bf16 |d| <= 1e-2 |ref| + 1e-4 max|ref|), two runs bit for bit. Two
+    batch sizes: the mma.sync dK/dV kernel runs four groups over 32 keys
+    where its 64-key blocks are fewer than the SMs (B = 2: 8 or 16 blocks)
+    and two groups over 64 keys where they fill the card (B = 34: 136 or
+    272 blocks)."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     dtype = torch.float32 if dname == "fp32" else torch.bfloat16
@@ -525,13 +530,14 @@ def test_flash_backward_at_every_head_dim(cuda, hd, dname):
 
 @pytest.mark.gpu
 def test_bf16_backward_at_the_mixtral_mesh_shard(cuda):
-    """The bf16 backward (`flash_bf16_bwd_dq_kernel`, then
-    `flash_bf16_bwd_dkdv_kernel`) at mixtral-8x7b's shard of the 2x2 mesh
-    (1, 4096, 16/4 heads of 128, causal): 4096-long sums over the keys and,
-    for dK and dV, over 4 x 4096 query rows, against attention_bwd_ref on
-    the kernel's own o and lse under the long bf16 rule, two runs bit for
+    """The bf16 backward at mixtral-8x7b's shard of the 2x2 mesh (1, 4096,
+    16/4 heads of 128, causal): the profiler names the two kernels
+    `backward_kernels(128, bf16)` names (`flash_wgmma_bwd_dq_kernel`, then
+    `flash_wgmma_bwd_dkdv_kernel`); 4096-long sums over the keys and, for dK
+    and dV, over 4 x 4096 query rows, against attention_bwd_ref on the
+    kernel's own o and lse under the long bf16 rule, two runs bit for
     bit."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.kernel import backward_kernels, flash_attention_bwd
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     q, k, v = _qkv(1, 4096, 4096, 16, 4, 128, torch.bfloat16, cuda)
     do = _qkv(1, 4096, 4096, 16, 4, 128, torch.bfloat16, cuda, seed=1)[0]
@@ -539,14 +545,70 @@ def test_bf16_backward_at_the_mixtral_mesh_shard(cuda):
     b0 = flash_attention_bwd.launches
     grads = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     again = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    ran = _profiled_kernels(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True))
     torch.cuda.synchronize()
-    assert flash_attention_bwd.launches == b0 + 2
+    assert flash_attention_bwd.launches == b0 + 3
+    assert {n.split("<")[0] for n in ran} == set(backward_kernels(128, torch.bfloat16)), ran
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
     want = attention_bwd_ref(q, k, v, o, lse, do, causal=True)
     for g, w in zip(grads, want):
         w, err = w.float(), (g.float() - w.float()).abs()
         assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
         assert bool((err <= 1e-2 * w.abs() + 1e-4 * w.abs().max()).all())
+
+
+# K1's bf16 backward at hd 64, 128 and 256 (flash_wgmma_bwd_dq_kernel, then
+# flash_wgmma_bwd_dkdv_kernel, wgmma fed by TMA), (B, Sq, Skv, Hq, Hkv,
+# causal, window): grids of one consumer warpgroup a block (B = 2: under 132
+# blocks) and of the most the grid rule takes (B = 34: dQ 3 at hd 64, 2 at
+# 128; dK/dV 2 up to hd 128), causal with a window, GQA, ragged Sq,
+# non-causal Skv != Sq both ways, keys no query reaches, one query row over
+# 70 keys (one row over one key has dQ = dK = 0 exactly, and both sides
+# return rounding noise there)
+WGMMA_BWD_CASES = [
+    (2, 200, 200, 7, 1, True, 50),
+    (34, 200, 200, 14, 2, True, 50),
+    (1, 200, 137, 2, 2, False, None),
+    (2, 137, 300, 4, 2, False, None),
+    (1, 130, 300, 4, 1, True, None),
+    (1, 1, 70, 2, 1, False, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGMMA_BWD_CASES)
+@pytest.mark.parametrize("hd", WGMMA_HDS)
+def test_wgmma_backward_matches_plain_version(cuda, hd, case):
+    """The Hopper bf16 backward against attention_bwd_ref on the kernel's own
+    o and lse under the long bf16 rule (|d| <= 1e-2 |ref| + 1e-4 max|ref|
+    at every element), two runs and a call on strided views bit for bit;
+    the profiler names the kernels `backward_kernels(hd, bf16)` names, with
+    the warpgroups a block that the grid rule gives."""
+    from repro_torch.kernels.flash_attention.kernel import backward_kernels, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    B, Sq, Skv, Hq, Hkv, causal, window = case
+    kw = {"causal": causal, "window": window}
+    q, k, v = _qkv(B, Sq, Skv, Hq, Hkv, hd, torch.bfloat16, cuda)
+    do = _qkv(B, Sq, Sq, Hq, Hkv, hd, torch.bfloat16, cuda, seed=1)[0]
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    ran = _profiled_kernels(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    dq_name, kv_name = backward_kernels(hd, torch.bfloat16)
+    groups = ((3 if hd == 64 else 2 if hd == 128 else 1), (2 if hd <= 128 else 1)) if B == 34 \
+        else (1, 1)
+    assert ran == {f"{dq_name}<{hd}, {groups[0]}>", f"{kv_name}<{hd}, {groups[1]}>"}, ran
+    want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(grads, want):
+        w, err = w.float(), (g.float() - w.float()).abs()
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape and torch.isfinite(g).all()
+        assert bool((err <= 1e-2 * w.abs() + 1e-4 * w.abs().max()).all())
+    if Sq == Skv:
+        qs, ks, vs = torch.cat([q, k, v], 2).split([Hq, Hkv, Hkv], 2)
+        strided = flash_attention_bwd(qs, ks, vs, o, lse, do, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(strided, grads))
 
 
 @pytest.mark.gpu
