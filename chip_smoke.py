@@ -11,17 +11,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
      and 256, `flash_wgmma_kernel` with one, two and three consumer
      warpgroups, whose wgmma products ptxas must not serialize, the K2
      kernels; nor at the training ones: K1's fp32 forward
-     `flash_tf32_kernel` at hd 64 and its backward `flash_tf32_bwd_dq_kernel`
-     and `flash_tf32_bwd_dkdv_kernel` at hd 64; nor K1's bf16 backward at
-     hd 64, 128 and 256, `flash_wgmma_bwd_dq_kernel` and
-     `flash_wgmma_bwd_dkdv_kernel` with every number of consumer warpgroups
-     their grid rule takes; every other instantiation printed), and, where
-     the toolkit has cuobjdump, the count of HMMA TF32 instructions in the
-     split-TF32 kernels' SASS and of bf16 m16n8k16 ones
-     (HMMA.16816.F32.BF16, and no TF32) in the mma.sync bf16 backward's
-     (`flash_bf16_bwd_*`, the other head dims), and HGMMA (wgmma) and
-     UTMALDG (TMA) instructions, and no HMMA, in `flash_wgmma_kernel`'s and
-     the Hopper backward's;
+     `flash_tf32_kernel` at hd 64 and its backward, the kernels
+     `kernel.backward_kernels(64, fp32)` names (`flash_wgmma_tf32_bwd_prep_kernel`,
+     `flash_wgmma_tf32_bwd_dq_kernel`, `flash_wgmma_tf32_bwd_dkdv_kernel`)
+     at hd 64, 128 and 256 with every number of consumer warpgroups their
+     grid rule takes; nor K1's bf16 backward at hd 64, 128 and 256,
+     `flash_wgmma_bwd_dq_kernel` and `flash_wgmma_bwd_dkdv_kernel`, the
+     same way; every other instantiation printed), and, where the toolkit
+     has cuobjdump, the count of HMMA TF32 instructions in the split-TF32
+     forward's SASS and of bf16 m16n8k16 ones (HMMA.16816.F32.BF16, and no
+     TF32) in the mma.sync bf16 backward's (`flash_bf16_bwd_*`, the other
+     head dims), and HGMMA (wgmma) and UTMALDG (TMA) instructions, and no
+     HMMA, in `flash_wgmma_kernel`'s and the Hopper backwards' (bf16, and
+     fp32 but its pre-pass);
      K2's split-TF32 kernels (the fp32 forward's and the backward's, both
      dtypes) printed with their HMMA TF32 counts and held to no spills;
   3. the SSD-scan kernel against its plain PyTorch version on the card, at
@@ -159,8 +161,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
      designs; K1 and K2 launches over the phase (0). One JSON line
      ({"gnn_serving": ...}).
  19. training (K1 forward and backward on every layer): (a) K1's backward
-     (fp32: `flash_tf32_bwd_dq_kernel` with delta, then
-     `flash_tf32_bwd_dkdv_kernel`, split-TF32 products on the tensor cores;
+     (fp32 at hd 64, 128 and 256: `flash_wgmma_tf32_bwd_prep_kernel` (the
+     operands' split TF32 copies, delta), `flash_wgmma_tf32_bwd_dq_kernel`,
+     then `flash_wgmma_tf32_bwd_dkdv_kernel`, split-TF32 wgmma fed by TMA;
+     fp32 elsewhere: `flash_tf32_bwd_dq_kernel` with delta, then
+     `flash_tf32_bwd_dkdv_kernel`, split-TF32 mma.sync;
      bf16 at hd 64, 128 and 256: `flash_wgmma_bwd_dq_kernel` with delta,
      then `flash_wgmma_bwd_dkdv_kernel`, wgmma fed by TMA with P and dS in
      two bf16 terms; `kernel.backward_kernels`'s rule) against its plain
@@ -651,6 +656,26 @@ def kernel_share(by_name, counts, parts):
     """{part: (ms, launches)} summed over every kernel name containing part."""
     return {part: (sum(ms for k, ms in by_name.items() if part in k),
                    sum(n for k, n in counts.items() if part in k)) for part in parts}
+
+
+def k1_fp32_bwd_names():
+    """The CUDA kernels of K1's fp32 backward at every head dim, by the rule
+    of `kernel.backward_kernels`: the Hopper route's three at hd 64, 128 and
+    256, the mma.sync pair elsewhere."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import HD_MAX, backward_kernels
+    return tuple(sorted({n for hd in range(16, HD_MAX + 1, 16)
+                         for n in backward_kernels(hd, torch.float32)}))
+
+
+def k1_train_shares(by_name, counts):
+    """{"K1 forward": (ms, launches), "K1 backward": (ms, launches)} of a
+    profiled fp32 training step: `flash_tf32_kernel`, and every kernel of
+    K1's fp32 backward (`k1_fp32_bwd_names`)."""
+    parts = kernel_share(by_name, counts, (K1_FP32,) + k1_fp32_bwd_names())
+    bwd = [parts[n] for n in k1_fp32_bwd_names()]
+    return {"K1 forward": parts[K1_FP32],
+            "K1 backward": (sum(ms for ms, _ in bwd), sum(n for _, n in bwd))}
 
 
 def print_breakdown(torch, name, fn, k1_name):
@@ -1327,7 +1352,8 @@ def gnn_serving_path(torch, np):
     return out
 
 
-BWD_KERNEL = re.compile(r"\d(flash_(?:tf32|bf16|wgmma)_bwd_\w+?_kernel)ILi(\d+)E(?:Li(\d+)E)?")
+BWD_KERNEL = re.compile(
+    r"\d(flash_(?:tf32|bf16|wgmma|wgmma_tf32)_bwd_\w+?_kernel)ILi(\d+)E(?:Li(\d+)E)?")
 FWD_TF32 = re.compile(r"\d(" + K1_FP32 + r")ILi(\d+)E")
 # K1's bf16 backward on Hopper (hd 64, 128, 256): (hd, consumer warpgroups)
 # of the dQ kernel's and of the dK/dV kernel's instantiations, every one
@@ -1350,11 +1376,31 @@ def k1_bwd_wgmma_inst():
                  for hd, n in inst)
 
 
+# K1's fp32 backward on Hopper (hd 64, 128, 256): (hd, consumer warpgroups)
+# of the dQ and the dK/dV kernels' instantiations, every one that their grid
+# rule can take
+K1_BWD_TF32_NWG = ((64, 1), (64, 2), (128, 1), (128, 2), (256, 1))
+
+
+def k1_bwd_tf32_inst():
+    """The names of K1's fp32 backward instantiations on Hopper: the
+    pre-pass at hd 64, 128 and 256, then the dQ and dK/dV kernels at
+    K1_BWD_TF32_NWG (the kernels `kernel.backward_kernels(64, fp32)`
+    names)."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import WGMMA_HDS, backward_kernels
+    prep, dq, kv = backward_kernels(64, torch.float32)
+    return (tuple(f"{prep}<{hd}>" for hd in WGMMA_HDS)
+            + tuple(f"{name}<{hd}, {n}>" for name in (dq, kv) for hd, n in K1_BWD_TF32_NWG))
+
+
 def bwd_name(mangled):
     """"flash_tf32_bwd_*_kernel<hd>", "flash_bf16_bwd_dq_kernel<hd>",
-    "flash_bf16_bwd_dkdv_kernel<hd, groups>" or
-    "flash_wgmma_bwd_*_kernel<hd, warpgroups>" of a mangled backward kernel,
-    or None."""
+    "flash_bf16_bwd_dkdv_kernel<hd, groups>",
+    "flash_wgmma_bwd_*_kernel<hd, warpgroups>",
+    "flash_wgmma_tf32_bwd_prep_kernel<hd>" or
+    "flash_wgmma_tf32_bwd_*_kernel<hd, warpgroups>" of a mangled backward
+    kernel, or None."""
     k = BWD_KERNEL.search(mangled)
     return k and f"{k.group(1)}<{k.group(2)}{f', {k.group(3)}' if k.group(3) else ''}>"
 
@@ -1679,15 +1725,14 @@ def train_path(torch, np):
     if not by_name:
         print(f"    host {wall_ms:.2f} ms; the profiler recorded no device time")
     else:
-        parts = kernel_share(by_name, counts, (K1_FP32, "flash_tf32_bwd_"))
+        parts = k1_train_shares(by_name, counts)
         print(f"    host {wall_ms:.2f} ms ({B * S / wall_ms * 1e3:.0f} tokens/s), device busy "
               f"{dev_ms:.2f} ms (idle {1 - dev_ms / wall_ms:.1%}), {len(by_name)} kernel names, "
               f"{sum(counts.values())} launches")
         for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             print(f"      {ms:8.3f} ms x{counts[kname]:<5d} {kname[:90]}")
-        for part, label in ((K1_FP32, "K1 forward"), ("flash_tf32_bwd_", "K1 backward")):
-            ms, n = parts[part]
-            print(f"    {label} ({part}*) {ms:.3f} ms x{n}, {ms / dev_ms:.1%} of device time")
+        for label, (ms, n) in parts.items():
+            print(f"    {label} {ms:.3f} ms x{n}, {ms / dev_ms:.1%} of device time")
     del model, st
     torch.cuda.empty_cache()
     entry = {"route": "cuda",
@@ -1876,10 +1921,10 @@ def k2_step_breakdown(torch, name, model, opt, batch, tokens):
         return sum(by_name[k] for k in names), sum(counts[k] for k in names)
     k2f, n_f = share(lambda k: any(m in k for m in K2_FWD_PROFILE))
     k2b, n_b = share(lambda k: any(m in k for m in K2_BWD_PROFILE))
-    parts = kernel_share(by_name, counts, (K1_FP32, "flash_tf32_bwd_"))
+    parts = k1_train_shares(by_name, counts)
     res.update(device_ms=dev_ms, idle=1 - dev_ms / wall_ms, launches=sum(counts.values()),
-               k2_forward_ms=k2f, k2_backward_ms=k2b, k1_ms=parts[K1_FP32][0] +
-               parts["flash_tf32_bwd_"][0])
+               k2_forward_ms=k2f, k2_backward_ms=k2b, k1_ms=parts["K1 forward"][0] +
+               parts["K1 backward"][0])
     print(f"    {name}: host {wall_ms:.2f} ms ({res['tokens_per_s']:.0f} tokens/s), device busy "
           f"{dev_ms:.2f} ms (idle {res['idle']:.1%}), {len(by_name)} kernel names, "
           f"{res['launches']} launches")
@@ -2240,17 +2285,16 @@ def train_family(torch, np, cfg, B, S, steps=3):
     if not by_name:
         print(f"    one step: host {wall_ms:.2f} ms; the profiler recorded no device time")
     else:
-        parts = kernel_share(by_name, counts, (K1_FP32, "flash_tf32_bwd_"))
+        parts = k1_train_shares(by_name, counts)
         res.update(device_ms=dev_ms, idle=1 - dev_ms / wall_ms, launches=sum(counts.values()),
-                   k1_forward_ms=parts[K1_FP32][0], k1_backward_ms=parts["flash_tf32_bwd_"][0])
+                   k1_forward_ms=parts["K1 forward"][0], k1_backward_ms=parts["K1 backward"][0])
         print(f"    one step: host {wall_ms:.2f} ms ({B * S / wall_ms * 1e3:.0f} tokens/s), device "
               f"busy {dev_ms:.2f} ms (idle {1 - dev_ms / wall_ms:.1%}), {len(by_name)} kernel "
               f"names, {res['launches']} launches")
         for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             print(f"      {ms:8.3f} ms x{counts[kname]:<5d} {kname[:90]}")
-        for part, label in ((K1_FP32, "K1 forward"), ("flash_tf32_bwd_", "K1 backward")):
-            ms, n = parts[part]
-            print(f"    {label} ({part}*) {ms:.3f} ms x{n}, {ms / dev_ms:.1%} of device time")
+        for label, (ms, n) in parts.items():
+            print(f"    {label} {ms:.3f} ms x{n}, {ms / dev_ms:.1%} of device time")
     del model, st, batch
     torch.cuda.empty_cache()
     return res, total
@@ -3232,23 +3276,25 @@ def main() -> int:
         for k in K1_WGMMA_INST + (f"{K1_FP32}<64>",) + MMA_KERNELS[1:]:
             check(k in report and report[k][1:3] == [0, 0], f"{k} has no spills")
     bwd = {k: v for log in logs.values() for k, v in ptxas_table(log, bwd_name).items()}
-    # the training path's instantiations (fp32, hd 64), and the bf16
+    # the training path's instantiations (fp32 at hd 64: the forward, and
+    # the backward kernels `backward_kernels(64, fp32)` names, at every hd
+    # and number of consumer warpgroups of their rule), and the bf16
     # backward's on Hopper at hd 64, 128 and 256 (the mesh trains in bf16)
-    k1_train = [f"{K1_FP32}<64>"] + [f"flash_tf32_bwd_{part}_kernel<64>"
-                                    for part in ("dq", "dkdv")]
+    k1_train = [f"{K1_FP32}<64>"]
+    k1_bwd_tf32 = k1_bwd_tf32_inst()
     k1_bwd_bf16 = k1_bwd_wgmma_inst()
     if bwd:
         print(f"  K1 backward: {len(bwd)} instantiations")
         for k, (regs, st, ld, smem) in sorted(bwd.items()):
             print(f"  {k}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, "
                   f"{smem} bytes static shared memory (the tiles' is dynamic, set at launch)")
-        for k in k1_train[1:] + list(k1_bwd_bf16):
+        for k in k1_bwd_tf32 + k1_bwd_bf16:
             check(k in bwd and bwd[k][1:3] == [0, 0], f"{k} has no spills")
     hmma = sass_hmma_counts()
     if hmma is None:
         print("  cuobjdump not in the toolkit: SASS HMMA counts not read")
     else:
-        print(f"  SASS of the split-TF32 kernels ({len(hmma)} instantiations): "
+        print(f"  SASS of the split-TF32 forward ({len(hmma)} instantiations read): "
               + ", ".join(f"{k} {n} HMMA ({n32} TF32)" for k, (n, n32, *_) in hmma.items()
                           if k in k1_train))
         for k in k1_train:
@@ -3267,11 +3313,12 @@ def main() -> int:
                           if k in K2_TRAIN))
         for k in K2_TRAIN:
             check(hmma.get(k, [0] * 5)[1] > 0, f"{k} runs TF32 mma on the tensor cores")
-        print("  SASS of K1's bf16 forward and backward on Hopper: "
+        k1_hopper = K1_WGMMA_INST + k1_bwd_bf16 + tuple(k for k in k1_bwd_tf32
+                                                        if "_prep_" not in k)
+        print("  SASS of K1's bf16 forward and backward and fp32 backward on Hopper: "
               + ", ".join(f"{k} {hg} HGMMA, {tma} UTMALDG, {n} HMMA"
-                          for k, (n, _, _, hg, tma) in sorted(hmma.items())
-                          if k in K1_WGMMA_INST + k1_bwd_bf16))
-        for k in K1_WGMMA_INST + k1_bwd_bf16:
+                          for k, (n, _, _, hg, tma) in sorted(hmma.items()) if k in k1_hopper))
+        for k in k1_hopper:
             n, _, _, hg, tma = hmma.get(k, [0] * 5)
             check(hg > 0 and tma > 0 and n == 0,
                   f"{k} runs wgmma (HGMMA) on tiles TMA loads (UTMALDG), no mma.sync (HMMA)")

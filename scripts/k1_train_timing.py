@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """K1's fp32 forward (with lse) and backward at the five training cases of
-whisper-small, gemma3-4b and mixtral-8x7b, on one NVIDIA card, through the
-kernels of the tree it is run from.
+whisper-small, gemma3-4b and mixtral-8x7b and at smollm-135m's (the
+launcher's default), on one NVIDIA card, through the kernels of the tree it
+is run from.
 
     cd <a checkout of the repo> && python3 <path>/scripts/k1_train_timing.py LABEL
 
 LABEL names the tree in the output. The script builds the tree's CUDA
 sources, then at each case prints the device time of the forward and of
-the backward (`chip_smoke.graph_ms`: calls captured in a CUDA graph) and
-their error, as max|d| / max|ref| of o, dq, dk and dv, against the fp32
+the backward (`chip_smoke.graph_ms`: calls captured in a CUDA graph), the
+backward's device time by kernel (one call under torch.profiler) and their
+error, as max|d| / max|ref| of o, dq, dk and dv, against the fp32
 plain version (the backward on the kernel's own o and lse, as chip_smoke's
 `hold_flash_bwd` holds it) and against float64 (the function's own o and
 lse), with the count of entries that miss |d| <= 2e-5 (|ref| + max|ref|)
@@ -28,7 +30,8 @@ CASES = {"whisper-small encoder": (8, 1500, 12, 12, 64, False, None),
          "whisper-small decoder": (8, 448, 12, 12, 64, True, None),
          "gemma3-4b local": (1, 4096, 8, 4, 256, True, 1024),
          "gemma3-4b global": (1, 4096, 8, 4, 256, True, None),
-         "mixtral-8x7b": (1, 4096, 32, 8, 128, True, 4096)}
+         "mixtral-8x7b": (1, 4096, 32, 8, 128, True, 4096),
+         "smollm-135m": (8, 256, 9, 3, 64, True, None)}
 
 
 def errors(got, ref):
@@ -64,6 +67,12 @@ def main() -> int:
         f_ms = c.graph_ms(torch, lambda: flash_attention(q, k, v, return_lse=True, **kw))
         b_ms = c.graph_ms(torch, lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw))
         line = [f"  {label} {name} {case}: forward {f_ms:.4f} ms, backward {b_ms:.4f} ms"]
+        _, by_name, counts = c.device_breakdown(
+            torch, lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), reps=1)
+        line.append("    backward by kernel (one profiled call): " + ", ".join(
+            f"{n.replace('(anonymous namespace)::', '').removeprefix('void ').split('(')[0]} "
+            f"{ms:.4f} ms x{counts[n]}"
+            for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])))
         plain = (attention_ref(q, k, v, pos, pos, **kw),
                  *attention_bwd_ref(q, k, v, o, lse, do, **kw))
         t64 = [t.double() for t in (q, k, v, do)]

@@ -63,14 +63,17 @@ def write_variant(name, tree, subs):
 def bind(path):
     lib = ctypes.CDLL(str(path))
     fwd, bwd = lib.flash_attention_launch, lib.flash_attention_bwd_launch
+    scratch = lib.flash_attention_bwd_scratch_bytes
     fwd.restype = bwd.restype = ctypes.c_int
     fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p])
-    bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+    bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p])
-    return fwd, bwd
+    scratch.restype = ctypes.c_longlong
+    scratch.argtypes = [ctypes.c_int] * 7
+    return fwd, bwd, scratch
 
 
 def backward_rounds(torch, c, kernel, libs):

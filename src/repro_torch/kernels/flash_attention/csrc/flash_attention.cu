@@ -28,8 +28,11 @@
 //     then flash_bf16_bwd_dkdv_kernel, bf16 mma.sync m16n8k16 with
 //     split-bf16 P and dS;
 //   * float32 forward   -> flash_tf32_kernel, split-TF32 mma.sync m16n8k8;
-//   * float32 backward  -> flash_tf32_bwd_dq_kernel, then
-//     flash_tf32_bwd_dkdv_kernel, split-TF32 mma.sync m16n8k8.
+//   * float32 backward at hd 64, 128 and 256 -> flash_wgmma_tf32_bwd_prep_kernel
+//     (split copies, delta), flash_wgmma_tf32_bwd_dq_kernel (dQ), then
+//     flash_wgmma_tf32_bwd_dkdv_kernel (dK, dV), split-TF32 wgmma fed by TMA;
+//   * float32 backward at the other head dims -> flash_tf32_bwd_dq_kernel,
+//     then flash_tf32_bwd_dkdv_kernel, split-TF32 mma.sync m16n8k8.
 //
 // What bounds them on this card: at the whisper encoder's shape (B=4,
 // S=1500, 12 heads of 64, bf16) the forward does 2.8e10 FLOP on 37 MB, so
@@ -248,6 +251,65 @@
 //   The sums stay in wgmma's fp32 accumulators, as in the mma.sync pair;
 //   the long bf16 rule holds at every element of the six timed cases
 //   (PERF.md). Deterministic: no atomics, every sum in a fixed order.
+//
+// The fp32 backward at hd 64, 128 and 256 (flash_wgmma_tf32_bwd_*): the
+// function of the pair below on Hopper's TF32 wgmma, fed by TMA. At
+// mixtral-8x7b's training case (1, 4096, 32/8 heads of 128, causal) it is
+// 344 GFLOP on 336 MB: three TF32 products per fp32 one bound it at 2.08 ms
+// (495 TFLOP/s). TF32 wgmma reads a shared-memory operand only K-major (no
+// transpose), and a 64-row fp32 tile in two terms is 512 hd bytes, so the
+// design is set by shared memory:
+//   * flash_wgmma_tf32_bwd_prep_kernel (grid (ceil(S/32), B*Hq, 4)) writes
+//     once per call, into scratch the wrapper allocates, each fp32 operand
+//     that a product reads from shared memory in two TF32 terms (hi =
+//     tf32(x), lo = tf32(x - hi)): natural (2, B, S, H, hd) copies of q, k,
+//     v, dout and transposed (2, B, H, hd, S8) copies of q, k, dout, whose
+//     rows (keys or queries) are permuted in groups of 8 (perm8) so that
+//     the accumulator's registers are the next product's A fragment
+//     (acc_to_a, as in the mma.sync kernels); and delta = rowsum(dO O).
+//     Scratch: 16 bytes per element of q, k and dout, 8 of v (0.64 GB at
+//     mixtral's case).
+//   * Every product is register-A wgmma (m64nNk8, A in registers, B by
+//     descriptor): A is either an accumulator (P, dS, P^T, dS^T) or a
+//     resident raw tile (q and dout in the dQ kernel, k and v in the dK/dV
+//     kernel, loaded by TMA as they are) split in registers per k-step, so
+//     only the B operands take two terms in shared memory. Each fp32 product
+//     is three wgmma (lo_a hi_b, hi_a lo_b, hi_a hi_b).
+//   * The B operands stream through a ring of 32 KB slots ("pieces"), as
+//     many as fit beside the resident tiles (3 to 6), from a producer (a
+//     warp; beside two consumer warpgroups a warpgroup that gives its
+//     registers to them, setmaxnreg 24 / 240). A consumer
+//     waits for a piece's products at its end and then releases the slot;
+//     the ring keeps the next pieces' loads in flight meanwhile.
+//   * flash_wgmma_tf32_bwd_dq_kernel: grid (ceil(Sq/(64 NWG)), B*Hq), the
+//     longest causal walks first; NWG consumer warpgroups of 64 query rows
+//     (2 up to hd 128, 1 at 256, by the grid rule of the bf16 kernels).
+//     Resident: raw q and dout of the block's rows (64 NWG x hd x 8 bytes).
+//     Per live K/V tile (BK = 64 keys, 32 at hd 256): (K, V) pieces (hi
+//     and lo of BK keys x 2048 / BK head-dim columns) for S = Q K^T and dP =
+//     dO V^T; dS = P (dP - delta) in registers, masks only on a tile that
+//     crosses an edge; then K^T pieces (hi and lo of 4096 / hd keys, or at
+//     hd 256 hi or lo of 32) for dQ += dS K with N = hd.
+//   * flash_wgmma_tf32_bwd_dkdv_kernel: grid (B*Hkv*NZ, ceil(Skv/(64 NWG))),
+//     NWG consumer warpgroups of 64 keys (2 up to hd 128, 1 at 256), each
+//     owning its keys. Resident: raw k and v of the block's keys. Per item
+//     (query head of the rep, BQ = 64 query rows up to hd 64, else 32, so
+//     that dK, dV, S^T, dP^T and a partial sum fit in 240 registers): (Q,
+//     dO) pieces for S^T = K Q^T and dP^T = V dO^T, the item's lse (1e30
+//     past Sq) and delta from a two-item ring the producer's lanes fill,
+//     P^T and dS^T in registers, then a dO^T and a Q^T piece (hi and lo of
+//     the item's queries x DN head-dim rows) for dV += P^T dO and dK += dS^T
+//     Q. DN = hd up to 128; at hd 256 two column blocks (NZ = 2), each
+//     recomputing S^T and dP^T. Shared memory per block, resident + ring:
+//     hd 64 64 + 160 KB (NWG 2); hd 128 128 + 96 KB; hd 256 128 + 96 KB.
+//   * Sums: the tensor cores round each product's addition to the fp32
+//     accumulator toward zero, a bias that grows along dK's and dV's rep x
+//     Sq-long sums (3.8e-5 of max|dK| at mixtral's case on mma.sync). Each
+//     64 columns of dK and dV take an item's sum in a zeroed accumulator
+//     that is added to them in IEEE fp32 (tests/test_torch_flash_tf32.py
+//     emulates both ways). S, dP (over hd) and dQ (over the keys) stay in
+//     the tensor cores' accumulators.
+//   Deterministic: no atomics, every sum in a fixed order.
 //
 //   * flash_tf32_bwd_dq_kernel: grid (B*Hq, ceil(Sq/64)), the forward's two
 //     groups over 64 query rows. It stages Q and dO once, computes delta
@@ -2492,6 +2554,648 @@ flash_wgmma_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// fp32 backward at hd 64, 128 and 256: flash_wgmma_tf32_bwd_prep_kernel, then
+// flash_wgmma_tf32_bwd_dq_kernel and flash_wgmma_tf32_bwd_dkdv_kernel, TF32
+// wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kPrepRows = 32;                          // rows per pre-pass block
+constexpr int kPrepThreads = 256;
+constexpr uint32_t kPiece = 32768;                     // bytes of one ring slot
+
+// Position p of a group of 8 in a transposed copy holds row perm8(p) of the
+// group: the accumulator's columns 2t and 2t + 1 are the TF32 A fragment's
+// k-indices t and t + 4 (acc_to_a), so the B operand's k-entries follow them.
+__device__ __forceinline__ int perm8(int p) { return p < 4 ? 2 * p : 2 * (p - 4) + 1; }
+
+__host__ __device__ constexpr int round8(int s) { return (s + 7) & ~7; }
+
+// The pre-pass's copies of the operands that the TF32 products read from
+// shared memory, each x as hi = tf32(x) then lo = tf32(x - hi): natural
+// (2, B, S, H, hd) copies of q, k, v and dout, and transposed (2, B, H, hd,
+// S8) copies of q, k and dout (S8 = S rounded up to 8; zero past S; rows
+// permuted in groups of 8 by perm8).
+struct Tf32Scratch {
+  float *qn, *kn, *vn, *don, *qt, *kt, *dot;
+};
+
+Tf32Scratch carve(float* p, int B, int Sq, int Skv, int Hq, int Hkv, int hd) {
+  const int64_t nq = 2LL * B * Sq * Hq * hd, nk = 2LL * B * Skv * Hkv * hd;
+  const int64_t tq = 2LL * B * Hq * hd * round8(Sq), tk = 2LL * B * Hkv * hd * round8(Skv);
+  Tf32Scratch s;
+  s.qn = p;
+  s.kn = s.qn + nq;
+  s.vn = s.kn + nk;
+  s.don = s.vn + nk;
+  s.qt = s.don + nq;
+  s.kt = s.qt + tq;
+  s.dot = s.kt + tk;
+  return s;
+}
+
+int64_t scratch_floats(int B, int Sq, int Skv, int Hq, int Hkv, int hd) {
+  return 2LL * hd * (2LL * B * Sq * Hq + 2LL * B * Skv * Hkv + 2LL * B * Hq * round8(Sq) +
+                     (int64_t)B * Hkv * round8(Skv));
+}
+
+// One block per 32 rows of one head of one operand (blockIdx.z: 0 q, 1 k,
+// 2 v, 3 dout): the split natural copy, the split transposed copy (not of
+// v), and for dout delta = rowsum(dout o) (fp32, lanes over the head dim,
+// then a butterfly). o and dout contiguous (B, Sq, Hq, HD); delta (B, Hq, Sq).
+template <int HD>
+__global__ void __launch_bounds__(kPrepThreads)
+flash_wgmma_tf32_bwd_prep_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ o,
+                                 const float* __restrict__ dout, Tf32Scratch sc,
+                                 float* __restrict__ delta, int Sq, int Skv, int Hq, int Hkv,
+                                 int64_t qsb, int64_t qss, int64_t ksb, int64_t kss, int64_t vsb,
+                                 int64_t vss) {
+  constexpr int R = kPrepRows, P = HD + 1;               // odd pitch: column reads on 32 banks
+  __shared__ float tile[R * P];
+  const int job = blockIdx.z;
+  const bool kv = job == 1 || job == 2;
+  const int S = kv ? Skv : Sq, H = kv ? Hkv : Hq, B = gridDim.y / Hq;
+  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq, r0 = blockIdx.x * R;
+  if (h >= H || r0 >= S) return;
+  const float* src;
+  int64_t rs;
+  float *nat, *tr;
+  if (job == 0) {
+    src = q + b * qsb + (int64_t)h * HD, rs = qss, nat = sc.qn, tr = sc.qt;
+  } else if (job == 1) {
+    src = k + b * ksb + (int64_t)h * HD, rs = kss, nat = sc.kn, tr = sc.kt;
+  } else if (job == 2) {
+    src = v + b * vsb + (int64_t)h * HD, rs = vss, nat = sc.vn, tr = nullptr;
+  } else {
+    src = dout + ((int64_t)b * Sq * Hq + h) * HD, rs = (int64_t)Hq * HD, nat = sc.don,
+    tr = sc.dot;
+  }
+  const int64_t nat_lo = (int64_t)B * S * H * HD;        // floats from a hi to its lo
+  for (int i = threadIdx.x; i < R * HD / 4; i += kPrepThreads) {
+    const int r = i / (HD / 4), c = 4 * (i % (HD / 4));
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < S) x = *reinterpret_cast<const float4*>(src + (r0 + r) * rs + c);
+    float* t = tile + r * P + c;
+    t[0] = x.x, t[1] = x.y, t[2] = x.z, t[3] = x.w;
+    if (r0 + r < S) {
+      uint32_t hi[4], lo[4];
+      split_tf32(x.x, hi[0], lo[0]);
+      split_tf32(x.y, hi[1], lo[1]);
+      split_tf32(x.z, hi[2], lo[2]);
+      split_tf32(x.w, hi[3], lo[3]);
+      float* dst = nat + (((int64_t)b * S + r0 + r) * H + h) * HD + c;
+      *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(dst + nat_lo) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (tr != nullptr) {
+    // lane p of a warp writes position r0 + p of head-dim rows warp, warp + 8, ...
+    const int S8 = round8(S), pos = r0 + lane, r = (lane & ~7) + perm8(lane & 7);
+    const int64_t tr_lo = (int64_t)B * H * HD * S8;
+    if (pos < S8) {
+      float* dst = tr + ((int64_t)b * H + h) * HD * S8 + pos;
+      for (int d = warp; d < HD; d += kPrepThreads / 32) {
+        uint32_t hi, lo;
+        split_tf32(tile[r * P + d], hi, lo);
+        dst[(int64_t)d * S8] = __uint_as_float(hi);
+        dst[(int64_t)d * S8 + tr_lo] = __uint_as_float(lo);
+      }
+    }
+  }
+  if (job == 3) {
+    for (int r = warp; r < R && r0 + r < Sq; r += kPrepThreads / 32) {
+      const float* orow = o + (((int64_t)b * Sq + r0 + r) * Hq + h) * HD;
+      float sum = 0.f;
+      for (int d = lane; d < HD; d += 32) sum = fmaf(orow[d], tile[r * P + d], sum);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) delta[((int64_t)b * Hq + h) * Sq + r0 + r] = sum;
+    }
+  }
+}
+
+template <int HD>
+struct Tf32WgCfg {
+  static constexpr int CB = HD / 32;                     // 128-byte column blocks of a row
+  // dQ: keys per K/V tile; head-dim columns of a (K, V) piece (K and V, hi
+  // and lo, of the tile's keys) and such pieces per tile; the K^T pieces
+  // (hi and lo of KT_KEYS keys, or at hd 256 hi or lo of 32 keys) per tile
+  static constexpr int BK = HD <= 128 ? 64 : 32;
+  static constexpr int AC = 2048 / BK;
+  static constexpr int NA = HD / AC;
+  static constexpr bool KT_SPLIT = HD == 256;
+  static constexpr int KT_KEYS = KT_SPLIT ? 32 : 4096 / HD;
+  static constexpr int NKT = KT_SPLIT ? 2 : BK / KT_KEYS;
+  // dK/dV: query rows per item; head-dim columns of a (Q, dO) piece and such
+  // pieces per item; dK/dV columns per block (two column blocks at hd 256)
+  static constexpr int BQ = HD <= 64 ? 64 : 32;
+  static constexpr int QC = 2048 / BQ;
+  static constexpr int NQA = HD / QC;
+  static constexpr int DN = HD <= 128 ? HD : 128;
+  static constexpr int NZ = HD / DN;
+  static_assert(8 * BQ * DN == kPiece, "a dO^T or Q^T piece: hi and lo of DN rows x BQ queries");
+  // consumer warpgroups a block may have, both kernels
+  static constexpr int MAX_NWG = HD <= 128 ? 2 : 1;
+  // shared memory: the resident raw tiles (q and dout, or k and v, of 64 nwg
+  // rows), as many ring slots as fit, the dK/dV kernel's lse/delta ring,
+  // the barriers and slack to align the tiles to 1024 bytes
+  __host__ __device__ static constexpr size_t resident(int nwg) {
+    return (size_t)2 * 64 * nwg * HD * 4;
+  }
+  __host__ __device__ static constexpr int slots(int nwg) {
+    return (int)((kSmemMax - 3072 - resident(nwg)) / kPiece);
+  }
+  static constexpr size_t smem(int nwg) {
+    return 1024 + resident(nwg) + (size_t)slots(nwg) * kPiece + 2 * 2 * BQ * 4 +
+           8 * (6 + 2 * slots(nwg));
+  }
+};
+
+// The TF32 A fragment (hi and lo) of k-step kk (columns 8 kk .. 8 kk + 7) at
+// rows row and row + 8 (row % 16 = lane / 4) of a raw fp32 tile of R rows as
+// TMA writes it with the 128-byte swizzle ([column block][R][32], the
+// 16-byte chunk c of row r at chunk c ^ (r % 8)): the 8 rows of a load hit 8
+// distinct chunks, so the warp's 32 words fall on 32 banks.
+template <int R>
+__device__ __forceinline__ void load_a_sw(Frag<4>& f, const float* tile, int row, int kk, int t) {
+  const float* blk = tile + (kk / 4) * R * 32 + row * 32;
+  const int c0 = ((2 * (kk % 4)) ^ (row & 7)) * 4 + t;
+  const int c1 = ((2 * (kk % 4) + 1) ^ (row & 7)) * 4 + t;
+  split_tf32(blk[c0], f.hi[0], f.lo[0]);
+  split_tf32(blk[8 * 32 + c0], f.hi[1], f.lo[1]);
+  split_tf32(blk[c1], f.hi[2], f.lo[2]);
+  split_tf32(blk[8 * 32 + c1], f.hi[3], f.lo[3]);
+}
+
+// acc_to_a on n-tile j of an accumulator in wgmma's layout
+template <int R>
+__device__ __forceinline__ void acc_to_a_at(Frag<4>& f, const float (&c)[R], int j) {
+  split_tf32(c[4 * j], f.hi[0], f.lo[0]);
+  split_tf32(c[4 * j + 2], f.hi[1], f.lo[1]);
+  split_tf32(c[4 * j + 1], f.hi[2], f.lo[2]);
+  split_tf32(c[4 * j + 3], f.hi[3], f.lo[3]);
+}
+
+// d (+)= A B in split TF32 by three wgmma: lo_a hi_b, hi_a lo_b, hi_a hi_b;
+// bh and bl address B's hi and lo tiles (K-major, 128-byte swizzle)
+template <int N>
+__device__ __forceinline__ void wgmma3(float (&d)[N / 2], const Frag<4>& a, uint32_t bh,
+                                       uint32_t bl, int accumulate) {
+  using namespace hopper;
+  wgmma_rs_tf32<N>(d, a.lo, desc_sw128(bh, 16, 1024), accumulate);
+  wgmma_rs_tf32<N>(d, a.hi, desc_sw128(bl, 16, 1024), 1);
+  wgmma_rs_tf32<N>(d, a.hi, desc_sw128(bh, 16, 1024), 1);
+}
+
+// dQ of 64 NWG query rows of one head: NWG consumer warpgroups of 64 rows
+// and the producer. tq and tdo map q and dout as they are ((hd, H, S, B)
+// views, boxes of 32 columns x 64 NWG rows), tkn and tvn the split natural
+// copies of k and v ((hd, H, S, B, 2), boxes of 32 x BK), tkt the split
+// transposed copy of k ((S8, hd, H, B, 2), boxes of 32 keys x HD). lse,
+// delta (B, Hq, Sq); dq contiguous (B, Sq, Hq, HD).
+template <int HD, int NWG>
+__global__ void __launch_bounds__(wg_threads(NWG), 1)
+flash_wgmma_tf32_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const __grid_constant__ CUtensorMap tkn,
+                               const __grid_constant__ CUtensorMap tvn,
+                               const __grid_constant__ CUtensorMap tkt,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               float* __restrict__ dq, int Sq, int Skv, int Hq, int rep,
+                               float scale, float scale_log2, int causal, int window) {
+  using namespace hopper;
+  using C = Tf32WgCfg<HD>;
+  constexpr int BQ = 64 * NWG, BK = C::BK, CB = C::CB, NS = C::slots(NWG);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* qs = reinterpret_cast<float*>(base);           // [CB][BQ][32] q as it is
+  float* dos = qs + CB * BQ * 32;                       // [CB][BQ][32] dout
+  unsigned char* ring = reinterpret_cast<unsigned char*>(dos + CB * BQ * 32);   // [NS] pieces
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(ring + NS * kPiece);
+  uint64_t* full = qd_full + 1;                         // [NS] a piece landed
+  uint64_t* empty = full + NS;                          // [NS] read by every consumer warp
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;     // the longest causal walks first
+  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq;
+  int k_end = Skv;
+  if (causal) k_end = min(k_end, min(q0 + BQ, Sq));
+  const int k_begin = window >= 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * NWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {
+    // producer: q and dout once, then per live K/V tile its NA (K, V) pieces
+    // and NKT K^T pieces through the ring; rows past S arrive as zeros
+    if constexpr (NWG >= 2) setmaxnreg_dec<24>();
+    if (warp == 4 * NWG && lane == 0) {
+      tma_prefetch(&tq);
+      tma_prefetch(&tdo);
+      tma_prefetch(&tkn);
+      tma_prefetch(&tvn);
+      tma_prefetch(&tkt);
+      mbar_expect_tx(qd_full, 2 * BQ * HD * 4);
+      for (int cb = 0; cb < CB; ++cb) {
+        tma_load_4d(qs + cb * BQ * 32, &tq, qd_full, 32 * cb, h, q0, b);
+        tma_load_4d(dos + cb * BQ * 32, &tdo, qd_full, 32 * cb, h, q0, b);
+      }
+      const int hk = h / rep;
+      int n = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        for (int p = 0; p < C::NA + C::NKT; ++p, ++n) {
+          const int s = n % NS;
+          mbar_wait(empty + s, ((n / NS) & 1) ^ 1);
+          mbar_expect_tx(full + s, kPiece);
+          float* dst = reinterpret_cast<float*>(ring + s * kPiece);
+          if (p < C::NA) {                              // [AC / 32][K hi, lo, V hi, lo][BK][32]
+            for (int cb = 0; cb < C::AC / 32; ++cb)
+              for (int a = 0; a < 4; ++a)
+                tma_load_5d(dst + (cb * 4 + a) * BK * 32, a < 2 ? &tkn : &tvn, full + s,
+                            C::AC * p + 32 * cb, hk, t * BK, b, a & 1);
+          } else if (C::KT_SPLIT) {                     // [HD][32]: hi, then lo
+            tma_load_5d(dst, &tkt, full + s, t * BK, 0, hk, b, p - C::NA);
+          } else {                                      // [KT_KEYS / 32][hi, lo][HD][32]
+            for (int kc = 0; kc < C::KT_KEYS / 32; ++kc)
+              for (int a = 0; a < 2; ++a)
+                tma_load_5d(dst + (kc * 2 + a) * HD * 32, &tkt, full + s,
+                            t * BK + (p - C::NA) * C::KT_KEYS + 32 * kc, 0, hk, b, a);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63, its warp w % 4 16 of them
+  if constexpr (NWG == 2) setmaxnreg_inc<240>();
+  const int wg = warp / 4, t4 = lane % 4;
+  const int r0 = q0 + 64 * wg, wr0 = r0 + 16 * (warp % 4);
+  const int row_lo = wr0 + lane / 4, row_hi = row_lo + 8;
+  const int arow = row_lo - q0;                         // the fragments' first row in qs, dos
+  float l2[2], dl[2];                                   // the rows' lse (log2 units) and delta
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i == 0 ? row_lo : row_hi;
+    const int64_t at = ((int64_t)b * Hq + h) * Sq + row;
+    l2[i] = row < Sq ? lse[at] * kLog2e : 0.f;
+    dl[i] = row < Sq ? delta[at] : 0.f;
+  }
+  int wk_end = Skv;
+  if (causal) wk_end = min(wk_end, min(r0 + 64, Sq));
+  const int wk_begin = window >= 0 ? max(0, r0 - window + 1) : 0;
+  const bool rows_live = r0 < Sq;
+
+  float acc[HD / 2];                                    // dQ, accumulator layout
+#pragma unroll
+  for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
+  float sc[BK / 2], dp[BK / 2];                         // S; dP, then dS
+  mbar_wait(qd_full, 0);
+  int n = 0;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * BK;
+    const bool live = rows_live && k0 < wk_end && k0 + BK > wk_begin;
+    // S = Q K^T and dP = dO V^T, Q and dO split in registers per k-step
+#pragma unroll
+    for (int p = 0; p < C::NA; ++p, ++n) {
+      const int s = n % NS;
+      mbar_wait(full + s, (n / NS) & 1);
+      if (live) {
+        const uint32_t pa = smem_u32(ring + s * kPiece);
+        fence_regs(sc);
+        fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < C::AC / 8; ++j) {
+          const int kk = C::AC / 8 * p + j;             // the k-step over the head dim
+          Frag<4> fq, fd;
+          load_a_sw<BQ>(fq, qs, arow, kk, t4);
+          load_a_sw<BQ>(fd, dos, arow, kk, t4);
+          const uint32_t bk = pa + (j / 4) * 4 * BK * 128 + (j % 4) * 32;
+          wgmma_fence();
+          wgmma3<BK>(sc, fq, bk, bk + BK * 128, p + j > 0);
+          wgmma3<BK>(dp, fd, bk + 2 * BK * 128, bk + 3 * BK * 128, p + j > 0);
+          wgmma_commit();
+          wgmma_wait<1>();
+        }
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+      }
+      if (lane == 0) mbar_arrive(empty + s);           // the slot may be refilled
+    }
+    if (live) {
+      const bool need_mask = k0 + BK > Skv || (causal && k0 + BK - 1 > wr0) ||
+                             (window >= 0 && k0 <= wr0 + 15 - window);
+      if (need_mask)
+        rows_ds<BK, true>(sc, dp, l2, dl, scale_log2, k0, row_lo, row_hi, lane, Skv, causal,
+                          window);
+      else
+        rows_ds<BK, false>(sc, dp, l2, dl, scale_log2, k0, row_lo, row_hi, lane, Skv, causal,
+                           window);
+    }
+    // dQ += dS K: dS split in registers per k-step of 8 keys, K^T from the ring
+#pragma unroll
+    for (int p = 0; p < C::NKT; ++p, ++n) {
+      const int s = n % NS;
+      mbar_wait(full + s, (n / NS) & 1);
+      if (live) {
+        const uint32_t pb = smem_u32(ring + s * kPiece);
+        fence_regs(acc);
+        if constexpr (C::KT_SPLIT) {
+          // piece 0 holds K^T's hi (products lo_dS hi_K, hi_dS hi_K), piece 1 its lo
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j) {
+            Frag<4> a;
+            acc_to_a_at(a, dp, j);
+            const uint64_t db = desc_sw128(pb + j * 32, 16, 1024);
+            wgmma_fence();
+            if (p == 0) {
+              wgmma_rs_tf32<HD>(acc, a.lo, db, 1);
+              wgmma_rs_tf32<HD>(acc, a.hi, db, 1);
+            } else {
+              wgmma_rs_tf32<HD>(acc, a.hi, db, 1);
+            }
+            wgmma_commit();
+            wgmma_wait<1>();
+          }
+        } else {
+#pragma unroll
+          for (int kc = 0; kc < C::KT_KEYS / 32; ++kc)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              Frag<4> a;
+              acc_to_a_at(a, dp, (p * C::KT_KEYS + 32 * kc) / 8 + j);
+              const uint32_t bh = pb + kc * 2 * HD * 128 + j * 32;
+              wgmma_fence();
+              wgmma3<HD>(acc, a, bh, bh + HD * 128, 1);
+              wgmma_commit();
+              wgmma_wait<1>();
+            }
+        }
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+  }
+
+  // epilogue: ragged rows unwritten
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r == 0 ? row_lo : row_hi;
+    if (row >= Sq) continue;
+    float* drow = dq + (((int64_t)b * Sq + row) * Hq + h) * HD + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      store2(drow + 8 * j, acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+// dK and dV of 64 NWG keys of one KV head, columns [d0, d0 + DN), summed
+// over the rep query heads of that KV head: NWG consumer warpgroups of 64
+// keys and the producer warp, which loads k and v once, then streams each
+// item (query head, tile of BQ query rows) as NQA (Q, dO) pieces and a dO^T
+// and a Q^T piece through the ring, and its lse and delta through a
+// two-item ring of its own. tk and tv map k and v as they are (boxes of 32
+// columns x 64 NWG rows), tqn and tdon the split natural copies of q and
+// dout (boxes of 32 x BQ), tqt and tdot their split transposed copies
+// (boxes of 32 queries x DN). dk, dv contiguous (B, Skv, Hkv, HD); lse,
+// delta (B, Hq, Sq).
+template <int HD, int NWG>
+__global__ void __launch_bounds__(wg_threads(NWG), 1)
+flash_wgmma_tf32_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap tqn,
+                                 const __grid_constant__ CUtensorMap tdon,
+                                 const __grid_constant__ CUtensorMap tqt,
+                                 const __grid_constant__ CUtensorMap tdot,
+                                 const float* __restrict__ lse, const float* __restrict__ delta,
+                                 float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
+                                 int Hq, int rep, float scale, float scale_log2, int causal,
+                                 int window) {
+  using namespace hopper;
+  using C = Tf32WgCfg<HD>;
+  constexpr int BKV = 64 * NWG, BQ = C::BQ, CB = C::CB, NS = C::slots(NWG), DN = C::DN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* ks = reinterpret_cast<float*>(base);           // [CB][BKV][32] k as it is
+  float* vs = ks + CB * BKV * 32;                       // [CB][BKV][32] v
+  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + CB * BKV * 32);   // [NS] pieces
+  float* ld = reinterpret_cast<float*>(ring + NS * kPiece);   // [2][lse, delta][BQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(ld + 2 * 2 * BQ);
+  uint64_t* full = kv_full + 1;                         // [NS] a piece landed
+  uint64_t* empty = full + NS;                          // [NS] read by every consumer warp
+  uint64_t* ld_full = empty + NS;                       // [2] an item's lse and delta written
+  uint64_t* ld_empty = ld_full + 2;                     // [2] read by every consumer warp
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int Hkv = Hq / rep;
+  const int z = blockIdx.x % C::NZ, bh = blockIdx.x / C::NZ;   // column blocks side by side
+  const int b = bh / Hkv, hk = bh % Hkv;
+  const int k0 = blockIdx.y * BKV;                      // the longest causal walks first
+  const int d0 = z * DN;
+  // query rows that may attend to a key of this block: [q_begin, q_end);
+  // the items are (query head, query tile), heads outermost
+  const int q_begin = causal ? k0 : 0;
+  long long q_end = Sq;
+  if (window >= 0) {
+    const long long last = (long long)min(k0 + BKV, Skv) - 1 + window;
+    q_end = last < q_end ? last : q_end;
+  }
+  const int qt_begin = q_begin / BQ;
+  const int n_qt = q_end > q_begin ? (int)((q_end + BQ - 1) / BQ) - qt_begin : 0;
+  const int items = rep * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * NWG);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(ld_full + s, 32);                       // the producer warp's lanes
+      mbar_init(ld_empty + s, 4 * NWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {
+    // producer: k and v once; per item its lse (log2 units, 1e30 past Sq,
+    // so P is 0 there with no mask) and delta by the warp's lanes, and its
+    // pieces by lane 0; rows past S arrive as zeros
+    if constexpr (NWG >= 2) setmaxnreg_dec<24>();
+    if (warp == 4 * NWG) {
+      if (lane == 0) {
+        tma_prefetch(&tk);
+        tma_prefetch(&tv);
+        tma_prefetch(&tqn);
+        tma_prefetch(&tdon);
+        tma_prefetch(&tqt);
+        tma_prefetch(&tdot);
+        mbar_expect_tx(kv_full, 2 * BKV * HD * 4);
+        for (int cb = 0; cb < CB; ++cb) {
+          tma_load_4d(ks + cb * BKV * 32, &tk, kv_full, 32 * cb, hk, k0, b);
+          tma_load_4d(vs + cb * BKV * 32, &tv, kv_full, 32 * cb, hk, k0, b);
+        }
+      }
+      int n = 0;
+      for (int it = 0; it < items; ++it) {
+        const int h = hk * rep + it / n_qt, i0 = (qt_begin + it % n_qt) * BQ, si = it & 1;
+        mbar_wait(ld_empty + si, ((it >> 1) & 1) ^ 1);
+        float* l = ld + si * 2 * BQ;
+        const int64_t rows = ((int64_t)b * Hq + h) * Sq;
+        for (int r = lane; r < BQ; r += 32) {
+          const bool ok = i0 + r < Sq;
+          l[r] = ok ? lse[rows + i0 + r] * kLog2e : 1e30f;
+          l[BQ + r] = ok ? delta[rows + i0 + r] : 0.f;
+        }
+        mbar_arrive(ld_full + si);
+        if (lane != 0) continue;
+        for (int p = 0; p < C::NQA + 2; ++p, ++n) {
+          const int s = n % NS;
+          mbar_wait(empty + s, ((n / NS) & 1) ^ 1);
+          mbar_expect_tx(full + s, kPiece);
+          float* dst = reinterpret_cast<float*>(ring + s * kPiece);
+          if (p < C::NQA) {                             // [QC / 32][Q hi, lo, dO hi, lo][BQ][32]
+            for (int cb = 0; cb < C::QC / 32; ++cb)
+              for (int a = 0; a < 4; ++a)
+                tma_load_5d(dst + (cb * 4 + a) * BQ * 32, a < 2 ? &tqn : &tdon, full + s,
+                            C::QC * p + 32 * cb, h, i0, b, a & 1);
+          } else {                                      // [BQ / 32][hi, lo][DN][32]: dO^T, then Q^T
+            for (int qc = 0; qc < BQ / 32; ++qc)
+              for (int a = 0; a < 2; ++a)
+                tma_load_5d(dst + (qc * 2 + a) * DN * 32, p == C::NQA ? &tdot : &tqt, full + s,
+                            i0 + 32 * qc, d0, h, b, a);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63, its warp w % 4 16 of them
+  if constexpr (NWG == 2) setmaxnreg_inc<240>();
+  const int wg = warp / 4, t4 = lane % 4;
+  const int key0 = k0 + 64 * wg;                        // the warpgroup's first key
+  const int kw0 = key0 + 16 * (warp % 4);               // the warp's first key
+  const int key_lo = kw0 + lane / 4, key_hi = key_lo + 8;
+  const int arow = key_lo - k0;                         // the fragments' first row in ks, vs
+  const int last_key = min(key0 + 64, Skv) - 1;
+  float adk[DN / 2], adv[DN / 2];                       // dK, dV, accumulator layout
+#pragma unroll
+  for (int j = 0; j < DN / 2; ++j) adk[j] = adv[j] = 0.f;
+  float st[BQ / 2], dpt[BQ / 2];                        // S^T, then P^T; dP^T, then dS^T
+  mbar_wait(kv_full, 0);
+  int n = 0;
+  for (int it = 0; it < items; ++it) {
+    const int qb = (qt_begin + it % n_qt) * BQ, si = it & 1;
+    // does some query of the item attend to some key of the warpgroup?
+    const bool live = key0 < Skv && (!causal || qb + BQ - 1 >= key0) &&
+                      (window < 0 || qb < last_key + window);
+    // S^T = K Q^T and dP^T = V dO^T, K and V split in registers per k-step
+#pragma unroll
+    for (int p = 0; p < C::NQA; ++p, ++n) {
+      const int s = n % NS;
+      mbar_wait(full + s, (n / NS) & 1);
+      if (live) {
+        const uint32_t pa = smem_u32(ring + s * kPiece);
+        fence_regs(st);
+        fence_regs(dpt);
+#pragma unroll
+        for (int j = 0; j < C::QC / 8; ++j) {
+          const int kk = C::QC / 8 * p + j;             // the k-step over the head dim
+          Frag<4> fk, fv;
+          load_a_sw<BKV>(fk, ks, arow, kk, t4);
+          load_a_sw<BKV>(fv, vs, arow, kk, t4);
+          const uint32_t bq = pa + (j / 4) * 4 * BQ * 128 + (j % 4) * 32;
+          wgmma_fence();
+          wgmma3<BQ>(st, fk, bq, bq + BQ * 128, p + j > 0);
+          wgmma3<BQ>(dpt, fv, bq + 2 * BQ * 128, bq + 3 * BQ * 128, p + j > 0);
+          wgmma_commit();
+          wgmma_wait<1>();
+        }
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+      }
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+    mbar_wait(ld_full + si, (it >> 1) & 1);
+    if (live) {
+      const float* l = ld + si * 2 * BQ;
+      const bool need_mask =
+          (causal && kw0 + 15 > qb) || (window >= 0 && qb + BQ - 1 - window >= kw0);
+      if (need_mask)
+        keys_p_ds<BQ, true>(st, dpt, l, scale_log2, qb, key_lo, key_hi, lane, causal, window);
+      else
+        keys_p_ds<BQ, false>(st, dpt, l, scale_log2, qb, key_lo, key_hi, lane, causal, window);
+    }
+    if (lane == 0) mbar_arrive(ld_empty + si);
+    // dV += P^T dO, then dK += dS^T Q, over the item's queries: each 64
+    // columns' sum over the item taken in a zeroed accumulator and added to
+    // dV or dK in IEEE fp32 (the tensor cores' accumulation rounds toward
+    // zero, a bias that grows along rep x Sq-long sums)
+#pragma unroll
+    for (int p = 0; p < 2; ++p, ++n) {
+      const int s = n % NS;
+      mbar_wait(full + s, (n / NS) & 1);
+      if (live) {
+        const uint32_t pb = smem_u32(ring + s * kPiece);
+#pragma unroll
+        for (int c = 0; c < DN / 64; ++c) {
+          float part[32];
+          fence_regs(part);
+#pragma unroll
+          for (int js = 0; js < BQ / 8; ++js) {
+            Frag<4> a;
+            acc_to_a_at(a, p == 0 ? st : dpt, js);
+            const uint32_t bh = pb + (js / 4) * 2 * DN * 128 + c * 64 * 128 + (js % 4) * 32;
+            wgmma_fence();
+            wgmma3<64>(part, a, bh, bh + DN * 128, js > 0);
+            wgmma_commit();
+            wgmma_wait<1>();
+          }
+          wgmma_wait<0>();
+          fence_regs(part);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            if (p == 0)
+              adv[32 * c + i] += part[i];
+            else
+              adk[32 * c + i] += part[i];
+          }
+        }
+      }
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+  }
+
+  // epilogue: keys past Skv unwritten
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r == 0 ? key_lo : key_hi;
+    if (key >= Skv) continue;
+    const int64_t off = (((int64_t)b * Skv + key) * Hkv + hk) * HD + d0 + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < DN / 8; ++j) {
+      store2(dk + off + 8 * j, adk[4 * j + 2 * r] * scale, adk[4 * j + 2 * r + 1] * scale);
+      store2(dv + off + 8 * j, adv[4 * j + 2 * r], adv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -2569,25 +3273,36 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the TMA map of the (hd, H, S, B) view of a bf16 (B, S, H, hd) tensor with
-// batch and row strides sb and ss (elements): boxes of 64 columns x `rows`
-// rows of one head, 128-byte swizzle, zeros outside the tensor. A dimension
-// of extent 1 gets the stride a contiguous tensor would have (torch leaves
-// its stride free, TMA wants a multiple of 16 bytes).
-bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd, int64_t sb,
-                int64_t ss, int rows) {
+// a TMA map with the 128-byte swizzle, zeros outside the tensor: `rank`
+// dimensions innermost first, the byte strides of dimensions 1 .., boxes
+// `box` (128 bytes per box row)
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t row = S > 1 ? (cuuint64_t)ss * 2 : (cuuint64_t)H * hd * 2;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, row,
-                                 B > 1 ? (cuuint64_t)sb * 2 : row * (cuuint64_t)S};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode != nullptr &&
+         encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the TMA map of the (hd, H, S, B) view of a bf16 (fp32 with `fp32`) (B, S,
+// H, hd) tensor with batch and row strides sb and ss (elements): boxes of
+// 128 bytes (64 bf16 or 32 fp32 columns) x `rows` rows of one head. A
+// dimension of extent 1 gets the stride a contiguous tensor would have
+// (torch leaves its stride free, TMA wants a multiple of 16 bytes).
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd, int64_t sb,
+                int64_t ss, int rows, bool fp32 = false) {
+  const cuuint64_t e = fp32 ? 4 : 2;
+  const cuuint64_t row = S > 1 ? (cuuint64_t)ss * e : (cuuint64_t)H * hd * e;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * e, row,
+                                 B > 1 ? (cuuint64_t)sb * e : row * (cuuint64_t)S};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / e), 1, (cuuint32_t)rows, 1};
+  const CUtensorMapDataType type =
+      fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode_map(map, type, ptr, 4, dims, strides, box);
 }
 
 template <int HD, int NWG>
@@ -2649,7 +3364,7 @@ struct Fwd {
 struct BwdArgs {
   const void *q, *k, *v, *o, *dout;
   const float* lse;
-  float* delta;
+  float *delta, *scratch;          // scratch: the fp32 Hopper route's split copies
   void *dq, *dk, *dv;
   int B, Sq, Skv, Hq, rep;
   int64_t qsb, qss, ksb, kss, vsb, vss;
@@ -2811,11 +3526,125 @@ int launch_wgmma_bwd(const BwdArgs& a) {
   return (int)launch_wgmma_bwd_dkdv<HD, C::KV_NWG>(a, scale_log2, sms);
 }
 
+// a split natural copy (2, B, S, H, hd) as (hd, H, S, B, 2), boxes of 32
+// columns x `rows` rows of one head and term
+bool map_split_f32(CUtensorMap* map, const float* ptr, int B, int S, int H, int hd, int rows) {
+  const cuuint64_t dims[5] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B, 2};
+  const cuuint64_t r = (cuuint64_t)H * hd * 4;
+  const cuuint64_t strides[4] = {(cuuint64_t)hd * 4, r, r * S, r * S * B};
+  const cuuint32_t box[5] = {32, 1, (cuuint32_t)rows, 1, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, 5, dims, strides, box);
+}
+
+// a split transposed copy (2, B, H, hd, S8) as (S8, hd, H, B, 2), boxes of
+// 32 positions x `rows` head-dim rows of one head and term
+bool map_split_t_f32(CUtensorMap* map, const float* ptr, int B, int S, int H, int hd, int rows) {
+  const cuuint64_t s8 = (cuuint64_t)round8(S) * 4;
+  const cuuint64_t dims[5] = {(cuuint64_t)round8(S), (cuuint64_t)hd, (cuuint64_t)H,
+                              (cuuint64_t)B, 2};
+  const cuuint64_t strides[4] = {s8, s8 * hd, s8 * hd * H, s8 * hd * H * B};
+  const cuuint32_t box[5] = {32, (cuuint32_t)rows, 1, 1, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, 5, dims, strides, box);
+}
+
+// the TF32 dQ kernel with the most consumer warpgroups, up to NWG, whose
+// blocks still fill the card's `sms` SMs, else one
+template <int HD, int NWG>
+cudaError_t launch_tf32_bwd_dq(const BwdArgs& a, const Tf32Scratch& sc, float scale_log2,
+                               int sms) {
+  using C = Tf32WgCfg<HD>;
+  constexpr int BQ = 64 * NWG;
+  if constexpr (NWG > 1) {
+    if ((long long)((a.Sq + BQ - 1) / BQ) * a.B * a.Hq < sms)
+      return launch_tf32_bwd_dq<HD, NWG - 1>(a, sc, scale_log2, sms);
+  }
+  static int attr_dev = -1;
+  const cudaError_t e =
+      raise_smem_limit(flash_wgmma_tf32_bwd_dq_kernel<HD, NWG>, C::smem(NWG), attr_dev);
+  if (e != cudaSuccess) return e;
+  const int Hkv = a.Hq / a.rep;
+  const int64_t oss = (int64_t)a.Hq * HD, osb = (int64_t)a.Sq * oss;
+  CUtensorMap tq, tdo, tkn, tvn, tkt;
+  if (!tensor_map(&tq, a.q, a.B, a.Sq, a.Hq, HD, a.qsb, a.qss, BQ, true) ||
+      !tensor_map(&tdo, a.dout, a.B, a.Sq, a.Hq, HD, osb, oss, BQ, true) ||
+      !map_split_f32(&tkn, sc.kn, a.B, a.Skv, Hkv, HD, C::BK) ||
+      !map_split_f32(&tvn, sc.vn, a.B, a.Skv, Hkv, HD, C::BK) ||
+      !map_split_t_f32(&tkt, sc.kt, a.B, a.Skv, Hkv, HD, HD))
+    return cudaErrorInvalidValue;
+  flash_wgmma_tf32_bwd_dq_kernel<HD, NWG><<<dim3((a.Sq + BQ - 1) / BQ, a.B * a.Hq),
+                                            wg_threads(NWG), C::smem(NWG), a.st>>>(
+      tq, tdo, tkn, tvn, tkt, a.lse, a.delta, static_cast<float*>(a.dq), a.Sq, a.Skv, a.Hq,
+      a.rep, a.scale, scale_log2, a.causal, a.window);
+  return cudaGetLastError();
+}
+
+// the TF32 dK/dV kernel, chosen the same way
+template <int HD, int NWG>
+cudaError_t launch_tf32_bwd_dkdv(const BwdArgs& a, const Tf32Scratch& sc, float scale_log2,
+                                 int sms) {
+  using C = Tf32WgCfg<HD>;
+  constexpr int BKV = 64 * NWG;
+  if constexpr (NWG > 1) {
+    if ((long long)a.B * (a.Hq / a.rep) * C::NZ * ((a.Skv + BKV - 1) / BKV) < sms)
+      return launch_tf32_bwd_dkdv<HD, NWG - 1>(a, sc, scale_log2, sms);
+  }
+  static int attr_dev = -1;
+  const cudaError_t e =
+      raise_smem_limit(flash_wgmma_tf32_bwd_dkdv_kernel<HD, NWG>, C::smem(NWG), attr_dev);
+  if (e != cudaSuccess) return e;
+  const int Hkv = a.Hq / a.rep;
+  CUtensorMap tk, tv, tqn, tdon, tqt, tdot;
+  if (!tensor_map(&tk, a.k, a.B, a.Skv, Hkv, HD, a.ksb, a.kss, BKV, true) ||
+      !tensor_map(&tv, a.v, a.B, a.Skv, Hkv, HD, a.vsb, a.vss, BKV, true) ||
+      !map_split_f32(&tqn, sc.qn, a.B, a.Sq, a.Hq, HD, C::BQ) ||
+      !map_split_f32(&tdon, sc.don, a.B, a.Sq, a.Hq, HD, C::BQ) ||
+      !map_split_t_f32(&tqt, sc.qt, a.B, a.Sq, a.Hq, HD, C::DN) ||
+      !map_split_t_f32(&tdot, sc.dot, a.B, a.Sq, a.Hq, HD, C::DN))
+    return cudaErrorInvalidValue;
+  flash_wgmma_tf32_bwd_dkdv_kernel<HD, NWG><<<dim3(a.B * Hkv * C::NZ, (a.Skv + BKV - 1) / BKV),
+                                              wg_threads(NWG), C::smem(NWG), a.st>>>(
+      tk, tv, tqn, tdon, tqt, tdot, a.lse, a.delta, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.Sq, a.Skv, a.Hq, a.rep, a.scale, scale_log2, a.causal,
+      a.window);
+  return cudaGetLastError();
+}
+
+// the fp32 backward on Hopper: the pre-pass (split copies and delta), then
+// the dQ kernel, then the dK/dV kernel, each with the most consumer
+// warpgroups (up to MAX_NWG) whose blocks still fill the card
+template <int HD>
+int launch_wgmma_tf32_bwd(const BwdArgs& a) {
+  using C = Tf32WgCfg<HD>;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (a.scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const int Hkv = a.Hq / a.rep;
+  const Tf32Scratch sc = carve(a.scratch, a.B, a.Sq, a.Skv, a.Hq, Hkv, HD);
+  const int rows = a.Sq > a.Skv ? a.Sq : a.Skv;
+  flash_wgmma_tf32_bwd_prep_kernel<HD><<<dim3((rows + kPrepRows - 1) / kPrepRows, a.B * a.Hq, 4),
+                                         kPrepThreads, 0, a.st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.o),
+      static_cast<const float*>(a.dout), sc, a.delta, a.Sq, a.Skv, a.Hq, Hkv, a.qsb, a.qss,
+      a.ksb, a.kss, a.vsb, a.vss);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const float scale_log2 = log2_scale(a.scale);
+  e = launch_tf32_bwd_dq<HD, C::MAX_NWG>(a, sc, scale_log2, sms);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_tf32_bwd_dkdv<HD, C::MAX_NWG>(a, sc, scale_log2, sms);
+}
+
 // the backward by dtype and head dim: a fixed rule, not a fallback
 template <int HD>
 struct Bwd {
   static int run(int dtype, const BwdArgs& a) {
-    if (dtype == 0) return launch_bwd<HD>(a);
+    if (dtype == 0) {
+      if constexpr (HD == 64 || HD == 128 || HD == 256) return launch_wgmma_tf32_bwd<HD>(a);
+      else return launch_bwd<HD>(a);
+    }
     if (dtype == 1) {
       if constexpr (HD == 64 || HD == 128 || HD == 256) return launch_wgmma_bwd<HD>(a);
       else return launch_bwd_bf16<HD>(a);
@@ -2873,20 +3702,36 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   return dispatch<Fwd>(hd, dtype, a);
 }
 
+// Bytes of the scratch that flash_attention_bwd_launch takes at these
+// sizes: the split copies of the fp32 route at hd 64, 128 and 256 (four
+// natural copies, three transposed ones, each in two TF32 terms: 0.6 GB at
+// mixtral-8x7b's (1, 4096, 32/8 heads of 128)); 0 for every other route.
+extern "C" long long flash_attention_bwd_scratch_bytes(int B, int Sq, int Skv, int Hq, int Hkv,
+                                                       int hd, int dtype) {
+  if (dtype != 0 || (hd != 64 && hd != 128 && hd != 256) || Hkv < 1) return 0;
+  return 4 * scratch_floats(B, Sq, Skv, Hq, Hkv, hd);
+}
+
 // The backward of flash_attention_launch (same B, Sq, Skv, Hq, Hkv, hd, scale,
 // causal, window and dtype): q, k, v with the forward's strides; o, dout and
 // dq (B, Sq, Hq, hd), dk and dv (B, Skv, Hkv, hd) contiguous in the dtype,
 // dout 16-byte aligned; lse (the forward's) and delta (scratch) fp32
-// contiguous (B, Hq, Sq). Two launches on `stream`: float32
-// flash_tf32_bwd_dq_kernel (dq, and delta for the next), then
-// flash_tf32_bwd_dkdv_kernel; bfloat16 flash_bf16_bwd_dq_kernel, then
-// flash_bf16_bwd_dkdv_kernel. Requires
-// Sq, Skv >= 1, Skv <= 16 * 65535 and the forward's limits. Returns the
-// first CUDA error, else cudaGetLastError().
+// contiguous (B, Hq, Sq); scratch 16-byte aligned, of
+// flash_attention_bwd_scratch_bytes (null where that is 0). Launches on
+// `stream`, by kernel.backward_kernels's rule: float32 at hd 64, 128, 256
+// flash_wgmma_tf32_bwd_prep_kernel (the split copies in scratch, and delta),
+// flash_wgmma_tf32_bwd_dq_kernel (dq), flash_wgmma_tf32_bwd_dkdv_kernel (dk,
+// dv); float32 at the other head dims flash_tf32_bwd_dq_kernel (dq, and
+// delta), then flash_tf32_bwd_dkdv_kernel; bfloat16 at hd 64, 128, 256
+// flash_wgmma_bwd_dq_kernel (dq, and delta), then
+// flash_wgmma_bwd_dkdv_kernel; bfloat16 at the other head dims
+// flash_bf16_bwd_dq_kernel, then flash_bf16_bwd_dkdv_kernel. Requires Sq,
+// Skv >= 1, Skv <= 16 * 65535 and the forward's limits. Returns the first
+// CUDA error, else cudaGetLastError().
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
-                                          void* delta, void* dq, void* dk, void* dv, int B,
-                                          int Sq, int Skv, int Hq, int Hkv, int hd,
+                                          void* delta, void* scratch, void* dq, void* dk, void* dv,
+                                          int B, int Sq, int Skv, int Hq, int Hkv, int hd,
                                           long long qsb, long long qss, long long ksb,
                                           long long kss, long long vsb, long long vss,
                                           float scale, int causal, int window, int dtype,
@@ -2895,7 +3740,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
       Skv > 16 * 65535)
     return (int)cudaErrorInvalidValue;
   const BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta),
-                  dq, dk, dv, B, Sq, Skv, Hq, Hq / Hkv, qsb, qss, ksb, kss, vsb, vss, scale,
-                  causal, window, static_cast<cudaStream_t>(stream)};
+                  static_cast<float*>(scratch), dq, dk, dv, B, Sq, Skv, Hq, Hq / Hkv, qsb, qss,
+                  ksb, kss, vsb, vss, scale, causal, window, static_cast<cudaStream_t>(stream)};
   return dispatch<Bwd>(hd, dtype, a);
 }

@@ -10,10 +10,12 @@ contiguous, as they are after a reshape of a projection).
 `flash_attention.launches_by_case` counts them by call, keyed
 (B, Sq, Hq, Hkv, hd, causal, window).
 
-`flash_attention_bwd` is the backward, two CUDA launches per wrapper call
-(a dQ kernel, which also computes delta, then a dK/dV kernel); its
-`launches` and `launches_by_case` count wrapper calls. `ops.FlashAttentionFn`
-joins the two for autograd.
+`flash_attention_bwd` is the backward: per wrapper call the CUDA launches
+that `backward_kernels` names, in order (fp32 at hd 64, 128 and 256: a
+pre-pass that writes delta and the operands' split copies into scratch, a dQ
+kernel, a dK/dV kernel; elsewhere a dQ kernel, which also computes delta,
+then a dK/dV kernel); its `launches` and `launches_by_case` count wrapper
+calls. `ops.FlashAttentionFn` joins the two for autograd.
 
 The dtype and the head dim pick the kernels, by a fixed rule and not as a
 fallback (`forward_kernel` names the forward's, `backward_kernels` the
@@ -26,10 +28,15 @@ backward's; a failed build, tensor-map encode or launch raises):
     `flash_wgmma_bwd_dkdv_kernel` (wgmma fed by TMA, as the forward);
   * bfloat16 backward at the other head dims -> `flash_bf16_bwd_dq_kernel` +
     `flash_bf16_bwd_dkdv_kernel` (mma.sync);
-  * float32 -> `flash_tf32_kernel` forward and `flash_tf32_bwd_dq_kernel` +
-    `flash_tf32_bwd_dkdv_kernel` backward (each fp32 operand split into two
-    TF32 terms, three tensor-core products per fp32 one: as close to the
-    function as IEEE fp32).
+  * float32 forward -> `flash_tf32_kernel` (each fp32 operand split into
+    two TF32 terms, three tensor-core products per fp32 one: as close to the
+    function as IEEE fp32);
+  * float32 backward at hd 64, 128 and 256 -> `flash_wgmma_tf32_bwd_prep_kernel`
+    (hi and lo TF32 terms of q, k, v and dO, natural and transposed, once per
+    call into scratch; delta) + `flash_wgmma_tf32_bwd_dq_kernel` +
+    `flash_wgmma_tf32_bwd_dkdv_kernel` (TF32 wgmma fed by TMA, split TF32);
+  * float32 backward at the other head dims -> `flash_tf32_bwd_dq_kernel` +
+    `flash_tf32_bwd_dkdv_kernel` (split TF32 on mma.sync).
 The bf16 kernels feed P (and dS) to their products as two bf16 terms each.
 Every kernel reads its tiles by 16-byte cp.async or by TMA, so q, k, v need
 16-byte aligned pointers and batch and row strides in both dtypes, or the
@@ -48,7 +55,7 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HD_MAX = 256
-WGMMA_HDS = (64, 128, 256)       # bf16 head dims on the wgmma kernels, both directions
+WGMMA_HDS = (64, 128, 256)       # head dims on the wgmma kernels: bf16 both ways, fp32 backward
 
 
 def forward_kernel(hd: int, dtype: torch.dtype) -> str:
@@ -61,11 +68,15 @@ def forward_kernel(hd: int, dtype: torch.dtype) -> str:
     raise TypeError(f"flash_attention takes fp32 or bf16, got {dtype}")
 
 
-def backward_kernels(hd: int, dtype: torch.dtype) -> tuple[str, str]:
-    """The names of the two CUDA kernels that `flash_attention_bwd` launches
-    at head dim `hd` and `dtype`, the dQ kernel (which writes delta) first:
-    the rule of `Bwd` in csrc/flash_attention.cu."""
+def backward_kernels(hd: int, dtype: torch.dtype) -> tuple[str, ...]:
+    """The names of the CUDA kernels that `flash_attention_bwd` launches at
+    head dim `hd` and `dtype`, in launch order: the rule of `Bwd` in
+    csrc/flash_attention.cu. fp32 at hd 64, 128 and 256: the pre-pass (split
+    copies, delta), the dQ kernel, the dK/dV kernel; elsewhere the dQ kernel
+    (which writes delta), then the dK/dV kernel."""
     if dtype == torch.float32:
+        if hd in WGMMA_HDS:
+            return tuple(f"flash_wgmma_tf32_bwd_{part}_kernel" for part in ("prep", "dq", "dkdv"))
         route = "tf32"
     elif dtype == torch.bfloat16:
         route = "wgmma" if hd in WGMMA_HDS else "bf16"
@@ -85,10 +96,13 @@ def _lib():
                        ctypes.c_void_p])
     bwd = lib.flash_attention_bwd_launch
     bwd.restype = ctypes.c_int
-    bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+    bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p])
-    return fwd, bwd
+    scratch = lib.flash_attention_bwd_scratch_bytes
+    scratch.restype = ctypes.c_longlong
+    scratch.argtypes = [ctypes.c_int] * 7
+    return fwd, bwd, scratch
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int]):
@@ -179,8 +193,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     """(dq, dk, dv) of `flash_attention(q, k, v, ...)` on the card, given its
     output `o` and log-sum-exp `lse` (`return_lse=True`) and the output's
     gradient `do`. The same inputs as the forward, the same options;
-    gradients in q's dtype, contiguous. Two CUDA launches (dQ and delta,
-    then dK/dV), no atomics: the same inputs give the same bits."""
+    gradients in q's dtype, contiguous. The CUDA launches that
+    `backward_kernels` names (three for fp32 at hd 64, 128 and 256, else
+    two), no atomics: the same inputs give the same bits."""
     _check(q, k, v, window)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -206,11 +221,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if Sq == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    # beside delta, the fp32 route at hd 64, 128 and 256 takes scratch for
+    # the hi and lo TF32 terms of q, k, v and do, natural and transposed
+    # (four floats per element of q, k and do, two of v: 0.64 GB at
+    # mixtral-8x7b's (1, 4096, 32/8 heads of 128)); freed when the call returns
+    nbytes = _lib()[2](B, Sq, Skv, Hq, Hkv, hd, _DTYPES[q.dtype])
+    scratch = (torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
+               if nbytes else None)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                    dv.data_ptr(), B, Sq, Skv, Hq, Hkv, hd,
+                    lse.data_ptr(), delta.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, Hq, Hkv, hd,
                     q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                     v.stride(0), v.stride(1),
                     scale, int(causal), -1 if window is None else window,

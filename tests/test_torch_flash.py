@@ -190,13 +190,21 @@ def test_forward_kernel_rule():
 def test_backward_kernel_rule():
     """bf16 at hd 64, 128 and 256 goes to the Hopper pair
     (flash_wgmma_bwd_dq_kernel, then flash_wgmma_bwd_dkdv_kernel), bf16 at
-    the other head dims to the mma.sync pair, fp32 to the split-TF32 pair."""
+    the other head dims to the mma.sync pair; fp32 at hd 64, 128 and 256 to
+    the Hopper TF32 kernels (the pre-pass, then flash_wgmma_tf32_bwd_dq_kernel,
+    then flash_wgmma_tf32_bwd_dkdv_kernel), fp32 at the other head dims to
+    the split-TF32 mma.sync pair."""
     from repro_torch.kernels.flash_attention.kernel import HD_MAX, backward_kernels
     for hd in range(16, HD_MAX + 1, 16):
         route = "wgmma" if hd in (64, 128, 256) else "bf16"
         assert backward_kernels(hd, torch.bfloat16) == (f"flash_{route}_bwd_dq_kernel",
                                                         f"flash_{route}_bwd_dkdv_kernel")
-        assert backward_kernels(hd, torch.float32) == ("flash_tf32_bwd_dq_kernel",
-                                                       "flash_tf32_bwd_dkdv_kernel")
+        if hd in (64, 128, 256):
+            assert backward_kernels(hd, torch.float32) == (
+                "flash_wgmma_tf32_bwd_prep_kernel", "flash_wgmma_tf32_bwd_dq_kernel",
+                "flash_wgmma_tf32_bwd_dkdv_kernel")
+        else:
+            assert backward_kernels(hd, torch.float32) == ("flash_tf32_bwd_dq_kernel",
+                                                           "flash_tf32_bwd_dkdv_kernel")
     with pytest.raises(TypeError):
         backward_kernels(64, torch.float16)

@@ -2,7 +2,8 @@
 
 The CUDA kernels (src/repro_torch/kernels/flash_attention/csrc/
 flash_attention.cu: `flash_tf32_kernel`, `flash_tf32_bwd_dq_kernel`,
-`flash_tf32_bwd_dkdv_kernel`) round each fp32 operand to TF32 with
+`flash_tf32_bwd_dkdv_kernel`, and at hd 64, 128 and 256 the backward's
+`flash_wgmma_tf32_bwd_*`) round each fp32 operand to TF32 with
 `cvt.rna.tf32.f32` (hi), round its residue again (lo), and take three
 tensor-core products lo_a hi_b + hi_a lo_b + hi_a hi_b into one fp32
 accumulator; the forward's P V splits V in three terms (four products).
@@ -13,8 +14,13 @@ rounded to fp32. The emulated forward and the backward's five products
 `attention_bwd_ref`) under chip_smoke.py's fp32 rules: small cases
 |d| <= 2e-5 (|ref| + max|ref|), long ones |d| <= 1e-4 max|ref|. A single
 TF32 product at the same inputs misses the long rule, so the split cannot
-be dropped quietly. Inputs are standard normal (the JAX flash tests'
-distribution), from numpy with a seed.
+be dropped quietly. The Hopper backward is emulated with its own rounding
+points (`emulated_wgmma_backward`): the products' sums rounded toward zero
+k-step by k-step, as the tensor cores' accumulation is modelled, and dK
+and dV summed per item (query head, tile of query rows) in IEEE fp32, held
+to float64 at the same cases and where dK/dV sum 2048 query rows. Inputs
+are standard normal (the JAX flash tests' distribution), from numpy with
+a seed.
 """
 import numpy as np
 import pytest
@@ -121,6 +127,59 @@ def emulated_backward(case, q, k, v, o, lse, do, mm=mm3):
     return (dq, dk.view(B, S, Hkv, rep, hd).sum(3), dv.view(B, S, Hkv, rep, hd).sum(3))
 
 
+def rz(x):
+    """float64 to fp32, rounded toward zero: the model of how the tensor
+    cores round a product added to an fp32 accumulator."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def wgmma_sum(eq, a, b, ka, kb, acc=None):
+    """acc + sum of einsum(eq, a, b) over the reduction axis (axis ka of a,
+    kb of b) as TF32 wgmma takes it: k-steps of 8, each operand in two TF32
+    terms (hi = tf32(x), lo = tf32(x - hi): what the pre-pass stores and
+    what the registers hold), three products per k-step (lo_a hi_b, hi_a
+    lo_b, hi_a hi_b), each added to the fp32 accumulator exactly and rounded
+    toward zero. acc None: the first product starts from zero."""
+    for k0 in range(0, a.shape[ka], 8):
+        (ah, al), (bh, bl) = split(a.narrow(ka, k0, 8)), split(b.narrow(kb, k0, 8))
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            p = torch.einsum(eq, x.double(), y.double())
+            acc = rz(p if acc is None else acc.double() + p)
+    return acc
+
+
+def emulated_wgmma_backward(case, q, k, v, o, lse, do, item_sum=True):
+    """The Hopper fp32 backward (`flash_wgmma_tf32_bwd_*`) as its products
+    round: S, dP over the head dim and dQ over the keys in tiles of 64, by
+    wgmma_sum from zero; P = exp(scale S - lse) masked, delta = rowsum(dO O)
+    and dS = P (dP - delta) in fp32. dK and dV sum over the items (query
+    head of the KV head's rep, tile of BQ query rows; heads outermost): with
+    `item_sum` each item's sum is taken from zero and added to dK or dV in
+    IEEE fp32, as the kernel does; without it every k-step goes into the one
+    accumulator."""
+    B, S, Hq, Hkv, hd = case[:5]
+    rep, scale, bq = Hq // Hkv, hd ** -0.5, 64 if hd <= 64 else 32
+    kr, vr = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
+    s = wgmma_sum("bqhd,bkhd->bhqk", q, kr, 3, 3)
+    p = torch.where(_mask(case), torch.exp(s * scale - lse[..., None]), torch.tensor(0.0))
+    dp = wgmma_sum("bqhd,bkhd->bhqk", do, vr, 3, 3)
+    delta = (do * o).sum(-1).transpose(1, 2)
+    ds = p * (dp - delta[..., None])
+    dq = wgmma_sum("bhqk,bkhd->bqhd", ds, kr, 3, 1) * scale
+    # dV (index 0) and dK (1) together: A = P^T, dS^T; B = dO, Q, per item
+    a = torch.stack([p, ds]).view(2, B, Hkv, rep, S, S)
+    bt = torch.stack([do, q]).view(2, B, S, Hkv, rep, hd)
+    acc = torch.zeros(2, B, S, Hkv, hd)
+    for r in range(rep):
+        for i0 in range(0, S, bq):
+            n = min(bq, S - i0)
+            part = wgmma_sum("xbhqk,xbqhd->xbkhd", a[:, :, :, r, i0:i0 + n],
+                             bt[:, :, i0:i0 + n, :, r], 3, 2, None if item_sum else acc)
+            acc = acc + part if item_sum else part
+    return dq, acc[1] * scale, acc[0]
+
+
 def _reference(case, q, k, v, do, pos):
     """float64 output, lse and gradients of the plain versions."""
     q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
@@ -209,3 +268,41 @@ def test_split_terms_carry_the_value():
     assert torch.equal(h.double() + m.double() + lw.double(), x.double())
     for t in (h, m, lw):
         assert torch.equal(tf32(t), t)
+
+
+# GQA 8 over one KV head: dK and dV sum 8 x 256 = 2048 query rows
+GQA_LONG = (1, 256, 8, 1, 32, True, None)
+
+
+@pytest.mark.parametrize("case", SMALL + LONG)
+def test_wgmma_tf32_backward_passes_the_fp32_rule(case):
+    """The Hopper fp32 backward's rounding (TF32 terms as stored, P and dS
+    split in registers, accumulation rounded toward zero, each item's dK/dV
+    sum added in IEEE fp32) against float64 under the fp32 rules."""
+    q, k, v, do, pos = _inputs(case)
+    o, lse = attention_ref(q, k, v, pos, pos, causal=case[5], window=case[6], return_lse=True)
+    _, refs = _reference(case, q, k, v, do, pos)
+    got = emulated_wgmma_backward(case, q, k, v, o, lse, do)
+    for name, g, r in zip(("dq", "dk", "dv"), got, refs):
+        ok, rel = _passes(g, r, case in SMALL)
+        assert ok and rel < 1e-5, (name, rel)
+
+
+def test_wgmma_tf32_dkdv_long_gqa_sums():
+    """dQ, dK and dV within 2e-5 (|ref| + max|ref|) of float64 at every
+    entry (the training cases' criterion) where dK and dV sum 2048 query
+    rows of one KV head, with the per-item IEEE add. The design's reason:
+    with every k-step rounded toward zero into one accumulator, dK and dV
+    drift 5x or more as far (the bias grows with the sum's length, so at
+    mixtral's 4 x 4096 rows it would miss)."""
+    case = GQA_LONG
+    q, k, v, do, pos = _inputs(case)
+    o, lse = attention_ref(q, k, v, pos, pos, causal=case[5], window=case[6], return_lse=True)
+    _, refs = _reference(case, q, k, v, do, pos)
+    with_add = emulated_wgmma_backward(case, q, k, v, o, lse, do)
+    without = emulated_wgmma_backward(case, q, k, v, o, lse, do, item_sum=False)
+    for name, g, g0, r in zip(("dq", "dk", "dv"), with_add, without, refs):
+        ok, rel = _passes(g, r, small=True)
+        assert ok and rel < 5e-6, (name, rel)
+        if name != "dq":
+            assert _passes(g0, r, small=True)[1] >= 5 * rel, name
