@@ -10,9 +10,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
      at the serving shapes' instantiations: K1's bf16 forward at hd=64, 128
      and 256, `flash_wgmma_kernel` with one, two and three consumer
      warpgroups, whose wgmma products ptxas must not serialize, the K2
-     kernels; nor at the training ones: K1's fp32 forward
-     `flash_tf32_kernel` at hd 64 and its backward, the kernels
-     `kernel.backward_kernels(64, fp32)` names (`flash_wgmma_tf32_bwd_prep_kernel`,
+     kernels; nor at the training ones: K1's fp32 forward on Hopper, the
+     kernels `kernel.forward_kernels` names for more than 512 keys
+     (`flash_wgmma_tf32_fwd_prep_kernel`, `flash_wgmma_tf32_kernel`), at hd
+     64, 128 and 256 with one and two consumer warpgroups, its mma.sync
+     `flash_tf32_kernel` at hd 64 (fewer keys: whisper's decoder, smollm),
+     and its backward, the kernels `kernel.backward_kernels(64, fp32)`
+     names for more than 256 keys (`flash_wgmma_tf32_bwd_prep_kernel`,
      `flash_wgmma_tf32_bwd_dq_kernel`, `flash_wgmma_tf32_bwd_dkdv_kernel`)
      at hd 64, 128 and 256 with every number of consumer warpgroups their
      grid rule takes; nor K1's bf16 backward at hd 64, 128 and 256,
@@ -22,8 +26,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      forward's SASS and of bf16 m16n8k16 ones (HMMA.16816.F32.BF16, and no
      TF32) in the mma.sync bf16 backward's (`flash_bf16_bwd_*`, the other
      head dims), and HGMMA (wgmma) and UTMALDG (TMA) instructions, and no
-     HMMA, in `flash_wgmma_kernel`'s and the Hopper backwards' (bf16, and
-     fp32 but its pre-pass);
+     HMMA, in `flash_wgmma_kernel`'s, the fp32 Hopper forward's and the
+     Hopper backwards' (bf16, and fp32), pre-passes aside;
      K2's split-TF32 kernels (the fp32 forward's and the backward's, both
      dtypes) printed with their HMMA TF32 counts and held to no spills;
   3. the SSD-scan kernel against its plain PyTorch version on the card, at
@@ -52,9 +56,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
   7. the flash-attention kernel against its plain PyTorch version on the
      card, at the JAX kernel tests' shapes and at long shapes (the whisper
      encoder's, its decoder's teacher-forced one, a GQA and an hd=256
-     windowed one), fp32 (split-TF32 `flash_tf32_kernel`) and bf16
-     (`flash_wgmma_kernel` at hd 64, 128, 256, `flash_mma_kernel` at the
-     others: `kernel.forward_kernel`'s rule), and the bf16 tensor-core
+     windowed one), fp32 (split TF32: `flash_wgmma_tf32_kernel` after its
+     pre-pass at hd 64, 128, 256 over more than 512 keys, else
+     `flash_tf32_kernel`) and bf16 (`flash_wgmma_kernel` at hd 64, 128,
+     256, `flash_mma_kernel` at the others: `kernel.forward_kernels`'s
+     rule), and the bf16 tensor-core
      kernels at every head-dim class (16, 48, 64, 80, 128, 144, 256) with
      ragged S = 200, GQA 7, causal plus window and non-causal; window=1
      gives each row its own value bit for bit in both dtypes; bf16 at the
@@ -161,10 +167,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
      designs; K1 and K2 launches over the phase (0). One JSON line
      ({"gnn_serving": ...}).
  19. training (K1 forward and backward on every layer): (a) K1's backward
-     (fp32 at hd 64, 128 and 256: `flash_wgmma_tf32_bwd_prep_kernel` (the
-     operands' split TF32 copies, delta), `flash_wgmma_tf32_bwd_dq_kernel`,
-     then `flash_wgmma_tf32_bwd_dkdv_kernel`, split-TF32 wgmma fed by TMA;
-     fp32 elsewhere: `flash_tf32_bwd_dq_kernel` with delta, then
+     (fp32 at hd 64, 128 and 256 over more than 256 keys:
+     `flash_wgmma_tf32_bwd_prep_kernel` (the operands' split TF32 copies,
+     delta), `flash_wgmma_tf32_bwd_dq_kernel`, then
+     `flash_wgmma_tf32_bwd_dkdv_kernel`, split-TF32 wgmma fed by TMA; fp32
+     elsewhere (smollm's 256 keys too): `flash_tf32_bwd_dq_kernel` with delta, then
      `flash_tf32_bwd_dkdv_kernel`, split-TF32 mma.sync;
      bf16 at hd 64, 128 and 256: `flash_wgmma_bwd_dq_kernel` with delta,
      then `flash_wgmma_bwd_dkdv_kernel`, wgmma fed by TMA with P and dS in
@@ -191,7 +198,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      weights cut to 2 layers trained 3 steps on the card and the CPU: losses
      within 1e-5, grad norms within 1e-4 relative; (e) host and device time
      of one step, idle share, launches, the largest device items, K1's
-     forward and backward shares, tokens/s.
+     forward and backward shares (the kernels of either route by the rule's
+     names; the forward's share must not be 0), tokens/s.
  20. SSM and hybrid training (K2 forward and backward on every SSM layer,
      K1's on zamba2's shared block): (a) K2's backward (six split-TF32
      kernels on the tensor cores, fp32 sums for both dtypes) against
@@ -339,7 +347,9 @@ PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 
 MMA_KERNELS = ("flash_mma_kernel", "chunk_state_kernel", "state_pass_kernel",
                "chunk_scan_kernel")
-K1_FP32 = "flash_tf32_kernel"       # K1's fp32 forward (split TF32)
+K1_FP32 = "flash_tf32_kernel"       # K1's fp32 forward on mma.sync (split TF32)
+# K1's fp32 forward on Hopper: its pre-pass and the TF32 wgmma kernel
+K1_FP32_HOPPER = ("flash_wgmma_tf32_fwd_prep_kernel", "flash_wgmma_tf32_kernel")
 K1_WGMMA = "flash_wgmma_kernel"     # K1's bf16 forward at hd 64, 128, 256 (wgmma fed by TMA)
 # K2's split-TF32 kernels: the fp32 forward's (with state_pass_kernel<false>)
 # and the backward's for both dtypes (with state_pass_kernel<true>)
@@ -381,7 +391,7 @@ def fwd_name(mangled):
     """"<tensor-core forward kernel><hd>" (K1_WGMMA: "<hd, warpgroups>") of
     a mangled name, or None: <length><name>, then I Li<hd> E for a head-dim
     template (Li<n> E after it for a second argument)."""
-    k = re.search(r"\d(" + "|".join(MMA_KERNELS + (K1_FP32, K1_WGMMA))
+    k = re.search(r"\d(" + "|".join(MMA_KERNELS + (K1_FP32, K1_WGMMA) + K1_FP32_HOPPER)
                   + r")(ILi(\d+)E(?:Li(\d+)E)?)?", mangled)
     args = k and k.group(3) and k.group(3) + (f", {k.group(4)}" if k.group(4) else "")
     return k and k.group(1) + (f"<{args}>" if args else "")
@@ -398,6 +408,11 @@ def k1_fwd_name(cfg):
 # K1's bf16 forward instantiations on the Hopper path: (hd, consumer warpgroups)
 K1_WGMMA_INST = tuple(f"{K1_WGMMA}<{hd}, {n}>" for hd, n in (
     (64, 1), (64, 2), (64, 3), (128, 1), (128, 2), (256, 1), (256, 2)))
+# K1's fp32 forward on Hopper: the pre-pass at hd 64, 128, 256 and the
+# forward kernel at every number of consumer warpgroups its grid rule takes
+K1_FP32_HOPPER_INST = (tuple(f"{K1_FP32_HOPPER[0]}<{hd}>" for hd in (64, 128, 256))
+                       + tuple(f"{K1_FP32_HOPPER[1]}<{hd}, {n}>" for hd in (64, 128, 256)
+                               for n in (1, 2)))
 
 
 def check(cond, msg):
@@ -658,24 +673,30 @@ def kernel_share(by_name, counts, parts):
                    sum(n for k, n in counts.items() if part in k)) for part in parts}
 
 
-def k1_fp32_bwd_names():
-    """The CUDA kernels of K1's fp32 backward at every head dim, by the rule
-    of `kernel.backward_kernels`: the Hopper route's three at hd 64, 128 and
-    256, the mma.sync pair elsewhere."""
+def k1_fp32_names(backward):
+    """The CUDA kernels of K1's fp32 forward (backward) at every head dim and
+    on either side of the shape rule, by `kernel.forward_kernels`
+    (`kernel.backward_kernels`): the Hopper route's at hd 64, 128 and 256
+    over many keys, the mma.sync kernels elsewhere."""
     import torch
-    from repro_torch.kernels.flash_attention.kernel import HD_MAX, backward_kernels
+    from repro_torch.kernels.flash_attention.kernel import (HD_MAX, backward_kernels,
+                                                             forward_kernels)
+    rule = backward_kernels if backward else forward_kernels
     return tuple(sorted({n for hd in range(16, HD_MAX + 1, 16)
-                         for n in backward_kernels(hd, torch.float32)}))
+                         for skv in (1, 4096) for n in rule(hd, torch.float32, (1, 1, skv, 1, 1))}))
 
 
 def k1_train_shares(by_name, counts):
     """{"K1 forward": (ms, launches), "K1 backward": (ms, launches)} of a
-    profiled fp32 training step: `flash_tf32_kernel`, and every kernel of
-    K1's fp32 backward (`k1_fp32_bwd_names`)."""
-    parts = kernel_share(by_name, counts, (K1_FP32,) + k1_fp32_bwd_names())
-    bwd = [parts[n] for n in k1_fp32_bwd_names()]
-    return {"K1 forward": parts[K1_FP32],
-            "K1 backward": (sum(ms for ms, _ in bwd), sum(n for _, n in bwd))}
+    profiled fp32 training step, each summed over the kernels of its route
+    on either side of the rule (`k1_fp32_names`): CUDA launches, a pre-pass
+    counted as one."""
+    out = {}
+    for label, names in (("K1 forward", k1_fp32_names(False)),
+                         ("K1 backward", k1_fp32_names(True))):
+        parts = kernel_share(by_name, counts, names).values()
+        out[label] = (sum(ms for ms, _ in parts), sum(n for _, n in parts))
+    return out
 
 
 def print_breakdown(torch, name, fn, k1_name):
@@ -1385,11 +1406,11 @@ K1_BWD_TF32_NWG = ((64, 1), (64, 2), (128, 1), (128, 2), (256, 1))
 def k1_bwd_tf32_inst():
     """The names of K1's fp32 backward instantiations on Hopper: the
     pre-pass at hd 64, 128 and 256, then the dQ and dK/dV kernels at
-    K1_BWD_TF32_NWG (the kernels `kernel.backward_kernels(64, fp32)`
-    names)."""
+    K1_BWD_TF32_NWG (the kernels `kernel.backward_kernels(64, fp32)` names
+    over 4096 keys)."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import WGMMA_HDS, backward_kernels
-    prep, dq, kv = backward_kernels(64, torch.float32)
+    prep, dq, kv = backward_kernels(64, torch.float32, (1, 4096, 4096, 1, 1))
     return (tuple(f"{prep}<{hd}>" for hd in WGMMA_HDS)
             + tuple(f"{name}<{hd}, {n}>" for name in (dq, kv) for hd, n in K1_BWD_TF32_NWG))
 
@@ -1427,7 +1448,7 @@ def sass_hmma_counts():
 
     def k1_name(mangled):
         n = fwd_name(mangled)
-        return n if n and n.startswith(K1_WGMMA) else k1_tf32_name(mangled)
+        return n if n and n.startswith((K1_WGMMA,) + K1_FP32_HOPPER) else k1_tf32_name(mangled)
 
     for stem, name_of in (("flash_attention", k1_name), ("ssd_scan", k2_name)):
         lib = _build._lib_path(next(s for s in _build.sources() if s.stem == stem))
@@ -1733,6 +1754,7 @@ def train_path(torch, np):
             print(f"      {ms:8.3f} ms x{counts[kname]:<5d} {kname[:90]}")
         for label, (ms, n) in parts.items():
             print(f"    {label} {ms:.3f} ms x{n}, {ms / dev_ms:.1%} of device time")
+        check(parts["K1 forward"][0] > 0, "the step's K1 forward share, by the rule's kernel names")
     del model, st
     torch.cuda.empty_cache()
     entry = {"route": "cuda",
@@ -2295,6 +2317,8 @@ def train_family(torch, np, cfg, B, S, steps=3):
             print(f"      {ms:8.3f} ms x{counts[kname]:<5d} {kname[:90]}")
         for label, (ms, n) in parts.items():
             print(f"    {label} {ms:.3f} ms x{n}, {ms / dev_ms:.1%} of device time")
+        check(parts["K1 forward"][0] > 0,
+              f"{cfg.name}: the step's K1 forward share, by the rule's kernel names")
     del model, st, batch
     torch.cuda.empty_cache()
     return res, total
@@ -3273,7 +3297,7 @@ def main() -> int:
                   if "wgmma.mma_async instructions are serialized" in line]
         print(f"  ptxas: {len(serial)} wgmma serialization warnings")
         check(not serial, "ptxas keeps the wgmma products asynchronous (no serialization)")
-        for k in K1_WGMMA_INST + (f"{K1_FP32}<64>",) + MMA_KERNELS[1:]:
+        for k in K1_WGMMA_INST + K1_FP32_HOPPER_INST + (f"{K1_FP32}<64>",) + MMA_KERNELS[1:]:
             check(k in report and report[k][1:3] == [0, 0], f"{k} has no spills")
     bwd = {k: v for log in logs.values() for k, v in ptxas_table(log, bwd_name).items()}
     # the training path's instantiations (fp32 at hd 64: the forward, and
@@ -3313,9 +3337,9 @@ def main() -> int:
                           if k in K2_TRAIN))
         for k in K2_TRAIN:
             check(hmma.get(k, [0] * 5)[1] > 0, f"{k} runs TF32 mma on the tensor cores")
-        k1_hopper = K1_WGMMA_INST + k1_bwd_bf16 + tuple(k for k in k1_bwd_tf32
-                                                        if "_prep_" not in k)
-        print("  SASS of K1's bf16 forward and backward and fp32 backward on Hopper: "
+        k1_hopper = K1_WGMMA_INST + k1_bwd_bf16 + tuple(
+            k for k in K1_FP32_HOPPER_INST + k1_bwd_tf32 if "_prep_" not in k)
+        print("  SASS of K1's bf16 and fp32 forward and backward on Hopper: "
               + ", ".join(f"{k} {hg} HGMMA, {tma} UTMALDG, {n} HMMA"
                           for k, (n, _, _, hg, tma) in sorted(hmma.items()) if k in k1_hopper))
         for k in k1_hopper:

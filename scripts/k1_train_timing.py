@@ -9,7 +9,8 @@ is run from.
 LABEL names the tree in the output. The script builds the tree's CUDA
 sources, then at each case prints the device time of the forward and of
 the backward (`chip_smoke.graph_ms`: calls captured in a CUDA graph), the
-backward's device time by kernel (one call under torch.profiler) and their
+forward's and the backward's device time by kernel (pre-pass and main
+kernels; one call each under torch.profiler) and their
 error, as max|d| / max|ref| of o, dq, dk and dv, against the fp32
 plain version (the backward on the kernel's own o and lse, as chip_smoke's
 `hold_flash_bwd` holds it) and against float64 (the function's own o and
@@ -67,12 +68,13 @@ def main() -> int:
         f_ms = c.graph_ms(torch, lambda: flash_attention(q, k, v, return_lse=True, **kw))
         b_ms = c.graph_ms(torch, lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw))
         line = [f"  {label} {name} {case}: forward {f_ms:.4f} ms, backward {b_ms:.4f} ms"]
-        _, by_name, counts = c.device_breakdown(
-            torch, lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), reps=1)
-        line.append("    backward by kernel (one profiled call): " + ", ".join(
-            f"{n.replace('(anonymous namespace)::', '').removeprefix('void ').split('(')[0]} "
-            f"{ms:.4f} ms x{counts[n]}"
-            for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])))
+        for part, fn in (("forward", lambda: flash_attention(q, k, v, return_lse=True, **kw)),
+                         ("backward", lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw))):
+            _, by_name, counts = c.device_breakdown(torch, fn, reps=1)
+            line.append(f"    {part} by kernel (one profiled call): " + ", ".join(
+                f"{n.replace('(anonymous namespace)::', '').removeprefix('void ').split('(')[0]} "
+                f"{ms:.4f} ms x{counts[n]}"
+                for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])))
         plain = (attention_ref(q, k, v, pos, pos, **kw),
                  *attention_bwd_ref(q, k, v, o, lse, do, **kw))
         t64 = [t.double() for t in (q, k, v, do)]

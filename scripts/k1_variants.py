@@ -19,8 +19,9 @@ shape. With --backward it holds and times K1's bf16 backward instead: the
 held cases run `chip_smoke.hold_flash_bwd` (its long bf16 rule, two runs bit
 for bit; a miss is printed), the timed ones are the six cases of
 `scripts/k1_bf16_bwd_timing.py`, the backward timed on each variant's own
-forward's o and lse. Variants are bound with ctypes and swapped into
-`kernel._lib`.
+forward's o and lse. Variants are bound with ctypes (`kernel.bind`: the
+C interface of this tree, so a variant's tree must share it) and swapped
+into `kernel._lib`.
 Builds go to `.archive/var/` (gitignored).
 """
 import ctypes
@@ -61,19 +62,8 @@ def write_variant(name, tree, subs):
 
 
 def bind(path):
-    lib = ctypes.CDLL(str(path))
-    fwd, bwd = lib.flash_attention_launch, lib.flash_attention_bwd_launch
-    scratch = lib.flash_attention_bwd_scratch_bytes
-    fwd.restype = bwd.restype = ctypes.c_int
-    fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p])
-    bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p])
-    scratch.restype = ctypes.c_longlong
-    scratch.argtypes = [ctypes.c_int] * 7
-    return fwd, bwd, scratch
+    from repro_torch.kernels.flash_attention.kernel import bind as bind_lib
+    return bind_lib(ctypes.CDLL(str(path)))
 
 
 def backward_rounds(torch, c, kernel, libs):

@@ -13,10 +13,10 @@
 // the output is cast to q's dtype. The TPU kernel has no backward; the
 // backward here is the gradient of the same function (see below).
 //
-// One forward kernel and one backward pair per dtype and head dim, chosen by
-// a fixed rule (not a fallback; a failed tensor-map encode or launch is
-// returned; the wrapper's kernel.forward_kernel and kernel.backward_kernels
-// name them):
+// The kernels of a call are chosen by dtype, head dim and, for fp32, the
+// number of keys, by a fixed rule (not a fallback; a failed tensor-map
+// encode or launch is returned; the wrapper's kernel.forward_kernels and
+// kernel.backward_kernels name them; fp32_on_hopper below):
 //   * bfloat16 forward at hd 64, 128 and 256 (every full-width config's head
 //     dim) -> flash_wgmma_kernel, Hopper's wgmma fed by TMA;
 //   * bfloat16 forward at the other head dims -> flash_mma_kernel, bf16
@@ -27,12 +27,18 @@
 //   * bfloat16 backward at the other head dims -> flash_bf16_bwd_dq_kernel,
 //     then flash_bf16_bwd_dkdv_kernel, bf16 mma.sync m16n8k16 with
 //     split-bf16 P and dS;
-//   * float32 forward   -> flash_tf32_kernel, split-TF32 mma.sync m16n8k8;
-//   * float32 backward at hd 64, 128 and 256 -> flash_wgmma_tf32_bwd_prep_kernel
-//     (split copies, delta), flash_wgmma_tf32_bwd_dq_kernel (dQ), then
+//   * float32 forward at hd 64, 128 and 256 over more than 512 keys ->
+//     flash_wgmma_tf32_fwd_prep_kernel (k's and v's split copies), then
+//     flash_wgmma_tf32_kernel, split-TF32 wgmma fed by TMA;
+//   * float32 forward elsewhere (other head dims; 512 keys or fewer, where
+//     the pre-pass costs more than it saves) -> flash_tf32_kernel,
+//     split-TF32 mma.sync m16n8k8;
+//   * float32 backward at hd 64, 128 and 256 over more than 256 keys ->
+//     flash_wgmma_tf32_bwd_prep_kernel (split copies, delta),
+//     flash_wgmma_tf32_bwd_dq_kernel (dQ), then
 //     flash_wgmma_tf32_bwd_dkdv_kernel (dK, dV), split-TF32 wgmma fed by TMA;
-//   * float32 backward at the other head dims -> flash_tf32_bwd_dq_kernel,
-//     then flash_tf32_bwd_dkdv_kernel, split-TF32 mma.sync m16n8k8.
+//   * float32 backward elsewhere -> flash_tf32_bwd_dq_kernel, then
+//     flash_tf32_bwd_dkdv_kernel, split-TF32 mma.sync m16n8k8.
 //
 // What bounds them on this card: at the whisper encoder's shape (B=4,
 // S=1500, 12 heads of 64, bf16) the forward does 2.8e10 FLOP on 37 MB, so
@@ -57,9 +63,10 @@
 // (`mma3_sum`): the tensor cores' own accumulation rounds toward zero, a
 // bias that grows along the rep x 4096-long sums. The products over the
 // head dim (S, dP), dQ and the forward's O += P V accumulate on the tensor
-// cores: at the training cases (1500-4096 keys) o keeps within 1e-5 of
-// max|o| of float64 and dQ within 6e-6 of max|dQ|, and IEEE adds in the
-// forward cost 8-32 % of its time. The forward's P V splits V in
+// cores: at the training cases (1500-4096 keys) flash_tf32_kernel's o keeps
+// within 1e-5 of max|o| of float64 and dQ within 6e-6 of max|dQ|, and IEEE
+// adds in that forward cost 8-32 % of its time (flash_wgmma_tf32_kernel
+// adds per tile, below). The forward's P V splits V in
 // three terms (hi + mid + lo is exactly v): four products, so a row whose
 // only live key has p = 1 returns that key's v bit for bit, as IEEE fp32
 // does.
@@ -252,13 +259,50 @@
 //   the long bf16 rule holds at every element of the six timed cases
 //   (PERF.md). Deterministic: no atomics, every sum in a fixed order.
 //
-// The fp32 backward at hd 64, 128 and 256 (flash_wgmma_tf32_bwd_*): the
-// function of the pair below on Hopper's TF32 wgmma, fed by TMA. At
+// The fp32 forward at hd 64, 128 and 256 over more than 512 keys
+// (flash_wgmma_tf32_*): flash_tf32_kernel's function on TF32 wgmma fed by
+// TMA, in the shape of the fp32 backward's dQ kernel below. At
 // mixtral-8x7b's training case (1, 4096, 32/8 heads of 128, causal) it is
-// 344 GFLOP on 336 MB: three TF32 products per fp32 one bound it at 2.08 ms
-// (495 TFLOP/s). TF32 wgmma reads a shared-memory operand only K-major (no
-// transpose), and a 64-row fp32 tile in two terms is 512 hd bytes, so the
-// design is set by shared memory:
+// 137 GFLOP on 168 MB: three TF32 products per fp32 one bound it at 0.83
+// ms (495 TFLOP/s).
+//   * flash_wgmma_tf32_fwd_prep_kernel (grid (ceil(Skv/32), B*Hkv, 2))
+//     writes, into scratch the wrapper allocates, k's natural copy in two
+//     terms (2, B, Skv, Hkv, hd) and v's transposed copy in three (3, B,
+//     Hkv, hd, S8: hi, mid, lo, hi + mid + lo = v exactly), keys permuted in
+//     groups of 8 by perm8: TF32 wgmma takes B only K-major, so P V's B
+//     (V, reduced over the keys) must be stored keys-contiguous. 20 bytes
+//     per element of k and v: 84 MB at mixtral's case, ~0.04 ms.
+//   * flash_wgmma_tf32_kernel<HD, NWG>: grid (ceil(Sq/(64 NWG)), B*Hq), the
+//     longest causal walks first; NWG consumer warpgroups of 64 query rows
+//     (2 by the grid rule where the blocks fill the card, else 1) and a
+//     producer (setmaxnreg 24 / 240 beside two). Resident: raw q of the
+//     block's rows (64 NWG x hd x 4 bytes: 32, 64, 128 KB at NWG 2), split
+//     in registers per k-step. Per live tile of BK = 8192 / hd keys (128,
+//     64, 32) five 32 KB pieces stream through a ring of as many slots as
+//     fit (3 to 6): K's hi and lo over half the head dim, twice (S = Q K^T,
+//     three wgmma m64nBKk8 per k-step), then V^T's lo, mid and hi terms
+//     (O += P V with N = hd: hi_P lo_V, hi_P mid_V, then lo_P hi_V and hi_P
+//     hi_V per 8 keys, P split from the accumulator by acc_to_a_at).
+//   * The softmax scales each fp32 score by scale log2 e before the row
+//     maximum (either sign of the scale; q is never scaled or negated),
+//     masks only on a tile that crosses an edge (keys past Skv by the mask:
+//     TMA's zero rows give score 0, not p = 0) and rescales O on every tile.
+//   * Sums: up to hd 128 a tile's P V goes into a zeroed accumulator that
+//     joins O by one FFMA (O alpha + tile): along whisper's 1500-key
+//     non-causal rows the tensor cores' rounding toward zero put o 1.67e-5
+//     of max|o| from float64 without it, 2.6e-6 with it, for 3-4 % of the
+//     time at mixtral's case. At hd 256 the registers hold one 64 x 256
+//     accumulator only, and gemma3's 4096 keys keep o within 2.2e-6.
+//   A row whose only live key has p = 1 returns that key's v bit for bit;
+//   deterministic, no atomics.
+//
+// The fp32 backward at hd 64, 128 and 256 over more than 256 keys
+// (flash_wgmma_tf32_bwd_*): the function of the pair below on Hopper's TF32
+// wgmma, fed by TMA. At mixtral-8x7b's training case (1, 4096, 32/8 heads
+// of 128, causal) it is 344 GFLOP on 336 MB: three TF32 products per fp32
+// one bound it at 2.08 ms (495 TFLOP/s). TF32 wgmma reads a shared-memory
+// operand only K-major (no transpose), and a 64-row fp32 tile in two terms
+// is 512 hd bytes, so the design is set by shared memory:
 //   * flash_wgmma_tf32_bwd_prep_kernel (grid (ceil(S/32), B*Hq, 4)) writes
 //     once per call, into scratch the wrapper allocates, each fp32 operand
 //     that a product reads from shared memory in two TF32 terms (hi =
@@ -3196,13 +3240,357 @@ flash_wgmma_tf32_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tk,
 }
 
 // ---------------------------------------------------------------------------
+// fp32 forward at hd 64, 128 and 256: flash_wgmma_tf32_fwd_prep_kernel, then
+// flash_wgmma_tf32_kernel, TF32 wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+// The forward pre-pass's copies, in scratch the wrapper allocates: k's split
+// natural copy (2, B, Skv, Hkv, hd) (hi, lo) and v's split transposed copy
+// (3, B, Hkv, hd, S8) (hi, mid, lo: hi + mid + lo = v exactly; keys permuted
+// in groups of 8 by perm8; zero past Skv).
+int64_t fwd_scratch_floats(int B, int Skv, int Hkv, int hd) {
+  return (int64_t)hd * B * Hkv * (2LL * Skv + 3LL * round8(Skv));
+}
+
+// One block per 32 keys of one KV head of k (blockIdx.z 0) or v (1).
+template <int HD>
+__global__ void __launch_bounds__(kPrepThreads)
+flash_wgmma_tf32_fwd_prep_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                                 float* __restrict__ kn, float* __restrict__ vt, int Skv,
+                                 int Hkv, int64_t ksb, int64_t kss, int64_t vsb, int64_t vss) {
+  constexpr int R = kPrepRows, P = HD + 1;               // odd pitch: column reads on 32 banks
+  __shared__ float tile[R * P];
+  const int B = gridDim.y / Hkv, b = blockIdx.y / Hkv, h = blockIdx.y % Hkv;
+  const int r0 = blockIdx.x * R;
+  if (blockIdx.z == 0) {
+    const float* src = k + b * ksb + (int64_t)h * HD;
+    const int64_t lo_at = (int64_t)B * Skv * Hkv * HD;  // floats from a hi to its lo
+    for (int i = threadIdx.x; i < R * HD / 4; i += kPrepThreads) {
+      const int r = i / (HD / 4), c = 4 * (i % (HD / 4));
+      if (r0 + r >= Skv) break;
+      const float4 x = *reinterpret_cast<const float4*>(src + (r0 + r) * kss + c);
+      uint32_t hi[4], lo[4];
+      split_tf32(x.x, hi[0], lo[0]);
+      split_tf32(x.y, hi[1], lo[1]);
+      split_tf32(x.z, hi[2], lo[2]);
+      split_tf32(x.w, hi[3], lo[3]);
+      float* dst = kn + (((int64_t)b * Skv + r0 + r) * Hkv + h) * HD + c;
+      *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(dst + lo_at) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    return;
+  }
+  const float* src = v + b * vsb + (int64_t)h * HD;
+  for (int i = threadIdx.x; i < R * HD / 4; i += kPrepThreads) {
+    const int r = i / (HD / 4), c = 4 * (i % (HD / 4));
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < Skv) x = *reinterpret_cast<const float4*>(src + (r0 + r) * vss + c);
+    float* t = tile + r * P + c;
+    t[0] = x.x, t[1] = x.y, t[2] = x.z, t[3] = x.w;
+  }
+  __syncthreads();
+  // lane p of a warp writes position r0 + p of head-dim rows warp, warp + 8, ...
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int S8 = round8(Skv), pos = r0 + lane, r = (lane & ~7) + perm8(lane & 7);
+  const int64_t term = (int64_t)B * Hkv * HD * S8;       // floats from one term to the next
+  if (pos >= S8) return;
+  float* dst = vt + ((int64_t)b * Hkv + h) * HD * S8 + pos;
+  for (int d = warp; d < HD; d += kPrepThreads / 32) {
+    uint32_t hi, mid, lo;
+    split3_tf32(tile[r * P + d], hi, mid, lo);
+    dst[(int64_t)d * S8] = __uint_as_float(hi);
+    dst[(int64_t)d * S8 + term] = __uint_as_float(mid);
+    dst[(int64_t)d * S8 + 2 * term] = __uint_as_float(lo);
+  }
+}
+
+template <int HD>
+struct Tf32FwdCfg {
+  static constexpr int CB = HD / 32;                     // 128-byte column blocks of a q row
+  // keys per K/V tile: one term of V^T over the tile's keys (HD rows x BK
+  // keys) is one piece, and K's two terms over the tile two pieces of KC
+  // head-dim columns each; per tile the pieces K (columns 0 .. KC - 1),
+  // K (KC .. HD - 1), V^T lo, V^T mid, V^T hi
+  static constexpr int BK = (int)(kPiece / 4) / HD;
+  static constexpr int KC = HD / 2;
+  static constexpr int PIECES = 5;
+  static_assert(8 * BK * KC == kPiece && 4 * BK * HD == kPiece, "pieces of 32 KB");
+  // consumer warpgroups a block may have, by the grid rule (64 x HD fp32
+  // of O a warpgroup in 240 registers a thread)
+  static constexpr int MAX_NWG = 2;
+  // a tile's P V products go into a zeroed accumulator that is added to O
+  // in IEEE fp32 (up to hd 128, where the registers allow it); else into O
+  static constexpr bool TILE_SUM = HD <= 128;
+  // shared memory: q of the block's rows, as many ring slots as fit, the
+  // barriers, and slack to align the tiles to 1024 bytes
+  __host__ __device__ static constexpr size_t resident(int nwg) {
+    return (size_t)64 * nwg * HD * 4;
+  }
+  __host__ __device__ static constexpr int slots(int nwg) {
+    return (int)((kSmemMax - 3072 - resident(nwg)) / kPiece);
+  }
+  static constexpr size_t smem(int nwg) {
+    return 1024 + resident(nwg) + (size_t)slots(nwg) * kPiece + 8 * (1 + 2 * slots(nwg));
+  }
+};
+
+// The online softmax of a warp's 16 rows over a tile in the accumulator
+// layout (RowMask's) for a scale of either sign, as flash_tf32_kernel takes
+// it: each score is scaled (by scale log2 e) before the row maximum, masked
+// scores are -1e30 and their p is 0. Turns sc into P, updates m (log2
+// units) and this lane's part of l, gives O's rescale factor.
+template <int BK, bool MASKED>
+__device__ __forceinline__ void softmax_scaled(const RowMask& mk, float (&sc)[BK / 2], int k0,
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2]) {
+  float mx[2] = {kNegInf, kNegInf}, rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[4 * j + e] * mk.scale_log2;
+      if (MASKED && !mk.keep(k0, j, e)) x = kNegInf;
+      sc[4 * j + e] = x;
+      mx[e / 2] = fmaxf(mx[e / 2], x);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = exp2_ftz(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = sc[4 * j + e];
+      const float p = MASKED && x == kNegInf ? 0.f : exp2_ftz(x - m[e / 2]);
+      sc[4 * j + e] = p;
+      rs[e / 2] += p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+}
+
+// O (+)= P V over one piece of V^T (BK keys x HD, one TF32 term): P split
+// in registers per k-step of 8 keys; the hi term's piece (`hi`) takes lo_P
+// hi_V and hi_P hi_V, the others hi_P times their term; `zero` (a lo or mid
+// piece only): the first product overwrites d
+template <int HD, int BK>
+__device__ __forceinline__ void pv_piece(float (&d)[HD / 2], const float (&p)[BK / 2],
+                                         uint32_t pb, bool hi, bool zero) {
+  using namespace hopper;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    Frag<4> a;
+    acc_to_a_at(a, p, j);
+    const uint64_t db = desc_sw128(pb + (j / 4) * HD * 128 + (j % 4) * 32, 16, 1024);
+    wgmma_fence();
+    if (hi) wgmma_rs_tf32<HD>(d, a.lo, db, 1);
+    wgmma_rs_tf32<HD>(d, a.hi, db, !(zero && j == 0));
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+}
+
+// O and the lse of 64 NWG query rows of one head: NWG consumer warpgroups of
+// 64 rows and the producer. tq maps q as it is ((hd, H, S, B) view, boxes of
+// 32 columns x 64 NWG rows), tkn k's split natural copy ((hd, H, S, B, 2),
+// boxes of 32 x BK), tvt v's split transposed copy ((S8, hd, H, B, 3), boxes
+// of 32 keys x HD). o (B, Sq, Hq, HD) with batch and row strides osb, oss;
+// lse, when not null, contiguous (B, Hq, Sq).
+template <int HD, int NWG>
+__global__ void __launch_bounds__(wg_threads(NWG), 1)
+flash_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tkn,
+                        const __grid_constant__ CUtensorMap tvt, float* __restrict__ o,
+                        float* __restrict__ lse, int Sq, int Skv, int Hq, int rep, int64_t osb,
+                        int64_t oss, float scale_log2, int causal, int window) {
+  using namespace hopper;
+  using C = Tf32FwdCfg<HD>;
+  constexpr int BQ = 64 * NWG, BK = C::BK, CB = C::CB, NS = C::slots(NWG);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* qs = reinterpret_cast<float*>(base);           // [CB][BQ][32] q as it is
+  unsigned char* ring = reinterpret_cast<unsigned char*>(qs + CB * BQ * 32);   // [NS] pieces
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + NS * kPiece);
+  uint64_t* full = q_full + 1;                          // [NS] a piece landed
+  uint64_t* empty = full + NS;                          // [NS] read by every consumer warp
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;     // the longest causal walks first
+  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq;
+  int k_end = Skv;
+  if (causal) k_end = min(k_end, min(q0 + BQ, Sq));
+  const int k_begin = window >= 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * NWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {
+    // producer: q once, then per live K/V tile its five pieces through the
+    // ring; rows past S arrive as zeros
+    if constexpr (NWG >= 2) setmaxnreg_dec<24>();
+    if (warp == 4 * NWG && lane == 0) {
+      tma_prefetch(&tq);
+      tma_prefetch(&tkn);
+      tma_prefetch(&tvt);
+      mbar_expect_tx(q_full, BQ * HD * 4);
+      for (int cb = 0; cb < CB; ++cb)
+        tma_load_4d(qs + cb * BQ * 32, &tq, q_full, 32 * cb, h, q0, b);
+      const int hk = h / rep;
+      int n = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        for (int p = 0; p < C::PIECES; ++p, ++n) {
+          const int s = n % NS;
+          mbar_wait(empty + s, ((n / NS) & 1) ^ 1);
+          mbar_expect_tx(full + s, kPiece);
+          float* dst = reinterpret_cast<float*>(ring + s * kPiece);
+          if (p < 2) {                                  // [KC / 32][hi, lo][BK][32]
+            for (int cb = 0; cb < C::KC / 32; ++cb)
+              for (int a = 0; a < 2; ++a)
+                tma_load_5d(dst + (cb * 2 + a) * BK * 32, &tkn, full + s, C::KC * p + 32 * cb, hk,
+                            t * BK, b, a);
+          } else {                                      // [BK / 32][HD][32] of term 4 - p
+            for (int kc = 0; kc < BK / 32; ++kc)
+              tma_load_5d(dst + kc * HD * 32, &tvt, full + s, t * BK + 32 * kc, 0, hk, b, 4 - p);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63, its warp w % 4 16 of them
+  if constexpr (NWG == 2) setmaxnreg_inc<240>();
+  const int wg = warp / 4, t4 = lane % 4;
+  const int r0 = q0 + 64 * wg, wr0 = r0 + 16 * (warp % 4);
+  const int row_lo = wr0 + lane / 4, row_hi = row_lo + 8;
+  const int arow = row_lo - q0;                         // the fragments' first row in qs
+  int wk_end = Skv;
+  if (causal) wk_end = min(wk_end, min(r0 + 64, Sq));
+  const int wk_begin = window >= 0 ? max(0, r0 - window + 1) : 0;
+  const bool rows_live = r0 < Sq;
+  const RowMask mask{wr0, row_lo, row_hi, lane, Skv, causal, window, scale_log2};
+
+  float acc[HD / 2];                                    // O, accumulator layout
+#pragma unroll
+  for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
+  float part[HD / 2];                                   // a tile's P V (TILE_SUM)
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  float sc[BK / 2];                                     // S, then P
+  mbar_wait(q_full, 0);
+  int n = 0;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * BK;
+    const bool live = rows_live && k0 < wk_end && k0 + BK > wk_begin;
+    // S = Q K^T, Q split in registers per k-step, K's two terms from the ring
+#pragma unroll
+    for (int p = 0; p < 2; ++p, ++n) {
+      const int s = n % NS;
+      mbar_wait(full + s, (n / NS) & 1);
+      if (live) {
+        const uint32_t pa = smem_u32(ring + s * kPiece);
+        fence_regs(sc);
+#pragma unroll
+        for (int j = 0; j < C::KC / 8; ++j) {
+          const int kk = C::KC / 8 * p + j;             // the k-step over the head dim
+          Frag<4> fq;
+          load_a_sw<BQ>(fq, qs, arow, kk, t4);
+          const uint32_t bk = pa + (j / 4) * 2 * BK * 128 + (j % 4) * 32;
+          wgmma_fence();
+          wgmma3<BK>(sc, fq, bk, bk + BK * 128, kk > 0);
+          wgmma_commit();
+          wgmma_wait<1>();
+        }
+        wgmma_wait<0>();
+        fence_regs(sc);
+      }
+      if (lane == 0) mbar_arrive(empty + s);           // the slot may be refilled
+    }
+    if (live) {
+      // masks only on a tile that crosses an edge; O rescaled on every tile
+      // (by exactly 1 where a row's maximum did not move)
+      const bool need_mask = k0 + BK > Skv || (causal && k0 + BK - 1 > wr0) ||
+                             (window >= 0 && k0 <= wr0 + 15 - window);
+      if (need_mask)
+        softmax_scaled<BK, true>(mask, sc, k0, m, l, alpha);
+      else
+        softmax_scaled<BK, false>(mask, sc, k0, m, l, alpha);
+      if constexpr (!C::TILE_SUM) {
+#pragma unroll
+        for (int j = 0; j < HD / 2; ++j) acc[j] *= alpha[(j / 2) % 2];
+      }
+    }
+    // O += P V, V^T's terms from the ring, small terms first: hi_P lo_V,
+    // hi_P mid_V, then lo_P hi_V and hi_P hi_V (four products per fp32 one,
+    // as flash_tf32_kernel)
+#pragma unroll
+    for (int p = 2; p < C::PIECES; ++p, ++n) {
+      const int s = n % NS;
+      mbar_wait(full + s, (n / NS) & 1);
+      if (live) {
+        const uint32_t pb = smem_u32(ring + s * kPiece);
+        if constexpr (C::TILE_SUM) {
+          fence_regs(part);
+          pv_piece<HD, BK>(part, sc, pb, p == C::PIECES - 1, p == 2);
+          fence_regs(part);
+        } else {
+          fence_regs(acc);
+          pv_piece<HD, BK>(acc, sc, pb, p == C::PIECES - 1, false);
+          fence_regs(acc);
+        }
+      }
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+    if constexpr (C::TILE_SUM) {
+      // the tensor cores round each product's add toward zero: along a
+      // whole row (1500 keys at whisper's encoder) that bias reaches 1.7e-5
+      // of max|o|; one IEEE add per tile keeps it to a tile's products
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < HD / 2; ++j) acc[j] = fmaf(acc[j], alpha[(j / 2) % 2], part[j]);
+      }
+    }
+  }
+
+  // epilogue: the quad's row sums, ragged rows unwritten
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float li = l[r];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int row = r == 0 ? row_lo : row_hi;
+    if (row >= Sq) continue;
+    const float den = fmaxf(li, 1e-30f), inv = 1.f / den;
+    // m is in log2 units: back to natural log
+    if (lse != nullptr && t4 == 0) lse[((int64_t)b * Hq + h) * Sq + row] = m[r] * kLn2 + logf(den);
+    float* orow = o + b * osb + (int64_t)row * oss + (int64_t)h * HD + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      store2(orow + 8 * j, acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v;
   void* o;
-  float* lse;
+  float *lse, *scratch;            // scratch: the fp32 Hopper route's split copies
   int B, Sq, Skv, Hq, rep;
   int64_t qsb, qss, ksb, kss, vsb, vss, osb, oss;
   float scale;
@@ -3347,19 +3735,6 @@ int launch_wgmma(const Args& a) {
   }
   return blocks(128) >= sms ? launch_wgmma_n<HD, 2>(a) : launch_wgmma_n<HD, 1>(a);
 }
-
-// the forward by dtype and head dim: a fixed rule, not a fallback
-template <int HD>
-struct Fwd {
-  static int run(int dtype, const Args& a) {
-    if (dtype == 0) return launch_fp32<HD>(a);
-    if (dtype == 1) {
-      if constexpr (HD == 64 || HD == 128 || HD == 256) return launch_wgmma<HD>(a);
-      else return launch_bf16<HD>(a);
-    }
-    return (int)cudaErrorInvalidValue;
-  }
-};
 
 struct BwdArgs {
   const void *q, *k, *v, *o, *dout;
@@ -3536,12 +3911,13 @@ bool map_split_f32(CUtensorMap* map, const float* ptr, int B, int S, int H, int 
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, 5, dims, strides, box);
 }
 
-// a split transposed copy (2, B, H, hd, S8) as (S8, hd, H, B, 2), boxes of
-// 32 positions x `rows` head-dim rows of one head and term
-bool map_split_t_f32(CUtensorMap* map, const float* ptr, int B, int S, int H, int hd, int rows) {
+// a split transposed copy (terms, B, H, hd, S8) as (S8, hd, H, B, terms),
+// boxes of 32 positions x `rows` head-dim rows of one head and term
+bool map_split_t_f32(CUtensorMap* map, const float* ptr, int B, int S, int H, int hd, int rows,
+                     int terms = 2) {
   const cuuint64_t s8 = (cuuint64_t)round8(S) * 4;
   const cuuint64_t dims[5] = {(cuuint64_t)round8(S), (cuuint64_t)hd, (cuuint64_t)H,
-                              (cuuint64_t)B, 2};
+                              (cuuint64_t)B, (cuuint64_t)terms};
   const cuuint64_t strides[4] = {s8, s8 * hd, s8 * hd * H, s8 * hd * H * B};
   const cuuint32_t box[5] = {32, (cuuint32_t)rows, 1, 1, 1};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, 5, dims, strides, box);
@@ -3637,13 +4013,99 @@ int launch_wgmma_tf32_bwd(const BwdArgs& a) {
   return (int)launch_tf32_bwd_dkdv<HD, C::MAX_NWG>(a, sc, scale_log2, sms);
 }
 
-// the backward by dtype and head dim: a fixed rule, not a fallback
+// the TF32 forward kernel with the most consumer warpgroups, up to NWG,
+// whose blocks still fill the card's `sms` SMs, else one
+template <int HD, int NWG>
+cudaError_t launch_tf32_fwd(const Args& a, const float* kn, const float* vt, int sms) {
+  using C = Tf32FwdCfg<HD>;
+  constexpr int BQ = 64 * NWG;
+  if constexpr (NWG > 1) {
+    if ((long long)((a.Sq + BQ - 1) / BQ) * a.B * a.Hq < sms)
+      return launch_tf32_fwd<HD, NWG - 1>(a, kn, vt, sms);
+  }
+  static int attr_dev = -1;
+  const cudaError_t e = raise_smem_limit(flash_wgmma_tf32_kernel<HD, NWG>, C::smem(NWG), attr_dev);
+  if (e != cudaSuccess) return e;
+  const int Hkv = a.Hq / a.rep;
+  CUtensorMap tq, tkn, tvt;
+  if (!tensor_map(&tq, a.q, a.B, a.Sq, a.Hq, HD, a.qsb, a.qss, BQ, true) ||
+      !map_split_f32(&tkn, kn, a.B, a.Skv, Hkv, HD, C::BK) ||
+      !map_split_t_f32(&tvt, vt, a.B, a.Skv, Hkv, HD, HD, 3))
+    return cudaErrorInvalidValue;
+  flash_wgmma_tf32_kernel<HD, NWG><<<dim3((a.Sq + BQ - 1) / BQ, a.B * a.Hq), wg_threads(NWG),
+                                     C::smem(NWG), a.st>>>(
+      tq, tkn, tvt, static_cast<float*>(a.o), a.lse, a.Sq, a.Skv, a.Hq, a.rep, a.osb, a.oss,
+      log2_scale(a.scale), a.causal, a.window);
+  return cudaGetLastError();
+}
+
+// the fp32 forward on Hopper: the pre-pass (k's and v's split copies), then
+// the forward kernel with the most consumer warpgroups (up to MAX_NWG) whose
+// blocks still fill the card
+template <int HD>
+int launch_wgmma_tf32(const Args& a) {
+  using C = Tf32FwdCfg<HD>;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (a.scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const int Hkv = a.Hq / a.rep;
+  float* kn = a.scratch;
+  float* vt = kn + 2LL * a.B * a.Skv * Hkv * HD;
+  flash_wgmma_tf32_fwd_prep_kernel<HD><<<dim3((a.Skv + kPrepRows - 1) / kPrepRows, a.B * Hkv, 2),
+                                         kPrepThreads, 0, a.st>>>(
+      static_cast<const float*>(a.k), static_cast<const float*>(a.v), kn, vt, a.Skv, Hkv, a.ksb,
+      a.kss, a.vsb, a.vss);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_tf32_fwd<HD, C::MAX_NWG>(a, kn, vt, sms);
+}
+
+// The fp32 routes' shape rule (kernel.py's `fp32_on_hopper`): the Hopper
+// kernels (TF32 wgmma fed by TMA, after a pre-pass that writes split copies
+// into scratch) at hd 64, 128 and 256 where the keys are more than
+// kTf32FwdMmaKeys (forward) or kTf32BwdMmaKeys (backward); with fewer keys
+// the mma.sync kernels, for which no pre-pass runs: there the pre-pass costs
+// more than the Hopper kernels save (PERF.md: the forward at whisper's
+// decoder, (8, 448, 12 heads of 64), and smollm-135m's training shape, (8,
+// 256, 9/3 heads of 64); the backward at smollm's).
+constexpr int kTf32FwdMmaKeys = 512, kTf32BwdMmaKeys = 256;
+
+bool fp32_on_hopper(bool backward, int hd, int Skv) {
+  return (hd == 64 || hd == 128 || hd == 256) &&
+         Skv > (backward ? kTf32BwdMmaKeys : kTf32FwdMmaKeys);
+}
+
+// the forward by dtype, head dim and shape: a fixed rule, not a fallback
+template <int HD>
+struct Fwd {
+  static int run(int dtype, const Args& a) {
+    if (dtype == 0) {
+      if constexpr (HD == 64 || HD == 128 || HD == 256) {
+        if (fp32_on_hopper(false, HD, a.Skv))
+          return launch_wgmma_tf32<HD>(a);
+      }
+      return launch_fp32<HD>(a);
+    }
+    if (dtype == 1) {
+      if constexpr (HD == 64 || HD == 128 || HD == 256) return launch_wgmma<HD>(a);
+      else return launch_bf16<HD>(a);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+};
+
+// the backward by dtype, head dim and shape: a fixed rule, not a fallback
 template <int HD>
 struct Bwd {
   static int run(int dtype, const BwdArgs& a) {
     if (dtype == 0) {
-      if constexpr (HD == 64 || HD == 128 || HD == 256) return launch_wgmma_tf32_bwd<HD>(a);
-      else return launch_bwd<HD>(a);
+      if constexpr (HD == 64 || HD == 128 || HD == 256) {
+        if (fp32_on_hopper(true, HD, a.Skv))
+          return launch_wgmma_tf32_bwd<HD>(a);
+      }
+      return launch_bwd<HD>(a);
     }
     if (dtype == 1) {
       if constexpr (HD == 64 || HD == 128 || HD == 256) return launch_wgmma_bwd<HD>(a);
@@ -3678,37 +4140,53 @@ int dispatch(int hd, int dtype, const A& a) {
 
 }  // namespace
 
-// q, o (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd); dtype 0 = float32
-// (flash_tf32_kernel), 1 = bfloat16 (flash_wgmma_kernel at hd 64, 128 and
-// 256, flash_mma_kernel at the others) for all four. Strides in elements:
+// Bytes of the scratch that flash_attention_launch takes at these sizes:
+// k's and v's split copies of the fp32 route on Hopper (fp32_on_hopper; 84
+// MB at mixtral-8x7b's (1, 4096, 32/8 heads of 128)); 0 for every other
+// route.
+extern "C" long long flash_attention_fwd_scratch_bytes(int B, int Sq, int Skv, int Hq, int Hkv,
+                                                       int hd, int dtype) {
+  if (dtype != 0 || Hkv < 1 || !fp32_on_hopper(false, hd, Skv)) return 0;
+  return 4 * fwd_scratch_floats(B, Skv, Hkv, hd);
+}
+
+// q, o (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd); dtype 0 = float32, 1 =
+// bfloat16 for all four. Launches on `stream`, by kernel.forward_kernels's
+// rule: float32 where fp32_on_hopper holds flash_wgmma_tf32_fwd_prep_kernel
+// (k's and v's split copies in scratch), then flash_wgmma_tf32_kernel;
+// float32 elsewhere flash_tf32_kernel; bfloat16 at hd 64, 128 and 256
+// flash_wgmma_kernel, at the others flash_mma_kernel. Strides in elements:
 // *sb between batches, *ss between rows; the head stride must be hd and the
 // element stride 1; the pointers and the batch and row strides must be
 // 16-byte aligned (cp.async, TMA). window < 0 = none.
 // lse, when not null, receives each row's log-sum-exp of scale * q . k over
 // its unmasked keys, fp32, contiguous (B, Hq, Sq) (the backward's input); o
-// does not depend on it. Requires hd in 16..256 a multiple of 16,
-// Hq % Hkv == 0, Sq >= 1, B * Hq <= 65535. Returns cudaGetLastError().
+// does not depend on it. scratch 16-byte aligned, of
+// flash_attention_fwd_scratch_bytes (null where that is 0). Requires hd in
+// 16..256 a multiple of 16, Hq % Hkv == 0, Sq >= 1, B * Hq <= 65535.
+// Returns the first CUDA error, else cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int hd,
+                                      void* lse, void* scratch, int B, int Sq, int Skv, int Hq,
+                                      int Hkv, int hd,
                                       long long qsb, long long qss, long long ksb,
                                       long long kss, long long vsb, long long vss,
                                       long long osb, long long oss, float scale, int causal,
                                       int window, int dtype, void* stream) {
   if (Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || B < 1 || (long long)B * Hq > 65535)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, o, static_cast<float*>(lse), B, Sq, Skv, Hq, Hq / Hkv, qsb, qss, ksb,
-               kss, vsb, vss, osb, oss, scale, causal, window,
+  const Args a{q, k, v, o, static_cast<float*>(lse), static_cast<float*>(scratch), B, Sq, Skv,
+               Hq, Hq / Hkv, qsb, qss, ksb, kss, vsb, vss, osb, oss, scale, causal, window,
                static_cast<cudaStream_t>(stream)};
   return dispatch<Fwd>(hd, dtype, a);
 }
 
 // Bytes of the scratch that flash_attention_bwd_launch takes at these
-// sizes: the split copies of the fp32 route at hd 64, 128 and 256 (four
+// sizes: the split copies of the fp32 route on Hopper (fp32_on_hopper; four
 // natural copies, three transposed ones, each in two TF32 terms: 0.6 GB at
 // mixtral-8x7b's (1, 4096, 32/8 heads of 128)); 0 for every other route.
 extern "C" long long flash_attention_bwd_scratch_bytes(int B, int Sq, int Skv, int Hq, int Hkv,
                                                        int hd, int dtype) {
-  if (dtype != 0 || (hd != 64 && hd != 128 && hd != 256) || Hkv < 1) return 0;
+  if (dtype != 0 || Hkv < 1 || !fp32_on_hopper(true, hd, Skv)) return 0;
   return 4 * scratch_floats(B, Sq, Skv, Hq, Hkv, hd);
 }
 
@@ -3718,11 +4196,11 @@ extern "C" long long flash_attention_bwd_scratch_bytes(int B, int Sq, int Skv, i
 // dout 16-byte aligned; lse (the forward's) and delta (scratch) fp32
 // contiguous (B, Hq, Sq); scratch 16-byte aligned, of
 // flash_attention_bwd_scratch_bytes (null where that is 0). Launches on
-// `stream`, by kernel.backward_kernels's rule: float32 at hd 64, 128, 256
-// flash_wgmma_tf32_bwd_prep_kernel (the split copies in scratch, and delta),
-// flash_wgmma_tf32_bwd_dq_kernel (dq), flash_wgmma_tf32_bwd_dkdv_kernel (dk,
-// dv); float32 at the other head dims flash_tf32_bwd_dq_kernel (dq, and
-// delta), then flash_tf32_bwd_dkdv_kernel; bfloat16 at hd 64, 128, 256
+// `stream`, by kernel.backward_kernels's rule: float32 where fp32_on_hopper
+// holds flash_wgmma_tf32_bwd_prep_kernel (the split copies in scratch, and
+// delta), flash_wgmma_tf32_bwd_dq_kernel (dq), flash_wgmma_tf32_bwd_dkdv_kernel
+// (dk, dv); float32 elsewhere flash_tf32_bwd_dq_kernel (dq, and delta), then
+// flash_tf32_bwd_dkdv_kernel; bfloat16 at hd 64, 128, 256
 // flash_wgmma_bwd_dq_kernel (dq, and delta), then
 // flash_wgmma_bwd_dkdv_kernel; bfloat16 at the other head dims
 // flash_bf16_bwd_dq_kernel, then flash_bf16_bwd_dkdv_kernel. Requires Sq,

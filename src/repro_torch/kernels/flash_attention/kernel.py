@@ -1,8 +1,10 @@
 """Wrapper of the hand-written CUDA flash-attention kernels
 (csrc/flash_attention.cu).
 
-`flash_attention` checks its inputs, allocates the output and launches the
-kernel on PyTorch's current stream. It takes CUDA tensors only; `ops.mha`
+`flash_attention` checks its inputs, allocates the output (and, on the fp32
+Hopper route, the pre-pass's scratch) and launches the kernels that
+`forward_kernels` names on PyTorch's current stream; its `launches` count
+wrapper calls. It takes CUDA tensors only; `ops.mha`
 sends CPU tensors to the plain version instead. q, k, v are read in place
 through their batch and row strides (each head's hd values must be
 contiguous, as they are after a reshape of a projection).
@@ -11,15 +13,19 @@ contiguous, as they are after a reshape of a projection).
 (B, Sq, Hq, Hkv, hd, causal, window).
 
 `flash_attention_bwd` is the backward: per wrapper call the CUDA launches
-that `backward_kernels` names, in order (fp32 at hd 64, 128 and 256: a
+that `backward_kernels` names, in order (fp32 on the Hopper route: a
 pre-pass that writes delta and the operands' split copies into scratch, a dQ
 kernel, a dK/dV kernel; elsewhere a dQ kernel, which also computes delta,
 then a dK/dV kernel); its `launches` and `launches_by_case` count wrapper
 calls. `ops.FlashAttentionFn` joins the two for autograd.
 
-The dtype and the head dim pick the kernels, by a fixed rule and not as a
-fallback (`forward_kernel` names the forward's, `backward_kernels` the
-backward's; a failed build, tensor-map encode or launch raises):
+The dtype, the head dim and, for fp32, the shape pick the kernels, by a
+fixed rule and not as a fallback (`forward_kernels` names the forward's,
+`backward_kernels` the backward's; a failed build, tensor-map encode or
+launch raises). fp32 takes the Hopper route where `fp32_on_hopper` holds:
+hd 64, 128 or 256 and more than `TF32_MMA_KEYS` keys (512 forward, 256
+backward); with fewer keys the pre-pass costs more than the Hopper kernels
+save (PERF.md):
   * bfloat16 forward at hd 64, 128 and 256 (every full-width config's head
     dim) -> `flash_wgmma_kernel`: Hopper's warpgroup products (wgmma) fed by
     TMA loads from a producer warp;
@@ -28,14 +34,17 @@ backward's; a failed build, tensor-map encode or launch raises):
     `flash_wgmma_bwd_dkdv_kernel` (wgmma fed by TMA, as the forward);
   * bfloat16 backward at the other head dims -> `flash_bf16_bwd_dq_kernel` +
     `flash_bf16_bwd_dkdv_kernel` (mma.sync);
-  * float32 forward -> `flash_tf32_kernel` (each fp32 operand split into
-    two TF32 terms, three tensor-core products per fp32 one: as close to the
-    function as IEEE fp32);
-  * float32 backward at hd 64, 128 and 256 -> `flash_wgmma_tf32_bwd_prep_kernel`
+  * float32 forward on the Hopper route -> `flash_wgmma_tf32_fwd_prep_kernel`
+    (k in two TF32 terms, v transposed in three, once per call into scratch)
+    + `flash_wgmma_tf32_kernel` (TF32 wgmma fed by TMA, split TF32);
+  * float32 forward elsewhere -> `flash_tf32_kernel` (each fp32 operand
+    split into two TF32 terms, three tensor-core products per fp32 one: as
+    close to the function as IEEE fp32; on mma.sync);
+  * float32 backward on the Hopper route -> `flash_wgmma_tf32_bwd_prep_kernel`
     (hi and lo TF32 terms of q, k, v and dO, natural and transposed, once per
     call into scratch; delta) + `flash_wgmma_tf32_bwd_dq_kernel` +
     `flash_wgmma_tf32_bwd_dkdv_kernel` (TF32 wgmma fed by TMA, split TF32);
-  * float32 backward at the other head dims -> `flash_tf32_bwd_dq_kernel` +
+  * float32 backward elsewhere -> `flash_tf32_bwd_dq_kernel` +
     `flash_tf32_bwd_dkdv_kernel` (split TF32 on mma.sync).
 The bf16 kernels feed P (and dS) to their products as two bf16 terms each.
 Every kernel reads its tiles by 16-byte cp.async or by TMA, so q, k, v need
@@ -55,27 +64,58 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HD_MAX = 256
-WGMMA_HDS = (64, 128, 256)       # head dims on the wgmma kernels: bf16 both ways, fp32 backward
+WGMMA_HDS = (64, 128, 256)       # head dims on the wgmma kernels
+# fp32 at this many keys or fewer: the mma.sync kernels, forward and backward
+TF32_MMA_KEYS = {"forward": 512, "backward": 256}
 
 
-def forward_kernel(hd: int, dtype: torch.dtype) -> str:
-    """The name of the CUDA kernel that `flash_attention` launches at head
-    dim `hd` and `dtype`: the rule of `Fwd` in csrc/flash_attention.cu."""
+def fp32_on_hopper(hd: int, shape: tuple[int, int, int, int, int], backward: bool = False) -> bool:
+    """Whether fp32 attention at head dim `hd` and `shape` = (B, Sq, Skv, Hq,
+    Hkv) runs its forward (its backward, with `backward`) on the Hopper
+    kernels (TF32 wgmma fed by TMA after a pre-pass): `fp32_on_hopper` in
+    csrc/flash_attention.cu."""
+    skv = shape[2]
+    return hd in WGMMA_HDS and skv > TF32_MMA_KEYS["backward" if backward else "forward"]
+
+
+def forward_kernels(hd: int, dtype: torch.dtype,
+                    shape: Optional[tuple[int, int, int, int, int]] = None) -> tuple[str, ...]:
+    """The names of the CUDA kernels that `flash_attention` launches at head
+    dim `hd`, `dtype` and, for fp32, `shape` = (B, Sq, Skv, Hq, Hkv), in
+    launch order: the rule of `Fwd` in csrc/flash_attention.cu. fp32 on the
+    Hopper route: the pre-pass (k's and v's split copies), then the forward
+    kernel; every other route one kernel."""
     if dtype == torch.float32:
-        return "flash_tf32_kernel"
+        if shape is None:
+            raise ValueError("the fp32 forward's kernels depend on the shape "
+                             "(B, Sq, Skv, Hq, Hkv)")
+        if fp32_on_hopper(hd, shape):
+            return "flash_wgmma_tf32_fwd_prep_kernel", "flash_wgmma_tf32_kernel"
+        return ("flash_tf32_kernel",)
     if dtype == torch.bfloat16:
-        return "flash_wgmma_kernel" if hd in WGMMA_HDS else "flash_mma_kernel"
+        return ("flash_wgmma_kernel" if hd in WGMMA_HDS else "flash_mma_kernel",)
     raise TypeError(f"flash_attention takes fp32 or bf16, got {dtype}")
 
 
-def backward_kernels(hd: int, dtype: torch.dtype) -> tuple[str, ...]:
+def forward_kernel(hd: int, dtype: torch.dtype,
+                   shape: Optional[tuple[int, int, int, int, int]] = None) -> str:
+    """The forward's main kernel, the last that `forward_kernels` names."""
+    return forward_kernels(hd, dtype, shape)[-1]
+
+
+def backward_kernels(hd: int, dtype: torch.dtype,
+                     shape: Optional[tuple[int, int, int, int, int]] = None) -> tuple[str, ...]:
     """The names of the CUDA kernels that `flash_attention_bwd` launches at
-    head dim `hd` and `dtype`, in launch order: the rule of `Bwd` in
-    csrc/flash_attention.cu. fp32 at hd 64, 128 and 256: the pre-pass (split
-    copies, delta), the dQ kernel, the dK/dV kernel; elsewhere the dQ kernel
-    (which writes delta), then the dK/dV kernel."""
+    head dim `hd`, `dtype` and, for fp32, `shape` = (B, Sq, Skv, Hq, Hkv), in
+    launch order: the rule of `Bwd` in csrc/flash_attention.cu. fp32 on the
+    Hopper route: the pre-pass (split copies, delta), the dQ kernel, the
+    dK/dV kernel; elsewhere the dQ kernel (which writes delta), then the
+    dK/dV kernel."""
     if dtype == torch.float32:
-        if hd in WGMMA_HDS:
+        if shape is None:
+            raise ValueError("the fp32 backward's kernels depend on the shape "
+                             "(B, Sq, Skv, Hq, Hkv)")
+        if fp32_on_hopper(hd, shape, backward=True):
             return tuple(f"flash_wgmma_tf32_bwd_{part}_kernel" for part in ("prep", "dq", "dkdv"))
         route = "tf32"
     elif dtype == torch.bfloat16:
@@ -85,13 +125,13 @@ def backward_kernels(hd: int, dtype: torch.dtype) -> tuple[str, ...]:
     return f"flash_{route}_bwd_dq_kernel", f"flash_{route}_bwd_dkdv_kernel"
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The C entry points with their signatures, resolved once per process."""
-    lib = _build.load("flash_attention")
+def bind(lib: ctypes.CDLL):
+    """(forward launch, backward launch, backward scratch bytes, forward
+    scratch bytes): the C entry points of a built library with their
+    signatures."""
     fwd = lib.flash_attention_launch
     fwd.restype = ctypes.c_int
-    fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8
+    fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p])
     bwd = lib.flash_attention_bwd_launch
@@ -99,10 +139,18 @@ def _lib():
     bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p])
-    scratch = lib.flash_attention_bwd_scratch_bytes
-    scratch.restype = ctypes.c_longlong
-    scratch.argtypes = [ctypes.c_int] * 7
-    return fwd, bwd, scratch
+    bwd_scratch, fwd_scratch = (lib.flash_attention_bwd_scratch_bytes,
+                                lib.flash_attention_fwd_scratch_bytes)
+    for fn in (bwd_scratch, fwd_scratch):
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_int] * 7
+    return fwd, bwd, bwd_scratch, fwd_scratch
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The C entry points of this tree's library, resolved once per process."""
+    return bind(_build.load("flash_attention"))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int]):
@@ -172,10 +220,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     if Sq == 0:
         return (out, lse) if return_lse else out
+    # the fp32 Hopper route's pre-pass writes k in two TF32 terms and v
+    # transposed in three into scratch (84 MB at mixtral-8x7b's (1, 4096,
+    # 32/8 heads of 128)); freed when the call returns
+    nbytes = _lib()[3](B, Sq, Skv, Hq, Hkv, hd, _DTYPES[q.dtype])
+    scratch = (torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
+               if nbytes else None)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     None if lse is None else lse.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(),
                     B, Sq, Skv, Hq, Hkv, hd,
                     q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                     v.stride(0), v.stride(1), out.stride(0), out.stride(1),
@@ -194,8 +249,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     output `o` and log-sum-exp `lse` (`return_lse=True`) and the output's
     gradient `do`. The same inputs as the forward, the same options;
     gradients in q's dtype, contiguous. The CUDA launches that
-    `backward_kernels` names (three for fp32 at hd 64, 128 and 256, else
-    two), no atomics: the same inputs give the same bits."""
+    `backward_kernels` names (three for fp32 on the Hopper route, else two),
+    no atomics: the same inputs give the same bits."""
     _check(q, k, v, window)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -221,7 +276,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if Sq == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    # beside delta, the fp32 route at hd 64, 128 and 256 takes scratch for
+    # beside delta, the fp32 Hopper route takes scratch for
     # the hi and lo TF32 terms of q, k, v and do, natural and transposed
     # (four floats per element of q, k and do, two of v: 0.64 GB at
     # mixtral-8x7b's (1, 4096, 32/8 heads of 128)); freed when the call returns

@@ -501,13 +501,128 @@ def test_fp32_kernel_raises_on_misaligned_input(cuda, where):
     assert (flash_attention.launches, flash_attention_bwd.launches) == (f0 + 1, b0)
 
 
+# K1's fp32 forward on Hopper (flash_wgmma_tf32_fwd_prep_kernel, then
+# flash_wgmma_tf32_kernel: TF32 wgmma fed by TMA) takes hd 64, 128, 256 with
+# more than TF32_MMA_KEYS["forward"] (512) keys: test_fp32_kernel_at_every_
+# head_dim's cases with their key counts raised past it, (B, Sq, Skv, Hq,
+# Hkv, causal, window): GQA 7 with causal plus window, ragged non-causal
+# Skv != Sq, GQA 2, empty rows (rows 619 .. 699 see no key under causal plus
+# window 20 over 600 keys), and a grid of two consumer warpgroups a block
+TF32_FWD_CASES = [
+    (2, 600, 600, 7, 1, True, 50),
+    (1, 600, 513, 2, 2, False, None),
+    (1, 600, 600, 4, 2, True, None),
+    (1, 700, 600, 2, 1, True, 20),
+    (34, 600, 600, 14, 2, True, None),
+]
+
+
+def _fp32_route(B, Sq, Skv, Hq, Hkv, hd, backward=False):
+    from repro_torch.kernels.flash_attention.kernel import fp32_on_hopper
+    return fp32_on_hopper(hd, (B, Sq, Skv, Hq, Hkv), backward)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TF32_FWD_CASES)
+@pytest.mark.parametrize("hd", WGMMA_HDS)
+def test_wgmma_tf32_forward_matches_plain_version(cuda, hd, case):
+    """The Hopper fp32 forward against attention_ref under the long fp32 rule
+    (|d| <= 1e-4 max|ref|) on every row that sees a key, exactly 0 on rows
+    that see none; its lse within 1e-5 of the plain logsumexp; o the same
+    bits with and without lse, two runs and a call on strided views of one
+    packed (B, S, Hq + 2 Hkv, hd) tensor bit for bit; the profiler names
+    exactly the kernels `forward_kernels(hd, fp32, shape)` names, with the
+    consumer warpgroups a block that the grid rule gives."""
+    from repro_torch.kernels.flash_attention.kernel import forward_kernels
+    B, Sq, Skv, Hq, Hkv, causal, window = case
+    assert _fp32_route(B, Sq, Skv, Hq, Hkv, hd)
+    kw = {"causal": causal, "window": window}
+    q, k, v = _qkv(B, Sq, Skv, Hq, Hkv, hd, torch.float32, cuda)
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    plain_o = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, return_lse=True, **kw)
+    ran = _profiled_kernels(lambda: flash_attention(q, k, v, **kw))
+    torch.cuda.synchronize()
+    assert flash_attention.launches >= before + 4
+    prep, main = forward_kernels(hd, torch.float32, (B, Sq, Skv, Hq, Hkv))
+    groups = 2 if B == 34 else 1
+    assert ran == {f"{prep}<{hd}>", f"{main}<{hd}, {groups}>"}, ran
+    qp = torch.arange(Sq, device=cuda)[None].expand(B, Sq)
+    kp = torch.arange(Skv, device=cuda)[None].expand(B, Skv)
+    ref, lse_ref = attention_ref(q, k, v, qp, kp, return_lse=True, **kw)
+    seen = torch.ones(Sq, dtype=torch.bool, device=cuda)
+    if window is not None:
+        seen = torch.arange(Sq, device=cuda) - window + 1 < Skv
+    assert torch.isfinite(out).all()
+    assert (out - ref)[:, seen].abs().max() <= 1e-4 * ref[:, seen].abs().max()
+    assert torch.equal(out[:, ~seen], torch.zeros_like(out[:, ~seen]))
+    dlse = (lse - lse_ref)[:, :, seen].abs().max().item()
+    assert dlse <= 1e-5 * max(1.0, lse_ref[:, :, seen].abs().max().item())
+    assert torch.equal(out, plain_o) and torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    if Sq == Skv:
+        qs, ks, vs = torch.cat([q, k, v], 2).split([Hq, Hkv, Hkv], 2)
+        assert torch.equal(flash_attention(qs, ks, vs, **kw), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", WGMMA_HDS)
+def test_wgmma_tf32_forward_window_one_and_any_scale(cuda, hd):
+    """window = 1: each row's only live key has p = 1, and V's three TF32
+    terms return that key's v bit for bit. A negative, a zero and a small
+    softmax scale under a causal window against attention_ref under the long
+    fp32 rule (the scale is folded into the fp32 scores, never into q)."""
+    q, k, v = _qkv(2, 600, 600, 7, 1, hd, torch.float32, cuda, seed=1)
+    assert torch.equal(flash_attention(q, k, v, causal=True, window=1),
+                       v.repeat_interleave(7, dim=2))
+    q, k, v = _qkv(1, 600, 600, 4, 2, hd, torch.float32, cuda, seed=2)
+    pos = torch.arange(600, device=cuda)[None]
+    for scale in (-0.3, 0.0, 1e-3):
+        out = flash_attention(q, k, v, causal=True, window=50, softmax_scale=scale)
+        ref = attention_ref(q, k, v, pos, pos, causal=True, window=50, softmax_scale=scale)
+        assert torch.isfinite(out).all()
+        assert (out - ref).abs().max() <= 1e-4 * ref.abs().max(), scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", WGMMA_HDS)
+def test_wgmma_tf32_forward_raises_on_misaligned_input(cuda, hd):
+    """TMA takes 16-byte aligned pointers and strides: an fp32 q whose row
+    stride is not 16-byte aligned, at a shape the Hopper route takes, is
+    refused before anything launches."""
+    B, S, H = 1, 600, 2
+    q = torch.randn(B, S, H * hd + 2, device=cuda)[..., :H * hd].unflatten(-1, (H, hd))
+    k, v = (torch.randn(B, S, H, hd, device=cuda) for _ in range(2))
+    assert _fp32_route(B, S, S, H, H, hd)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.gpu
+def test_tf32_forward_at_mixtrals_training_case(cuda):
+    """mixtral-8x7b's training case (1, 4096, 32/8 heads of 128, causal,
+    window 4096) in fp32, where O sums 4096 keys on the tensor cores: every
+    entry of o within 2e-5 (|ref| + max|ref|) of the float64 function, its
+    lse within 1e-5."""
+    kw = {"causal": True, "window": 4096}
+    q, k, v = _qkv(1, 4096, 4096, 32, 8, 128, torch.float32, cuda)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    pos = torch.arange(4096, device=cuda)[None]
+    o64, lse64 = attention_ref(q.double(), k.double(), v.double(), pos, pos, return_lse=True, **kw)
+    err = (out.double() - o64).abs()
+    assert bool((err <= 2e-5 * (o64.abs() + o64.abs().max())).all()), err.max().item()
+    assert (lse.double() - lse64).abs().max().item() <= 1e-5 * lse64.abs().max().item()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dname", ["fp32", "bf16"])
 @pytest.mark.parametrize("hd", MMA_HDS)
 def test_flash_backward_at_every_head_dim(cuda, hd, dname):
     """The backward at every head-dim class (fp32: the split-TF32 kernels,
-    on mma.sync with dK/dV columns split in two blocks above hd = 64, on
-    TF32 wgmma at hd 128 and 256; bf16: the split-bf16 kernels, on mma.sync
+    on mma.sync with dK/dV columns split in two blocks above hd = 64, as the
+    shape rule takes 200 keys at hd 128 and 256 too; bf16: the split-bf16 kernels, on mma.sync
     with dK/dV columns split in two blocks above hd = 128, on wgmma at hd
     128 and 256), ragged S, GQA
     7, causal plus window, against attention_bwd_ref on the kernel's own o
@@ -622,16 +737,34 @@ def test_wgmma_backward_matches_plain_version(cuda, hd, case):
         assert all(torch.equal(a, b) for a, b in zip(strided, grads))
 
 
+# K1's fp32 backward at hd 64, 128 and 256: the Hopper route (more than
+# TF32_MMA_KEYS["backward"] (256) keys) at WGMMA_BWD_CASES with their key
+# counts raised past it, then two cases the rule keeps on the mma.sync pair: smollm-135m's
+# training shape and GQA 7 with causal plus window over 200 keys
+TF32_BWD_CASES = [
+    (2, 300, 300, 7, 1, True, 50),
+    (34, 300, 300, 14, 2, True, 50),
+    (1, 300, 257, 2, 2, False, None),
+    (2, 137, 300, 4, 2, False, None),
+    (1, 130, 300, 4, 1, True, None),
+    (1, 1, 270, 2, 1, False, None),
+    (8, 256, 256, 9, 3, True, None),
+    (2, 200, 200, 7, 1, True, 50),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", WGMMA_BWD_CASES)
+@pytest.mark.parametrize("case", TF32_BWD_CASES)
 @pytest.mark.parametrize("hd", WGMMA_HDS)
 def test_wgmma_tf32_backward_matches_plain_version(cuda, hd, case):
-    """The Hopper fp32 backward (`flash_wgmma_tf32_bwd_prep_kernel`, then the
-    TF32 wgmma dQ and dK/dV kernels) against attention_bwd_ref on the
-    kernel's own o and lse under the long fp32 rule (|d| <= 1e-4 max|ref|),
-    two runs and a call on strided views bit for bit; the profiler names
-    exactly the kernels `backward_kernels(hd, fp32)` names, with the
-    warpgroups a block that the grid rule gives."""
+    """The fp32 backward at hd 64, 128 and 256 on the route its shape rule
+    gives (the Hopper route: `flash_wgmma_tf32_bwd_prep_kernel`, then the
+    TF32 wgmma dQ and dK/dV kernels; at TF32_MMA_KEYS["backward"] keys or
+    fewer the mma.sync pair) against attention_bwd_ref on the kernel's own o and lse
+    under the long fp32 rule (|d| <= 1e-4 max|ref|), two runs and a call on
+    strided views bit for bit; the profiler names exactly the kernels
+    `backward_kernels(hd, fp32, shape)` names, with the warpgroups a block
+    that the grid rule gives."""
     from repro_torch.kernels.flash_attention.kernel import backward_kernels, flash_attention_bwd
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     B, Sq, Skv, Hq, Hkv, causal, window = case
@@ -644,10 +777,14 @@ def test_wgmma_tf32_backward_matches_plain_version(cuda, hd, case):
     ran = _profiled_kernels(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
-    prep, dq_name, kv_name = backward_kernels(hd, torch.float32)
-    groups = 2 if B == 34 and hd <= 128 else 1
-    assert ran == {f"{prep}<{hd}>", f"{dq_name}<{hd}, {groups}>",
-                   f"{kv_name}<{hd}, {groups}>"}, ran
+    names = backward_kernels(hd, torch.float32, (B, Sq, Skv, Hq, Hkv))
+    if _fp32_route(B, Sq, Skv, Hq, Hkv, hd, backward=True):
+        prep, dq_name, kv_name = names
+        groups = 2 if B == 34 and hd <= 128 else 1
+        assert ran == {f"{prep}<{hd}>", f"{dq_name}<{hd}, {groups}>",
+                       f"{kv_name}<{hd}, {groups}>"}, ran
+    else:
+        assert ran == {f"{n}<{hd}>" for n in names}, ran
     want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
     for g, w in zip(grads, want):
         assert g.dtype == torch.float32 and g.shape == w.shape and torch.isfinite(g).all()

@@ -177,12 +177,26 @@ def test_wgmma_tile_widths_meet_the_bf16_rule(shape, block_k):
 
 def test_forward_kernel_rule():
     """bf16 at hd 64, 128 and 256 goes to flash_wgmma_kernel, bf16 at the
-    other head dims to flash_mma_kernel, fp32 to flash_tf32_kernel."""
-    from repro_torch.kernels.flash_attention.kernel import HD_MAX, forward_kernel
+    other head dims to flash_mma_kernel; fp32 at hd 64, 128 and 256 with
+    more than 512 keys to the Hopper pair (flash_wgmma_tf32_fwd_prep_kernel,
+    then flash_wgmma_tf32_kernel), fp32 elsewhere (the other head dims, 512
+    keys or fewer: whisper's decoder and smollm-135m's training shape) to
+    flash_tf32_kernel; fp32 needs the shape."""
+    from repro_torch.kernels.flash_attention.kernel import HD_MAX, forward_kernel, forward_kernels
+    shapes = {(8, 448, 448, 12, 12): False, (8, 256, 256, 9, 3): False, (1, 1, 512, 2, 1): False,
+              (1, 1, 513, 2, 1): True, (8, 1500, 1500, 12, 12): True,
+              (1, 4096, 4096, 32, 8): True}
     for hd in range(16, HD_MAX + 1, 16):
         want = "flash_wgmma_kernel" if hd in (64, 128, 256) else "flash_mma_kernel"
         assert forward_kernel(hd, torch.bfloat16) == want
-        assert forward_kernel(hd, torch.float32) == "flash_tf32_kernel"
+        assert forward_kernels(hd, torch.bfloat16, (8, 4096, 4096, 12, 12)) == (want,)
+        for shape, hopper in shapes.items():
+            want = (("flash_wgmma_tf32_fwd_prep_kernel", "flash_wgmma_tf32_kernel")
+                    if hopper and hd in (64, 128, 256) else ("flash_tf32_kernel",))
+            assert forward_kernels(hd, torch.float32, shape) == want
+            assert forward_kernel(hd, torch.float32, shape) == want[-1]
+    with pytest.raises(ValueError):
+        forward_kernels(64, torch.float32)
     with pytest.raises(TypeError):
         forward_kernel(64, torch.float16)
 
@@ -190,21 +204,27 @@ def test_forward_kernel_rule():
 def test_backward_kernel_rule():
     """bf16 at hd 64, 128 and 256 goes to the Hopper pair
     (flash_wgmma_bwd_dq_kernel, then flash_wgmma_bwd_dkdv_kernel), bf16 at
-    the other head dims to the mma.sync pair; fp32 at hd 64, 128 and 256 to
-    the Hopper TF32 kernels (the pre-pass, then flash_wgmma_tf32_bwd_dq_kernel,
-    then flash_wgmma_tf32_bwd_dkdv_kernel), fp32 at the other head dims to
-    the split-TF32 mma.sync pair."""
+    the other head dims to the mma.sync pair; fp32 at hd 64, 128 and 256
+    with more than 256 keys to the Hopper TF32 kernels (the pre-pass, then
+    flash_wgmma_tf32_bwd_dq_kernel, then flash_wgmma_tf32_bwd_dkdv_kernel),
+    fp32 elsewhere (the other head dims, 256 keys or fewer: smollm-135m's
+    training shape) to the split-TF32 mma.sync pair; fp32 needs the shape."""
     from repro_torch.kernels.flash_attention.kernel import HD_MAX, backward_kernels
+    shapes = {(8, 256, 256, 9, 3): False, (2, 200, 200, 7, 1): False, (1, 1, 257, 2, 1): True,
+              (8, 448, 448, 12, 12): True, (1, 4096, 4096, 32, 8): True}
     for hd in range(16, HD_MAX + 1, 16):
         route = "wgmma" if hd in (64, 128, 256) else "bf16"
         assert backward_kernels(hd, torch.bfloat16) == (f"flash_{route}_bwd_dq_kernel",
                                                         f"flash_{route}_bwd_dkdv_kernel")
-        if hd in (64, 128, 256):
-            assert backward_kernels(hd, torch.float32) == (
-                "flash_wgmma_tf32_bwd_prep_kernel", "flash_wgmma_tf32_bwd_dq_kernel",
-                "flash_wgmma_tf32_bwd_dkdv_kernel")
-        else:
-            assert backward_kernels(hd, torch.float32) == ("flash_tf32_bwd_dq_kernel",
-                                                           "flash_tf32_bwd_dkdv_kernel")
+        for shape, hopper in shapes.items():
+            if hopper and hd in (64, 128, 256):
+                assert backward_kernels(hd, torch.float32, shape) == (
+                    "flash_wgmma_tf32_bwd_prep_kernel", "flash_wgmma_tf32_bwd_dq_kernel",
+                    "flash_wgmma_tf32_bwd_dkdv_kernel")
+            else:
+                assert backward_kernels(hd, torch.float32, shape) == (
+                    "flash_tf32_bwd_dq_kernel", "flash_tf32_bwd_dkdv_kernel")
+    with pytest.raises(ValueError):
+        backward_kernels(64, torch.float32)
     with pytest.raises(TypeError):
         backward_kernels(64, torch.float16)

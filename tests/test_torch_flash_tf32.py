@@ -22,6 +22,8 @@ to float64 at the same cases and where dK/dV sum 2048 query rows. Inputs
 are standard normal (the JAX flash tests' distribution), from numpy with
 a seed.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -306,3 +308,98 @@ def test_wgmma_tf32_dkdv_long_gqa_sums():
         assert ok and rel < 5e-6, (name, rel)
         if name != "dq":
             assert _passes(g0, r, small=True)[1] >= 5 * rel, name
+
+
+def emulated_wgmma_forward(case, q, k, v, tile_sum=None):
+    """The Hopper fp32 forward (`flash_wgmma_tf32_kernel`) as its products
+    round. S = Q K^T by wgmma_sum over the head dim (q split in registers,
+    k's two terms as the pre-pass stores them), scaled by scale log2 e in
+    fp32, masked to -1e30; then per tile of 8192 / hd keys the online
+    softmax (running maximum m, rescale 2^(m_old - m), P = 2^(x - m) with
+    masked entries 0) and P V with P in two terms and V in three (hi + mid +
+    lo = v): per k-step of 8 keys the products hi_P lo_V, then hi_P mid_V,
+    then lo_P hi_V and hi_P hi_V, each added to the accumulator exactly and
+    rounded toward zero. With `tile_sum` (the kernel's choice up to hd 128)
+    a tile's products go into a zeroed accumulator that joins O by one fused
+    multiply-add, O alpha + tile; without it O is rescaled and takes them
+    directly. o = O (1 / l), lse = m ln 2 + log l. q may hold the first
+    rows of the case's queries only."""
+    B, S, Hq, Hkv, hd = case[:5]
+    rep, bk, sq = Hq // Hkv, 8192 // hd, q.shape[1]
+    tile_sum = hd <= 128 if tile_sum is None else tile_sum
+    kr, vr = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
+    keep = _mask(case)[:sq]
+    scale_log2 = torch.tensor(hd ** -0.5 * 1.4426950408889634, dtype=torch.float32)
+    x = torch.where(keep, wgmma_sum("bqhd,bkhd->bhqk", q, kr, 3, 3) * scale_log2,
+                    torch.tensor(-1e30))
+    vh, vm, vl = split3(vr)
+    m = torch.full((B, Hq, sq, 1), -1e30)
+    l, acc = torch.zeros(B, Hq, sq, 1), torch.zeros(B, Hq, sq, hd)
+    for k0 in range(0, S, bk):
+        xt, kt = x[..., k0:k0 + bk], keep[:, k0:k0 + bk]
+        m_new = torch.maximum(m, xt.amax(-1, keepdim=True))
+        alpha, m = torch.exp2(m - m_new), m_new
+        p = torch.where(kt, torch.exp2(xt - m), torch.tensor(0.0))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        ph, pl = split(p)
+        d = None if tile_sum else acc * alpha
+        steps = range(0, p.shape[-1], 8)
+        pairs = ([(ph, vl)] * len(steps), [(ph, vm)] * len(steps))
+        order = [(a, b, j) for terms in pairs for (a, b), j in zip(terms, steps)]
+        order += [(a, vh, j) for j in steps for a in (pl, ph)]
+        for a, b, j in order:
+            prod = torch.einsum("bhqk,bkhd->bhqd", a[..., j:j + 8].double(),
+                                b[:, k0 + j:k0 + j + 8].double())
+            d = rz(prod if d is None else d.double() + prod)
+        acc = (acc.double() * alpha.double() + d.double()).float() if tile_sum else d
+    o = acc * (1.0 / l.clamp_min(1e-30))
+    return o.permute(0, 2, 1, 3), (m * math.log(2) + torch.log(l.clamp_min(1e-30)))[..., 0]
+
+
+# reduced versions of the training cases' shape classes, (B, S, Hq, Hkv, hd,
+# causal, window): whisper's encoder (hd 64, non-causal), mixtral's (hd 128,
+# GQA, window), gemma3's (hd 256, causal); 2 to 4 key tiles each
+WGMMA_FWD = [(1, 256, 2, 2, 64, False, None), (1, 256, 4, 2, 128, True, 40),
+             (1, 128, 2, 1, 256, True, None)]
+
+
+@pytest.fixture
+def one_thread():
+    """The emulation runs hundreds of small products: torch's thread pool
+    costs more than it saves on them (10x here)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("case", WGMMA_FWD)
+def test_wgmma_tf32_forward_passes_the_fp32_rule(case, one_thread):
+    """The Hopper fp32 forward's rounding against float64: every entry of o
+    within 2e-5 (|ref| + max|ref|), lse within 1e-5 of max|lse|; with window
+    1 each row returns its key's v bit for bit (V's three terms)."""
+    q, k, v, _, pos = _inputs(case)
+    o, lse = emulated_wgmma_forward(case, q, k, v)
+    o64, lse64 = attention_ref(q.double(), k.double(), v.double(), pos, pos, causal=case[5],
+                               window=case[6], return_lse=True)
+    ok, rel = _passes(o, o64, small=True)
+    assert ok and rel < 5e-6, rel
+    assert (lse.double() - lse64).abs().max().item() <= 1e-5 * lse64.abs().max().item()
+    one = case[:5] + (True, 1)
+    o1, _ = emulated_wgmma_forward(one, q, k, v)
+    assert torch.equal(o1, v.repeat_interleave(case[2] // case[3], 2))
+
+
+def test_wgmma_tf32_forward_tile_sum_on_long_rows(one_thread):
+    """The design's reason for the per-tile IEEE add (hd 64 and 128): over
+    1536 keys of a non-causal row (whisper's encoder takes 1500) the tensor
+    cores' round-toward-zero accumulation puts o 5x or more as far from
+    float64 as with a zeroed accumulator per tile added in IEEE fp32, which
+    keeps within 2e-5 (|ref| + max|ref|). The first 64 query rows."""
+    case = (1, 1536, 1, 1, 64, False, None)
+    q, k, v, _, pos = _inputs(case)
+    q = q[:, :64]
+    o64 = attention_ref(q.double(), k.double(), v.double(), pos[:, :64], pos, causal=False)
+    with_add = _passes(emulated_wgmma_forward(case, q, k, v)[0], o64, small=True)
+    without = _passes(emulated_wgmma_forward(case, q, k, v, tile_sum=False)[0], o64, small=True)
+    assert with_add[0] and without[1] >= 5 * with_add[1], (with_add, without)
