@@ -29,7 +29,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
      HMMA, in `flash_wgmma_kernel`'s, the fp32 Hopper forward's and the
      Hopper backwards' (bf16, and fp32), pre-passes aside;
      K2's split-TF32 kernels (the fp32 forward's and the backward's, both
-     dtypes) printed with their HMMA TF32 counts and held to no spills;
+     dtypes) printed with their HMMA TF32 counts and held to no spills, and
+     the fp32 backward's Hopper kernels (`ssd_bwd_dx_kernel`,
+     `ssd_bwd_dbc_kernel` at N 64 and 128, `ssd_bwd_dbc_sum_kernel`) to no
+     spills, the first two with HGMMA and UTMALDG and no HMMA;
   3. the SSD-scan kernel against its plain PyTorch version on the card, at
      the JAX kernel tests' shapes and the serving shapes (mamba2-370m's and
      zamba2-1.2b's: H=64, N=64, S=1024, a ragged 1000 and its forward's
@@ -201,10 +204,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
      forward and backward shares (the kernels of either route by the rule's
      names; the forward's share must not be 0), tokens/s.
  20. SSM and hybrid training (K2 forward and backward on every SSM layer,
-     K1's on zamba2's shared block): (a) K2's backward (six split-TF32
-     kernels on the tensor cores, fp32 sums for both dtypes) against
+     K1's on zamba2's shared block): (a) K2's backward (six kernels on the
+     tensor cores, fp32 sums for both dtypes; fp32 at Q = 128, P = 64, N 64
+     or 128 on the Hopper route, `kernel.bwd_on_hopper`, the rest on the
+     split-TF32 mma.sync kernels: the route printed, Python's rule and
+     ssd_scan.cu's held equal) against
      `ssd_chunked_bwd_ref` on the forward's own states, at the JAX kernel
-     tests' shapes, a ragged S = 1000 and the two training shapes (8, 256,
+     tests' shapes, a ragged S = 1000, (1, 200, 4 heads of 64, N 64), (2,
+     300, 4 heads of 64, N 128) and the two training shapes (8, 256,
      32 heads of 64, N 128; 8, 256, 64 heads of 64, N 64), fp32 and bf16,
      contiguous and strided, and with a nonzero final-state gradient, under
      phase 3's rules relative to each reference gradient's largest
@@ -214,7 +221,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      bounds (IEEE fp32 on the CUDA cores; split TF32's own, three TF32
      products per fp32 one or the bytes, whichever is larger, the record's)
      and the plain versions, and `SSDScanFn`'s forward + backward through
-     autograd; (c)
+     autograd; the backward by kernel (one profiled call: the kernels its
+     rule names), the Hopper dx kernel and dB/dC stage beside their own
+     split-TF32 bounds; (c)
      `repro_torch.launch.train.main` for mamba2-370m at full width (random
      weights from seed 0, fp32, remat "block", batch 8 x 256): 10 steps, a
      checkpoint every 5, a failure injected before step 7: one restart, a
@@ -227,8 +236,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      trained 3 steps on the card and the CPU: losses within 1e-5, grad
      norms within 1e-4 relative; (f) host and device time of one step of
      each: idle share, launches, the largest device items, K2's forward and
-     backward shares by kernel name, tokens/s (one JSON line,
-     {"ssm_training": ...}).
+     backward shares by kernel name (the backward's must count its Hopper
+     kernels and not be 0), tokens/s (one JSON line, {"ssm_training": ...}).
  21. every family trains (K1's fp32 forward with its lse and its backward
      on every self-attention layer): (a) K1 at the five training cases,
      whisper-small's encoder (8, 1500, 12 heads of 64, non-causal) and
@@ -643,10 +652,15 @@ def graph_ms(torch, fn, calls=20, reps=7):
     return ms
 
 
-def device_breakdown(torch, fn, reps=3):
-    """Host ms of `fn` (median of `reps`, no profiler), then one run under
-    torch.profiler: device ms and launches by kernel name. Returns
-    (wall_ms, {name: ms}, {name: launches})."""
+def device_breakdown(torch, fn, reps=3, calls=1, until=bool):
+    """Host ms of `fn` (median of `reps`, no profiler), then `calls` runs in
+    one torch.profiler session: device ms and launches by kernel name,
+    summed over the runs. On the H100 the profiler now and then records no
+    device event of a session, or misses its first kernels, so a session
+    whose launches by name fail `until` (by default: none recorded) is
+    taken again, up to three in all; a fault of the program repeats in
+    every session. Returns (wall_ms, {name: ms}, {name: launches}) of the
+    last session."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     walls = []
@@ -656,14 +670,18 @@ def device_breakdown(torch, fn, reps=3):
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    by_name, counts = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            counts[e.name] = counts.get(e.name, 0) + 1
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_name, counts = {}, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                counts[e.name] = counts.get(e.name, 0) + 1
+        if until(counts):
+            break
     return statistics.median(walls), by_name, counts
 
 
@@ -1769,18 +1787,19 @@ def train_path(torch, np):
 
 
 K2_TF32 = re.compile(r"\d(chunk_state_tf32_kernel|chunk_scan_tf32_kernel|ssd_bwd_\w+?_kernel"
-                     r"|state_pass_kernel)(?:I(?:Lb([01])E)?(f|13__nv_bfloat16)?E)?")
+                     r"|state_pass_kernel)(?:I(?:Lb([01])E)?(f|13__nv_bfloat16)?(?:Li(\d+)E)?E)?")
 
 
 def k2_name(mangled):
     """"<kernel><template arguments>" of K2's split-TF32 kernels (the fp32
-    forward's and the backward's) and of its state passes, from a mangled
-    name, or None."""
+    forward's and the backward's, the Hopper backward's at its N) and of
+    its state passes, from a mangled name, or None."""
     k = K2_TF32.search(mangled)
     if not k:
         return None
     args = ([] if k.group(2) is None else ["true" if k.group(2) == "1" else "false"]) + (
-        [] if not k.group(3) else ["float" if k.group(3) == "f" else "bf16"])
+        [] if not k.group(3) else ["float" if k.group(3) == "f" else "bf16"]) + (
+        [] if not k.group(4) else [k.group(4)])
     return k.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
@@ -1805,6 +1824,56 @@ def ssd_bwd_work(case, dtype_name, final_state=False):
     return nbytes, flops
 
 
+def k2_bwd_stage_work(case, final_state=False):
+    """{stage: (bytes, FLOPs)} of the fp32 backward's two Hopper stages at
+    `case`, counted as ssd_bwd_work counts (each input read once, each
+    output written once; causal pairs only; no state term, and no state
+    read, where the state is zero: h_prev in every chunk but the first, dH
+    in every chunk but the last, or in all with dhT): the dx kernel reads x,
+    dy, dt, L, C, B, C B^T, h_prev and dH and writes dx, ddt and the chunks'
+    parts of dA and dD, for M' (dt x) and M'^T dy (4 T P a head), C h_prev^T
+    (2 (S - q0) N P) and B dH^T (2 S' N P); the dB/dC stage
+    (ssd_bwd_dbc_kernel + its sum) reads x, dy, dt, L, B, C, h_prev, dH and
+    dS once a chunk and writes dB, dC, dA and dD, for dS B and dS^T C (4 T
+    N) and the state terms (2 (S - q0) N P and 2 S' N P a head)."""
+    B, S, H, P, N, chunk = case
+    T, q0, q_last = chunk_pairs(case)
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    xs, bc, qq = B * S * H * P * 4, B * S * N * 4, B * nc * Q * Q * 4
+    st = B * H * P * N * 4 * ((nc - 1) + (nc if final_state else nc - 1))
+    small = B * S * H * 4 * 2 + B * nc * H * 4 * 2
+    states = 2 * (S - q0) * N * P + 2 * (S if final_state else S - q_last) * N * P
+    dx = (3 * xs + st + 2 * bc + qq + small, B * H * (4 * T * P + states))
+    dbc = (2 * xs + st + 4 * bc + qq + small, B * (4 * T * N + H * states))
+    return {"dx (ssd_bwd_dx_kernel)": dx,
+            "dB/dC (ssd_bwd_dbc_kernel + ssd_bwd_dbc_sum_kernel)": dbc}
+
+
+def k2_train_cases(B=8, S=256):
+    """{arch: (B, S, H, P, N, chunk)}: K2 at mamba2-370m's and zamba2-1.2b's
+    training shapes."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch in ("mamba2-370m", "zamba2-1.2b"):
+        cfg = get_config(arch)
+        s = cfg.ssm
+        out[cfg.name] = (B, S, s.n_heads(cfg.d_model), s.head_dim, s.state_dim, 128)
+    return out
+
+
+def k2_bwd_hopper_names(torch):
+    """The kernels K2's fp32 backward launches at the training shapes on the
+    Hopper route and not on the mma.sync one, by `kernel.backward_kernels`."""
+    from repro_torch.kernels.ssd_scan.kernel import backward_kernels
+    names = {}
+    for case in k2_train_cases().values():
+        old = backward_kernels(case, torch.float32, aligned=False)
+        names.update(dict.fromkeys(k for k in backward_kernels(case, torch.float32)
+                                   if k not in old))
+    return tuple(names)
+
+
 def hold_ssd_bwd(torch, case, dname, final_state):
     """K2's backward at `case` in `dname` ("fp32", "bf16", either with
     " strided": x, B, C as views of one packed tensor), given the kernel
@@ -1816,6 +1885,7 @@ def hold_ssd_bwd(torch, case, dname, final_state):
     gradient's largest magnitude: fp32 gradients (and the fp32 ddt, dA, dD
     of a bf16 call) |d| <= 3e-4 max|ref|; bf16 dx, dB, dC
     |d| <= 1e-2 |ref| + 3e-4 max|ref|. Returns the largest |d| over the six."""
+    from repro_torch.kernels.ssd_scan import kernel as K
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_bwd
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref, ssd_chunked_ref
     dtype = torch.float32 if dname.startswith("fp32") else torch.bfloat16
@@ -1845,7 +1915,10 @@ def hold_ssd_bwd(torch, case, dname, final_state):
     bits = all(torch.equal(a, b) for a, b in zip(grads, again))
     same = torch.equal(y, y0) and torch.equal(h, h0)
     states_ok = e_states <= 3e-4 * max(1.0, m_states)
-    print(f"  {case} {dname}{' +dhT' if final_state else ''}: max|d|/max|ref| "
+    hopper = K.bwd_on_hopper(case, dtype, K.tma_aligned(args[0]))
+    check(hopper == K.bwd_on_hopper_lib(args[0], N, chunk), f"{case} {dname}: one route rule")
+    print(f"  {case} {dname}{' +dhT' if final_state else ''} "
+          f"({'Hopper' if hopper else 'mma.sync'} route): max|d|/max|ref| "
           + ", ".join(line) + f"; states {e_states:.3g}/{m_states:.3g}; rerun bitwise {bits}; "
           f"forward with states bitwise {same} {'ok' if ok and states_ok else 'FAIL'}")
     check(states_ok, f"ssd_scan {case} {dname}: the states entering each chunk")
@@ -1915,6 +1988,33 @@ def time_k2_train(torch, case):
                      "library_ms": None}
     print(f"    SSDScanFn forward + backward through autograd (the trainer's call, on the "
           f"packed tensor's views): {fb_ms:.4f} ms (kernels alone {f_ms + b_ms:.4f} ms)")
+    from repro_torch.kernels.ssd_scan.kernel import backward_kernels
+    want = set(backward_kernels(case, torch.float32))
+
+    def bare(kname):
+        return re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", kname)
+    # two calls a session, each kernel's ms a launch (it launches once a call)
+    _, by_name, counts = device_breakdown(
+        torch, lambda: ssd_scan_bwd(*args, h_prev, dy, chunk=chunk), reps=1, calls=2,
+        until=lambda c: {bare(k) for k in c} == want)
+    short = {bare(k): v / counts[k] for k, v in by_name.items()}
+    print("    backward by kernel (ms a launch, two profiled calls): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(short.items(), key=lambda kv: -kv[1])))
+    check(set(short) == want,
+          f"ssd_scan_bwd {case} fp32 on the views launches the kernels its rule names "
+          f"(missing {sorted(want - set(short))}, besides them {sorted(set(short) - want)})")
+    stage_ms = {"dx (ssd_bwd_dx_kernel)": short.get(f"ssd_bwd_dx_kernel<{N}>", 0.0),
+                "dB/dC (ssd_bwd_dbc_kernel + ssd_bwd_dbc_sum_kernel)":
+                    short.get(f"ssd_bwd_dbc_kernel<{N}>", 0.0)
+                    + short.get("ssd_bwd_dbc_sum_kernel", 0.0)}
+    for stage, (nbytes, flops) in k2_bwd_stage_work(case).items():
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+        bound = max(t_bytes, t_ops)
+        ms = stage_ms[stage]
+        print(f"      {stage}: {ms:.4f} ms; split-TF32 bound {bound:.5f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes / 1e6:.2f} MB, "
+              f"3 x {flops / 1e9:.3f} GFLOP; {bound / ms if ms else 0:.1%})")
     return out, err_fwd
 
 
@@ -1943,9 +2043,13 @@ def k2_step_breakdown(torch, name, model, opt, batch, tokens):
         return sum(by_name[k] for k in names), sum(counts[k] for k in names)
     k2f, n_f = share(lambda k: any(m in k for m in K2_FWD_PROFILE))
     k2b, n_b = share(lambda k: any(m in k for m in K2_BWD_PROFILE))
+    # fp32 at the training shapes: K2's backward on the Hopper route
+    hop, n_h = share(lambda k: any(m.split("<")[0] in k for m in k2_bwd_hopper_names(torch)))
+    check(k2b > 0 and hop > 0, f"{name}: K2's backward share counts its Hopper kernels")
     parts = k1_train_shares(by_name, counts)
     res.update(device_ms=dev_ms, idle=1 - dev_ms / wall_ms, launches=sum(counts.values()),
-               k2_forward_ms=k2f, k2_backward_ms=k2b, k1_ms=parts["K1 forward"][0] +
+               k2_forward_ms=k2f, k2_backward_ms=k2b, k2_backward_hopper_ms=hop,
+               k1_ms=parts["K1 forward"][0] +
                parts["K1 backward"][0])
     print(f"    {name}: host {wall_ms:.2f} ms ({res['tokens_per_s']:.0f} tokens/s), device busy "
           f"{dev_ms:.2f} ms (idle {res['idle']:.1%}), {len(by_name)} kernel names, "
@@ -1953,7 +2057,8 @@ def k2_step_breakdown(torch, name, model, opt, batch, tokens):
     for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"      {ms:8.3f} ms x{counts[kname]:<5d} {kname[:90]}")
     print(f"    K2 forward ({n_f} launches) {k2f:.3f} ms, {k2f / dev_ms:.1%}; K2 backward "
-          f"({n_b} launches) {k2b:.3f} ms, {k2b / dev_ms:.1%}; K1 forward + backward "
+          f"({n_b} launches) {k2b:.3f} ms, {k2b / dev_ms:.1%} (of it the Hopper route's dx and "
+          f"dB/dC kernels {hop:.3f} ms, {n_h} launches); K1 forward + backward "
           f"{res['k1_ms']:.3f} ms, {res['k1_ms'] / dev_ms:.1%} of device time")
     for kname in sorted(k for k in by_name if any(m in k for m in K2_FWD_PROFILE + K2_BWD_PROFILE)):
         short = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", kname)
@@ -1983,21 +2088,21 @@ def ssm_train_path(torch, np):
 
     cfg_m, cfg_z = get_config("mamba2-370m"), get_config("zamba2-1.2b")
     B, S = 8, 256
-
-    def train_case(cfg):
-        s = cfg.ssm
-        return (B, S, s.n_heads(cfg.d_model), s.head_dim, s.state_dim, 128)
-    cases = {cfg_m.name: train_case(cfg_m), cfg_z.name: train_case(cfg_z)}
+    cases = k2_train_cases(B, S)
     print(f"  (a) K2 backward against its plain version; training shapes {cases}")
     small = [(1, 32, 2, 8, 8, 8), (2, 64, 4, 16, 16, 16), (1, 100, 2, 16, 8, 32),
              (2, 128, 2, 32, 16, 128)]
     err_bwd = {}
-    for case in small + [(1, 1000, 32, 64, 128, 128)] + list(cases.values()):
+    # fp32 at Q = 128, P = 64, N 64 or 128 takes the Hopper route (the
+    # training shapes, S = 1000 and the ragged and long cases), the small
+    # cases and bf16 the mma.sync one
+    for case in small + [(1, 1000, 32, 64, 128, 128), (1, 200, 4, 64, 64, 128),
+                         (2, 300, 4, 64, 128, 128)] + list(cases.values()):
         for dname in ("fp32", "bf16", "fp32 strided", "bf16 strided"):
             e = hold_ssd_bwd(torch, case, dname, final_state=False)
             if dname == "fp32 strided":
                 err_bwd[case] = e
-    for case in (small[2], cases[cfg_m.name]):          # a nonzero dhT
+    for case in (small[2], (2, 300, 4, 64, 128, 128), cases[cfg_m.name]):     # a nonzero dhT
         for dname in ("fp32", "bf16 strided"):
             hold_ssd_bwd(torch, case, dname, final_state=True)
 
@@ -3307,6 +3412,7 @@ def main() -> int:
     k1_train = [f"{K1_FP32}<64>"]
     k1_bwd_tf32 = k1_bwd_tf32_inst()
     k1_bwd_bf16 = k1_bwd_wgmma_inst()
+    k2_hopper = k2_bwd_hopper_names(torch)      # the dx kernel and the dB/dC stage, at N 64, 128
     if bwd:
         print(f"  K1 backward: {len(bwd)} instantiations")
         for k, (regs, st, ld, smem) in sorted(bwd.items()):
@@ -3337,6 +3443,13 @@ def main() -> int:
                           if k in K2_TRAIN))
         for k in K2_TRAIN:
             check(hmma.get(k, [0] * 5)[1] > 0, f"{k} runs TF32 mma on the tensor cores")
+        print("  SASS of K2's fp32 backward on Hopper: "
+              + ", ".join(f"{k} {hg} HGMMA, {tma} UTMALDG, {n} HMMA"
+                          for k, (n, _, _, hg, tma) in sorted(hmma.items()) if k in k2_hopper))
+        for k in (k for k in k2_hopper if "_sum_" not in k):
+            n, _, _, hg, tma = hmma.get(k, [0] * 5)
+            check(hg > 0 and tma > 0 and n == 0,
+                  f"{k} runs wgmma (HGMMA) on tiles TMA loads (UTMALDG), no mma.sync (HMMA)")
         k1_hopper = K1_WGMMA_INST + k1_bwd_bf16 + tuple(
             k for k in K1_FP32_HOPPER_INST + k1_bwd_tf32 if "_prep_" not in k)
         print("  SASS of K1's bf16 and fp32 forward and backward on Hopper: "
@@ -3351,7 +3464,7 @@ def main() -> int:
         print("  K2's split-TF32 kernels and state passes (the fp32 forward's, the "
               "backward's): " + ", ".join(f"{k} {r} registers ({st}/{ld} bytes spilled)"
                                          for k, (r, st, ld, _) in sorted(k2.items())))
-        for k in K2_TRAIN + ("state_pass_kernel<false>", "state_pass_kernel<true>"):
+        for k in K2_TRAIN + k2_hopper + ("state_pass_kernel<false>", "state_pass_kernel<true>"):
             check(k in k2 and k2[k][1:3] == [0, 0], f"{k} has no spills")
 
     phase("3. SSD-scan kernel against its plain version")
@@ -3379,8 +3492,12 @@ def main() -> int:
         for dname, dtype, names in (("bf16", torch.bfloat16, MMA_KERNELS[1:]),
                                     ("fp32", torch.float32, K2_FWD_PROFILE)):
             args = strided_views(torch, case, ssd_inputs(torch, case, dtype))
-            _, _, counts = device_breakdown(torch, lambda: ssd_ops.ssd(*args, chunk=128), reps=1)
-            others = [k for k in counts if not any(m in k for m in names)]
+            def besides(c):
+                return [k for k in c if not any(m in k for m in names)]
+            _, _, counts = device_breakdown(
+                torch, lambda: ssd_ops.ssd(*args, chunk=128), reps=1,
+                until=lambda c: not besides(c) and sorted(c.values()) == [1, 1, 1])
+            others = besides(counts)
             print(f"    ops.ssd ({dname}) on the strided views: {sum(counts.values())} device "
                   f"kernels, {len(others)} besides the three K2 kernels")
             check(not others and sorted(counts.values()) == [1, 1, 1],

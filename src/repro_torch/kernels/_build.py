@@ -4,8 +4,9 @@ Each `csrc/*.cu` under `repro_torch/kernels/` is compiled by `nvcc` for
 `sm_90a` into a shared library with a plain C interface (no PyTorch headers,
 so a build takes seconds and needs no `ninja`). Libraries go to
 `repro_torch/kernels/_build/` (listed in .gitignore), named by a hash of
-every file in the source's `csrc/` directory (the headers it includes too)
-and the flags, so an edited source or header is rebuilt and an unchanged one
+every file in the source's `csrc/` directory (the headers it includes too),
+of every file in `kernels/common/` (the headers all sources share) and of
+the flags, so an edited source or header is rebuilt and an unchanged one
 is reused. `build_all()` starts one `nvcc` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module.
@@ -23,6 +24,7 @@ from typing import Dict, List
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "_build"
+COMMON_DIR = KERNELS_DIR / "common"      # headers every source may include
 # --split-compile=0: compile one source's kernels on all the CPUs (the flash
 # attention source instantiates 32 kernels, one per head dim and dtype)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,10 +47,11 @@ def nvcc() -> str:
     return found
 
 
-def _lib_path(src: Path) -> Path:
+def _lib_path(src: Path, common: Path = COMMON_DIR) -> Path:
     h = hashlib.sha1(src.name.encode())
-    for f in sorted(p for p in src.parent.iterdir() if p.is_file()):
-        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    for d in (src.parent, common):
+        for f in sorted(p for p in d.iterdir() if p.is_file()):
+            h.update(f.name.encode() + b"\0" + f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 

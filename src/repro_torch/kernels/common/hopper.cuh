@@ -1,9 +1,11 @@
 // Building blocks for Hopper (sm_90a) kernels in inline PTX: mbarriers, TMA
 // tile loads, warpgroup matrix products (wgmma) and their shared-memory
-// descriptors. K1's bf16 forward and backward on Hopper (flash_wgmma_kernel,
-// flash_wgmma_bwd_dq_kernel, flash_wgmma_bwd_dkdv_kernel in
-// flash_attention.cu) and its fp32 backward (flash_wgmma_tf32_bwd_dq_kernel,
-// flash_wgmma_tf32_bwd_dkdv_kernel) are built from them.
+// descriptors, and on the host the TMA maps' encoder. Shared by both
+// sources: K1's Hopper kernels (flash_wgmma_kernel, flash_wgmma_bwd_*,
+// flash_wgmma_tf32_* in flash_attention/csrc/flash_attention.cu) and K2's
+// fp32 backward on Hopper (ssd_bwd_dx_kernel, ssd_bwd_dbc_kernel in
+// ssd_scan/csrc/ssd_scan.cu) are built from them. The port's build hashes
+// this directory into every library's name.
 //
 // Shared-memory layout. Every operand tile is stored as TMA writes it with
 // CU_TENSOR_MAP_SWIZZLE_128B: blocks of 64 bf16 columns (128 bytes per row),
@@ -90,6 +92,16 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
+// the box of a 2-dimensional map at coordinates (c0, c1), innermost first
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // the box of `map` at coordinates (c0, c1, c2, c3), innermost first, into
 // shared memory at dst; its bytes complete a transaction on `bar`; elements
 // outside the tensor arrive as zeros
@@ -132,6 +144,10 @@ __device__ __forceinline__ void fence_proxy_async() {
 // barrier `id` (1..15) over `threads` threads, whole warps
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// an arrival at barrier `id` that does not wait for the others
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -425,6 +441,44 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
   }
 
+}
+
+// ---------------------------------------------------------------------------
+// TMA maps, on the host
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, from the driver through the runtime's entry-point
+// query, so that the library needs no -lcuda; null where the driver lacks it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a TMA map with the 128-byte swizzle, zeros outside the tensor: `rank`
+// dimensions innermost first, the byte strides of dimensions 1 .., boxes
+// `box` (128 bytes per box row)
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode != nullptr &&
+         encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

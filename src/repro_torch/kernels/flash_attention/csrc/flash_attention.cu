@@ -379,7 +379,7 @@
 
 #include <cstdint>
 
-#include "hopper.cuh"
+#include "../../common/hopper.cuh"
 
 namespace {
 
@@ -3641,39 +3641,7 @@ int launch_bf16(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime's entry-point
-// query, so that the library needs no -lcuda; null where the driver lacks it
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a TMA map with the 128-byte swizzle, zeros outside the tensor: `rank`
-// dimensions innermost first, the byte strides of dimensions 1 .., boxes
-// `box` (128 bytes per box row)
-bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
-                const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled encode = encode_tiled();
-  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  return encode != nullptr &&
-         encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using hopper::encode_map;
 
 // the TMA map of the (hd, H, S, B) view of a bf16 (fp32 with `fp32`) (B, S,
 // H, hd) tensor with batch and row strides sb and ss (elements): boxes of

@@ -20,7 +20,8 @@
 //     mma.sync m16n8k8;
 //   * backward, both dtypes (ssd_scan_bwd_launch; see its section below):
 //     six launches, split-TF32 mma.sync m16n8k8, templated on the type in
-//     memory.
+//     memory; fp32 at Q = 128, P = 64, N = 64 or 128 replaces the last three
+//     by TF32 wgmma kernels fed by TMA (the Hopper route, its own section).
 // x, B and C are read through their batch and row strides in every kernel:
 // the split views of the conv output need no copy.
 //
@@ -97,11 +98,14 @@
 // C, B, x and h_prev of a chunk fill ~204 KB at N = 128 (one block of 16
 // warps per SM). h_prev is the state_pass output the backward takes
 // (return_states), so y and the state have the same bits either way.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
+
+#include "../../common/hopper.cuh"
 
 namespace {
 
@@ -1567,31 +1571,43 @@ ssd_bwd_bc_sum_tf32_kernel(BwdArgs<T> a) {
     }
 }
 
+// The launches both routes share: ssd_bwd_cbds_kernel (C B^T and the head
+// groups' parts of dS), chunk_state_tf32_kernel<true> (U_c, L, L_Q) and
+// state_pass_kernel<true> (dH in place of U)
 template <typename T>
-int launch_bwd(const BwdArgs<T>& a, cudaStream_t st) {
-  static int dev_cbds = -1, dev_state = -1, dev_chunk = -1, dev_bc = -1, dev_sum = -1;
+cudaError_t launch_bwd_front(const BwdArgs<T>& a, cudaStream_t st) {
+  static int dev_cbds = -1, dev_state = -1;
   cudaError_t e;
   if ((e = raise_smem_limit(ssd_bwd_cbds_kernel<T>, cbds_smem<T>(kQMax), dev_cbds)) ||
       (e = raise_smem_limit(chunk_state_tf32_kernel<true, T>, state_tf32_smem<T>(kQMax, kNMax),
-                            dev_state)) ||
-      (e = raise_smem_limit(ssd_bwd_chunk_tf32_kernel<T>, chunk_bwd_smem<T>(kQMax, kNMax),
-                            dev_chunk)) ||
-      (e = raise_smem_limit(ssd_bwd_bc_tf32_kernel<T>, bc_smem(kQMax, kNMax), dev_bc)) ||
-      (e = raise_smem_limit(ssd_bwd_bc_sum_tf32_kernel<T>, bc_sum_smem<T>(kQMax), dev_sum)))
-    return (int)e;
+                            dev_state)))
+    return e;
   const int Qp = round_up(a.Q, 16);
   ssd_bwd_cbds_kernel<T><<<dim3(a.nc, a.Bsz, a.G + 1), kScanThreads, cbds_smem<T>(Qp), st>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const StateArgs<T> sa{a.dy, a.Cm, a.dt, a.A, a.dstates, a.lq, a.cum,
                         a.S, a.H, a.P, a.N, a.Q, a.nc,
                         (int64_t)a.S * a.H * a.P, (int64_t)a.H * a.P, a.csb, a.css, a.vc};
   chunk_state_tf32_kernel<true, T><<<dim3(a.nc, a.H, a.Bsz * ((a.P + kPB - 1) / kPB)),
                                      kMmaThreads, state_tf32_smem<T>(Qp, a.N), st>>>(sa);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const int n4 = a.P * a.N / 4;
   state_pass_kernel<true><<<dim3((n4 + 255) / 256, a.H, a.Bsz), 256, 0, st>>>(
       a.dstates, a.lq, a.dhT, nullptr, a.H, a.P, a.N, a.nc);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const BwdArgs<T>& a, cudaStream_t st) {
+  static int dev_chunk = -1, dev_bc = -1, dev_sum = -1;
+  cudaError_t e;
+  if ((e = raise_smem_limit(ssd_bwd_chunk_tf32_kernel<T>, chunk_bwd_smem<T>(kQMax, kNMax),
+                            dev_chunk)) ||
+      (e = raise_smem_limit(ssd_bwd_bc_tf32_kernel<T>, bc_smem(kQMax, kNMax), dev_bc)) ||
+      (e = raise_smem_limit(ssd_bwd_bc_sum_tf32_kernel<T>, bc_sum_smem<T>(kQMax), dev_sum)))
+    return (int)e;
+  if ((e = launch_bwd_front(a, st)) != cudaSuccess) return (int)e;
+  const int Qp = round_up(a.Q, 16);
   ssd_bwd_chunk_tf32_kernel<T><<<dim3(a.nc, a.H, a.Bsz), kChunkThreads,
                                  chunk_bwd_smem<T>(Qp, a.N), st>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -1599,6 +1615,782 @@ int launch_bwd(const BwdArgs<T>& a, cudaStream_t st) {
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   ssd_bwd_bc_sum_tf32_kernel<T><<<dim3(a.nc, a.Bsz, 2 * ((a.N + kNS - 1) / kNS)), kMmaThreads,
                                   bc_sum_smem<T>(Qp), st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The fp32 backward on Hopper: ssd_bwd_dx_kernel, ssd_bwd_dbc_kernel and
+// ssd_bwd_dbc_sum_kernel in place of ssd_bwd_chunk_tf32_kernel,
+// ssd_bwd_bc_tf32_kernel and ssd_bwd_bc_sum_tf32_kernel, by a fixed rule
+// (bwd_on_hopper: fp32, Q = 128, P = 64, N = 64 or 128, x's pointer and
+// strides 16-byte aligned for TMA; not a fallback); the three launches
+// before them are the other route's.
+//
+// What bounds them on this card: at the training shapes the dx kernel moves
+// ~85-120 MB and does ~4-6 GFLOP (x3 in split TF32), the dB/dC stage about
+// as much; both bounds are ~0.02-0.04 ms, so the kernels are held by the
+// tensor cores' issue and the latency of each block's phases, not by
+// bytes (PERF.md). Every product is TF32 wgmma m64nNk8 in split TF32 (lo_a
+// hi_b, hi_a lo_b, hi_a hi_b; `wgmma3`): A from registers, each value
+// loaded from global memory (C, B, C B^T: shared by a chunk's heads, in L2)
+// and split once per product by the one thread that holds it, 8 k-steps'
+// values at a time ahead of their products (`product`); B from shared
+// memory, K-major with the 128-byte swizzle (TF32 wgmma reads no other), in
+// two TF32 terms split once per block. Tiles arrive by TMA into
+// mbarrier-guarded shared memory; a tile that TMA writes K-major is split
+// in place or into its slot (hi, lo), an MN-major one (x and dy as the B of
+// M' (dt x) and M'^T dy) is transposed as it is split. Each product runs
+// from a zeroed accumulator, whose tensor-core sum rounds toward zero, and
+// joins the others by IEEE fp32 operations: the rounding points that
+// tests/test_torch_ssd_tf32.py emulates (`emulated_hopper_backward`).
+//
+//   * ssd_bwd_dx_kernel<N>, grid (nc, H, B), two warpgroups of 64 rows
+//     each: dx, ddt and the chunk's parts of dA and dD, as
+//     ssd_bwd_chunk_tf32_kernel. Phase 1: y = exp(L_t) C h_prev^T + (M'
+//     dt) x with h_prev split in place (no load at chunk 0, whose entering
+//     state is zero) and x transposed; phase 2: dxs = B dH^T, dxi = M'^T
+//     dy with dH and dy staged likewise (their TMA loads in flight during
+//     phase 1). M' = (C B^T) o exp(L_t - L_s) on s <= t is formed in
+//     registers from cb as each A fragment is made, the decay by the SFU's
+//     2^x on L in log2 units. The causal walks of M' x (keys s <= t) and
+//     M'^T dy (t >= s) are complementary, so the two warpgroups (rows 0-63,
+//     64-127) do even work over the kernel.
+//   * ssd_bwd_dbc_kernel<N>, grid (nc, B, 2 G + 1): block z < 2 G the state
+//     term of dC (z even) or dB (odd) over the heads of group z / 2,
+//     transposed (rows n): per head A = h_prev^T or dH^T, B = dy or x as
+//     TMA writes them (double-buffered, the next head's load and A values
+//     in flight during this head's products), the head's product scaled by
+//     exp(L_t) or w_s and added in IEEE fp32, heads in order; block z = 2 G
+//     dS summed over the G groups in order (read once per chunk), split as
+//     it is for dS B, then transposed from its summed copy for dS^T C. Parts
+//     to bcp (2, B, nc, G + 1, Q, N).
+//   * ssd_bwd_dbc_sum_kernel, grid (Q N / 1024, B nc, 2): dC and dB as the
+//     G + 1 parts in order; and dA, dD over (b, chunk) in order.
+// No atomics: every sum has one order, so a rerun gives the same bits.
+// ---------------------------------------------------------------------------
+
+constexpr int kHQ = 128;            // the route's chunk
+constexpr int kHP = 64;             // the route's head channels
+constexpr int kHThreads = 256;      // two warpgroups
+
+// float offset of element (r, k) of an fp32 tile of R rows as TMA writes it
+// with the 128-byte swizzle: [k / 32][R][32], the 16-byte chunk c of row r
+// at chunk c ^ (r % 8). A K-major B operand (rows: the output columns, k:
+// the reduction) has this layout.
+__device__ __forceinline__ int swz(int R, int r, int k) {
+  return (k >> 5) * R * 32 + r * 32 + ((((k >> 2) & 7) ^ (r & 7)) << 2) + (k & 3);
+}
+
+// shared address of k-step kk (columns 8 kk .. 8 kk + 7) of such a tile,
+// from row r0 (a multiple of 8): a wgmma B descriptor's start
+__device__ __forceinline__ uint32_t b_at(const float* tile, int R, int kk, int r0) {
+  return hopper::smem_u32(tile) + (kk >> 2) * R * 128 + r0 * 128 + (kk & 3) * 32;
+}
+
+// d (+)= A B in split TF32 by three wgmma: lo_a hi_b, hi_a lo_b, hi_a hi_b;
+// bh and bl address B's hi and lo tiles
+template <int NW>
+__device__ __forceinline__ void wgmma3(float (&d)[NW / 2], const Frag<4>& f, uint32_t bh,
+                                       uint32_t bl, int accumulate) {
+  using namespace hopper;
+  wgmma_rs_tf32<NW>(d, f.lo, desc_sw128(bh, 16, 1024), accumulate);
+  wgmma_rs_tf32<NW>(d, f.hi, desc_sw128(bl, 16, 1024), 1);
+  wgmma_rs_tf32<NW>(d, f.hi, desc_sw128(bh, 16, 1024), 1);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the special-function unit (ex2.approx: 2 ulp; x <= 0 here, the
+// decays of M' in log2 units)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// an A fragment (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4))
+// split from four fp32 values
+__device__ __forceinline__ void frag_of(Frag<4>& f, float v0, float v1, float v2, float v3) {
+  split_tf32(v0, f.hi[0], f.lo[0]);
+  split_tf32(v1, f.hi[1], f.lo[1]);
+  split_tf32(v2, f.hi[2], f.lo[2]);
+  split_tf32(v3, f.hi[3], f.lo[3]);
+}
+
+__device__ __forceinline__ void split4(float4 v, uint4& h, uint4& l) {
+  split_tf32(v.x, h.x, l.x);
+  split_tf32(v.y, h.y, l.y);
+  split_tf32(v.z, h.z, l.z);
+  split_tf32(v.w, h.w, l.w);
+}
+
+// from `src` (or in place when src == hi): hi = tf32(v), lo = tf32(v - hi),
+// n4 float4s, same layout
+__device__ __forceinline__ void split_tile(const float* src, float* hi, float* lo, int n4) {
+  for (int i = threadIdx.x; i < n4; i += kHThreads) {
+    uint4 h, l;
+    split4(reinterpret_cast<const float4*>(src)[i], h, l);
+    reinterpret_cast<uint4*>(hi)[i] = h;
+    reinterpret_cast<uint4*>(lo)[i] = l;
+  }
+}
+
+// the activation tile as TMA writes it (rows s: 128, columns p: 64)
+// transposed into a B operand (rows p, K = s) in two TF32 terms: a thread
+// reads four rows of one column and writes them as one 16-byte chunk of
+// each term
+__device__ __forceinline__ void transpose_split(const float* raw, float* hi, float* lo) {
+  for (int i = threadIdx.x; i < kHQ * kHP / 4; i += kHThreads) {
+    const int p = (i >> 8) * 8 + (i & 7), s = 4 * ((i >> 3) & 31);
+    uint4 h, l;
+    split4(make_float4(raw[swz(kHQ, s, p)], raw[swz(kHQ, s + 1, p)], raw[swz(kHQ, s + 2, p)],
+                       raw[swz(kHQ, s + 3, p)]),
+           h, l);
+    const int o = swz(kHP, p, s);
+    *reinterpret_cast<uint4*>(hi + o) = h;
+    *reinterpret_cast<uint4*>(lo + o) = l;
+  }
+}
+
+// acc (+)= A B over k-steps [k0, k1) of 16 (multiples of 8): A's raw values
+// loaded 8 k-steps at a time (ld(kk, v)) ahead of their products, each made
+// into a fragment by mk(kk, v, f); B's hi and lo tiles of R rows from row r0.
+// The first k-step starts the sum from zero. Up to three k-steps in flight
+// (unrolled: the registers of a fragment stay fixed while its wgmma is);
+// WAIT false leaves the last ones in flight for a later wgmma_wait.
+template <int NW, bool WAIT = true, typename Ld, typename Mk>
+__device__ __forceinline__ void product(float (&acc)[NW / 2], int k0, int k1, const float* bh,
+                                        const float* bl, int R, int r0, Ld ld, Mk mk) {
+  using namespace hopper;
+  float v[8][4];
+  fence_regs(acc);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (8 * half < k0 || 8 * half >= k1) continue;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) ld(8 * half + k, v[k]);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int kk = 8 * half + k;
+      Frag<4> f;
+      mk(kk, v[k], f);
+      wgmma_fence();
+      wgmma3<NW>(acc, f, b_at(bh, R, kk, r0), b_at(bl, R, kk, r0), kk > k0);
+      wgmma_commit();
+      wgmma_wait<2>();
+    }
+  }
+  if constexpr (WAIT) {
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+}
+
+template <int NS>
+struct DxCfg {
+  static constexpr int SB = NS * kHP * 4;     // bytes of a state tile (one term)
+  static constexpr int XB = kHQ * kHP * 4;    // bytes of an activation tile
+  static constexpr size_t smem = 1024 + 3 * (size_t)SB + 3 * (size_t)XB +
+                                 4 * (8 * kHQ + 32) + 8 * 4;
+};
+
+// dx, ddt and the chunk's parts of dA and dD for one (chunk, head, batch)
+// on the Hopper route. tmx, tmdy map x and dy as (P, H, S, B), boxes of 32
+// channels x 128 rows; tmh, tmd map h_prev and dH as (N, B nc H P), boxes of
+// 32 states x 64 channels. Warpgroup wg owns rows [64 wg, 64 wg + 64) (t in
+// phase 1, s in phase 2) and every channel, its warp w rows 16 w + lane / 4
+// (+ 8).
+template <int NS>
+__global__ void __launch_bounds__(kHThreads, 1)
+ssd_bwd_dx_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmdy,
+                  const __grid_constant__ CUtensorMap tmh, const __grid_constant__ CUtensorMap tmd,
+                  BwdArgs<float> a) {
+  using namespace hopper;
+  using C = DxCfg<NS>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* hbh = reinterpret_cast<float*>(base);  // [NS/32][64][32] h_prev, then dH: hi
+  float* hbl = hbh + C::SB / 4;                 //                                  lo
+  float* rawd = hbl + C::SB / 4;                // dH as TMA writes it
+  float* xth = rawd + C::SB / 4;                // [4][64][32] x^T, then dy^T: hi
+  float* xtl = xth + C::XB / 4;                 //                               lo
+  float* rawx = xtl + C::XB / 4;                // [2][128][32] x, then dy, as TMA writes them
+  float* dts = rawx + C::XB / 4;                // [kHQ] dt
+  float* cum = dts + kHQ;                       // [kHQ] L
+  float* wv = cum + kHQ;                        // [kHQ] w = exp(L_Q - L) dt
+  float* el = wv + kHQ;                         // [kHQ] exp(L)
+  float* l2 = el + kHQ;                         // [kHQ] L log2(e)
+  float* rows = l2 + kHQ;                       // [3][kHQ] dy.y, x.dxi, x.dxs per row
+  float* red = rows + 3 * kHQ;                  // [32] the warps' parts of the tail's sums
+  uint64_t* bar = reinterpret_cast<uint64_t*>(red + 32);   // h_prev, x, dH, dy landed
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nv = min(kHQ, a.S - c * kHQ);
+  const int64_t tok0 = (int64_t)c * kHQ, row0 = (int64_t)b * a.S + tok0;
+  const int64_t bch = a.bch(b, c, h);
+  const int srow = (int)(bch * kHP);            // the state maps' first row
+
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(bar + i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    if (c > 0) {                                // the state entering chunk 0 is zero
+      mbar_expect_tx(bar, C::SB);
+      for (int k = 0; k < NS / 32; ++k) tma_load_2d(hbh + k * kHP * 32, &tmh, bar, 32 * k, srow);
+    }
+    mbar_expect_tx(bar + 1, C::XB);
+    for (int k = 0; k < 2; ++k)
+      tma_load_4d(rawx + k * kHQ * 32, &tmx, bar + 1, 32 * k, h, (int)tok0, b);
+    mbar_expect_tx(bar + 2, C::SB);
+    for (int k = 0; k < NS / 32; ++k) tma_load_2d(rawd + k * kHP * 32, &tmd, bar + 2, 32 * k, srow);
+  }
+  if (tid < kHQ) {
+    dts[tid] = tid < nv ? a.dt[(row0 + tid) * a.H + h] : 0.f;
+    cum[tid] = a.cum[bch * kHQ + tid];
+  }
+  __syncthreads();
+  const float lq = cum[kHQ - 1];
+  if (tid < kHQ) {
+    wv[tid] = expf(lq - cum[tid]) * dts[tid];
+    el[tid] = expf(cum[tid]);
+    l2[tid] = cum[tid] * kLog2e;
+  }
+
+  // the thread's rows of the products (t in phase 1, s in phase 2); A from
+  // global memory (C, B and cb are shared by the heads), the raw fragments'
+  // values of 8 k-steps loaded at once (`product`)
+  const int rlo = 64 * wg + 16 * (warp & 3) + g, rhi = rlo + 8;
+  const bool vlo = rlo < nv, vhi = rhi < nv;
+  const float* cbc = a.cb + ((int64_t)b * a.nc + c) * kHQ * kHQ;
+  const float* Cr = a.Cm + b * a.csb + tok0 * a.css;
+  const float* Br = a.Bm + b * a.bsb + tok0 * a.bss;
+  // A(r, n) = M[r][n] for M = C or B (rows r < nv)
+  auto rows_of = [&](const float* M, int64_t ms) {
+    return [=](int kk, float (&v)[4]) {
+      const int n = 8 * kk + t4;
+      v[0] = vlo ? M[rlo * ms + n] : 0.f;
+      v[1] = vhi ? M[rhi * ms + n] : 0.f;
+      v[2] = vlo ? M[rlo * ms + n + 4] : 0.f;
+      v[3] = vhi ? M[rhi * ms + n + 4] : 0.f;
+    };
+  };
+  auto plain = [](int, const float (&v)[4], Frag<4>& f) { frag_of(f, v[0], v[1], v[2], v[3]); };
+
+  float y[kHP / 2], acc[kHP / 2];               // accumulator layout: register 4 j + e at
+                                                // row (e < 2 ? rlo : rhi), channel 8 j + 2 t4 + e % 2
+  // phase 1: h_prev split in place, then y = exp(L_t) C h_prev^T left in
+  // flight (the state entering chunk 0 is zero) while x is transposed and
+  // split ...
+  if (c > 0) {
+    mbar_wait(bar, 0);
+    split_tile(hbh, hbh, hbl, NS * kHP / 4);
+    fence_proxy_async();
+    __syncthreads();
+    product<kHP, false>(acc, 0, NS / 8, hbh, hbl, kHP, 0, rows_of(Cr, a.css), plain);
+  }
+  mbar_wait(bar + 1, 0);
+  transpose_split(rawx, xth, xtl);
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {                               // dy into x's raw tile, while phase 1 runs
+    mbar_expect_tx(bar + 3, C::XB);
+    for (int k = 0; k < 2; ++k)
+      tma_load_4d(rawx + k * kHQ * 32, &tmdy, bar + 3, 32 * k, h, (int)tok0, b);
+  }
+#pragma unroll
+  for (int i = 0; i < kHP / 2; ++i) y[i] = 0.f;
+  if (c > 0) {
+    wgmma_wait<0>();
+    fence_regs(acc);
+    const float elo = el[rlo], ehi = el[rhi];
+#pragma unroll
+    for (int i = 0; i < kHP / 2; ++i) y[i] = acc[i] * ((i & 2) ? ehi : elo);
+  }
+  // the state tile is free once both warpgroups' C h_prev^T is done:
+  // warpgroup 1 says so on barrier 1 and goes on
+  if (wg == 1) named_barrier_arrive(1, kHThreads);
+  // ... + (M' dt) x over s < 64 (wg + 1): M'_ts dt_s formed where s <= t < nv
+  {
+    const float Llo = l2[rlo], Lhi = l2[rhi];
+    auto ld = [&](int kk, float (&v)[4]) {
+      const int s0 = 8 * kk + t4, s1 = s0 + 4;
+      v[0] = vlo && s0 <= rlo ? cbc[rlo * kHQ + s0] : 0.f;
+      v[1] = vhi && s0 <= rhi ? cbc[rhi * kHQ + s0] : 0.f;
+      v[2] = vlo && s1 <= rlo ? cbc[rlo * kHQ + s1] : 0.f;
+      v[3] = vhi && s1 <= rhi ? cbc[rhi * kHQ + s1] : 0.f;
+    };
+    // the exponent taken only where s <= t
+    auto m = [&](float v, int t, float Lt, int s) {
+      return s <= t ? v * exp2_approx(Lt - l2[s]) * dts[s] : 0.f;
+    };
+    auto mk = [&](int kk, const float (&v)[4], Frag<4>& f) {
+      const int s0 = 8 * kk + t4, s1 = s0 + 4;
+      frag_of(f, m(v[0], rlo, Llo, s0), m(v[1], rhi, Lhi, s0), m(v[2], rlo, Llo, s1),
+              m(v[3], rhi, Lhi, s1));
+    };
+    product<kHP>(acc, 0, 8 * (wg + 1), xth, xtl, kHP, 0, ld, mk);
+#pragma unroll
+    for (int i = 0; i < kHP / 2; ++i) y[i] += acc[i];
+  }
+
+  float2 xe[kHP / 8][2];                       // x at the thread's entries, for the row dots
+#pragma unroll
+  for (int j = 0; j < kHP / 8; ++j)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int s = k ? rhi : rlo;
+      xe[j][k] = s < nv ? *reinterpret_cast<const float2*>(a.x + b * a.xsb + (tok0 + s) * a.xss +
+                                                          (int64_t)h * kHP + 8 * j + 2 * t4)
+                        : make_float2(0.f, 0.f);
+    }
+
+  // dy . y per row (dy as TMA wrote it: ragged rows are zero)
+  mbar_wait(bar + 3, 0);
+  float rp[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kHP / 8; ++j) {
+    const int p = 8 * j + 2 * t4;
+    rp[0] += rawx[swz(kHQ, rlo, p)] * y[4 * j] + rawx[swz(kHQ, rlo, p + 1)] * y[4 * j + 1];
+    rp[1] += rawx[swz(kHQ, rhi, p)] * y[4 * j + 2] + rawx[swz(kHQ, rhi, p + 1)] * y[4 * j + 3];
+  }
+  // phase 2's state tile: warpgroup 0, whose M' x walk is the shorter,
+  // splits dH (and takes h_prev . dH, h_prev as its two terms: its value to
+  // 2^-22) while warpgroup 1 finishes M' x; barrier 2 hands the tile on
+  float ddot = 0.f;
+  if (wg == 0) {
+    named_barrier_sync(1, kHThreads);           // warpgroup 1 is done with h_prev
+    mbar_wait(bar + 2, 0);
+    for (int i = tid; i < NS * kHP / 4; i += kHThreads / 2) {
+      const float4 d = reinterpret_cast<const float4*>(rawd)[i];
+      if (c > 0) {
+        const float4 u = reinterpret_cast<const float4*>(hbh)[i];
+        const float4 w = reinterpret_cast<const float4*>(hbl)[i];
+        ddot += (u.x + w.x) * d.x + (u.y + w.y) * d.y + (u.z + w.z) * d.z + (u.w + w.w) * d.w;
+      }
+      uint4 hi, lo;
+      split4(d, hi, lo);
+      reinterpret_cast<uint4*>(hbh)[i] = hi;
+      reinterpret_cast<uint4*>(hbl)[i] = lo;
+    }
+    fence_proxy_async();
+    named_barrier_arrive(2, kHThreads);
+    named_barrier_sync(3, kHThreads / 2);       // the tile is whole for warpgroup 0's wgmma
+  } else {
+    named_barrier_sync(2, kHThreads);
+  }
+  // dxs = B dH^T (into y's registers), left in flight while dy is staged
+  product<kHP, false>(y, 0, NS / 8, hbh, hbl, kHP, 0, rows_of(Br, a.bss), plain);
+  __syncthreads();                              // both warpgroups are done with x^T
+  transpose_split(rawx, xth, xtl);
+  fence_proxy_async();
+  __syncthreads();
+  // dxi = M'^T dy over t >= s >= 64 wg: A(s, t) = M'_ts where s <= t < nv
+  // (its last wait ends dxs too)
+  {
+    const float Llo = l2[rlo], Lhi = l2[rhi];
+    auto ld = [&](int kk, float (&v)[4]) {
+      const int ta = 8 * kk + t4, tb = ta + 4;
+      v[0] = vlo && rlo <= ta && ta < nv ? cbc[ta * kHQ + rlo] : 0.f;
+      v[1] = vhi && rhi <= ta && ta < nv ? cbc[ta * kHQ + rhi] : 0.f;
+      v[2] = vlo && rlo <= tb && tb < nv ? cbc[tb * kHQ + rlo] : 0.f;
+      v[3] = vhi && rhi <= tb && tb < nv ? cbc[tb * kHQ + rhi] : 0.f;
+    };
+    auto m = [&](float v, int s, float Ls, int t) {
+      return s <= t ? v * exp2_approx(l2[t] - Ls) : 0.f;
+    };
+    auto mk = [&](int kk, const float (&v)[4], Frag<4>& f) {
+      const int ta = 8 * kk + t4, tb = ta + 4;
+      frag_of(f, m(v[0], rlo, Llo, ta), m(v[1], rhi, Lhi, ta), m(v[2], rlo, Llo, tb),
+              m(v[3], rhi, Lhi, tb));
+    };
+    product<kHP>(acc, 8 * wg, kHQ / 8, xth, xtl, kHP, 0, ld, mk);
+    fence_regs(y);
+  }
+
+  // dx = dt dxi + w dxs + D dy, one store per pair of channels; the row dots
+  const float dsk = a.D[h];
+  float rdi[2] = {0.f, 0.f}, rds[2] = {0.f, 0.f}, dd = 0.f;
+#pragma unroll
+  for (int j = 0; j < kHP / 8; ++j)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int s = k ? rhi : rlo, p = 8 * j + 2 * t4, r = 4 * j + 2 * k;
+      if (s < nv) {
+        const float dy0 = rawx[swz(kHQ, s, p)], dy1 = rawx[swz(kHQ, s, p + 1)];
+        const float2 xv = xe[j][k];
+        *reinterpret_cast<float2*>(a.dx + ((row0 + s) * a.H + h) * kHP + p) =
+            make_float2(dts[s] * acc[r] + wv[s] * y[r] + dsk * dy0,
+                        dts[s] * acc[r + 1] + wv[s] * y[r + 1] + dsk * dy1);
+        rdi[k] += xv.x * acc[r] + xv.y * acc[r + 1];
+        rds[k] += xv.x * y[r] + xv.y * y[r + 1];
+        dd += dy0 * xv.x + dy1 * xv.y;
+      }
+    }
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      rp[k] += __shfl_xor_sync(0xffffffffu, rp[k], off);
+      rdi[k] += __shfl_xor_sync(0xffffffffu, rdi[k], off);
+      rds[k] += __shfl_xor_sync(0xffffffffu, rds[k], off);
+    }
+  if (t4 == 0) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int r = k ? rhi : rlo;
+      rows[r] = rp[k];
+      rows[kHQ + r] = rdi[k];
+      rows[2 * kHQ + r] = rds[k];
+    }
+  }
+  // the tail in three rounds of warp sums (red: [0, 8) dy . x, [8, 16)
+  // h_prev . dH, [16, 20) the scan's warp totals, [20, 24) the state term,
+  // [24, 28) dA), each in one order
+  auto warp_sum = [](float v) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    return v;
+  };
+  dd = warp_sum(dd);
+  ddot = warp_sum(ddot);
+  if (lane == 0) {
+    red[warp] = dd;
+    red[8 + warp] = ddot;
+  }
+  __syncthreads();                              // the row dots and the parts are written
+  float dD = 0.f, hd = 0.f;
+  for (int w = 0; w < kHThreads / 32; ++w) {
+    dD += red[w];
+    hd += red[8 + w];
+  }
+  // dL_t = dy.yi + exp(L_t) dy.yh - dt_t (x.dxi + exp(L_Q - L_t) x.dxs);
+  // the state and chunk-decay terms of dL_{Q-1}, K, join every suffix sum
+  // da_u = sum_{t >= u} dL_t, so they are added after the scan
+  float direct = 0.f, dL = 0.f, wx = 0.f;
+  if (tid < kHQ) {
+    const float tl = expf(lq - cum[tid]);
+    direct = rows[kHQ + tid] + tl * rows[2 * kHQ + tid];
+    dL = rows[tid] - dts[tid] * direct;
+    wx = tl * dts[tid] * rows[2 * kHQ + tid];
+  }
+  float da = dL;                                // a suffix scan within each warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_down_sync(0xffffffffu, da, off);
+    if (lane + off < 32) da += u;
+  }
+  wx = warp_sum(wx);
+  if (lane == 0 && warp < kHQ / 32) {
+    red[16 + warp] = da;
+    red[20 + warp] = wx;
+  }
+  __syncthreads();
+  float kterm = expf(lq) * hd;
+  for (int w = 0; w < kHQ / 32; ++w) kterm = red[20 + w] + kterm;
+  if (tid < kHQ) {
+    for (int w2 = kHQ / 32 - 1; w2 > warp; --w2) da += red[16 + w2];
+    da += kterm;
+  }
+  if (tid < nv) a.ddt[(row0 + tid) * a.H + h] = direct + a.A[h] * da;
+  const float pa = warp_sum(tid < kHQ ? dts[tid] * da : 0.f);
+  if (lane == 0 && warp < kHQ / 32) red[24 + warp] = pa;
+  __syncthreads();
+  float dA = 0.f;
+  for (int w = 0; w < kHQ / 32; ++w) dA += red[24 + w];
+  if (tid == 0) {
+    a.dA_part[bch] = dA;
+    a.dD_part[bch] = dD;
+  }
+}
+
+template <int NS>
+struct DbcCfg {
+  static constexpr int NW = NS == 128 ? 128 : 64;   // output columns of a warpgroup
+  static constexpr int AB = kHQ * kHP * 4;          // bytes of an activation tile (one term)
+  static constexpr int DP = kHQ + 1;                // row pitch of dS as summed (odd)
+  // two slots of (hi, lo) activation tiles, or dS's hi and lo (128 x 128);
+  // the head's column scales, the barriers; dS as summed
+  static constexpr size_t smem = 1024 + 4 * (size_t)AB + 4 * 2 * kHQ + 8 * 2 + 4 * (size_t)kHQ * DP;
+};
+
+// a part of dC or dB, transposed in registers (rows n, columns t or s), to
+// out (Q, N)
+template <int NW>
+__device__ __forceinline__ void store_part(float* out, const float (&v)[NW / 2], int NS, int nlo,
+                                           int tc, int t4) {
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      out[(int64_t)(tc + 8 * j + 2 * t4 + (e & 1)) * NS + nlo + 8 * (e >> 1)] = v[4 * j + e];
+}
+
+// The dB/dC stage's parts for one (chunk, batch): block z < 2 G the state
+// term of dC (z even: sum over the group's heads of exp(L_t) dy_t h_prev) or
+// dB (odd: w_s x_s dH); block z = 2 G the dS terms of both (dS B, dS^T C),
+// all transposed (rows n), into bcp (2, B, nc, G + 1, Q, N) as (t, n).
+// Warpgroup wg: at N = 128 rows n [64 wg, 64 wg + 64) and every column, at
+// N = 64 every row and columns [64 wg, 64 wg + 64).
+template <int NS>
+__global__ void __launch_bounds__(kHThreads, 1)
+ssd_bwd_dbc_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmdy,
+                   BwdArgs<float> a) {
+  using namespace hopper;
+  using C = DbcCfg<NS>;
+  constexpr int NW = C::NW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* tiles = reinterpret_cast<float*>(base);    // slot k: hi, lo; or dS's hi, lo
+  float* sc = tiles + C::AB;                        // [2][kHQ] a head's column scale
+  uint64_t* full = reinterpret_cast<uint64_t*>(sc + 2 * kHQ);
+
+  const int c = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nv = min(kHQ, a.S - c * kHQ);
+  const int64_t tok0 = (int64_t)c * kHQ, row0 = (int64_t)b * a.S + tok0;
+  const int nr = NS == 128 ? 64 * wg : 0, tc = NS == 128 ? 0 : 64 * wg;
+  const int nlo = nr + 16 * (warp & 3) + g, nhi = nlo + 8;
+  auto part = [&](int is_db, int k) {
+    return a.bcp + ((((int64_t)is_db * a.Bsz + b) * a.nc + c) * (a.G + 1) + k) * kHQ * NS;
+  };
+  float acc[NW / 2];
+
+  if (z < 2 * a.G) {
+    const int grp = z >> 1, is_db = z & 1;
+    const int hb = grp * a.hg(), nh = min(a.H, hb + a.hg()) - hb;
+    const CUtensorMap* tm = is_db ? &tmx : &tmdy;
+    const float* st = is_db ? a.dstates : a.h_prev;
+    if (tid == 0) {
+      mbar_init(full, 1);
+      mbar_init(full + 1, 1);
+      mbar_init_fence();
+    }
+    __syncthreads();
+    auto issue = [&](int i) {                   // head hb + i into slot i % 2
+      float* dst = tiles + 2 * (i & 1) * (C::AB / 4);
+      mbar_expect_tx(full + (i & 1), C::AB);
+      for (int k = 0; k < 2; ++k)
+        tma_load_4d(dst + k * kHQ * 32, tm, full + (i & 1), 32 * k, hb + i, (int)tok0, b);
+    };
+    if (tid == 0)
+      for (int i = 0; i < 2 && i < nh; ++i) issue(i);
+    float total[NW / 2];
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) total[i] = 0.f;
+    // A(n, p) = state[p][n]: a head's 8 k-steps loaded at once, the next
+    // head's while this one's products run
+    float av[8][4];
+    auto load_a = [&](int i) {
+      const float* sp = st + a.bch(b, c, hb + i) * kHP * NS;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int p = 8 * kk + t4;
+        av[kk][0] = sp[p * NS + nlo];
+        av[kk][1] = sp[p * NS + nhi];
+        av[kk][2] = sp[(p + 4) * NS + nlo];
+        av[kk][3] = sp[(p + 4) * NS + nhi];
+      }
+    };
+    if (nh > 0) load_a(0);
+    for (int i = 0; i < nh; ++i) {
+      const int h = hb + i, slot = i & 1;
+      float* th = tiles + 2 * slot * (C::AB / 4);
+      float* tl = th + C::AB / 4;
+      const int64_t bch = a.bch(b, c, h);
+      if (tid < kHQ) {
+        const float L = a.cum[bch * kHQ + tid];
+        sc[slot * kHQ + tid] =
+            is_db ? expf(a.cum[bch * kHQ + kHQ - 1] - L) *
+                        (tid < nv ? a.dt[(row0 + tid) * a.H + h] : 0.f)
+                  : expf(L);
+      }
+      mbar_wait(full + slot, (i >> 1) & 1);
+      split_tile(th, th, tl, kHQ * kHP / 4);
+      fence_proxy_async();
+      __syncthreads();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        Frag<4> f;
+        frag_of(f, av[kk][0], av[kk][1], av[kk][2], av[kk][3]);
+        wgmma_fence();
+        wgmma3<NW>(acc, f, b_at(th, kHQ, kk, tc), b_at(tl, kHQ, kk, tc), kk > 0);
+        wgmma_commit();
+        wgmma_wait<2>();
+      }
+      if (i + 1 < nh) load_a(i + 1);
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          total[4 * j + e] += acc[4 * j + e] * sc[slot * kHQ + tc + 8 * j + 2 * t4 + (e & 1)];
+      __syncthreads();                          // every warp is done with the slot
+      if (tid == 0 && i + 2 < nh) issue(i + 2);
+    }
+    store_part<NW>(part(is_db, grp), total, NS, nlo, tc, t4);
+    return;
+  }
+
+  // dS summed over the groups in order (rows t = tid / 2, columns s of the
+  // thread's half), masked to s <= t < nv (the rest of the scratch is
+  // unset), kept as summed in dsr and split (rows t, K = s) into dsh, dsl
+  float* dsh = tiles;                           // [4][128][32] dS (rows t, K = s), then dS^T
+  float* dsl = tiles + kHQ * kHQ;
+  float* dsr = reinterpret_cast<float*>(full + 2);   // [kHQ][DP] dS as summed
+  {
+    const int t = tid >> 1, sb = 64 * (tid & 1);
+    const float* src = a.dsp + ((int64_t)b * a.nc + c) * a.G * kHQ * kHQ + t * kHQ + sb;
+#pragma unroll 4
+    for (int q = 0; q < 16; ++q) {
+      float4 sum = *reinterpret_cast<const float4*>(src + 4 * q);
+      for (int k = 1; k < a.G; ++k) {
+        const float4 d = *reinterpret_cast<const float4*>(src + (int64_t)k * kHQ * kHQ + 4 * q);
+        sum.x += d.x, sum.y += d.y, sum.z += d.z, sum.w += d.w;
+      }
+      const int s = sb + 4 * q;
+      const bool ok = t < nv;
+      const float4 v = make_float4(ok && s <= t ? sum.x : 0.f, ok && s + 1 <= t ? sum.y : 0.f,
+                                   ok && s + 2 <= t ? sum.z : 0.f, ok && s + 3 <= t ? sum.w : 0.f);
+      float* r = dsr + t * C::DP + s;
+      r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
+      uint4 hi, lo;
+      split4(v, hi, lo);
+      *reinterpret_cast<uint4*>(dsh + swz(kHQ, t, s)) = hi;
+      *reinterpret_cast<uint4*>(dsl + swz(kHQ, t, s)) = lo;
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+  // dC^T += B^T dS^T: A(n, s) = B[s][n], B operand dS (N = t, K = s); at N =
+  // 64 warpgroup wg's columns t < 64 (wg + 1) need s < 64 (wg + 1)
+  const float* Br = a.Bm + b * a.bsb + tok0 * a.bss;
+  const float* Cr = a.Cm + b * a.csb + tok0 * a.css;
+  // A(n, r) = M[r][n] for M = B or C (rows r < nv)
+  auto cols_of = [&](const float* M, int64_t ms) {
+    return [=](int kk, float (&v)[4]) {
+      const int r0 = 8 * kk + t4, r1 = r0 + 4;
+      v[0] = r0 < nv ? M[r0 * ms + nlo] : 0.f;
+      v[1] = r0 < nv ? M[r0 * ms + nhi] : 0.f;
+      v[2] = r1 < nv ? M[r1 * ms + nlo] : 0.f;
+      v[3] = r1 < nv ? M[r1 * ms + nhi] : 0.f;
+    };
+  };
+  auto plain = [](int, const float (&v)[4], Frag<4>& f) { frag_of(f, v[0], v[1], v[2], v[3]); };
+  product<NW>(acc, 0, NS == 128 ? kHQ / 8 : 8 * (wg + 1), dsh, dsl, kHQ, tc, cols_of(Br, a.bss),
+              plain);
+  store_part<NW>(part(0, a.G), acc, NS, nlo, tc, t4);
+  __syncthreads();                              // every warp is done with dS
+  // dS^T (rows s, K = t), split from dS as summed: four rows t of a column
+  // s make one 16-byte chunk of each term
+  for (int i = tid; i < kHQ * kHQ / 4; i += kHThreads) {
+    const int s = i & (kHQ - 1), t = 4 * (i >> 7);
+    const float* r = dsr + t * C::DP + s;
+    uint4 hi, lo;
+    split4(make_float4(r[0], r[C::DP], r[2 * C::DP], r[3 * C::DP]), hi, lo);
+    *reinterpret_cast<uint4*>(dsh + swz(kHQ, s, t)) = hi;
+    *reinterpret_cast<uint4*>(dsl + swz(kHQ, s, t)) = lo;
+  }
+  fence_proxy_async();
+  __syncthreads();
+  // dB^T += C^T dS: A(n, t) = C[t][n], B operand dS^T (N = s, K = t); at N =
+  // 64 warpgroup wg's columns s >= 64 wg need t >= 64 wg
+  product<NW>(acc, NS == 128 ? 0 : 8 * wg, kHQ / 8, dsh, dsl, kHQ, tc, cols_of(Cr, a.css), plain);
+  store_part<NW>(part(1, a.G), acc, NS, nlo, tc, t4);
+}
+
+// dC (blockIdx.z 0) or dB (1) of one (batch, chunk) = its G + 1 parts in
+// order, four values a thread; the blocks (0, 0, z) also sum dA (z = 0) or
+// dD (1) over (b, chunk) in order
+__global__ void __launch_bounds__(256)
+ssd_bwd_dbc_sum_kernel(BwdArgs<float> a) {
+  const int is_db = blockIdx.z, b = blockIdx.y / a.nc, c = blockIdx.y % a.nc;
+  if (blockIdx.x == 0 && blockIdx.y == 0) {
+    const float* part = is_db ? a.dD_part : a.dA_part;
+    for (int h = threadIdx.x; h < a.H; h += 256) {
+      float sum = 0.f;
+      for (int k = 0; k < a.Bsz * a.nc; ++k) sum += part[(int64_t)k * a.H + h];
+      (is_db ? a.dD : a.dA)[h] = sum;
+    }
+  }
+  const int nv = min(kHQ, a.S - c * kHQ);
+  const int i = blockIdx.x * 256 + threadIdx.x;       // a float4 of the chunk's (t, n)
+  if (4 * i >= nv * a.N) return;
+  const int64_t stride = (int64_t)kHQ * a.N / 4;
+  const float4* part = reinterpret_cast<const float4*>(
+      a.bcp + (((int64_t)is_db * a.Bsz + b) * a.nc + c) * (a.G + 1) * kHQ * a.N) + i;
+  float4 s = part[0];
+  for (int k = 1; k <= a.G; ++k) {
+    const float4 d = part[k * stride];
+    s.x += d.x, s.y += d.y, s.z += d.z, s.w += d.w;
+  }
+  reinterpret_cast<float4*>((is_db ? a.dB : a.dC) + ((int64_t)b * a.S + (int64_t)c * kHQ) * a.N)[i] = s;
+}
+
+// The Hopper route's rule (kernel.bwd_on_hopper in Python is the same):
+// fp32, chunks of 128 (S >= 128), 64 channels a head, 64 or 128 states, x's
+// pointer and batch and row strides 16-byte aligned (its TMA map), the
+// state maps' rows within int32. dy, h_prev and the scratch are contiguous
+// allocations of the wrapper.
+bool bwd_on_hopper(int bf16_in, int Bsz, int S, int H, int P, int N, int Q, const void* x,
+                   long long xsb, long long xss) {
+  const long long nc = (S + Q - 1) / Q;
+  return !bf16_in && Q == kHQ && P == kHP && (N == 64 || N == 128) &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 && xss % 4 == 0 && (Bsz == 1 || xsb % 4 == 0) &&
+         (long long)Bsz * nc * H * P < (1LL << 31);
+}
+
+// the TMA map of the (P, H, S, B) view of an fp32 (B, S, H, P) tensor with
+// batch and row strides sb and ss (elements): boxes of 32 channels x 128
+// rows of one head (a dimension of extent 1 gets a contiguous tensor's
+// stride: torch leaves it free, TMA wants a multiple of 16 bytes)
+bool act_map(CUtensorMap* map, const float* ptr, int B, int S, int H, int P, int64_t sb,
+             int64_t ss) {
+  const cuuint64_t row = S > 1 ? (cuuint64_t)ss * 4 : (cuuint64_t)H * P * 4;
+  const cuuint64_t dims[4] = {(cuuint64_t)P, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)P * 4, row,
+                                 B > 1 ? (cuuint64_t)sb * 4 : row * (cuuint64_t)S};
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)kHQ, 1};
+  return hopper::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, 4, dims, strides, box);
+}
+
+// the TMA map of (B, nc, H, P, N) states as (N, B nc H P): boxes of 32
+// states x 64 channels
+bool state_map(CUtensorMap* map, const float* ptr, long long rows, int N) {
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)N * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)kHP};
+  return hopper::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, 2, dims, strides, box);
+}
+
+template <int NS>
+int launch_bwd_hopper(const BwdArgs<float>& a, cudaStream_t st) {
+  using DC = DxCfg<NS>;
+  static int dev_dx = -1, dev_dbc = -1;
+  cudaError_t e;
+  if ((e = raise_smem_limit(ssd_bwd_dx_kernel<NS>, DC::smem, dev_dx)) ||
+      (e = raise_smem_limit(ssd_bwd_dbc_kernel<NS>, DbcCfg<NS>::smem, dev_dbc)))
+    return (int)e;
+  CUtensorMap tmx, tmdy, tmh, tmd;
+  const long long rows = (long long)a.Bsz * a.nc * a.H * a.P;
+  if (!act_map(&tmx, a.x, a.Bsz, a.S, a.H, a.P, a.xsb, a.xss) ||
+      !act_map(&tmdy, a.dy, a.Bsz, a.S, a.H, a.P, (int64_t)a.S * a.H * a.P, (int64_t)a.H * a.P) ||
+      !state_map(&tmh, a.h_prev, rows, NS) || !state_map(&tmd, a.dstates, rows, NS))
+    return (int)cudaErrorInvalidValue;
+  if ((e = launch_bwd_front(a, st)) != cudaSuccess) return (int)e;
+  ssd_bwd_dx_kernel<NS><<<dim3(a.nc, a.H, a.Bsz), kHThreads, DC::smem, st>>>(
+      tmx, tmdy, tmh, tmd, a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ssd_bwd_dbc_kernel<NS><<<dim3(a.nc, a.Bsz, 2 * a.G + 1), kHThreads, DbcCfg<NS>::smem, st>>>(
+      tmx, tmdy, a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ssd_bwd_dbc_sum_kernel<<<dim3((kHQ * NS / 4 + 255) / 256, a.Bsz * a.nc, 2), 256, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1650,8 +2442,11 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A, con
 // the forward's states; dhT (B,H,P,N) or null. Out: dx, ddt (B,S,H), dA,
 // dD (H,), dB, dC. Scratch: cb (B, nc, Q, Q), dsp (B, nc, G, Q, Q), cum
 // (B, nc, H, Q), lq, dA_part, dD_part (B, nc, H), dstates (B, nc, H, P, N),
-// bcp (2, B, nc, G, Q, N); G (1 <= G <= H) groups of heads. Requires
-// 1 <= Q <= 128, N <= 128, N % 4 == 0. Returns cudaGetLastError().
+// bcp (2, B, nc, G + 1, Q, N); G (1 <= G <= H) groups of heads. Requires
+// 1 <= Q <= 128, N <= 128, N % 4 == 0. fp32 at the Hopper route's shapes
+// (bwd_on_hopper) takes its kernels, every other call the mma.sync ones.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue where a TMA map
+// cannot be made.
 extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A, const void* Bm,
                                    const void* Cm, const void* D, const void* h_prev,
                                    const void* dy, const void* dhT, void* dx, void* ddt,
@@ -1680,7 +2475,20 @@ extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A,
                        static_cast<float*>(dA_part), static_cast<float*>(dD_part),
                        Bsz, S, H, P, N, Q, nc, G, xsb, xss, bsb, bss, csb, css,
                        vx, vb, vc, vdy};
+    if constexpr (std::is_same<T, float>::value) {
+      if (bwd_on_hopper(bf16_in, Bsz, S, H, P, N, Q, x, xsb, xss))
+        return N == 128 ? launch_bwd_hopper<128>(a, static_cast<cudaStream_t>(stream))
+                        : launch_bwd_hopper<64>(a, static_cast<cudaStream_t>(stream));
+    }
     return launch_bwd<T>(a, static_cast<cudaStream_t>(stream));
   };
   return bf16_in ? run(bf16{}) : run(float{});
+}
+
+// 1 when ssd_scan_bwd_launch takes the Hopper route at these arguments
+// (fp32: ssd_bwd_dx_kernel, ssd_bwd_dbc_kernel, ssd_bwd_dbc_sum_kernel after
+// the three shared launches), else 0 (the six-kernel route)
+extern "C" int ssd_scan_bwd_on_hopper(int bf16_in, int Bsz, int S, int H, int P, int N, int Q,
+                                      const void* x, long long xsb, long long xss) {
+  return bwd_on_hopper(bf16_in, Bsz, S, H, P, N, Q, x, xsb, xss) ? 1 : 0;
 }

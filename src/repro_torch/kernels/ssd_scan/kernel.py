@@ -15,8 +15,14 @@ state_pass_kernel and chunk_scan_kernel (bf16 mma.sync), float32 to
 chunk_state_tf32_kernel, state_pass_kernel and chunk_scan_tf32_kernel
 (split-TF32 mma.sync, three TF32 products per fp32 one): three CUDA
 launches per call either way. The backward runs split-TF32 kernels for
-both dtypes. Every kernel reads x, B and C in place through their batch
-and row strides, so the split views of a packed projection need no copy.
+both dtypes, on one of two routes by a fixed rule on the shape
+(`bwd_on_hopper`, the same rule as ssd_scan.cu's): fp32 at chunks of 128,
+64 channels a head and 64 or 128 states, with x 16-byte aligned for TMA,
+takes the Hopper kernels (TF32 wgmma fed by TMA) for dx and for dB/dC;
+every other shape, and bf16 at every shape, the mma.sync ones
+(`backward_kernels` names each route's six launches). Every kernel reads
+x, B and C in place through their batch and row strides, so the split
+views of a packed projection need no copy.
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ from repro_torch.kernels import _build
 
 Q_MAX = 128
 N_MAX = 128
+# the shapes the backward's Hopper route takes (ssd_scan.cu's bwd_on_hopper)
+HOPPER_Q, HOPPER_P, HOPPER_N = 128, 64, (64, 128)
 
 
 @functools.lru_cache(maxsize=None)
@@ -38,12 +46,57 @@ def _lib():
     """The C entry points with their signatures, resolved once per process."""
     lib = _build.load("ssd_scan")
     fwd, bwd = lib.ssd_scan_launch, lib.ssd_scan_bwd_launch
-    fwd.restype = bwd.restype = ctypes.c_int
+    route = lib.ssd_scan_bwd_on_hopper
+    fwd.restype = bwd.restype = route.restype = ctypes.c_int
     fwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     bwd.argtypes = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
                     + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    return fwd, bwd
+    route.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] + [ctypes.c_longlong] * 2
+    return fwd, bwd, route
+
+
+def tma_aligned(x: torch.Tensor) -> bool:
+    """x's pointer and its batch and row strides are multiples of 16 bytes
+    (4 fp32 values): what x's TMA map needs. A dimension of extent 1 has a
+    free stride, as TMA's maps treat it."""
+    return (x.data_ptr() % 16 == 0 and (x.shape[1] <= 1 or x.stride(1) % 4 == 0)
+            and (x.shape[0] <= 1 or x.stride(0) % 4 == 0))
+
+
+def bwd_on_hopper(case, dtype, aligned: bool = True) -> bool:
+    """The backward's route, a fixed rule on the shape (ssd_scan.cu's
+    bwd_on_hopper): fp32 with chunks of Q = 128 (so S >= 128; a ragged last
+    chunk is zero-filled by TMA), P = 64 and N in (64, 128), x aligned for
+    TMA (`tma_aligned`), B nc H P rows within int32. case = (B, S, H, P, N,
+    chunk). bf16 never: its backward keeps the mma.sync kernels."""
+    B, S, H, P, N, chunk = case
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    return (dtype == torch.float32 and Q == HOPPER_Q and P == HOPPER_P and N in HOPPER_N
+            and aligned and B * nc * H * P < 2 ** 31)
+
+
+def backward_kernels(case, dtype, aligned: bool = True):
+    """The CUDA kernels one `ssd_scan_bwd` call launches at case (B, S, H,
+    P, N, chunk) in `dtype`, in launch order, by `bwd_on_hopper`."""
+    t = "float" if dtype == torch.float32 else "bf16"
+    front = (f"ssd_bwd_cbds_kernel<{t}>", f"chunk_state_tf32_kernel<true, {t}>",
+             "state_pass_kernel<true>")
+    if bwd_on_hopper(case, dtype, aligned):
+        n = case[4]
+        return front + (f"ssd_bwd_dx_kernel<{n}>", f"ssd_bwd_dbc_kernel<{n}>",
+                        "ssd_bwd_dbc_sum_kernel")
+    return front + (f"ssd_bwd_chunk_tf32_kernel<{t}>", f"ssd_bwd_bc_tf32_kernel<{t}>",
+                    f"ssd_bwd_bc_sum_tf32_kernel<{t}>")
+
+
+def bwd_on_hopper_lib(x: torch.Tensor, N: int, chunk: int) -> bool:
+    """ssd_scan.cu's own answer to the route at x's shape, pointer and
+    strides (the card tests hold `bwd_on_hopper` to it)."""
+    Bsz, S, H, P = x.shape
+    return bool(_lib()[2](int(x.dtype == torch.bfloat16), Bsz, S, H, P, N, min(chunk, S),
+                          x.data_ptr(), x.stride(0), x.stride(1)))
 
 
 def _copy_width(t: torch.Tensor, width: int) -> int:
@@ -143,7 +196,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
     The inputs as the forward takes them, x, Bm and Cm read through their
     strides in both dtypes. Returns (dx, ddt, dA, dB, dC, dD): dx, dB, dC
     in x's dtype, contiguous, the others fp32. Six CUDA launches, no
-    atomics: the same inputs give the same bits."""
+    atomics: the same inputs give the same bits. The kernels: by
+    `bwd_on_hopper` (`backward_kernels`)."""
     _check(x, dt, A, Bm, Cm, D, chunk)
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -175,13 +229,14 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
     dD = torch.empty_like(dA)
     # scratch: C.B^T per chunk, the head groups' parts of dS, L and L_Q, the
     # chunks' state gradients, the head groups' parts of the state terms of
-    # dC and dB, the per-chunk parts of dA and dD
+    # dC and dB (and on the Hopper route the dS terms' part after them), the
+    # per-chunk parts of dA and dD
     cb = torch.empty((Bsz, nc, Q, Q), dtype=f32, device=dev)
     dsp = torch.empty((Bsz, nc, G, Q, Q), dtype=f32, device=dev)
     cum = torch.empty((Bsz, nc, H, Q), dtype=f32, device=dev)
     lq = torch.empty((Bsz, nc, H), dtype=f32, device=dev)
     dstates = torch.empty((Bsz, nc, H, P, N), dtype=f32, device=dev)
-    bcp = torch.empty((2, Bsz, nc, G, Q, N), dtype=f32, device=dev)
+    bcp = torch.empty((2, Bsz, nc, G + 1, Q, N), dtype=f32, device=dev)
     dA_part, dD_part = torch.empty_like(lq), torch.empty_like(lq)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()[1](x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),

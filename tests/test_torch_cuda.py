@@ -90,7 +90,14 @@ views, with and without the final state's gradient: fp32 gradients within
 3e-4 of the largest reference gradient, bf16 ones (dx, dB, dC) element by
 element within 1e-2 * |ref| + 3e-4 * max|ref| (chip_smoke.py's rules), two
 runs bit for bit; reduced mamba2-370m and zamba2-1.2b trained 3 steps on
-the card and the CPU as smollm is.
+the card and the CPU as smollm is. The fp32 backward's Hopper route
+(`kernel.bwd_on_hopper`) is held at both training shapes, a ragged last
+chunk and (2, 300, 4, 64, 128), contiguous and strided, with and without
+the final state's gradient, under the same rule, two runs bit for bit,
+with the profiler's kernel names those `kernel.backward_kernels` gives and
+ssd_scan.cu's rule agreeing; an fp32 shape outside the rule and two bf16
+shapes keep the six mma.sync kernels, and a misaligned x (pointer or row
+stride) goes to them by the rule, with the right gradients.
 """
 import numpy as np
 import pytest
@@ -369,15 +376,18 @@ WGMMA_CASES = MMA_CASES + [
 ]
 
 
-def _profiled_kernels(fn):
+def _profiled_kernels(fn, runs=1):
     """The CUDA kernels `fn` launches, by name without arguments. torch's
     profiler now and then records no device event at all for a call (seen
     on the H100 in this file's bf16 and fp32 kernel-name tests); a call it
-    saw nothing of is profiled again, up to three times."""
+    saw nothing of is profiled again, up to three times. It has also been
+    seen to miss a session's first kernels (K1's fp32 backward at hd 256,
+    K2's backward at its training shapes): `runs` calls a session."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(runs):
+                fn()
             torch.cuda.synchronize()
         names = {e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
                  for e in prof.events() if e.device_type.name == "CUDA"}
@@ -774,7 +784,7 @@ def test_wgmma_tf32_backward_matches_plain_version(cuda, hd, case):
     o, lse = flash_attention(q, k, v, return_lse=True, **kw)
     grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
     again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
-    ran = _profiled_kernels(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw))
+    ran = _profiled_kernels(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), runs=2)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
     names = backward_kernels(hd, torch.float32, (B, Sq, Skv, Hq, Hkv))
@@ -1296,3 +1306,107 @@ def test_train_launcher_on_the_card_resumes_bit_for_bit(cuda, tmp_path):
     assert ckpt.list_checkpoints(str(tmp_path / "a"))[-1] == 8
     clean = launch_train.main(args + ["--ckpt-dir", str(tmp_path / "b")])
     assert [m["loss"] for m in out["metrics"]] == [m["loss"] for m in clean["metrics"]]
+
+
+# K2's fp32 backward on Hopper (ssd_bwd_dx_kernel, ssd_bwd_dbc_kernel,
+# ssd_bwd_dbc_sum_kernel): both training shapes, a ragged last chunk and
+# the long case where a round-toward-zero sum once cost dA its rule
+SSD_HOPPER = SSD_TRAIN + [(1, 200, 4, 64, 64, 128), (2, 300, 4, 64, 128, 128)]
+
+
+def _kernels_of(call, want):
+    """The kernels the profiler sees `call` launch (bf16 spelled as the
+    rule's names spell it), profiled until it sees all of `want` (at most
+    three times)."""
+    names = set()
+    for _ in range(3):
+        names = {n.replace("__nv_bfloat16", "bf16") for n in _profiled_kernels(call, runs=2)}
+        if names >= want:
+            break
+    return names
+
+
+def _ssd_bwd_call(case, args, final_state, cuda):
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd
+    g = torch.Generator(cuda).manual_seed(1)
+    dy = torch.randn(args[0].shape, generator=g, device=cuda).to(args[0].dtype)
+    dhT = torch.randn(case[0], case[2], case[3], case[4], generator=g, device=cuda)
+    dhT = dhT if final_state else None
+    _, _, h_prev = ssd_scan(*args, chunk=case[-1], return_states=True)
+    return (lambda: ssd_scan_bwd(*args, h_prev, dy, dhT, chunk=case[-1])), h_prev, dy, dhT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("final_state", [False, True], ids=["y", "y+state"])
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+@pytest.mark.parametrize("case", SSD_HOPPER)
+def test_ssd_backward_hopper_route(cuda, case, layout, final_state):
+    """The route the rule names (`kernel.backward_kernels`, the kernels the
+    profiler sees; ssd_scan.cu's own rule agrees), every gradient within
+    3e-4 of the largest reference gradient (`ssd_chunked_bwd_ref` on the
+    forward's states), and two runs bit for bit."""
+    from repro_torch.kernels.ssd_scan import kernel as K
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref
+    args = [a.to(cuda) for a in _inputs(case, torch.float32)]
+    if layout == "strided":
+        args = _strided(args)
+    assert K.tma_aligned(args[0]) and K.bwd_on_hopper(case, torch.float32)
+    assert K.bwd_on_hopper_lib(args[0], case[4], case[-1])
+    call, h_prev, dy, dhT = _ssd_bwd_call(case, args, final_state, cuda)
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ssd_chunked_bwd_ref(*args, h_prev, dy, dhT, chunk=case[-1])
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+        assert torch.isfinite(g).all(), name
+        assert (g - w).abs().max().item() <= 3e-4 * w.abs().max().item(), name
+    want = set(K.backward_kernels(case, torch.float32))
+    assert _kernels_of(call, want) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname, case", [
+    ("fp32", (1, 256, 4, 64, 32, 128)),       # N = 32: outside the rule
+    ("bf16", (4, 256, 16, 64, 128, 128)),     # the mesh's shard, bf16
+    ("bf16", (8, 256, 32, 64, 128, 128)),     # mamba2's training shape, bf16
+], ids=["fp32-N32", "bf16-mesh", "bf16-mamba2"])
+def test_ssd_backward_old_route_by_the_rule(cuda, dname, case):
+    """Shapes outside the rule, and bf16 at every shape, keep the six
+    mma.sync kernels, by the rule's names."""
+    from repro_torch.kernels.ssd_scan import kernel as K
+    dtype = DTYPES[dname][0]
+    args = [a.to(cuda) for a in _inputs(case, dtype)]
+    assert not K.bwd_on_hopper_lib(args[0], case[4], case[-1])
+    call, *_ = _ssd_bwd_call(case, args, False, cuda)
+    names = set(K.backward_kernels(case, dtype))
+    assert "ssd_bwd_chunk_tf32_kernel" in " ".join(names)
+    assert _kernels_of(call, names) == names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["pointer", "row stride"])
+def test_ssd_backward_misaligned_view_takes_the_old_route(cuda, where):
+    """An x whose pointer or row stride TMA cannot take goes to the
+    mma.sync kernels by the rule (the same answer in Python and in
+    ssd_scan.cu), with the right gradients: nothing crashes."""
+    from repro_torch.kernels.ssd_scan import kernel as K
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref
+    case = SSD_TRAIN[0]
+    B, S, H, P, N, chunk = case
+    args = [a.to(cuda) for a in _inputs(case, torch.float32)]
+    if where == "pointer":
+        buf = torch.zeros(B * S * H * P + 1, device=cuda)
+        x = buf[1:].view(B, S, H, P)
+    else:                                       # rows of H P + 1 floats
+        x = torch.zeros(B, S, H * P + 1, device=cuda)[..., :H * P].unflatten(-1, (H, P))
+    x.copy_(args[0])
+    args[0] = x
+    assert not K.tma_aligned(x) and not K.bwd_on_hopper(case, torch.float32, K.tma_aligned(x))
+    assert not K.bwd_on_hopper_lib(x, N, chunk)
+    call, h_prev, dy, dhT = _ssd_bwd_call(case, args, False, cuda)
+    got = call()
+    want = ssd_chunked_bwd_ref(*args, h_prev, dy, None, chunk=chunk)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 3e-4 * w.abs().max().item()
+    want = set(K.backward_kernels(case, torch.float32, aligned=False))
+    assert _kernels_of(call, want) == want
